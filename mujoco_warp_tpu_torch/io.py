@@ -1,0 +1,523 @@
+"""Model construction, the committed model snapshot, and Data allocation.
+
+Counterpart of ``mujoco_warp_tpu/io.py`` for the fused-gate subset of the
+Model.  ``put_model`` needs ``mujoco`` and imports it inside the function;
+everything else (``model_from_numpy``, ``load_model_npz``, ``make_data``)
+runs without it, so a machine without ``mujoco`` loads the committed
+snapshot instead::
+
+  python -m mujoco_warp_tpu_torch.io --snapshot   # regenerate the snapshot
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mujoco_warp_tpu_torch import types
+
+_JT = types.JointType
+_GT = types.GeomType
+
+SNAPSHOT = os.path.join(os.path.dirname(__file__), 'assets',
+                        'humanoid_bench.npz')
+# the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
+BENCH_NCONMAX = {1: 12, 3: 24}
+
+# contact points per pair for the lane colliders of the fused step
+PAIR_NCON = {
+    (_GT.PLANE, _GT.SPHERE): 1,
+    (_GT.PLANE, _GT.CAPSULE): 2,
+    (_GT.PLANE, _GT.BOX): 4,
+    (_GT.SPHERE, _GT.SPHERE): 1,
+    (_GT.SPHERE, _GT.CAPSULE): 1,
+    (_GT.SPHERE, _GT.BOX): 1,
+    (_GT.CAPSULE, _GT.CAPSULE): 1,
+    (_GT.CAPSULE, _GT.BOX): 2,
+}
+
+_NESTED = {'opt': types.Option, 'stat': types.Statistic,
+           'tree': types.TreeInfo, 'efc': types.EfcLayout}
+
+
+# ------------------------------------------------------------ numpy <-> Model
+
+
+def model_to_numpy(m: types.Model) -> dict:
+  """Flat dict of a Model: ``name`` or ``'opt.name'`` -> numpy value."""
+  out = {}
+
+  def put(obj, cls, prefix):
+    for name, kind in types.field_kinds(cls).items():
+      val = getattr(obj, name)
+      if kind == 'node':
+        put(val, _NESTED[name], name + '.')
+      elif kind == 'array':
+        out[prefix + name] = types.host(val, np.float32)
+      else:
+        out[prefix + name] = val
+  put(m, types.Model, '')
+  return out
+
+
+def model_from_numpy(d: dict, device='cpu') -> types.Model:
+  """The port's Model from the JAX Model's fields as numpy values.
+
+  ``d`` maps each field name (``'opt.timestep'`` for nested fields) to a
+  numpy array, or to a python value for sizes, flags and the static tuple
+  tables (``pair_groups``, ``con_classes``, ``tree.body_levels``).
+  """
+
+  def build(cls, prefix):
+    kw = {}
+    for name, kind in types.field_kinds(cls).items():
+      if kind == 'node':
+        kw[name] = build(_NESTED[name], name + '.')
+        continue
+      val = d[prefix + name]
+      if kind == 'array':
+        kw[name] = torch.tensor(np.asarray(val, np.float32), device=device)
+      elif kind == 'static':
+        kw[name] = np.array(val)
+      elif name == 'pair_groups':
+        kw[name] = tuple((int(t1), int(t2), np.asarray(idx, np.int32),
+                          int(slot)) for t1, t2, idx, slot in val)
+      elif name == 'con_classes':
+        kw[name] = tuple((int(dim), int(cap), np.asarray(ci, np.int32),
+                          int(slot)) for dim, cap, ci, slot in val)
+      elif name == 'body_levels':
+        kw[name] = tuple(np.asarray(x, np.int32) for x in val)
+      elif isinstance(val, (bool, np.bool_)):
+        kw[name] = bool(val)
+      else:
+        kw[name] = int(val)
+    return cls(**kw)
+
+  return build(types.Model, '')
+
+
+def _encode(flat: dict) -> dict:
+  """Flat dict -> arrays only (tuple tables split into numbered keys)."""
+  enc = {}
+  for k, v in flat.items():
+    if k == 'pair_groups':
+      enc[k + '.meta'] = np.asarray([(t1, t2, s) for t1, t2, _, s in v],
+                                    np.int64).reshape(-1, 3)
+      for i, g in enumerate(v):
+        enc[f'{k}.idx.{i}'] = np.asarray(g[2], np.int32)
+    elif k == 'con_classes':
+      enc[k + '.meta'] = np.asarray([(dm, cap, s) for dm, cap, _, s in v],
+                                    np.int64).reshape(-1, 3)
+      for i, c in enumerate(v):
+        enc[f'{k}.idx.{i}'] = np.asarray(c[2], np.int32)
+    elif k == 'tree.body_levels':
+      enc[k + '.n'] = np.asarray(len(v))
+      for i, lvl in enumerate(v):
+        enc[f'{k}.{i}'] = np.asarray(lvl, np.int32)
+    else:
+      enc[k] = np.asarray(v)
+  return enc
+
+
+def _decode(enc) -> dict:
+  flat = {}
+  for k in enc.files:
+    if '.idx.' in k or k.startswith('tree.body_levels'):
+      continue
+    if k.endswith('.meta'):
+      base = k[:-len('.meta')]
+      meta = enc[k]
+      flat[base] = tuple((int(a), int(b), enc[f'{base}.idx.{i}'], int(s))
+                         for i, (a, b, s) in enumerate(meta))
+      continue
+    v = enc[k]
+    flat[k] = v.item() if v.ndim == 0 else v
+  n = int(enc['tree.body_levels.n'])
+  flat['tree.body_levels'] = tuple(enc[f'tree.body_levels.{i}']
+                                   for i in range(n))
+  return flat
+
+
+def save_model_npz(path: str, m: types.Model):
+  np.savez_compressed(path, **_encode(model_to_numpy(m)))
+
+
+def load_model_npz(path: str = SNAPSHOT, device='cpu') -> types.Model:
+  with np.load(path) as z:
+    return model_from_numpy(_decode(z), device=device)
+
+
+# ------------------------------------------------------------- put_model
+
+
+def _tree_info(mjm) -> types.TreeInfo:
+  """Levels and masks (``mujoco_warp_tpu/io.py:42`` ``_tree_info``)."""
+  nbody, nv = mjm.nbody, mjm.nv
+  parent = mjm.body_parentid
+  depth = np.zeros(nbody, dtype=np.int32)
+  for i in range(1, nbody):
+    depth[i] = depth[parent[i]] + 1
+  maxdepth = int(depth.max()) if nbody > 1 else 0
+  levels = tuple(np.nonzero(depth == lv)[0].astype(np.int32)
+                 for lv in range(1, maxdepth + 1))
+  subtree = np.zeros((nbody, nbody), dtype=bool)
+  for j in range(nbody):
+    a = j
+    while True:
+      subtree[a, j] = True
+      if a == 0:
+        break
+      a = parent[a]
+  anc = np.zeros((nv, nv), dtype=bool)
+  for i in range(nv):
+    a = i
+    while a >= 0:
+      anc[i, a] = True
+      a = mjm.dof_parentid[a]
+  cdofdot = np.zeros((nv, nv), dtype=bool)
+  for i in range(nv):
+    jid = mjm.dof_jntid[i]
+    a = mjm.dof_parentid[i]
+    while a >= 0:
+      if mjm.dof_jntid[a] != jid:
+        cdofdot[i, a] = True
+      a = mjm.dof_parentid[a]
+    if mjm.jnt_type[jid] == _JT.FREE:
+      dadr = mjm.jnt_dofadr[jid]
+      if i >= dadr + 3:  # rotational dof of a free joint
+        cdofdot[i, dadr:dadr + 3] = True
+  return types.TreeInfo(
+      body_levels=levels, ancestor_mask=anc, subtree_mask=subtree,
+      body_dof_mask=subtree[mjm.dof_bodyid, :].T, cdofdot_mask=cdofdot)
+
+
+_EQ_NROW = {int(types.EqType.CONNECT): ('connect', 3),
+            int(types.EqType.WELD): ('weld', 6),
+            int(types.EqType.JOINT): ('joint', 1),
+            int(types.EqType.TENDON): ('tendon', 1)}
+
+
+def _efc_layout(mjm, con_dim: np.ndarray, cone: int):
+  """Static row layout (``mujoco_warp_tpu/io.py:126`` ``_efc_layout``).
+
+  Rows: equality | dof friction | tendon friction | joint limits | tendon
+  limits | contacts.  Returns (ne, nf, nl, nefc, EfcLayout).
+  """
+  _CT = types.ConstraintType
+  eq = {k: [] for k in ('connect', 'weld', 'joint', 'tendon', 'flex')}
+  efc_type = []
+  for eqid, et in enumerate(mjm.eq_type):
+    if int(et) not in _EQ_NROW:  # flex equality: general path only
+      raise NotImplementedError(f'equality type {int(et)} not supported')
+    name, n = _EQ_NROW[int(et)]
+    eq[name].append(eqid)
+    efc_type += [int(_CT.EQUALITY)] * n
+  ne = len(efc_type)
+  fri_dof = np.nonzero(mjm.dof_frictionloss > 0)[0].astype(np.int32)
+  fri_ten = (np.nonzero(mjm.tendon_frictionloss > 0)[0].astype(np.int32)
+             if mjm.ntendon else np.zeros(0, np.int32))
+  efc_type += [int(_CT.FRICTION_DOF)] * len(fri_dof)
+  efc_type += [int(_CT.FRICTION_TENDON)] * len(fri_ten)
+  nf = len(fri_dof) + len(fri_ten)
+  lim_jnt = np.nonzero(mjm.jnt_limited)[0].astype(np.int32)
+  lim_ten = (np.nonzero(mjm.tendon_limited)[0].astype(np.int32)
+             if mjm.ntendon else np.zeros(0, np.int32))
+  efc_type += [int(_CT.LIMIT_JOINT)] * len(lim_jnt)
+  efc_type += [int(_CT.LIMIT_TENDON)] * len(lim_ten)
+  nl = len(lim_jnt) + len(lim_ten)
+  for dim in con_dim:
+    if int(dim) == 1:
+      efc_type += [int(_CT.CONTACT_FRICTIONLESS)]
+    elif cone == types.ConeType.PYRAMIDAL:
+      efc_type += [int(_CT.CONTACT_PYRAMIDAL)] * (2 * (int(dim) - 1))
+    else:
+      efc_type += [int(_CT.CONTACT_ELLIPTIC)] * int(dim)
+  ids = lambda x: np.asarray(x, np.int32)
+  layout = types.EfcLayout(
+      connect_id=ids(eq['connect']), weld_id=ids(eq['weld']),
+      joint_id=ids(eq['joint']), tendon_id=ids(eq['tendon']),
+      flex_id=ids(eq['flex']), fri_dof_id=fri_dof, fri_ten_id=fri_ten,
+      lim_jnt_id=lim_jnt, lim_ten_id=lim_ten, efc_type=ids(efc_type))
+  return ne, nf, nl, len(efc_type), layout
+
+
+def _con_classes(con_dim: np.ndarray, nconmax) -> Tuple:
+  """Per-condim slot classes (``mujoco_warp_tpu/io.py:367``)."""
+  classes = []
+  slot = 0
+  for dim in sorted(set(int(x) for x in con_dim)):
+    cand_idx = np.nonzero(con_dim == dim)[0].astype(np.int32)
+    n = len(cand_idx)
+    if isinstance(nconmax, dict):
+      cap = min(n, max(1, int(nconmax.get(dim, n))))
+    else:
+      cap = min(n, max(1, int(nconmax)))
+    classes.append((dim, cap, cand_idx, slot))
+    slot += cap
+  return tuple(classes)
+
+
+def _collision_pairs(mjm):
+  """Filtered candidate pairs grouped by collider
+  (``mujoco_warp_tpu/ops/collision_driver.py:49`` for the lane colliders).
+
+  Returns (pair_geom1, pair_geom2, pair condim, con_pair, groups).
+  """
+  if mjm.npair or mjm.nflex:
+    raise NotImplementedError('explicit <pair> and flex contacts run on '
+                              'the general path, not ported yet')
+  excluded = set()
+  for sig in mjm.exclude_signature:
+    excluded.add((int(sig) >> 16, int(sig) & 0xFFFF))
+  gt, gb = mjm.geom_type, mjm.geom_bodyid
+  g1s, g2s = [], []
+  for a in range(mjm.ngeom):
+    for b in range(a + 1, mjm.ngeom):
+      ba, bb = gb[a], gb[b]
+      if ba == bb:
+        continue
+      wa, wb = mjm.body_weldid[ba], mjm.body_weldid[bb]
+      if wa == wb:
+        continue
+      if (int(mjm.geom_contype[a]) & int(mjm.geom_conaffinity[b])) == 0 and \
+         (int(mjm.geom_contype[b]) & int(mjm.geom_conaffinity[a])) == 0:
+        continue
+      if not mjm.opt.disableflags & types.DisableBit.FILTERPARENT:
+        wpa = mjm.body_weldid[mjm.body_parentid[wa]]
+        wpb = mjm.body_weldid[mjm.body_parentid[wb]]
+        if wa != 0 and wb != 0 and (wa == wpb or wb == wpa):
+          continue
+      if ((min(ba, bb), max(ba, bb)) in excluded or
+          (max(ba, bb), min(ba, bb)) in excluded):
+        continue
+      if gt[a] <= gt[b]:
+        g1s.append(a)
+        g2s.append(b)
+      else:
+        g1s.append(b)
+        g2s.append(a)
+  keys = [(int(gt[a]), int(gt[b])) for a, b in zip(g1s, g2s)]
+  for key in keys:
+    if key not in PAIR_NCON:
+      raise NotImplementedError(f'collision pair {key} has no lane collider')
+  pdim = np.zeros(len(g1s), np.int32)
+  for i, (a, b) in enumerate(zip(g1s, g2s)):
+    p1, p2 = mjm.geom_priority[a], mjm.geom_priority[b]
+    if p1 > p2:
+      pdim[i] = mjm.geom_condim[a]
+    elif p2 > p1:
+      pdim[i] = mjm.geom_condim[b]
+    else:
+      pdim[i] = max(mjm.geom_condim[a], mjm.geom_condim[b])
+  order = sorted(range(len(g1s)), key=lambda i: (keys[i], int(pdim[i])))
+  g1 = np.asarray([g1s[i] for i in order], np.int32).reshape(-1)
+  g2 = np.asarray([g2s[i] for i in order], np.int32).reshape(-1)
+  pdim = pdim[order] if order else pdim
+  keys = [keys[i] for i in order]
+  groups, con_pair = [], []
+  slot = i = 0
+  while i < len(keys):
+    j = i
+    while j < len(keys) and keys[j] == keys[i] and pdim[j] == pdim[i]:
+      j += 1
+    k = PAIR_NCON[keys[i]]
+    groups.append((keys[i][0], keys[i][1], np.arange(i, j, dtype=np.int32),
+                   slot))
+    for _ in range(k):  # slots are contact-point-major per group
+      con_pair.extend(range(i, j))
+    slot += k * (j - i)
+    i = j
+  return g1, g2, pdim, np.asarray(con_pair, np.int32).reshape(-1), \
+      tuple(groups)
+
+
+def _mix_params(mjm, g1, g2):
+  """Per-candidate mixed contact params in float32 numpy
+  (``collision_driver.py:250`` ``_mix_params``, host form)."""
+  f32 = lambda x: np.asarray(x, np.float32)
+  dtype = np.float32
+  p1, p2 = mjm.geom_priority[g1], mjm.geom_priority[g2]
+  use1 = (p1 > p2).astype(dtype)[:, None]
+  use2 = (p2 > p1).astype(dtype)[:, None]
+  eq = 1.0 - use1 - use2
+  s1, s2 = f32(mjm.geom_solmix)[g1], f32(mjm.geom_solmix)[g2]
+  mix = s1 / np.maximum(s1 + s2, 1e-12)
+  mix = np.where((s1 < 1e-12) & (s2 < 1e-12), 0.5, mix)
+  mix = np.where((s1 < 1e-12) & (s2 >= 1e-12), 0.0, mix)
+  mix = np.where((s1 >= 1e-12) & (s2 < 1e-12), 1.0, mix)
+  mix = (eq[:, 0] * mix + use1[:, 0] * 1.0 + use2[:, 0] * 0.0)[:, None]
+  sr1, sr2 = f32(mjm.geom_solref)[g1], f32(mjm.geom_solref)[g2]
+  standard = (sr1[:, [0]] > 0) & (sr2[:, [0]] > 0)
+  solref = np.where(standard, mix * sr1 + (1 - mix) * sr2,
+                    np.minimum(sr1, sr2))
+  solimp = mix * f32(mjm.geom_solimp)[g1] + \
+      (1 - mix) * f32(mjm.geom_solimp)[g2]
+  margin = np.maximum(f32(mjm.geom_margin)[g1], f32(mjm.geom_margin)[g2])
+  gap = np.maximum(f32(mjm.geom_gap)[g1], f32(mjm.geom_gap)[g2])
+  f1, f2 = f32(mjm.geom_friction)[g1], f32(mjm.geom_friction)[g2]
+  fr3 = eq * np.maximum(f1, f2) + use1 * f1 + use2 * f2
+  friction = np.stack(
+      [fr3[:, 0], fr3[:, 0], fr3[:, 1], fr3[:, 2], fr3[:, 2]], axis=-1)
+  return solref, solimp, margin - gap, friction
+
+
+def put_model(mjm, nconmax=None, device='cpu') -> types.Model:
+  """A ``mujoco.MjModel`` as the port's Model (``io.py:585`` ``put_model``,
+  fused-gate subset, float32).
+
+  ``nconmax``: per-world active-contact budget, an int or a
+  ``{condim: budget}`` dict; below the candidate count, active contacts
+  are compacted into the budgeted slots each step.
+  """
+  if mjm.opt.solver == 0:
+    raise NotImplementedError('PGS solver is not supported')
+  if mjm.opt.enableflags & types.EnableBit.OVERRIDE:
+    raise NotImplementedError('contact override runs on the general path')
+  g1, g2, pdim, con_pair, groups = _collision_pairs(mjm)
+  ncand = len(con_pair)
+  cand_dim = pdim[con_pair] if ncand else np.zeros(0, np.int32)
+  con_classes, con_compact, ncon, slot_dim = (), False, ncand, cand_dim
+  if nconmax is not None and ncand:
+    con_classes = _con_classes(cand_dim, nconmax)
+    ncon = sum(c[1] for c in con_classes)
+    if ncon < ncand:
+      con_compact = True
+      slot_dim = np.concatenate(
+          [np.full(cap, dim, np.int32) for dim, cap, _, _ in con_classes])
+    else:
+      con_classes, ncon = (), ncand
+  ne, nf, nl, nefc, efc = _efc_layout(mjm, slot_dim, int(mjm.opt.cone))
+  if ncand:
+    solref, solimp, imargin, friction = _mix_params(
+        mjm, g1[con_pair], g2[con_pair])
+  else:
+    solref = np.zeros((0, types.NREF), np.float32)
+    solimp = np.zeros((0, types.NIMP), np.float32)
+    imargin = np.zeros(0, np.float32)
+    friction = np.zeros((0, 5), np.float32)
+  o = mjm.opt
+  d = {
+      'nq': mjm.nq, 'nv': mjm.nv, 'nu': mjm.nu, 'na': mjm.na,
+      'nbody': mjm.nbody, 'njnt': mjm.njnt, 'ngeom': mjm.ngeom,
+      'nmocap': mjm.nmocap, 'neq': mjm.neq, 'ntendon': mjm.ntendon,
+      'nsensor': mjm.nsensor, 'nhistory': mjm.nhistory,
+      'nflex': mjm.nflex, 'ne': ne, 'nf': nf, 'nl': nl, 'nefc': nefc,
+      'ncon': ncon, 'ncand': ncand, 'con_classes': con_classes,
+      'con_compact': con_compact,
+      # f32 models floor the tolerance at 1e-6 (io.py:610)
+      'opt.timestep': o.timestep, 'opt.impratio': o.impratio,
+      'opt.tolerance': max(float(o.tolerance), 1e-6),
+      'opt.ls_tolerance': o.ls_tolerance, 'opt.gravity': o.gravity,
+      'opt.density': o.density, 'opt.viscosity': o.viscosity,
+      'opt.integrator': int(o.integrator), 'opt.cone': int(o.cone),
+      'opt.solver': int(o.solver), 'opt.iterations': int(o.iterations),
+      'opt.ls_iterations': int(o.ls_iterations),
+      'opt.disableflags': int(o.disableflags),
+      'opt.enableflags': int(o.enableflags),
+      'opt.run_collision_detection': True,
+      'stat.meaninertia': mjm.stat.meaninertia,
+      'con_dim': slot_dim, 'pair_geom1': g1, 'pair_geom2': g2,
+      'con_pair': con_pair, 'pair_groups': groups,
+      'cand_friction': friction, 'cand_solref': solref,
+      'cand_solimp': solimp, 'cand_includemargin': imargin,
+  }
+  for name in ('ancestor_mask', 'subtree_mask', 'body_dof_mask',
+               'cdofdot_mask', 'body_levels'):
+    d['tree.' + name] = getattr(_tree_info(mjm), name)
+  for name in types.field_kinds(types.EfcLayout):
+    d['efc.' + name] = getattr(efc, name)
+  for name, kind in types.field_kinds(types.Model).items():
+    if name in d or kind not in ('array', 'static'):
+      continue
+    d[name] = np.array(getattr(mjm, name))
+  return model_from_numpy(d, device=device)
+
+
+# ------------------------------------------------------------------ Data
+
+
+@dataclasses.dataclass
+class Data:
+  """World-major state the fused step carries (``(nworld, ...)`` arrays)."""
+
+  time: torch.Tensor  # (W,)
+  qpos: torch.Tensor  # (W, nq)
+  qvel: torch.Tensor  # (W, nv)
+  ctrl: torch.Tensor  # (W, nu)
+  qacc_warmstart: torch.Tensor  # (W, nv)
+  qacc: torch.Tensor  # (W, nv)
+  solver_niter: torch.Tensor  # (W,) int32
+  overflow: torch.Tensor  # (W,) int32
+
+  def replace(self, **kw):
+    return dataclasses.replace(self, **kw)
+
+
+def make_data(m: types.Model, nworld: int, device='cpu') -> Data:
+  """A batch of worlds at qpos0 and rest (``io.py:1076`` ``make_data``)."""
+  z = lambda n: torch.zeros((nworld, n), dtype=torch.float32, device=device)
+  qpos = m.qpos0.to(device=device, dtype=torch.float32)
+  return Data(
+      time=torch.zeros(nworld, dtype=torch.float32, device=device),
+      qpos=qpos[None].repeat(nworld, 1), qvel=z(m.nv), ctrl=z(m.nu),
+      qacc_warmstart=z(m.nv), qacc=z(m.nv),
+      solver_niter=torch.zeros(nworld, dtype=torch.int32, device=device),
+      overflow=torch.zeros(nworld, dtype=torch.int32, device=device))
+
+
+def load_humanoid_benchmark():
+  """The benchmark humanoid as a ``mujoco.MjModel`` (needs ``mujoco`` and
+  ``dm_control``): dm_control's humanoid with sensors and cameras removed,
+  the scene ``mujoco_warp_tpu.benchmarks.load_humanoid_benchmark`` loads
+  where the MJWarp checkout is absent."""
+  import re
+  import shutil
+  import tempfile
+
+  import importlib.util
+
+  import mujoco
+
+  src = os.path.join(os.path.dirname(
+      importlib.util.find_spec('dm_control').origin), 'suite', 'humanoid.xml')
+  xml = open(src).read()
+  xml = re.sub(r'<sensor>.*?</sensor>', '', xml, flags=re.S)
+  xml = re.sub(r'<camera[^/]*?/>', '', xml)
+  tmp = tempfile.mkdtemp(prefix='mjw_torch_bench_')
+  try:
+    shutil.copytree(os.path.join(os.path.dirname(src), 'common'),
+                    os.path.join(tmp, 'common'))
+    path = os.path.join(tmp, 'humanoid.xml')
+    with open(path, 'w') as f:
+      f.write(xml)
+    return mujoco.MjModel.from_xml_path(path)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def make_snapshot(path: str = SNAPSHOT) -> types.Model:
+  m = put_model(load_humanoid_benchmark(), nconmax=BENCH_NCONMAX)
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
+def main(argv: Optional[list] = None):
+  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument('--snapshot', action='store_true',
+                 help='regenerate assets/humanoid_bench.npz')
+  args = p.parse_args(argv)
+  if not args.snapshot:
+    p.error('nothing to do (pass --snapshot)')
+  m = make_snapshot()
+  print(f'wrote {SNAPSHOT}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
+        f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')
+
+
+if __name__ == '__main__':
+  main()

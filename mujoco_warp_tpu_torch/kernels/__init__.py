@@ -1,0 +1,61 @@
+"""Hand-written CUDA kernels of the fused step and their wrappers.
+
+``k1.k1`` and ``k4.k4`` take lanes-last tensors: on a CPU tensor they run
+the plain PyTorch version (``fused/k1_ref.py``, ``fused/k4_ref.py``), on a
+CUDA tensor they launch the kernel (``csrc/k1.cu``, ``csrc/k4.cu``) or
+raise.  Each wrapper counts its kernel launches in ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+
+def check(t: torch.Tensor, shape, name: str, device, dtype=torch.float32):
+  """Raise unless ``t`` is a contiguous tensor of ``shape`` and ``dtype``
+  on ``device``."""
+  if not isinstance(t, torch.Tensor):
+    raise TypeError(f'{name}: expected a tensor, got {type(t).__name__}')
+  if t.device != device:
+    raise ValueError(f'{name}: on {t.device}, expected {device}')
+  if t.dtype != dtype:
+    raise ValueError(f'{name}: dtype {t.dtype}, expected {dtype}')
+  if tuple(t.shape) != tuple(shape):
+    raise ValueError(f'{name}: shape {tuple(t.shape)}, expected {shape}')
+  if not t.is_contiguous():
+    raise ValueError(f'{name}: not contiguous')
+
+
+def ptr(t) -> ctypes.c_void_p:
+  return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def device_tables(arrays: dict, device) -> dict:
+  """numpy tables -> device tensors (int32 or float32), never empty."""
+  out = {}
+  for k, v in arrays.items():
+    v = np.asarray(v)
+    dt = torch.int32 if v.dtype.kind in 'iub' else torch.float32
+    v = v.reshape(-1) if v.size else np.zeros(1, v.dtype)
+    out[k] = torch.as_tensor(v, device=device).to(dt).contiguous()
+  return out
+
+
+class TableCache:
+  """Device tables per (model, device), built once; the model is held so
+  its id cannot be reused while cached."""
+
+  def __init__(self, build):
+    self._build = build
+    self._cache = {}
+
+  def get(self, m, device):
+    key = (id(m), str(device))
+    hit = self._cache.get(key)
+    if hit is None or hit[0] is not m:
+      hit = (m, self._build(m, device))
+      self._cache[key] = hit
+    return hit[1]

@@ -1,0 +1,131 @@
+// Shared device helpers for the fused-step kernels (k1.cu, k4.cu).
+//
+// Layout: every per-world array is lanes-last, (rows, W) float32, and
+// thread w owns column w, so row r of world w is base[r * W + w] and a
+// warp's 32 loads of one row are one coalesced 128-byte transaction.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define MWT_MINVAL 1e-15f
+#define MWT_BIGW 1e10f
+
+// nv cap of the fused gate (mujoco_warp_tpu_torch/fused/__init__.py,
+// checked by the wrappers): it sizes the per-thread local arrays
+#define MWT_MAX_NV 64
+
+// row r of the calling world's column
+#define LANE(ptr, r) (ptr)[(size_t)(r) * W + w]
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* c) {
+  c[0] = a[1] * b[2] - a[2] * b[1];
+  c[1] = a[2] * b[0] - a[0] * b[2];
+  c[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+// |a| with the squared norm floored at 1e-15 (fused.py _gnorm)
+__device__ __forceinline__ float norm3(const float* a) {
+  return sqrtf(fmaxf(dot3(a, a), MWT_MINVAL));
+}
+
+__device__ __forceinline__ void qmul(const float* u, const float* v,
+                                     float* out) {
+  float r0 = u[0] * v[0] - u[1] * v[1] - u[2] * v[2] - u[3] * v[3];
+  float r1 = u[0] * v[1] + u[1] * v[0] + u[2] * v[3] - u[3] * v[2];
+  float r2 = u[0] * v[2] - u[1] * v[3] + u[2] * v[0] + u[3] * v[1];
+  float r3 = u[0] * v[3] + u[1] * v[2] - u[2] * v[1] + u[3] * v[0];
+  out[0] = r0;
+  out[1] = r1;
+  out[2] = r2;
+  out[3] = r3;
+}
+
+__device__ __forceinline__ void qnormalize(float* q) {
+  float n = sqrtf(fmaxf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3],
+                        MWT_MINVAL));
+  q[0] = q[0] / n;
+  q[1] = q[1] / n;
+  q[2] = q[2] / n;
+  q[3] = q[3] / n;
+}
+
+// quaternion -> row-major rotation matrix
+__device__ __forceinline__ void q2mat(const float* q, float* R) {
+  float w = q[0], x = q[1], y = q[2], z = q[3];
+  float xx = x * x, yy = y * y, zz = z * z;
+  float xy = x * y, xz = x * z, yz = y * z;
+  float wx = w * x, wy = w * y, wz = w * z;
+  R[0] = 1 - 2 * (yy + zz);
+  R[1] = 2 * (xy - wz);
+  R[2] = 2 * (xz + wy);
+  R[3] = 2 * (xy + wz);
+  R[4] = 1 - 2 * (xx + zz);
+  R[5] = 2 * (yz - wx);
+  R[6] = 2 * (xz - wy);
+  R[7] = 2 * (yz + wx);
+  R[8] = 1 - 2 * (xx + yy);
+}
+
+__device__ __forceinline__ void matvec3(const float* R, const float* c,
+                                        float* out) {
+  for (int r = 0; r < 3; ++r)
+    out[r] = R[3 * r] * c[0] + R[3 * r + 1] * c[1] + R[3 * r + 2] * c[2];
+}
+
+__device__ __forceinline__ void matTvec3(const float* R, const float* c,
+                                         float* out) {
+  for (int r = 0; r < 3; ++r)
+    out[r] = R[r] * c[0] + R[3 + r] * c[1] + R[6 + r] * c[2];
+}
+
+// Cholesky of the lower triangle of A (n x n lanes-last at row stride n)
+// into Lf, in place allowed.  Same operation order as the right-looking
+// rank-1 form of pallas/solver.py _chol_tile: entry (i, k) is reduced by
+// L[i, m] L[k, m] for m = 0, 1, ... in turn; pivots rsqrt(max(A_jj, 1e-15)).
+__device__ __forceinline__ void chol_lanes(const float* A, float* Lf, int n,
+                                           int W, int w) {
+  for (int j = 0; j < n; ++j) {
+    float d = LANE(A, j * n + j);
+    for (int m = 0; m < j; ++m) {
+      float l = LANE(Lf, j * n + m);
+      d = d - l * l;
+    }
+    float piv = rsqrtf(fmaxf(d, MWT_MINVAL));
+    LANE(Lf, j * n + j) = d * piv;
+    for (int i = j + 1; i < n; ++i) {
+      float t = LANE(A, i * n + j);
+      for (int m = 0; m < j; ++m) t = t - LANE(Lf, i * n + m) * LANE(Lf, j * n + m);
+      LANE(Lf, i * n + j) = t * piv;
+    }
+    for (int i = 0; i < j; ++i) LANE(Lf, i * n + j) = 0.0f;
+  }
+}
+
+// Solve L L^T x = b (pallas/solver.py _chol_solve_tile), divisors
+// max(L_jj, 1e-15); x may alias b.
+__device__ __forceinline__ void chol_solve_lanes(const float* Lf,
+                                                 const float* b, float* x,
+                                                 int n, int W, int w) {
+  float y[MWT_MAX_NV];
+  for (int i = 0; i < n; ++i) {
+    float r = b[i];
+    for (int j = 0; j < i; ++j) r = r - LANE(Lf, i * n + j) * y[j];
+    y[i] = r / fmaxf(LANE(Lf, i * n + i), MWT_MINVAL);
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    float r = y[i];
+    for (int k = n - 1; k > i; --k) r = r - LANE(Lf, k * n + i) * x[k];
+    x[i] = r / fmaxf(LANE(Lf, i * n + i), MWT_MINVAL);
+  }
+}

@@ -1,0 +1,120 @@
+"""Seeded states and the tolerances that hold K1 and K4 to a reference.
+
+One set of bars for every comparison of the port: its CUDA kernels
+against their plain PyTorch versions (``chip_smoke.py``,
+``tests/test_torch_cuda.py``) and its plain versions against the JAX
+package (``tests/test_torch_k4.py``).  Each check raises AssertionError
+with the output's name and by how much it missed.
+
+- K1: every output within ``K1_TOL`` of max(1, max |reference|).  Both
+  sides compute the same float32 kinematics, summed in another order;
+  closest points of near-parallel capsules amplify rounding.
+- K4: qacc, warmstart and the velocity step / h within ``QACC_ATOL`` plus
+  ``QACC_RTOL`` of the world's largest |reference| (the Newton stop is a
+  norm test, so agreement is relative to the world's scale); qpos within
+  ``QPOS_ATOL`` + ``QPOS_RTOL`` |reference| elementwise.
+- Newton counts: equal in ``NITER_SHARE[state]`` of worlds, and never
+  more than ``NITER_MAX_DIFF`` apart.  At rest (free fall, no contact)
+  they agree almost everywhere.  In contact the bracketed linesearch
+  accepts or rejects the exact minimizer on the sign of a slope that is
+  zero up to rounding, so a world may take one iteration more on one
+  side (also in float64), and from there a different path: of 1024
+  contact worlds (16 seeds of 64) the JAX solve and the plain port
+  differed by one iteration in 63 and by two in 2, in both directions
+  about equally.  The qacc of every world still meets the bar above.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+K1_NAMES = ('qM', 'qLD', 'bias', 'cdof', 'dist', 'pos', 'frame',
+            'subtree_com')
+K1_TOL = 1e-4
+QACC_ATOL, QACC_RTOL = 1e-4, 1e-3
+QPOS_ATOL, QPOS_RTOL = 1e-5, 1e-5
+NITER_SHARE = {'rest': 0.99, 'contact': 0.85}
+NITER_MAX_DIFF = 2
+# root drop of each seeded state; 0.28 m puts the feet in the floor
+DROP = {'rest': 0.0, 'contact': 0.28}
+
+
+def lane_state(m, W: int, seed: int, drop: float = 0.0):
+  """Lanes-last float32 numpy (qpos, qvel, ctrl, warmstart), drawn in
+  that order from ``default_rng(seed)``: qpos0 + 0.01 N with the root
+  lowered by ``drop``, qvel 0.2 N, ctrl 0.3 N, warmstart 0.1 N."""
+  rng = np.random.default_rng(seed)
+  qpos0 = m.qpos0.numpy().astype(np.float32)
+  qpos = (qpos0[:, None] + 0.01 * rng.standard_normal((m.nq, W))).astype(
+      np.float32)
+  qpos[2] -= drop
+  qvel = (0.2 * rng.standard_normal((m.nv, W))).astype(np.float32)
+  ctrl = (0.3 * rng.standard_normal((m.nu, W))).astype(np.float32)
+  ws = (0.1 * rng.standard_normal((m.nv, W))).astype(np.float32)
+  return qpos, qvel, ctrl, ws
+
+
+def _t(x, like=None):
+  x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
+  return x if like is None else x.to(like.device)
+
+
+def check_k1(got, want) -> tuple[float, float]:
+  """K1 outputs (in ``K1_NAMES`` order, None where not computed).
+  Returns (max abs error, worst error relative to max(1, max |want|))."""
+  worst_abs = worst_rel = 0.0
+  for name, a, b in zip(K1_NAMES, got, want):
+    assert (a is None) == (b is None), f'K1 {name}: computed on one side'
+    if b is None:
+      continue
+    b = _t(b)
+    e = float((_t(a, b) - b).abs().max())
+    rel = e / max(1.0, float(b.abs().max()))
+    assert rel <= K1_TOL, f'K1 {name}: err {e} (relative {rel}) > {K1_TOL}'
+    worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
+  return worst_abs, worst_rel
+
+
+def check_world_scale(got, want, name: str) -> float:
+  """``got`` (rows, W) within QACC_ATOL + QACC_RTOL of each world's
+  largest |want|.  Returns the max abs error."""
+  want = _t(want)
+  err = (_t(got, want) - want).abs()
+  scale = want.abs().amax(dim=0, keepdim=True)
+  excess = float((err - (QACC_ATOL + QACC_RTOL * scale)).max())
+  assert excess <= 0.0, f'{name}: exceeds tolerance by {excess}'
+  return float(err.max())
+
+
+def check_niter(got, want, state: str) -> tuple[float, int]:
+  """Newton counts of one K4 or solve against another.  Returns (share of
+  equal worlds, largest difference)."""
+  want = _t(want).reshape(-1).long()
+  got = _t(got, want).reshape(-1).long()
+  share = float((got == want).double().mean())
+  diff = int((got - want).abs().max())
+  assert share >= NITER_SHARE[state], (
+      f'niter equal in {share:.4f} of worlds < {NITER_SHARE[state]}')
+  assert diff <= NITER_MAX_DIFF, (
+      f'niter differs by {diff} > {NITER_MAX_DIFF} in some world')
+  return share, diff
+
+
+def check_k4(got, want, qvel, h: float, state: str) -> dict:
+  """K4 outputs (qpos, qvel, warmstart, qacc, niter) given the same
+  inputs; ``qvel`` is the input velocity and ``h`` the timestep.  Returns
+  the errors seen."""
+  want = [_t(x) for x in want]
+  got = [_t(x, y) for x, y in zip(got, want)]
+  qvel = _t(qvel, want[1])
+  qacc_err = check_world_scale(got[3], want[3], 'qacc')
+  check_world_scale(got[2], want[2], 'warmstart')
+  check_world_scale((got[1] - qvel) / h, (want[1] - qvel) / h,
+                    'qvel step / h')
+  excess = float(((got[0] - want[0]).abs() -
+                  (QPOS_ATOL + QPOS_RTOL * want[0].abs())).max())
+  assert excess <= 0.0, f'qpos: exceeds tolerance by {excess}'
+  share, diff = check_niter(got[4], want[4], state)
+  return {'qacc_max_abs_err': qacc_err, 'niter_share': share,
+          'niter_max_diff': diff, 'niter_mean': float(want[4].float().mean())}

@@ -1,0 +1,352 @@
+"""Enums and the model subset of the fused humanoid step, as PyTorch types.
+
+Counterpart of ``mujoco_warp_tpu/types.py``.  Enum values are copied from
+it (they mirror MuJoCo's public C enums).  ``Model`` holds only the fields
+the fused lanes-last step reads (``mujoco_warp_tpu/pallas/fused.py``):
+physical parameters are float32 ``torch.Tensor``s, index and type tables
+are numpy arrays (host constants the plain versions fold and the CUDA
+wrappers upload once per model).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+
+class DisableBit(enum.IntFlag):
+  CONSTRAINT = 1 << 0
+  EQUALITY = 1 << 1
+  FRICTIONLOSS = 1 << 2
+  LIMIT = 1 << 3
+  CONTACT = 1 << 4
+  SPRING = 1 << 5
+  DAMPER = 1 << 6
+  GRAVITY = 1 << 7
+  CLAMPCTRL = 1 << 8
+  WARMSTART = 1 << 9
+  FILTERPARENT = 1 << 10
+  ACTUATION = 1 << 11
+  REFSAFE = 1 << 12
+  SENSOR = 1 << 13
+  MIDPHASE = 1 << 14
+  EULERDAMP = 1 << 15
+  AUTORESET = 1 << 16
+  NATIVECCD = 1 << 17
+  ISLAND = 1 << 18
+  MULTICCD = 1 << 19
+
+
+class EnableBit(enum.IntFlag):
+  OVERRIDE = 1 << 0
+  ENERGY = 1 << 1
+  FWDINV = 1 << 2
+  INVDISCRETE = 1 << 3
+  SLEEP = 1 << 4
+  DIAGEXACT = 1 << 5
+
+
+class JointType(enum.IntEnum):
+  FREE = 0
+  BALL = 1
+  SLIDE = 2
+  HINGE = 3
+
+
+class GeomType(enum.IntEnum):
+  PLANE = 0
+  HFIELD = 1
+  SPHERE = 2
+  CAPSULE = 3
+  ELLIPSOID = 4
+  CYLINDER = 5
+  BOX = 6
+  MESH = 7
+  SDF = 8
+
+
+class TrnType(enum.IntEnum):
+  JOINT = 0
+  JOINTINPARENT = 1
+  SLIDERCRANK = 2
+  TENDON = 3
+  SITE = 4
+  BODY = 5
+
+
+class DynType(enum.IntEnum):
+  NONE = 0
+  INTEGRATOR = 1
+  FILTER = 2
+  FILTEREXACT = 3
+  MUSCLE = 4
+  DCMOTOR = 5
+  USER = 6
+
+
+class GainType(enum.IntEnum):
+  FIXED = 0
+  AFFINE = 1
+  MUSCLE = 2
+  DCMOTOR = 3
+  USER = 4
+
+
+class BiasType(enum.IntEnum):
+  NONE = 0
+  AFFINE = 1
+  MUSCLE = 2
+  DCMOTOR = 3
+  USER = 4
+
+
+class EqType(enum.IntEnum):
+  CONNECT = 0
+  WELD = 1
+  JOINT = 2
+  TENDON = 3
+  FLEX = 4
+  FLEXVERT = 5
+  FLEXSTRAIN = 6
+  DISTANCE = 7
+
+
+class SolverType(enum.IntEnum):
+  PGS = 0
+  CG = 1
+  NEWTON = 2
+
+
+class IntegratorType(enum.IntEnum):
+  EULER = 0
+  RK4 = 1
+  IMPLICIT = 2
+  IMPLICITFAST = 3
+
+
+class ConeType(enum.IntEnum):
+  PYRAMIDAL = 0
+  ELLIPTIC = 1
+
+
+class ConstraintType(enum.IntEnum):
+  EQUALITY = 0
+  FRICTION_DOF = 1
+  FRICTION_TENDON = 2
+  LIMIT_JOINT = 3
+  LIMIT_TENDON = 4
+  CONTACT_FRICTIONLESS = 5
+  CONTACT_PYRAMIDAL = 6
+  CONTACT_ELLIPTIC = 7
+
+
+class OverflowType(enum.IntFlag):
+  """Per-world overflow bits: a fixed-capacity buffer saturated."""
+
+  CONTACT = 1 << 0
+  CONSTRAINT = 1 << 1
+  SOLVER = 1 << 2
+
+
+NREF = 2
+NIMP = 5
+
+
+def _tensor(kind):
+  return dataclasses.field(default=None, metadata={'kind': kind})
+
+
+def array():
+  """A float32 tensor field (a physical parameter)."""
+  return _tensor('array')
+
+
+def static():
+  """A numpy table field (indices, types, masks)."""
+  return _tensor('static')
+
+
+def scalar(default=0):
+  """A python int/bool field (a size or a flag)."""
+  return dataclasses.field(default=default, metadata={'kind': 'scalar'})
+
+
+def field_kinds(cls):
+  return {f.name: f.metadata.get('kind', 'node') for f in
+          dataclasses.fields(cls)}
+
+
+class _Replace:
+
+  def replace(self, **kw):
+    return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Option(_Replace):
+  """Physics options (subset of ``mujoco_warp_tpu.types.Option``)."""
+
+  timestep: torch.Tensor = array()
+  impratio: torch.Tensor = array()
+  tolerance: torch.Tensor = array()
+  ls_tolerance: torch.Tensor = array()
+  gravity: torch.Tensor = array()
+  density: torch.Tensor = array()
+  viscosity: torch.Tensor = array()
+  integrator: int = scalar(int(IntegratorType.EULER))
+  cone: int = scalar(int(ConeType.PYRAMIDAL))
+  solver: int = scalar(int(SolverType.NEWTON))
+  iterations: int = scalar(100)
+  ls_iterations: int = scalar(50)
+  disableflags: int = scalar(0)
+  enableflags: int = scalar(0)
+  run_collision_detection: bool = scalar(True)
+
+
+@dataclasses.dataclass(frozen=True)
+class Statistic(_Replace):
+  meaninertia: torch.Tensor = array()
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeInfo(_Replace):
+  """Static kinematic-tree tables (levels and masks)."""
+
+  body_levels: Tuple[np.ndarray, ...] = scalar(())  # body ids per depth
+  ancestor_mask: np.ndarray = static()  # (nv, nv) dof j is i or above i
+  subtree_mask: np.ndarray = static()  # (nbody, nbody) j in subtree(i)
+  body_dof_mask: np.ndarray = static()  # (nbody, nv) dof j moves body i
+  cdofdot_mask: np.ndarray = static()  # (nv, nv) dofs feeding cdof_dot[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class EfcLayout(_Replace):
+  """Static constraint-row layout (subset the fused gate reads)."""
+
+  connect_id: np.ndarray = static()
+  weld_id: np.ndarray = static()
+  joint_id: np.ndarray = static()
+  tendon_id: np.ndarray = static()
+  flex_id: np.ndarray = static()
+  fri_dof_id: np.ndarray = static()
+  fri_ten_id: np.ndarray = static()
+  lim_jnt_id: np.ndarray = static()
+  lim_ten_id: np.ndarray = static()
+  efc_type: np.ndarray = static()
+
+
+@dataclasses.dataclass(frozen=True)
+class Model(_Replace):
+  """Model fields the fused step reads (``mujoco_warp_tpu.types.Model``)."""
+
+  nq: int = scalar()
+  nv: int = scalar()
+  nu: int = scalar()
+  na: int = scalar()
+  nbody: int = scalar()
+  njnt: int = scalar()
+  ngeom: int = scalar()
+  nmocap: int = scalar()
+  neq: int = scalar()
+  ntendon: int = scalar()
+  nsensor: int = scalar()
+  nhistory: int = scalar()
+  nflex: int = scalar()
+  ne: int = scalar()
+  nf: int = scalar()
+  nl: int = scalar()
+  nefc: int = scalar()
+  ncon: int = scalar()
+  ncand: int = scalar()
+  # ((dim, cap, cand_idx, slot_start), ...) per condim class
+  con_classes: Tuple[Any, ...] = scalar(())
+  con_compact: bool = scalar(False)
+
+  opt: Option = None
+  stat: Statistic = None
+  tree: TreeInfo = None
+  efc: EfcLayout = None
+
+  qpos0: torch.Tensor = array()
+  qpos_spring: torch.Tensor = array()
+
+  body_parentid: np.ndarray = static()
+  body_rootid: np.ndarray = static()
+  body_jntadr: np.ndarray = static()
+  body_jntnum: np.ndarray = static()
+  body_pos: torch.Tensor = array()
+  body_quat: torch.Tensor = array()
+  body_ipos: torch.Tensor = array()
+  body_iquat: torch.Tensor = array()
+  body_mass: torch.Tensor = array()
+  body_subtreemass: torch.Tensor = array()
+  body_inertia: torch.Tensor = array()
+  body_invweight0: torch.Tensor = array()
+  body_gravcomp: torch.Tensor = array()
+
+  jnt_type: np.ndarray = static()
+  jnt_qposadr: np.ndarray = static()
+  jnt_dofadr: np.ndarray = static()
+  jnt_bodyid: np.ndarray = static()
+  jnt_actfrclimited: np.ndarray = static()
+  jnt_actgravcomp: np.ndarray = static()
+  jnt_solref: torch.Tensor = array()
+  jnt_solimp: torch.Tensor = array()
+  jnt_pos: torch.Tensor = array()
+  jnt_axis: torch.Tensor = array()
+  jnt_stiffness: torch.Tensor = array()
+  jnt_range: torch.Tensor = array()
+  jnt_margin: torch.Tensor = array()
+
+  dof_bodyid: np.ndarray = static()
+  dof_armature: torch.Tensor = array()
+  dof_damping: torch.Tensor = array()
+  dof_invweight0: torch.Tensor = array()
+
+  geom_type: np.ndarray = static()
+  geom_bodyid: np.ndarray = static()
+  geom_size: torch.Tensor = array()
+  geom_pos: torch.Tensor = array()
+  geom_quat: torch.Tensor = array()
+
+  eq_obj1id: np.ndarray = static()
+  eq_obj2id: np.ndarray = static()
+  eq_active0: np.ndarray = static()
+  eq_solref: torch.Tensor = array()
+  eq_solimp: torch.Tensor = array()
+  eq_data: torch.Tensor = array()
+
+  actuator_trntype: np.ndarray = static()
+  actuator_dyntype: np.ndarray = static()
+  actuator_gaintype: np.ndarray = static()
+  actuator_biastype: np.ndarray = static()
+  actuator_trnid: np.ndarray = static()
+  actuator_ctrllimited: np.ndarray = static()
+  actuator_forcelimited: np.ndarray = static()
+  actuator_gainprm: torch.Tensor = array()
+  actuator_ctrlrange: torch.Tensor = array()
+  actuator_forcerange: torch.Tensor = array()
+  actuator_gear: torch.Tensor = array()
+
+  # collision tables: candidate pairs, slots and per-slot mixed params
+  pair_geom1: np.ndarray = static()
+  pair_geom2: np.ndarray = static()
+  con_pair: np.ndarray = static()  # (ncand,) slot -> pair index
+  con_dim: np.ndarray = static()  # (ncon,) condim per contact slot
+  # ((geomtype1, geomtype2, pair_index_array, slot_start), ...)
+  pair_groups: Tuple[Any, ...] = scalar(())
+  cand_friction: torch.Tensor = array()
+  cand_solref: torch.Tensor = array()
+  cand_solimp: torch.Tensor = array()
+  cand_includemargin: torch.Tensor = array()
+
+
+def host(x, dtype=np.float64) -> np.ndarray:
+  """A model field as a numpy array (float64 by default)."""
+  if isinstance(x, torch.Tensor):
+    x = x.detach().cpu().numpy()
+  return np.asarray(x, dtype)

@@ -1,0 +1,73 @@
+"""The port's rollout harness on CPU at a few worlds: the metric keys of
+the JAX harness, launch-free plain path, both OU noise forms."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from mujoco_warp_tpu_torch import benchmarks, io
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def bench_keys():
+  with open(os.path.join(_REPO, 'BENCH_r05.json')) as f:
+    return set(json.load(f)['parsed'])
+
+
+@pytest.mark.parametrize('replay', [False, True])
+def test_run_reports_the_jax_harness_keys(replay):
+  m = io.load_model_npz()
+  rp = None
+  if replay:
+    rng = np.random.default_rng(0)
+    rp = dict(ctrl=0.1 * rng.standard_normal((5, m.nu)),
+              qpos=m.qpos0.numpy(), qvel=np.zeros(m.nv))
+  res = benchmarks.run(m, nworld=8, nstep=3, warmup_steps=2, device='cpu',
+                       replay=rp)
+  st = res.pop('state')
+  assert set(res) == bench_keys()
+  assert res['converged_worlds'] == 8 and res['overflow_worlds'] == 0
+  assert res['nworld'] == 8 and res['nstep'] == 3
+  assert st.ctrl.abs().max() > 0  # OU noise drove ctrl
+  lo = m.actuator_ctrlrange.numpy()[:, 0:1]
+  hi = m.actuator_ctrlrange.numpy()[:, 1:2]
+  if replay:  # the replay form clamps to the ctrl range
+    c = st.ctrl.numpy()
+    assert np.all((c >= lo) & (c <= hi))
+
+
+def test_devprofile_summary_of_a_trace():
+  """The device-profile summary on a hand-made trace: a 100 us window
+  with two overlapping kernels, one copy and work outside the window."""
+  from mujoco_warp_tpu_torch import devprofile
+  ev = [
+      {'ph': 'X', 'cat': 'user_annotation', 'name': 'rollout', 'ts': 1000,
+       'dur': 100},
+      {'ph': 'X', 'cat': 'kernel', 'name': 'k4_kernel(K4Params)', 'ts': 1010,
+       'dur': 40},
+      {'ph': 'X', 'cat': 'kernel', 'name': 'k1_kernel(K1Params)', 'ts': 1040,
+       'dur': 20},
+      {'ph': 'X', 'cat': 'gpu_memcpy', 'name': 'Memcpy HtoD (Pageable)',
+       'ts': 1080, 'dur': 10},
+      {'ph': 'X', 'cat': 'kernel', 'name': 'elementwise', 'ts': 1095,
+       'dur': 10},
+      {'ph': 'X', 'cat': 'kernel', 'name': 'elementwise', 'ts': 2000,
+       'dur': 10},
+      {'ph': 'X', 'cat': 'cpu_op', 'name': 'aten::add', 'ts': 1000,
+       'dur': 90},
+  ]
+  s = devprofile.summarize(ev, nsteps=2)
+  assert s['window_ms'] == pytest.approx(0.1)
+  # busy: [1010, 1060] + [1080, 1090] + [1095, 1100] = 65 us
+  assert s['busy_share'] == pytest.approx(0.65)
+  assert s['idle_share'] == pytest.approx(0.35)
+  assert s['kernels_per_step'] == 1.5
+  assert s['h2d_copies_per_step'] == 0.5
+  dm = s['device_ms_per_step']
+  assert dm['k4'] == pytest.approx(0.02) and dm['k1'] == pytest.approx(0.01)
+  assert dm['other'] == pytest.approx(0.0075)
+  with pytest.raises(ValueError):
+    devprofile.summarize(ev[:1], nsteps=2)
