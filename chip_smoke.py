@@ -2,34 +2,58 @@
 
   python3 chip_smoke.py
 
-Phases, one line each, any failure exits non-zero:
+Phases, one line each or more, any failure exits non-zero:
  1. device: needs CUDA; prints the card's name and power limit.
- 2. build: compiles kernels/csrc with nvcc for sm_90a.
- 3. kernels against their plain PyTorch versions on the card, on the
-    snapshot humanoid at 1024 worlds, for a seeded state at rest
-    (qpos0 + 0.01 N, qvel 0.2 N) and the same state lowered into the
-    floor (contacts active).
- 4. the main path: mujoco_warp_tpu_torch.benchmarks.run at 8192 worlds
-    with world sorting every 4 steps and OU ctrl noise; the launch counts
-    of both kernels must equal the steps run, no world may overflow and
-    every world must stay finite.  Then each kernel against its plain
-    version again at the main path's width, on the rollout's last state,
-    and both timed per launch.
-The tolerances are those of mujoco_warp_tpu_torch.parity.  The last two
-lines are the kernel JSON and the device JSON.
+ 2. build: compiles kernels/csrc with nvcc for sm_90a, one nvcc per source.
+ 3. kernels against their plain PyTorch versions on the card at 1024
+    worlds: K1 and K4 on the snapshot humanoid for a seeded state at rest
+    (qpos0 + 0.01 N, qvel 0.2 N) and the same state lowered into the floor
+    (contacts active); the mass chain, the two Cholesky solves and the
+    Newton solve on the snapshot constraints scene for its seeded state
+    (qpos0 + 0.1 N, quaternions renormalised, qvel 0.2 N), each kernel fed
+    the plain version's upstream outputs.
+ 4. the fused main path: mujoco_warp_tpu_torch.benchmarks.run on the
+    humanoid at 8192 worlds with world sorting every 4 steps and OU ctrl
+    noise; the K1 and K4 launch counts must equal the steps run (the
+    general kernels' stay 0), no world may overflow and every world must
+    stay finite.  Then K1 and K4 against their plain versions again at
+    8192 worlds, on the rollout's last state, and timed per launch.
+ 5. the general main path: benchmarks.run on the constraints scene at
+    8192 worlds; each of the four general kernels must launch once per
+    step (K1's and K4's counts stay 0), no world may overflow and every
+    world must stay finite.  Then the four kernels against their plain
+    versions at 8192 worlds on the rollout's last state, each timed per
+    launch beside its plain version, the one PyTorch call that computes
+    the same function where there is one, and the world-major <->
+    lanes-last transposes of its wrapper.
+A kernel's time is its own device time per launch, read with
+torch.profiler; 'call' beside it is the wall time of one wrapper call
+(CUDA events over 20 calls), which the host's work bounds for the short
+kernels.
+The tolerances are those of mujoco_warp_tpu_torch.parity.  The last three
+lines are the kernel JSON (every kernel with its launches on its main
+path, error, times and its bound on this card), the nvidia-smi line (name
+and power limit) and the device JSON.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 NWORLD = 8192
 NSTEP = 300
+GEN_NSTEP = 200
 WARMUP = 10
 NCMP = 1024
+# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, float32 flop/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+F32 = 4
 
 
 def fail(msg):
@@ -54,6 +78,67 @@ def time_ms(fn, reps):
   return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, kernel, reps):
+  """The kernel's own device time per launch: ``fn`` launches ``kernel``
+  once per call; ``torch.profiler`` records each launch's duration on the
+  card.  (A wall-clock time over the calls would measure the wrapper's
+  host work for kernels shorter than it.)"""
+  fn()
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    for _ in range(reps):
+      fn()
+    torch.cuda.synchronize()
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f)['traceEvents']
+  durs = [float(e['dur']) for e in events
+          if e.get('cat') == 'kernel' and
+          e.get('name', '').split('(')[0].strip() == kernel]
+  # the profiler may miss a launch at the start of its window
+  if len(durs) < reps // 2:
+    fail(f'profiler saw {len(durs)} launches of {kernel}, expected {reps}')
+  return sum(durs) / 1e3 / len(durs)
+
+
+def bound(nbytes, flops):
+  """The least time (ms) the card could take: the larger of the bytes over
+  the memory rate and the flops over the float32 rate, and which one."""
+  tb, tf = nbytes / PEAK_BYTES, flops / PEAK_F32
+  return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
+
+
+def chol_flops(n):
+  """Flops of one n x n Cholesky factor (n^3 / 3 multiply-adds)."""
+  return sum(2 * j + 2 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+
+
+def mass_chain_flops(m, factor):
+  """Flops of one world's mass chain: crb, qM, [factor], com_vel,
+  cdof_dot and RNE, counted from the model's tree."""
+  nb, nv = m.nbody, m.nv
+  anc = m.tree.ancestor_mask
+  pairs = int(np.sum(anc | anc.T))
+  rne = sum(12 * int(m.body_dofnum[b]) + 2 * 72 + 3 * 15 + 12
+            for b in range(1, nb))
+  return (36 * (nb - 1) + 72 * nv + 12 * pairs + nv +
+          (chol_flops(nv) if factor else 0) + 12 * nv +
+          12 * int(m.tree.cdofdot_mask.sum()) + 30 * nv + rne +
+          6 * (nb - 1) + 12 * nv)
+
+
+def newton_flops(nrow, nv, niter):
+  """A lower estimate of one world's Newton solve: one H build and factor,
+  then per iteration J v, J^T f, M v, the two substitutions and the
+  linesearch's row terms."""
+  return (nrow * nv * nv + chol_flops(nv) +
+          niter * (4 * nrow * nv + 8 * nv * nv + 60 * nrow))
+
+
 def main():
   # ---- 1. device
   if not torch.cuda.is_available():
@@ -70,11 +155,15 @@ def main():
   say(f'[device] {kind}; nvidia-smi: {card}; torch {torch.__version__} '
       f'cuda {torch.version.cuda}')
 
-  from mujoco_warp_tpu_torch import benchmarks, io, parity
-  from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref
-  from mujoco_warp_tpu_torch.kernels import build
+  from mujoco_warp_tpu_torch import benchmarks, io, parity, types
+  from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref, solver_ref
+  from mujoco_warp_tpu_torch.kernels import build, lanes, world
   from mujoco_warp_tpu_torch.kernels import k1 as kk1
   from mujoco_warp_tpu_torch.kernels import k4 as kk4
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  from mujoco_warp_tpu_torch.ops import forward
 
   # ---- 2. build
   t0 = time.perf_counter()
@@ -85,16 +174,26 @@ def main():
     if 'registers' in line or 'spill' in line or 'error' in line:
       say(f'[build] ptxas: {line.strip()}')
 
-  # ---- 3. kernels against plain versions
   dev = torch.device('cuda')
   m = io.load_model_npz()
+  mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT)
   h = float(k4_ref.scalars(m)[3])
-  err = {'k1': 0.0, 'k4': 0.0}
+  err = {k: 0.0 for k in build.KERNELS}
 
+  def counters():
+    return {'k1': kk1.launches, 'k4': kk4.launches,
+            'mass_chain': kmass.launches, 'solve': ksolver.launches,
+            **klinalg.launches}
+
+  def zero_counters():
+    kk1.launches = kk4.launches = kmass.launches = ksolver.launches = 0
+    for k in klinalg.launches:
+      klinalg.launches[k] = 0
+
+  # ---- 3a. the fused kernels against their plain versions
   def compare(label, qpos, qvel, ctrl, ws, state, need_qLD):
-    """Both kernels against their plain versions on one state; K4 gets
-    the plain K1's outputs on both sides.  Returns those and K4's
-    arguments."""
+    """K1 and K4 against their plain versions on one state; K4 gets the
+    plain K1's outputs on both sides.  Returns those and K4's args."""
     got1 = kk1.k1(m, qpos, qvel, need_qLD=need_qLD)
     want1 = k1_ref.k1(m, qpos, qvel, need_qLD=need_qLD)
     try:
@@ -122,67 +221,238 @@ def main():
         f'{parity.NITER_SHARE[state]}), max diff {r4["niter_max_diff"]} '
         f'(bar {parity.NITER_MAX_DIFF}); niter mean {r4["niter_mean"]:.3f}; '
         f'active contacts {act}')
-    return want1, args
+    return want1, args, float(want4[4].float().mean())
 
   for state, drop in parity.DROP.items():
     qpos, qvel, ctrl, ws = [torch.as_tensor(x, device=dev) for x in
                             parity.lane_state(m, NCMP, 7, drop)]
     compare(f'{state} W={NCMP}', qpos, qvel, ctrl, ws, state, True)
 
-  # ---- 4. the main path
-  kk1.launches = kk4.launches = 0
-  res = benchmarks.run(m, nworld=NWORLD, nstep=NSTEP, warmup_steps=WARMUP,
-                       device='cuda')
-  launches = {'k1': kk1.launches, 'k4': kk4.launches}
-  steps = NSTEP + WARMUP
-  st = res.pop('state')
-  if launches != {'k1': steps, 'k4': steps}:
-    fail(f'launch counts {launches} != {steps} steps')
-  if res['overflow_worlds'] != 0:
-    fail(f"overflow in {res['overflow_worlds']} worlds")
-  if res['converged_worlds'] != NWORLD:
-    fail(f"{res['converged_worlds']} of {NWORLD} worlds finite")
-  say(f"[main path] {NWORLD} worlds x {NSTEP} steps (+{WARMUP} warmup): "
-      f"{res['steps_per_sec']:.1f} steps/s, first step "
-      f"{res['jit_duration']:.3f} s, solver_niter_mean "
-      f"{res['solver_niter_mean']:.4f}, solver_cap_worlds "
-      f"{res['solver_cap_worlds']}, overflow_worlds 0, "
-      f"{res['converged_worlds']}/{NWORLD} finite, launches {launches}")
-  say('[main path] metrics ' + json.dumps(res))
+  # ---- 3b. the general step's kernels against their plain versions
+  nv, nb = mc.nv, mc.nbody
 
-  # both kernels against their plain versions at the main path's width,
-  # on its last state (feet on the floor), then timed per launch
-  k1_out, a4 = compare(f'rollout W={NWORLD}', st.qpos, st.qvel, st.ctrl,
-                       st.warmstart, 'contact', False)
+  def general_compare(label, d):
+    """The four kernels against their plain versions on world-major state
+    d (qpos, qvel, ctrl, qacc_warmstart); each kernel gets the plain
+    version's upstream outputs.  Returns each kernel's arguments and the
+    plain solve's mean Newton count."""
+    d = forward.pre(mc, d)
+    args = {'mass_chain': (mc, lanes(d.cinert, 36 * nb),
+                           lanes(d.cdof, 6 * nv), lanes(d.qvel))}
+    got, want = (kmass.mass_chain_lanes(*args['mass_chain']),
+                 kmass.mass_chain_plain(*args['mass_chain']))
+    try:
+      e_mc, rel_mc = parity.check_rel(got, want, parity.MASS_NAMES)
+      qM, qLD, cvel, cdd, bias = want
+      d = forward.mid(mc, d.replace(
+          qM=world(qM, nv, nv), qLD=world(qLD, nv, nv),
+          cvel=world(cvel, nb, 6), cdof_dot=world(cdd, nv, 6),
+          qfrc_bias=bias.T))
+      args['chol_solve'] = (qLD, lanes(d.qfrc_smooth))
+      got, want = (klinalg.chol_solve_lanes(*args['chol_solve']),
+                   klinalg.chol_solve_plain(*args['chol_solve']))
+      e_cs = parity.check_world_scale(got, want, 'qacc_smooth',
+                                      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+      d = d.replace(qacc_smooth=want.T)
+      args['solve'] = (mc, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
+                       lanes(d.efc_frictionloss), lanes(d.qM),
+                       lanes(d.qfrc_smooth), lanes(d.qacc_warmstart))
+      got, want = (ksolver.solve_tiles(*args['solve']),
+                   solver_ref.solve_tiles(*args['solve']))
+      rs = parity.check_solve(got, want)
+      args['damped_solve'] = (mc, qM, want[0])
+      dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
+      got, want = (klinalg.damped_solve_lanes(*args['damped_solve']),
+                   klinalg.damped_solve_plain(qM, want[0], dmp))
+      e_ds = parity.check_world_scale(got, want, 'qacc (damped)',
+                                      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+    except AssertionError as e:
+      fail(f'{label}: {e}')
+    err['mass_chain'] = max(err['mass_chain'], e_mc)
+    err['chol_solve'] = max(err['chol_solve'], e_cs)
+    err['solve'] = max(err['solve'], rs['qacc_max_abs_err'])
+    err['damped_solve'] = max(err['damped_solve'], e_ds)
+    say(f'[compare] {label}: mass chain max abs err {e_mc:.3e}, worst '
+        f'relative {rel_mc:.2e} (tol {parity.K1_TOL}); chol_solve max abs '
+        f'err {e_cs:.3e}, damped_solve {e_ds:.3e} (atol {parity.SOLVE_ATOL} '
+        f'+ rtol {parity.SOLVE_RTOL} of world scale); solve qacc max abs '
+        f'err {rs["qacc_max_abs_err"]:.3e}, efc_force '
+        f'{rs["force_max_abs_err"]:.3e} (atol {parity.QACC_ATOL} + rtol '
+        f'{parity.QACC_RTOL} of world scale); niter equal in '
+        f'{rs["niter_share"]:.4f} of worlds (bar '
+        f'{parity.NITER_SHARE["constraints"]}), max diff '
+        f'{rs["niter_max_diff"]} (bar {parity.NITER_MAX_DIFF}); niter mean '
+        f'{rs["niter_mean"]:.3f}; active rows '
+        f'{int(d.efc_active.sum())} of {mc.nefc * d.qpos.shape[0]}')
+    return args, rs['niter_mean']
+
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                      parity.general_state(mc, NCMP, 7)]
+  d0 = io.make_data(mc, NCMP).replace(
+      qpos=qpos, qvel=qvel, ctrl=ctrl,
+      qacc_warmstart=0.1 * torch.as_tensor(
+          np.random.default_rng(8).standard_normal((NCMP, nv)),
+          dtype=torch.float32, device=dev))
+  general_compare(f'constraints W={NCMP}', d0)
+
+  # ---- 4. the fused main path
+  def main_path(model, nstep, expect):
+    zero_counters()
+    res = benchmarks.run(model, nworld=NWORLD, nstep=nstep,
+                         warmup_steps=WARMUP)
+    launches = counters()
+    steps = nstep + WARMUP
+    want = {k: steps if k in expect else 0 for k in launches}
+    if launches != want:
+      fail(f'launch counts {launches} != {want}')
+    if res['overflow_worlds'] != 0:
+      fail(f"overflow in {res['overflow_worlds']} worlds")
+    if res['converged_worlds'] != NWORLD:
+      fail(f"{res['converged_worlds']} of {NWORLD} worlds finite")
+    st = res.pop('state')
+    say(f"[main path] {NWORLD} worlds x {nstep} steps (+{WARMUP} warmup): "
+        f"{res['steps_per_sec']:.1f} steps/s, first step "
+        f"{res['jit_duration']:.3f} s, solver_niter_mean "
+        f"{res['solver_niter_mean']:.4f}, solver_cap_worlds "
+        f"{res['solver_cap_worlds']}, overflow_worlds 0, "
+        f"{res['converged_worlds']}/{NWORLD} finite, launches {launches}")
+    say('[main path] metrics ' + json.dumps(res))
+    return res, st, launches
+
+  res, st, launches = main_path(m, NSTEP, ('k1', 'k4'))
+  k1_out, a4, niter4 = compare(f'rollout W={NWORLD}', st.qpos, st.qvel,
+                               st.ctrl, st.warmstart, 'contact', False)
   _, _, bias, _, dist, cpos, cframe, stcom = k1_out
   glue_ms = time_ms(lambda: (glue.compact(m, dist, cpos, cframe, stcom),
                              glue.middle(m, bias, st.qpos, st.qvel, st.ctrl)),
                     20)
-  ms = {
-      'k1': time_ms(lambda: kk1.k1(m, st.qpos, st.qvel, need_qLD=False), 20),
-      'k4': time_ms(lambda: kk4.k4(*a4), 20),
-  }
+  calls = {'k1': lambda: kk1.k1(m, st.qpos, st.qvel, need_qLD=False),
+           'k4': lambda: kk4.k4(*a4)}
+  ms = {k: kernel_ms(fn, f'{k}_kernel', 20) for k, fn in calls.items()}
+  call_ms = {k: time_ms(fn, 20) for k, fn in calls.items()}
   plain_ms = {
       'k1': time_ms(lambda: k1_ref.k1(m, st.qpos, st.qvel, need_qLD=False),
                     3),
       'k4': time_ms(lambda: k4_ref.k4(*a4), 3),
   }
-  say(f"[timing] W={NWORLD} per launch: K1 cuda {ms['k1']:.3f} ms, plain "
-      f"{plain_ms['k1']:.3f} ms; K4 cuda {ms['k4']:.3f} ms, plain "
-      f"{plain_ms['k4']:.3f} ms; glue (compaction + smooth forces) "
+  library_ms = {'k1': None, 'k4': None}
+  ncon_rows = kk4.con_rows(m) + len(k4_ref.eq_joint_tables(m))
+  nrow4 = ncon_rows + len(k4_ref.limit_tables(m))
+  W = NWORLD
+  bounds = {
+      'k1': bound(W * F32 * (m.nq + m.nv + m.nv * m.nv + m.nv + 6 * m.nv +
+                             13 * m.ncand + 3 * m.nbody),
+                  W * (mass_chain_flops(m, False) + 400 * m.nbody +
+                       100 * m.ncand)),
+      'k4': bound(W * F32 * (m.nv * m.nv + 3 * m.nv + m.nq + 6 * m.nv +
+                             m.ncon * (33 + 2 * m.nv) + m.nq + 3 * m.nv + 1),
+                  W * (40 * m.ncon * m.nv +
+                       newton_flops(nrow4, m.nv, niter4))),
+  }
+  kernel_launches = {'k1': launches['k1'], 'k4': launches['k4']}
+  say(f"[timing] W={NWORLD} per launch: K1 cuda {ms['k1']:.3f} ms (call "
+      f"{call_ms['k1']:.3f}), plain {plain_ms['k1']:.3f} ms, bound "
+      f"{bounds['k1'][0]:.4f} ms ({bounds['k1'][1]}); K4 cuda "
+      f"{ms['k4']:.3f} ms (call {call_ms['k4']:.3f}), plain "
+      f"{plain_ms['k4']:.3f} ms, bound {bounds['k4'][0]:.4f} ms "
+      f"({bounds['k4'][1]}); glue (compaction + smooth forces) "
       f"{glue_ms:.3f} ms; step {1e3 * NWORLD / res['steps_per_sec']:.3f} ms")
 
+  # ---- 5. the general main path
+  res, st, launches = main_path(
+      mc, GEN_NSTEP, ('mass_chain', 'solve', 'chol_solve', 'damped_solve'))
+  for k in ('mass_chain', 'solve', 'chol_solve', 'damped_solve'):
+    kernel_launches[k] = launches[k]
+  d = types.Data(qpos=st.qpos, qvel=st.qvel, ctrl=st.ctrl,
+                 qacc_warmstart=st.qacc_warmstart, eq_active=st.eq_active,
+                 qfrc_applied=st.qfrc_applied, xfrc_applied=st.xfrc_applied)
+  args, niter3 = general_compare(f'constraints rollout W={NWORLD}', d)
+  am, acs, asv, ads = (args['mass_chain'], args['chol_solve'],
+                       args['solve'], args['damped_solve'])
+  dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
+  calls = {
+      'mass_chain': lambda: kmass.mass_chain_lanes(*am),
+      'chol_solve': lambda: klinalg.chol_solve_lanes(*acs),
+      'solve': lambda: ksolver.solve_tiles(*asv),
+      'damped_solve': lambda: klinalg.damped_solve_lanes(*ads),
+  }
+  ms.update({k: kernel_ms(fn, f'{k}_kernel', 20) for k, fn in calls.items()})
+  call_ms.update({k: time_ms(fn, 20) for k, fn in calls.items()})
+  plain_ms.update({
+      'mass_chain': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
+      'chol_solve': time_ms(lambda: klinalg.chol_solve_plain(*acs), 3),
+      'solve': time_ms(lambda: solver_ref.solve_tiles(*asv), 3),
+      'damped_solve': time_ms(
+          lambda: klinalg.damped_solve_plain(ads[1], ads[2], dmp), 3),
+  })
+  # one PyTorch call of the same function, timed here only
+  L_w, b_w = world(acs[0], nv, nv), acs[1].T.contiguous()[:, :, None]
+  M_w = world(ads[1], nv, nv).contiguous()
+  A_w = M_w + torch.diag(dmp)
+  rhs_w = torch.einsum('wij,wj->wi', M_w, ads[2].T)
+  library_ms.update({
+      'mass_chain': None, 'solve': None,
+      'chol_solve': time_ms(lambda: torch.cholesky_solve(b_w, L_w), 20),
+      'damped_solve': time_ms(lambda: torch.linalg.solve(A_w, rhs_w), 20),
+  })
+  # the wrappers' world-major <-> lanes-last transposes, alone
+  dw = forward.mid(mc, kmass.mass_chain(mc, forward.pre(mc, d)))
+  out_mc = kmass.mass_chain_lanes(*am)
+  transpose_ms = {
+      'mass_chain': time_ms(lambda: (
+          lanes(dw.cinert, 36 * nb), lanes(dw.cdof, 6 * nv), lanes(dw.qvel),
+          world(out_mc[0], nv, nv), world(out_mc[1], nv, nv),
+          world(out_mc[2], nb, 6), world(out_mc[3], nv, 6),
+          out_mc[4].T.contiguous()), 20),
+      'chol_solve': time_ms(lambda: (
+          lanes(dw.qLD, nv * nv), lanes(dw.qfrc_smooth),
+          acs[1].T.contiguous()), 20),
+      'solve': time_ms(lambda: [lanes(x) for x in (
+          dw.efc_J, dw.efc_D, dw.efc_aref, dw.efc_frictionloss, dw.qM,
+          dw.qfrc_smooth, dw.qacc_warmstart)] + [
+              x.T.contiguous() for x in asv[6:8]], 20),
+      'damped_solve': time_ms(lambda: (
+          lanes(dw.qM, nv * nv), lanes(dw.qvel), acs[1].T.contiguous()),
+          20),
+  }
+  nefc = mc.nefc
+  bounds.update({
+      'mass_chain': bound(
+          W * F32 * (36 * nb + 7 * nv + 2 * nv * nv + 6 * nb + 7 * nv),
+          W * mass_chain_flops(mc, True)),
+      'chol_solve': bound(W * F32 * (nv * nv + 2 * nv), W * 2 * nv * nv),
+      'solve': bound(
+          W * F32 * (nefc * nv + 3 * nefc + nv * nv + 2 * nv + 2 * nv +
+                     nefc + 1),
+          W * newton_flops(nefc, nv, niter3)),
+      'damped_solve': bound(W * F32 * (nv * nv + 2 * nv) + F32 * nv,
+                            W * (chol_flops(nv) + 4 * nv * nv + nv)),
+  })
+  for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'):
+    lib = library_ms[k]
+    say(f"[timing] {k} W={NWORLD} per launch: cuda {ms[k]:.4f} ms (call "
+        f"{call_ms[k]:.4f}), plain "
+        f"{plain_ms[k]:.3f} ms, library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
+        f"{transpose_ms[k]:.4f} ms")
+  say(f"[timing] general step {1e3 * NWORLD / res['steps_per_sec']:.3f} ms")
+
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
+  replaces = {
+      'k1': ('k1.cu', 'mujoco_warp_tpu/pallas/fused.py:986'),
+      'k4': ('k4.cu', 'mujoco_warp_tpu/pallas/fused.py:1247'),
+      'mass_chain': ('mass_chain.cu', 'mujoco_warp_tpu/pallas/smooth.py:211'),
+      'solve': ('solve.cu', 'mujoco_warp_tpu/pallas/solver.py:1041'),
+      'chol_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:109'),
+      'damped_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:145'),
+  }
   print(json.dumps({'kernels': [
-      {'name': 'k1', 'route': 'cuda', 'source': src + 'k1.cu',
-       'replaces': 'mujoco_warp_tpu/pallas/fused.py:986',
-       'launches': launches['k1'], 'max_abs_err': err['k1'],
-       'ms': ms['k1'], 'plain_ms': plain_ms['k1']},
-      {'name': 'k4', 'route': 'cuda', 'source': src + 'k4.cu',
-       'replaces': 'mujoco_warp_tpu/pallas/fused.py:1247',
-       'launches': launches['k4'], 'max_abs_err': err['k4'],
-       'ms': ms['k4'], 'plain_ms': plain_ms['k4']},
-  ]}))
+      {'name': k, 'route': 'cuda', 'source': src + f, 'replaces': r,
+       'launches': kernel_launches[k], 'max_abs_err': err[k], 'ms': ms[k],
+       'plain_ms': plain_ms[k], 'bound_ms': bounds[k][0],
+       'bound_by': bounds[k][1], 'library_ms': library_ms[k]}
+      for k, (f, r) in replaces.items()]}))
   print(card)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}))

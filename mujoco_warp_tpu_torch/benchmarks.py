@@ -1,11 +1,15 @@
-"""Benchmark harness: batched rollout throughput of the fused step.
+"""Benchmark harness: batched rollout throughput.
 
 Counterpart of ``mujoco_warp_tpu/benchmarks.py`` ``build`` (:83) and
-``run`` (:146) on the fused branch: worlds start at qpos0 plus noise, the
-state goes lanes-last once, every ``sort_every`` steps worlds are sorted
-by their last Newton count (the OU noise rides the same permutation), OU
+``run`` (:146).  ``run`` picks the path as the JAX harness does
+(:188-271): the fused lanes-last step when the model is inside the fused
+gate (``fused.supported``), the general stage-split step
+(``ops/forward.py`` ``step``) otherwise.  Worlds start at qpos0 plus
+noise; every ``sort_every`` steps worlds are sorted by their last Newton
+count with a stable argsort (the OU noise rides the same permutation), OU
 noise drives ctrl every step, and steps/s is timed after a warmup.  A
-number counts only when no world overflowed a contact buffer.
+number counts only when no world overflowed a contact or constraint
+buffer.  Tensors go to the CUDA device unless ``device='cpu'``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import fused, io, types
+from mujoco_warp_tpu_torch.ops import forward
 
 # the fused step is float32 throughout; no product may drop to TF32
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -24,11 +29,12 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision('highest')
 
 
-def build(m: types.Model, nworld: int, seed: int = 0, device='cpu',
+def build(m: types.Model, nworld: int, seed: int = 0, device=None,
           init_qpos=None, init_qvel=None,
-          qpos_noise: float = 0.01) -> io.Data:
+          qpos_noise: float = 0.01) -> types.Data:
   """A batch of worlds at qpos0 (or ``init_qpos``) plus Gaussian qpos
   noise, drawn with numpy from ``seed``."""
+  device = io.resolve_device(device)
   d = io.make_data(m, nworld, device=device)
   rng = np.random.default_rng(seed)
   qpos = d.qpos.cpu().numpy()
@@ -45,17 +51,20 @@ def build(m: types.Model, nworld: int, seed: int = 0, device='cpu',
   return d
 
 
-def ou_noise(m: types.Model, replay: bool, device='cpu'):
+def ou_noise(m: types.Model, replay: bool, device=None, lanes: bool = True):
   """The OU ctrl-noise update of ``benchmarks.run``: around a replayed
   ctrl (rate 0.1 s, std 0.01 of the actuator half-range, clamped to the
   ctrl range) or, without replay, the free form (tau 0.2 s, scale 0.2).
-  Its constants go to ``device`` once, not every step."""
+  Its constants go to ``device`` once, not every step.  ``lanes``: noise
+  and ctrl are (nu, W), else world-major (W, nu)."""
+  device = io.resolve_device(device)
   dt = float(types.host(m.opt.timestep))
+  per_act = (lambda x: x[:, None]) if lanes else (lambda x: x[None, :])
   if replay:
     lim = m.actuator_ctrllimited.astype(bool)
     crange = types.host(m.actuator_ctrlrange, np.float32)
-    col = lambda x: torch.as_tensor(np.asarray(x, np.float32),
-                                    device=device)[:, None]
+    col = lambda x: per_act(torch.as_tensor(np.asarray(x, np.float32),
+                                            device=device))
     half = col(np.where(lim, 0.5 * (crange[:, 1] - crange[:, 0]), 1.0))
     decay = float(np.exp(-dt / 0.1))
     scale = 0.01 * float(np.sqrt(1.0 - decay * decay))
@@ -70,35 +79,49 @@ def ou_noise(m: types.Model, replay: bool, device='cpu'):
                       dtype=noise.dtype)
     if replay:
       noise = noise * decay + scale * half * eta
-      ctrl = noise if base is None else base[:, None] + noise
+      ctrl = noise if base is None else per_act(base) + noise
       ctrl = torch.minimum(torch.maximum(ctrl, lo), hi)
     else:
       noise = noise * decay + scale * eta
-      ctrl = noise if base is None else base[:, None] + noise
+      ctrl = noise if base is None else per_act(base) + noise
     return noise, ctrl
 
   return step
 
 
 def _sync(device):
-  if torch.device(device).type == 'cuda':
+  if device.type == 'cuda':
     torch.cuda.synchronize(device)
 
 
-def rollout(m: types.Model, nworld: int, seed: int = 0, device='cuda',
+# the state the general step carries from one step to the next; the rest
+# of Data is recomputed every step
+CARRY = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
+         'xfrc_applied', 'eq_active', 'qacc_warmstart', 'qacc',
+         'solver_niter', 'overflow')
+
+
+def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
             sort_every: int = 4, replay: Optional[dict] = None):
   """The benchmark's rollout: sets the worlds up, then returns an endless
-  generator of lane states, one per fused step.  Every ``sort_every`` steps worlds are sorted by their
-  last Newton count (the OU noise rides the same permutation), then the OU
-  noise sets ctrl and the fused step runs.
+  generator of states, one per step: lane states (``fused.FusedState``)
+  on the fused path, world-major ``types.Data`` on the general path.
+  Every ``sort_every`` steps worlds are sorted by their last Newton count
+  (the OU noise rides the same permutation), then the OU noise sets ctrl
+  and the step runs.
 
   ``replay``: {'ctrl': (T, nu) array, 'qpos': (nq,), 'qvel': (nv,)} —
   worlds start from the recorded state exactly and the OU noise runs
   around the replayed ctrl.
   """
-  if torch.device(device).type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('rollout(device="cuda") needs a CUDA device')
-  fused.supported_features(m)
+  device = io.resolve_device(device)
+  use_fused = fused.supported(m)
+  if not use_fused:
+    why = forward.unsupported(m)
+    if why is not None:
+      raise NotImplementedError(
+          f'model outside the fused gate ({fused.reason(m)}) and the '
+          f'general step ({why})')
   kw = dict(qpos_noise=0.01)
   traj = None
   if replay is not None:
@@ -106,12 +129,12 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device='cuda',
               qpos_noise=0.0)
     traj = torch.as_tensor(np.asarray(replay['ctrl'], np.float32),
                            device=device)
-  st = fused.to_lane(m, build(m, nworld, seed, device=device, **kw))
-  ou = ou_noise(m, replay is not None, device)
+  d = build(m, nworld, seed, device=device, **kw)
+  ou = ou_noise(m, replay is not None, device, lanes=use_fused)
   gen = torch.Generator(device=device)
   gen.manual_seed(seed)
 
-  def steps(st, noise):
+  def fused_steps(st, noise):
     i = 0
     while True:
       if sort_every > 0 and i % sort_every == 0:
@@ -126,14 +149,34 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device='cuda',
       i += 1
       yield st
 
-  return steps(st, torch.zeros_like(st.ctrl))
+  def general_steps(d, noise):
+    i = 0
+    while True:
+      if sort_every > 0 and i % sort_every == 0:
+        perm = torch.argsort(d.solver_niter, stable=True)
+        d = types.Data(**{k: getattr(d, k)[perm] for k in CARRY})
+        noise = noise[perm]
+      if m.nu:
+        noise, ctrl = ou(noise, gen,
+                         None if traj is None else traj[i % traj.shape[0]])
+        d = d.replace(ctrl=ctrl)
+      d = forward.step(m, d)
+      i += 1
+      yield d
+
+  if use_fused:
+    st = fused.to_lane(m, d)
+    return fused_steps(st, torch.zeros_like(st.ctrl))
+  return general_steps(d, torch.zeros_like(d.ctrl))
 
 
 def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
-        warmup_steps: int = 10, device='cuda', sort_every: int = 4,
+        warmup_steps: int = 10, device=None, sort_every: int = 4,
         replay: Optional[dict] = None) -> dict:
-  """Steps/s of the fused rollout (``rollout``) on ``device``.  Returns
-  the metrics dict with the keys of ``mujoco_warp_tpu.benchmarks.run``."""
+  """Steps/s of the rollout (``rollout``) on ``device``.  Returns the
+  metrics dict with the keys of ``mujoco_warp_tpu.benchmarks.run``, plus
+  the last state under 'state'."""
+  device = io.resolve_device(device)
   steps_of = rollout(m, nworld, seed, device, sort_every, replay)
   t0 = time.perf_counter()
   st = next(steps_of)
@@ -151,8 +194,12 @@ def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
   dt = float(types.host(m.opt.timestep))
   steps = nworld * nstep
   sps = steps / run_time
-  qpos = st.qpos.cpu().numpy()
-  overflow = st.overflow[0].cpu().numpy()
+  if isinstance(st, fused.FusedState):  # lanes-last
+    qpos = st.qpos.T.cpu().numpy()
+    overflow = st.overflow[0].cpu().numpy()
+  else:
+    qpos = st.qpos.cpu().numpy()
+    overflow = st.overflow.cpu().numpy()
   cap_bits = int(types.OverflowType.CONTACT | types.OverflowType.CONSTRAINT)
   return {
       # the first step, kernel build at first use included
@@ -161,7 +208,7 @@ def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
       'steps_per_sec': sps,
       'realtime_factor': sps * dt,
       'ns_per_step': 1e9 * run_time / steps,
-      'converged_worlds': int(np.sum(np.all(np.isfinite(qpos), axis=0))),
+      'converged_worlds': int(np.sum(np.all(np.isfinite(qpos), axis=1))),
       'overflow_worlds': int(np.sum((overflow & cap_bits) != 0)),
       'solver_cap_worlds': int(np.sum(
           (overflow & int(types.OverflowType.SOLVER)) != 0)),

@@ -1,9 +1,10 @@
 """Where the card's time goes in the benchmark rollout.
 
-  python -m mujoco_warp_tpu_torch.devprofile
+  python -m mujoco_warp_tpu_torch.devprofile [--scene constraints]
 
-Runs ``benchmarks.rollout`` on the committed humanoid at 8192 worlds for
-300 steps, so that the feet rest on the floor, traces 40 more with
+Runs ``benchmarks.rollout`` on a committed scene at 8192 worlds for 300
+steps (the humanoid, by default, then rests its feet on the floor; the
+``constraints`` scene runs the general step), traces 40 more with
 ``torch.profiler`` (CPU and CUDA activities) and prints one JSON line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
@@ -11,7 +12,8 @@ Runs ``benchmarks.rollout`` on the committed humanoid at 8192 worlds for
 - ``busy_share`` / ``idle_share``: the union of device intervals (kernels,
   copies, memsets) inside the window, over the window;
 - ``kernels_per_step`` and ``h2d_copies_per_step``;
-- ``device_ms_per_step``: the K1 and K4 kernels and all other device work.
+- ``device_ms_per_step``: each of the port's kernels and all other device
+  work.
 
 The profiler itself slows the host, so the idle share it reads is an upper
 bound.  The chrome trace is kept under ``build/mujoco_warp_tpu_torch/``.
@@ -19,6 +21,7 @@ bound.  The chrome trace is kept under ``build/mujoco_warp_tpu_torch/``.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 
@@ -28,9 +31,12 @@ from mujoco_warp_tpu_torch import benchmarks, io
 from mujoco_warp_tpu_torch.kernels import build
 
 _DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
-_KERNELS = {'k1': 'k1_kernel', 'k4': 'k4_kernel'}
+_KERNELS = {'k1': 'k1_kernel', 'k4': 'k4_kernel',
+            'mass_chain': 'mass_chain_kernel', 'solve': 'solve_kernel',
+            'chol_solve': 'chol_solve_kernel',
+            'damped_solve': 'damped_solve_kernel'}
+SCENES = {'humanoid': io.SNAPSHOT, 'constraints': io.CONSTRAINTS_SNAPSHOT}
 NWORLD, SKIP, STEPS = 8192, 300, 40
-TRACE = os.path.join(build.BUILD_DIR, 'rollout_trace.json')
 
 
 def summarize(events: list, nsteps: int) -> dict:
@@ -57,13 +63,13 @@ def summarize(events: list, nsteps: int) -> dict:
       end = b
   per_kernel = {k: 0.0 for k in _KERNELS}
   other = 0.0
+  by_name = {name: k for k, name in _KERNELS.items()}
   for a, b, e in dev:
-    for k, name in _KERNELS.items():
-      if name in e['name']:
-        per_kernel[k] += b - a
-        break
-    else:
+    k = by_name.get(e['name'].split('(')[0].strip())
+    if k is None:
       other += b - a
+    else:
+      per_kernel[k] += b - a
   window = t1 - t0
   return {
       'steps': nsteps,
@@ -81,10 +87,10 @@ def summarize(events: list, nsteps: int) -> dict:
   }
 
 
-def profile() -> dict:
+def profile(scene: str = 'humanoid') -> dict:
   if not torch.cuda.is_available():
     raise RuntimeError('devprofile needs a CUDA device')
-  m = io.load_model_npz()
+  m = io.load_model_npz(SCENES[scene])
   steps_of = benchmarks.rollout(m, NWORLD, device='cuda')
   for _ in range(SKIP):
     next(steps_of)
@@ -96,13 +102,16 @@ def profile() -> dict:
       for _ in range(STEPS):
         next(steps_of)
       torch.cuda.synchronize()
-  os.makedirs(os.path.dirname(TRACE), exist_ok=True)
-  prof.export_chrome_trace(TRACE)
-  with open(TRACE) as f:
+  trace = os.path.join(build.BUILD_DIR, f'rollout_trace_{scene}.json')
+  os.makedirs(os.path.dirname(trace), exist_ok=True)
+  prof.export_chrome_trace(trace)
+  with open(trace) as f:
     events = json.load(f)['traceEvents']
-  return {'nworld': NWORLD, 'skip': SKIP, 'trace': TRACE,
+  return {'scene': scene, 'nworld': NWORLD, 'skip': SKIP, 'trace': trace,
           **summarize(events, STEPS)}
 
 
 if __name__ == '__main__':
-  print(json.dumps(profile()))
+  p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  p.add_argument('--scene', choices=sorted(SCENES), default='humanoid')
+  print(json.dumps(profile(p.parse_args().scene)))

@@ -33,7 +33,7 @@ _COLLIDERS = {
 }
 
 
-def _reason(m: types.Model):
+def reason(m: types.Model):
   """Why a model is outside the fused gate, or None."""
   o = m.opt
   if o.enableflags & types.EnableBit.SLEEP:
@@ -106,14 +106,17 @@ def _reason(m: types.Model):
   return None
 
 
+def supported(m: types.Model) -> bool:
+  """Is ``m`` inside the fused gate?  (``fused.py:236``; the benchmark
+  sends every other model to the general step.)"""
+  return reason(m) is None
+
+
 def supported_features(m: types.Model) -> bool:
-  """True for a model inside the fused gate; raises otherwise, since the
-  general stage-split path is not ported yet."""
-  why = _reason(m)
+  """True for a model inside the fused gate; raises otherwise."""
+  why = reason(m)
   if why is not None:
-    raise NotImplementedError(
-        f'model outside the fused gate ({why}); the general path is not '
-        'ported yet')
+    raise NotImplementedError(f'model outside the fused gate ({why})')
   return True
 
 

@@ -365,8 +365,9 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
   """crb -> qM (+ armature) -> [Cholesky] -> com_vel -> RNE bias.
 
   ``mass_chain_core`` of ``mujoco_warp_tpu/pallas/smooth.py`` without the
-  ``ancm`` form (the fused gate caps nv at 64).  Returns (qM (nv, nv, W),
-  L or None, bias (nv, W)).
+  ``ancm`` form (the large-tree form).  ``cinert`` and ``cdof`` are lists of
+  (36, W) per body and (6, W) per dof.  Returns (qM (nv, nv, W), L or None,
+  cvel list (6, W) per body, cdof_dot list (6, W) per dof, bias (nv, W)).
   """
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
@@ -449,7 +450,7 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
     cfrc[parent[b]] = cfrc[parent[b]] + cfrc[b]
   bias = L.cat([torch.sum(cfrc[dof_bodyid[i]] * cdof[i], dim=0, keepdim=True)
                 for i in range(nv)])
-  return qM, Lf, bias
+  return qM, Lf, cvel, cdof_dot, bias
 
 
 def k1(m: types.Model, qpos, qvel, need_qLD=True):
@@ -466,8 +467,8 @@ def k1(m: types.Model, qpos, qvel, need_qLD=True):
     gx, gmat = geom_frames(m, xpos, xquat)
     dist, cpos, cframe = narrowphase(m, gx, gmat, m.geom_size)
     stcom_out = L.cat(stcom)
-  qM, Lf, bias = mass_chain(m, cinert, cdof, qvel, m.dof_armature,
-                            m.opt.gravity, need_L=need_qLD)
+  qM, Lf, _, _, bias = mass_chain(m, cinert, cdof, qvel, m.dof_armature,
+                                  m.opt.gravity, need_L=need_qLD)
   return (qM.reshape(nv * nv, W),
           Lf.reshape(nv * nv, W) if need_qLD else None, bias, L.cat(cdof),
           dist, cpos, cframe, stcom_out)

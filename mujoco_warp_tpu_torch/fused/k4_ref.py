@@ -15,6 +15,7 @@ import torch
 
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused import lane as L
+from mujoco_warp_tpu_torch.fused import solver_ref
 from mujoco_warp_tpu_torch.fused.solver_ref import (chol_solve_tile,
                                                     chol_tile, solve_core)
 
@@ -116,8 +117,7 @@ def scalars(m: types.Model, device='cpu'):
   meaninertia, timestep and 1/impratio."""
   f = lambda x: torch.as_tensor(host(x, np.float32), device=device)
   impratio_inv = 1.0 / torch.clamp(f(m.opt.impratio), min=L.MINVAL)
-  return (f(m.opt.tolerance), f(m.opt.ls_tolerance), f(m.stat.meaninertia),
-          f(m.opt.timestep), impratio_inv)
+  return solver_ref.scalars(m, device) + (f(m.opt.timestep), impratio_inv)
 
 
 def damped(m: types.Model) -> bool:

@@ -1,19 +1,25 @@
 """Plain PyTorch Newton solve over one batch of worlds, lanes-last.
 
 Counterpart of ``mujoco_warp_tpu/pallas/solver.py`` ``solve_core`` (:269)
-for what the fused step uses: dense rows, pyramidal or frictionless
-contacts (no elliptic cones, no friction-loss rows), one-hot ``diag`` rows
-for joint limits and ``w_eq`` for equality rows, with ``_chol_tile``
-(:158) and ``_chol_solve_tile`` (:176).  Cholesky-factor reuse is kept: a
-world whose constraint state did not flip keeps its factor, which is the
-exact factor of its unchanged H.  The loops run until every world is done;
-done worlds are frozen, so each world's iterates are its own.
+for what the ported steps use: dense rows, pyramidal or frictionless
+contacts (no elliptic cones), one-hot ``diag`` rows for joint limits,
+``w_eq`` for equality rows and ``w_fri`` / ``fl`` for friction-loss rows
+(:321-329, :434, :717-720), with ``_chol_tile`` (:158) and
+``_chol_solve_tile`` (:176).  Cholesky-factor reuse is kept: a world whose
+constraint state did not flip keeps its factor, which is the exact factor
+of its unchanged H.  The loops run until every world is done; done worlds
+are frozen, so each world's iterates are its own.
+
+``solve_batched`` is the plain counterpart of the standalone solver kernel
+(``pallas/solver.py`` ``solve_batched`` :1145) on world-major Data.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused.lane import MINVAL
 
 
@@ -56,14 +62,15 @@ def sdiv(a, b):
 
 
 def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
-               meaninertia, diag=()):
+               meaninertia, diag=(), w_fri=None, fl=None):
   """Newton solve.  Returns (qacc (nv, W), force (nefc, W), niter (1, W)
   float).
 
   J: (ncr, nv, W) dense rows or None; D, aref: (nefc, W) with the
   ``len(diag)`` one-hot rows first; diag: [(dof, sign (1, W))]; w_eq:
-  (nefc, 1) marking equality rows, or None; tol, ls_tol, meaninertia:
-  0-d float32 tensors.
+  (nefc, 1) marking equality rows, or None; w_fri: (nefc, 1) marking
+  friction-loss rows, or None, with fl (nefc, W) their friction loss;
+  tol, ls_tol, meaninertia: 0-d float32 tensors.
   """
   nv = m.nv
   nl = len(diag)
@@ -73,6 +80,9 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
   iterations = int(m.opt.iterations)
   ls_iterations = int(m.opt.ls_iterations)
   has_eq = w_eq is not None
+  has_fri = w_fri is not None
+  # friction rows: linear beyond |Jaref| = fl / D, quadratic inside
+  rf = fl / torch.clamp(D, min=MINVAL) if has_fri else None
   rescale = 1.0 / (meaninertia * float(nv))
   by_dof = {}
   for r, (dof, _) in enumerate(diag):
@@ -109,10 +119,16 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
   def update_constraint(Jaref):
     act = (Jaref < 0.0).to(dt)
     nDJ = -D * Jaref
+    f, q = nDJ * act, act
     if has_eq:
-      return (torch.where(w_eq > 0, nDJ, nDJ * act),
-              torch.where(w_eq > 0, torch.ones_like(act), act))
-    return nDJ * act, act
+      f = torch.where(w_eq > 0, nDJ, f)
+      q = torch.where(w_eq > 0, torch.ones_like(act), q)
+    if has_fri:
+      f_fri = torch.where(Jaref <= -rf, fl, torch.where(Jaref >= rf, -fl, nDJ))
+      q_fri = ((Jaref > -rf) & (Jaref < rf)).to(dt)
+      f = torch.where(w_fri > 0, f_fri, f)
+      q = torch.where(w_fri > 0, q_fri, q)
+    return f, q
 
   tril = torch.tril(torch.ones((nv, nv), dtype=torch.bool, device=M.device))
 
@@ -146,6 +162,10 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
     quad0 = 0.5 * D * Jaref * Jaref
     cost0 = quad0 * (Jaref < 0.0).to(dt)
     offset = quad0 - cost0
+    if has_fri:
+      cf0 = torch.where((-rf < Jaref) & (Jaref < rf), quad0,
+                        torch.where(Jaref <= -rf, fl * (-0.5 * rf - Jaref),
+                                    fl * (-0.5 * rf + Jaref)))
 
     def ev(alpha):
       x = Jaref + alpha * jv
@@ -159,6 +179,16 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
         c = torch.where(w_eq > 0, c_eq, c)
         g = torch.where(w_eq > 0, g_eq, g)
         h = torch.where(w_eq > 0, hess, h)
+      if has_fri:
+        mid = (-rf < x) & (x < rf)
+        lo = x <= -rf
+        cf = torch.where(mid, 0.5 * D * x * x,
+                         torch.where(lo, fl * (-0.5 * rf - x),
+                                     fl * (-0.5 * rf + x)))
+        gf = torch.where(mid, jvD * x, torch.where(lo, -fl * jv, fl * jv))
+        c = torch.where(w_fri > 0, cf - cf0, c)
+        g = torch.where(w_fri > 0, gf, g)
+        h = torch.where(w_fri > 0, hess * mid.to(dt), h)
       return (torch.sum(c, 0, keepdim=True) + alpha * alpha * g2 + alpha * g1,
               torch.sum(g, 0, keepdim=True) + 2.0 * alpha * g2 + g1,
               torch.sum(h, 0, keepdim=True) + 2.0 * g2)
@@ -169,6 +199,12 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
     if has_eq:
       g = torch.where(w_eq > 0, grad0, g)
       h = torch.where(w_eq > 0, hess, h)
+    if has_fri:
+      mid = (-rf < Jaref) & (Jaref < rf)
+      g_fr = torch.where(mid, grad0,
+                         torch.where(Jaref <= -rf, -fl * jv, fl * jv))
+      g = torch.where(w_fri > 0, g_fr, g)
+      h = torch.where(w_fri > 0, hess * mid.to(dt), h)
     p1 = torch.sum(g, 0, keepdim=True) + g1
     p2 = torch.sum(h, 0, keepdim=True) + 2.0 * g2
     p0c = torch.zeros_like(p1)
@@ -262,3 +298,63 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
     quad = quad_k
     done = done | done_now
   return qacc, force, niter
+
+
+def row_weights(m, device):
+  """(w_eq, w_fri): (nefc, 1) float32 masks of the equality and the
+  friction-loss rows (``pallas/solver.py`` ``_masks`` :133), each None
+  when the model has no such row."""
+  t = m.efc.efc_type
+  _CT = types.ConstraintType
+  out = []
+  for sel in (t == _CT.EQUALITY,
+              (t == _CT.FRICTION_DOF) | (t == _CT.FRICTION_TENDON)):
+    out.append(torch.as_tensor(sel.astype(np.float32), device=device)[:, None]
+               if sel.any() else None)
+  return tuple(out)
+
+
+def scalars(m, device):
+  """tolerance, ls_tolerance and meaninertia as 0-d float32 tensors."""
+  f = lambda x: torch.as_tensor(types.host(x, np.float32), device=device)
+  return f(m.opt.tolerance), f(m.opt.ls_tolerance), f(m.stat.meaninertia)
+
+
+def solve_tiles(m, J, D, aref, fl, M, qfrc_smooth, qacc0):
+  """The standalone solve on lanes-last tensors (``pallas/solver.py``
+  ``_solve_tiles`` :1091): J (nefc, nv, W), D, aref, fl (nefc, W), M
+  (nv, nv, W), qfrc_smooth and qacc0 (nv, W).  Returns qacc (nv, W),
+  force (nefc, W), qfrc_constraint (nv, W) and niter (1, W) int32."""
+  w_eq, w_fri = row_weights(m, J.device)
+  tol, ls_tol, mi = scalars(m, J.device)
+  qacc, force, niter = solve_core(m, J, D, aref, M, qfrc_smooth, qacc0, w_eq,
+                                  tol, ls_tol, mi, w_fri=w_fri, fl=fl)
+  qfrc_c = torch.sum(J * force[:, None, :], dim=0)
+  return qacc, force, qfrc_c, niter.to(torch.int32)
+
+
+def solve_batched(m, d, solve=solve_tiles):
+  """The batched Newton solve on world-major Data (``pallas/solver.py``
+  ``solve_batched`` :1145): lanes-last transposes, ``solve`` (the plain
+  ``solve_tiles`` or the kernel's wrapper), and the SOLVER overflow bit
+  where the iteration cap fired (:1196-1204).  Pyramidal and frictionless
+  rows only."""
+  if m.opt.cone == types.ConeType.ELLIPTIC and m.ncon:
+    raise NotImplementedError('elliptic cones (_ell_perm) are not ported')
+  from mujoco_warp_tpu_torch.kernels import lanes
+  if m.opt.disableflags & types.DisableBit.WARMSTART:
+    qacc0 = d.qacc_smooth
+  else:
+    qacc0 = d.qacc_warmstart
+  qacc, force, qfrc_c, niter = solve(
+      m, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
+      lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
+      lanes(qacc0))
+  niter_w = niter[0]
+  overflow = d.overflow | torch.where(
+      niter_w >= int(m.opt.iterations), int(types.OverflowType.SOLVER),
+      0).to(torch.int32)
+  qacc_w = qacc.T
+  return d.replace(qacc=qacc_w, qacc_warmstart=qacc_w,
+                   qfrc_constraint=qfrc_c.T, efc_force=force.T,
+                   overflow=overflow, solver_niter=niter_w)

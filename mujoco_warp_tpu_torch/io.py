@@ -1,18 +1,21 @@
-"""Model construction, the committed model snapshot, and Data allocation.
+"""Model construction, the committed model snapshots, and Data allocation.
 
-Counterpart of ``mujoco_warp_tpu/io.py`` for the fused-gate subset of the
-Model.  ``put_model`` needs ``mujoco`` and imports it inside the function;
-everything else (``model_from_numpy``, ``load_model_npz``, ``make_data``)
-runs without it, so a machine without ``mujoco`` loads the committed
-snapshot instead::
+Counterpart of ``mujoco_warp_tpu/io.py`` for the Model subset of the
+ported paths: the fused step's gate and the general step's slice
+(``ops/forward.py`` ``unsupported``).  ``put_model`` needs ``mujoco`` and
+imports it inside the function; everything else (``model_from_numpy``,
+``load_model_npz``, ``make_data``) runs without it, so a machine without
+``mujoco`` loads the committed snapshots instead::
 
-  python -m mujoco_warp_tpu_torch.io --snapshot   # regenerate the snapshot
+  python -m mujoco_warp_tpu_torch.io --snapshot   # regenerate both snapshots
+
+Every entry point puts its tensors on the CUDA device unless the caller
+passes ``device='cpu'``; without a CUDA device it raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 from typing import Optional, Tuple
 
@@ -24,8 +27,13 @@ from mujoco_warp_tpu_torch import types
 _JT = types.JointType
 _GT = types.GeomType
 
-SNAPSHOT = os.path.join(os.path.dirname(__file__), 'assets',
-                        'humanoid_bench.npz')
+_ASSETS = os.path.join(os.path.dirname(__file__), 'assets')
+SNAPSHOT = os.path.join(_ASSETS, 'humanoid_bench.npz')
+# the general path's benchmark scene (mujoco_warp_tpu/models/constraints.xml)
+CONSTRAINTS_SNAPSHOT = os.path.join(_ASSETS, 'constraints.npz')
+CONSTRAINTS_XML = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    'mujoco_warp_tpu', 'models', 'constraints.xml')
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
@@ -43,6 +51,16 @@ PAIR_NCON = {
 
 _NESTED = {'opt': types.Option, 'stat': types.Statistic,
            'tree': types.TreeInfo, 'efc': types.EfcLayout}
+
+
+def resolve_device(device=None) -> torch.device:
+  """``device``, with None meaning the CUDA device; raises when CUDA is
+  asked for and there is none (the port never falls back to the CPU)."""
+  dev = torch.device('cuda' if device is None else device)
+  if dev.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError('no CUDA device: pass device="cpu" to run the plain '
+                       'PyTorch versions on the CPU')
+  return dev
 
 
 # ------------------------------------------------------------ numpy <-> Model
@@ -65,13 +83,14 @@ def model_to_numpy(m: types.Model) -> dict:
   return out
 
 
-def model_from_numpy(d: dict, device='cpu') -> types.Model:
+def model_from_numpy(d: dict, device=None) -> types.Model:
   """The port's Model from the JAX Model's fields as numpy values.
 
   ``d`` maps each field name (``'opt.timestep'`` for nested fields) to a
   numpy array, or to a python value for sizes, flags and the static tuple
   tables (``pair_groups``, ``con_classes``, ``tree.body_levels``).
   """
+  device = resolve_device(device)
 
   def build(cls, prefix):
     kw = {}
@@ -147,7 +166,7 @@ def save_model_npz(path: str, m: types.Model):
   np.savez_compressed(path, **_encode(model_to_numpy(m)))
 
 
-def load_model_npz(path: str = SNAPSHOT, device='cpu') -> types.Model:
+def load_model_npz(path: str = SNAPSHOT, device=None) -> types.Model:
   with np.load(path) as z:
     return model_from_numpy(_decode(z), device=device)
 
@@ -193,7 +212,8 @@ def _tree_info(mjm) -> types.TreeInfo:
         cdofdot[i, dadr:dadr + 3] = True
   return types.TreeInfo(
       body_levels=levels, ancestor_mask=anc, subtree_mask=subtree,
-      body_dof_mask=subtree[mjm.dof_bodyid, :].T, cdofdot_mask=cdofdot)
+      body_dof_mask=subtree[mjm.dof_bodyid, :].T,
+      dof_subtree_mask=subtree[mjm.dof_bodyid, :], cdofdot_mask=cdofdot)
 
 
 _EQ_NROW = {int(types.EqType.CONNECT): ('connect', 3),
@@ -206,44 +226,64 @@ def _efc_layout(mjm, con_dim: np.ndarray, cone: int):
   """Static row layout (``mujoco_warp_tpu/io.py:126`` ``_efc_layout``).
 
   Rows: equality | dof friction | tendon friction | joint limits | tendon
-  limits | contacts.  Returns (ne, nf, nl, nefc, EfcLayout).
+  limits | contacts.  Returns (ne, nf, nl, nefc, con_efc_address,
+  EfcLayout).
   """
   _CT = types.ConstraintType
-  eq = {k: [] for k in ('connect', 'weld', 'joint', 'tendon', 'flex')}
-  efc_type = []
+  eq = {k: ([], []) for k in ('connect', 'weld', 'joint', 'tendon', 'flex')}
+  efc_type, efc_id = [], []
   for eqid, et in enumerate(mjm.eq_type):
-    if int(et) not in _EQ_NROW:  # flex equality: general path only
+    if int(et) not in _EQ_NROW:  # flex equality: not ported yet
       raise NotImplementedError(f'equality type {int(et)} not supported')
     name, n = _EQ_NROW[int(et)]
-    eq[name].append(eqid)
+    eq[name][0].append(eqid)
+    eq[name][1].append(len(efc_type))
     efc_type += [int(_CT.EQUALITY)] * n
+    efc_id += [eqid] * n
   ne = len(efc_type)
-  fri_dof = np.nonzero(mjm.dof_frictionloss > 0)[0].astype(np.int32)
-  fri_ten = (np.nonzero(mjm.tendon_frictionloss > 0)[0].astype(np.int32)
-             if mjm.ntendon else np.zeros(0, np.int32))
-  efc_type += [int(_CT.FRICTION_DOF)] * len(fri_dof)
-  efc_type += [int(_CT.FRICTION_TENDON)] * len(fri_ten)
-  nf = len(fri_dof) + len(fri_ten)
-  lim_jnt = np.nonzero(mjm.jnt_limited)[0].astype(np.int32)
-  lim_ten = (np.nonzero(mjm.tendon_limited)[0].astype(np.int32)
-             if mjm.ntendon else np.zeros(0, np.int32))
-  efc_type += [int(_CT.LIMIT_JOINT)] * len(lim_jnt)
-  efc_type += [int(_CT.LIMIT_TENDON)] * len(lim_ten)
-  nl = len(lim_jnt) + len(lim_ten)
-  for dim in con_dim:
+  ids = lambda x: np.asarray(x, np.int32).reshape(-1)
+
+  def group(sel, ct):
+    adr = len(efc_type) + np.arange(len(sel), dtype=np.int32)
+    efc_type.extend([int(ct)] * len(sel))
+    efc_id.extend(int(x) for x in sel)
+    return ids(sel), adr
+
+  no = np.zeros(0, np.int32)
+  fri_dof, fri_dof_adr = group(np.nonzero(mjm.dof_frictionloss > 0)[0],
+                               _CT.FRICTION_DOF)
+  fri_ten, fri_ten_adr = group(
+      np.nonzero(mjm.tendon_frictionloss > 0)[0] if mjm.ntendon else no,
+      _CT.FRICTION_TENDON)
+  nf = len(efc_type) - ne
+  lim_jnt, lim_jnt_adr = group(np.nonzero(mjm.jnt_limited)[0],
+                               _CT.LIMIT_JOINT)
+  lim_ten, lim_ten_adr = group(
+      np.nonzero(mjm.tendon_limited)[0] if mjm.ntendon else no,
+      _CT.LIMIT_TENDON)
+  nl = len(efc_type) - ne - nf
+  con_adr = np.zeros(len(con_dim), np.int32)
+  for i, dim in enumerate(con_dim):
+    con_adr[i] = len(efc_type)
     if int(dim) == 1:
-      efc_type += [int(_CT.CONTACT_FRICTIONLESS)]
+      ct, nrow = _CT.CONTACT_FRICTIONLESS, 1
     elif cone == types.ConeType.PYRAMIDAL:
-      efc_type += [int(_CT.CONTACT_PYRAMIDAL)] * (2 * (int(dim) - 1))
+      ct, nrow = _CT.CONTACT_PYRAMIDAL, 2 * (int(dim) - 1)
     else:
-      efc_type += [int(_CT.CONTACT_ELLIPTIC)] * int(dim)
-  ids = lambda x: np.asarray(x, np.int32)
+      ct, nrow = _CT.CONTACT_ELLIPTIC, int(dim)
+    efc_type += [int(ct)] * nrow
+    efc_id += [i] * nrow
   layout = types.EfcLayout(
-      connect_id=ids(eq['connect']), weld_id=ids(eq['weld']),
-      joint_id=ids(eq['joint']), tendon_id=ids(eq['tendon']),
-      flex_id=ids(eq['flex']), fri_dof_id=fri_dof, fri_ten_id=fri_ten,
-      lim_jnt_id=lim_jnt, lim_ten_id=lim_ten, efc_type=ids(efc_type))
-  return ne, nf, nl, len(efc_type), layout
+      connect_id=ids(eq['connect'][0]), connect_adr=ids(eq['connect'][1]),
+      weld_id=ids(eq['weld'][0]), weld_adr=ids(eq['weld'][1]),
+      joint_id=ids(eq['joint'][0]), joint_adr=ids(eq['joint'][1]),
+      tendon_id=ids(eq['tendon'][0]), tendon_adr=ids(eq['tendon'][1]),
+      flex_id=ids(eq['flex'][0]), flex_adr=ids(eq['flex'][1]),
+      fri_dof_id=fri_dof, fri_dof_adr=fri_dof_adr, fri_ten_id=fri_ten,
+      fri_ten_adr=fri_ten_adr, lim_jnt_id=lim_jnt, lim_jnt_adr=lim_jnt_adr,
+      lim_ten_id=lim_ten, lim_ten_adr=lim_ten_adr, efc_type=ids(efc_type),
+      efc_id=ids(efc_id))
+  return ne, nf, nl, len(efc_type), con_adr, layout
 
 
 def _con_classes(con_dim: np.ndarray, nconmax) -> Tuple:
@@ -304,7 +344,10 @@ def _collision_pairs(mjm):
   keys = [(int(gt[a]), int(gt[b])) for a, b in zip(g1s, g2s)]
   for key in keys:
     if key not in PAIR_NCON:
-      raise NotImplementedError(f'collision pair {key} has no lane collider')
+      raise NotImplementedError(
+          f'collision pair {key} has no lane collider of the fused step, and '
+          f'the general step runs no collision yet (ncand > 0: '
+          f'{len(keys)} candidate pairs)')
   pdim = np.zeros(len(g1s), np.int32)
   for i, (a, b) in enumerate(zip(g1s, g2s)):
     p1, p2 = mjm.geom_priority[a], mjm.geom_priority[b]
@@ -366,14 +409,16 @@ def _mix_params(mjm, g1, g2):
   return solref, solimp, margin - gap, friction
 
 
-def put_model(mjm, nconmax=None, device='cpu') -> types.Model:
+def put_model(mjm, nconmax=None, device=None) -> types.Model:
   """A ``mujoco.MjModel`` as the port's Model (``io.py:585`` ``put_model``,
-  fused-gate subset, float32).
+  float32).
 
   ``nconmax``: per-world active-contact budget, an int or a
   ``{condim: budget}`` dict; below the candidate count, active contacts
-  are compacted into the budgeted slots each step.
+  are compacted into the budgeted slots each step.  Raises for a model
+  that neither the fused step nor the general step supports yet.
   """
+  device = resolve_device(device)
   if mjm.opt.solver == 0:
     raise NotImplementedError('PGS solver is not supported')
   if mjm.opt.enableflags & types.EnableBit.OVERRIDE:
@@ -391,7 +436,8 @@ def put_model(mjm, nconmax=None, device='cpu') -> types.Model:
           [np.full(cap, dim, np.int32) for dim, cap, _, _ in con_classes])
     else:
       con_classes, ncon = (), ncand
-  ne, nf, nl, nefc, efc = _efc_layout(mjm, slot_dim, int(mjm.opt.cone))
+  ne, nf, nl, nefc, con_adr, efc = _efc_layout(mjm, slot_dim,
+                                               int(mjm.opt.cone))
   if ncand:
     solref, solimp, imargin, friction = _mix_params(
         mjm, g1[con_pair], g2[con_pair])
@@ -404,6 +450,7 @@ def put_model(mjm, nconmax=None, device='cpu') -> types.Model:
   d = {
       'nq': mjm.nq, 'nv': mjm.nv, 'nu': mjm.nu, 'na': mjm.na,
       'nbody': mjm.nbody, 'njnt': mjm.njnt, 'ngeom': mjm.ngeom,
+      'nsite': mjm.nsite, 'ncam': mjm.ncam, 'nlight': mjm.nlight,
       'nmocap': mjm.nmocap, 'neq': mjm.neq, 'ntendon': mjm.ntendon,
       'nsensor': mjm.nsensor, 'nhistory': mjm.nhistory,
       'nflex': mjm.nflex, 'ne': ne, 'nf': nf, 'nl': nl, 'nefc': nefc,
@@ -421,13 +468,13 @@ def put_model(mjm, nconmax=None, device='cpu') -> types.Model:
       'opt.enableflags': int(o.enableflags),
       'opt.run_collision_detection': True,
       'stat.meaninertia': mjm.stat.meaninertia,
-      'con_dim': slot_dim, 'pair_geom1': g1, 'pair_geom2': g2,
+      'con_dim': slot_dim, 'con_efc_address': con_adr, 'pair_geom1': g1, 'pair_geom2': g2,
       'con_pair': con_pair, 'pair_groups': groups,
       'cand_friction': friction, 'cand_solref': solref,
       'cand_solimp': solimp, 'cand_includemargin': imargin,
   }
   for name in ('ancestor_mask', 'subtree_mask', 'body_dof_mask',
-               'cdofdot_mask', 'body_levels'):
+               'dof_subtree_mask', 'cdofdot_mask', 'body_levels'):
     d['tree.' + name] = getattr(_tree_info(mjm), name)
   for name in types.field_kinds(types.EfcLayout):
     d['efc.' + name] = getattr(efc, name)
@@ -435,39 +482,40 @@ def put_model(mjm, nconmax=None, device='cpu') -> types.Model:
     if name in d or kind not in ('array', 'static'):
       continue
     d[name] = np.array(getattr(mjm, name))
-  return model_from_numpy(d, device=device)
+  m = model_from_numpy(d, device=device)
+  check_supported(m)
+  return m
+
+
+def check_supported(m: types.Model):
+  """Raise unless the fused step or the general step runs ``m``."""
+  from mujoco_warp_tpu_torch import fused
+  from mujoco_warp_tpu_torch.ops import forward
+  why_fused, why_general = fused.reason(m), forward.unsupported(m)
+  if why_fused is not None and why_general is not None:
+    raise NotImplementedError(
+        f'model outside the ported paths: fused gate ({why_fused}), '
+        f'general step ({why_general})')
 
 
 # ------------------------------------------------------------------ Data
 
 
-@dataclasses.dataclass
-class Data:
-  """World-major state the fused step carries (``(nworld, ...)`` arrays)."""
-
-  time: torch.Tensor  # (W,)
-  qpos: torch.Tensor  # (W, nq)
-  qvel: torch.Tensor  # (W, nv)
-  ctrl: torch.Tensor  # (W, nu)
-  qacc_warmstart: torch.Tensor  # (W, nv)
-  qacc: torch.Tensor  # (W, nv)
-  solver_niter: torch.Tensor  # (W,) int32
-  overflow: torch.Tensor  # (W,) int32
-
-  def replace(self, **kw):
-    return dataclasses.replace(self, **kw)
-
-
-def make_data(m: types.Model, nworld: int, device='cpu') -> Data:
+def make_data(m: types.Model, nworld: int, device=None) -> types.Data:
   """A batch of worlds at qpos0 and rest (``io.py:1076`` ``make_data``)."""
-  z = lambda n: torch.zeros((nworld, n), dtype=torch.float32, device=device)
-  qpos = m.qpos0.to(device=device, dtype=torch.float32)
-  return Data(
-      time=torch.zeros(nworld, dtype=torch.float32, device=device),
-      qpos=qpos[None].repeat(nworld, 1), qvel=z(m.nv), ctrl=z(m.nu),
+  dev = resolve_device(device)
+  f32 = dict(dtype=torch.float32, device=dev)
+  z = lambda *shape: torch.zeros((nworld,) + shape, **f32)
+  qpos = m.qpos0.to(**f32)
+  eq0 = torch.as_tensor(np.asarray(m.eq_active0, bool).reshape(-1),
+                        device=dev)
+  return types.Data(
+      time=z(), qpos=qpos[None].repeat(nworld, 1), qvel=z(m.nv),
+      act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
+      xfrc_applied=z(m.nbody, 6), eq_active=eq0[None].repeat(nworld, 1),
       qacc_warmstart=z(m.nv), qacc=z(m.nv),
-      solver_niter=torch.zeros(nworld, dtype=torch.int32, device=device),
-      overflow=torch.zeros(nworld, dtype=torch.int32, device=device))
+      solver_niter=torch.zeros(nworld, dtype=torch.int32, device=dev),
+      overflow=torch.zeros(nworld, dtype=torch.int32, device=dev))
 
 
 def load_humanoid_benchmark():
@@ -501,7 +549,19 @@ def load_humanoid_benchmark():
 
 
 def make_snapshot(path: str = SNAPSHOT) -> types.Model:
-  m = put_model(load_humanoid_benchmark(), nconmax=BENCH_NCONMAX)
+  """The benchmark humanoid, written to ``path``."""
+  m = put_model(load_humanoid_benchmark(), nconmax=BENCH_NCONMAX,
+                device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
+def make_constraints_snapshot(path: str = CONSTRAINTS_SNAPSHOT
+                              ) -> types.Model:
+  """The ``constraints`` benchmark scene, written to ``path``."""
+  import mujoco
+  m = put_model(mujoco.MjModel.from_xml_path(CONSTRAINTS_XML), device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
   save_model_npz(path, m)
   return m
@@ -510,13 +570,16 @@ def make_snapshot(path: str = SNAPSHOT) -> types.Model:
 def main(argv: Optional[list] = None):
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--snapshot', action='store_true',
-                 help='regenerate assets/humanoid_bench.npz')
+                 help='regenerate assets/humanoid_bench.npz and '
+                 'assets/constraints.npz')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
-  m = make_snapshot()
-  print(f'wrote {SNAPSHOT}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
-        f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')
+  for path, make in ((SNAPSHOT, make_snapshot),
+                     (CONSTRAINTS_SNAPSHOT, make_constraints_snapshot)):
+    m = make(path)
+    print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
+          f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')
 
 
 if __name__ == '__main__':

@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels of the fused step and their wrappers.
+"""Hand-written CUDA kernels of the port and their wrappers.
 
-``k1.k1`` and ``k4.k4`` take lanes-last tensors: on a CPU tensor they run
-the plain PyTorch version (``fused/k1_ref.py``, ``fused/k4_ref.py``), on a
-CUDA tensor they launch the kernel (``csrc/k1.cu``, ``csrc/k4.cu``) or
-raise.  Each wrapper counts its kernel launches in ``launches``.
+Each wrapper takes lanes-last tensors: on a CPU tensor it runs the plain
+PyTorch version, on a CUDA tensor it launches the kernel (``csrc/*.cu``)
+or raises.  ``k1`` and ``k4`` serve the fused step; ``mass_chain``,
+``solver`` and ``linalg`` the general step, each also with a world-major
+entry that transposes with ``lanes`` and ``world``.  Each wrapper counts
+its kernel launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,18 @@ def check(t: torch.Tensor, shape, name: str, device, dtype=torch.float32):
     raise ValueError(f'{name}: shape {tuple(t.shape)}, expected {shape}')
   if not t.is_contiguous():
     raise ValueError(f'{name}: not contiguous')
+
+
+def lanes(x: torch.Tensor, rows: int = None) -> torch.Tensor:
+  """World-major (W, ...) -> lanes-last (..., W), contiguous; with
+  ``rows``, flattened to (rows, W)."""
+  out = x.permute(*range(1, x.dim()), 0).contiguous()
+  return out if rows is None else out.reshape(rows, x.shape[0])
+
+
+def world(x: torch.Tensor, *shape) -> torch.Tensor:
+  """Lanes-last (rows, W) -> world-major (W, *shape)."""
+  return x.T.reshape((x.shape[-1],) + shape)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-The sources under ``kernels/csrc`` compile for Hopper (``sm_90a``) into
-one shared library with a plain C interface.  The library is built at
+The sources under ``kernels/csrc`` compile for Hopper (``sm_90a``), one
+nvcc per source started together, into one shared library with a plain C
+interface.  The library is built at
 first use into ``build/mujoco_warp_tpu_torch/`` at the repository root,
 under a name carrying the hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
@@ -25,8 +26,14 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), 'build',
 # plain PyTorch versions compute it, so kernel and plain version agree to
 # the order of summation
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v']
+              '-O3', '--fmad=false', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+
+# the kernels of the library: each has mwt_<name>_launch(params, stream)
+# and mwt_<name>_params_size(); some size their scratch with
+# mwt_<name>_scratch_rows(<ints>)
+KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_solve', 'damped_solve')
+SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2, 'solve': 2}
 
 
 class BuildInfo:
@@ -58,6 +65,27 @@ def nvcc_path() -> str:
                      'with the CUDA toolkit')
 
 
+def _compile_all(cus, stem):
+  """One nvcc per source, all started together; returns the objects."""
+  procs = []
+  for cu in cus:
+    obj = f'{stem}.{os.path.basename(cu)}.o'
+    cmd = [nvcc_path()] + NVCC_FLAGS + ['-c', '-o', obj, cu]
+    procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True)))
+  log, failed = [], []
+  for obj, proc in procs:
+    out, _ = proc.communicate()
+    log.append(out)
+    if proc.returncode != 0:
+      failed.append(obj)
+  BuildInfo.log = ''.join(log)
+  if failed:
+    raise RuntimeError(f'nvcc failed for {failed}:\n{BuildInfo.log}')
+  return [obj for obj, _ in procs]
+
+
 def load() -> ctypes.CDLL:
   """The kernel library, built first if its sources changed."""
   global _LIB
@@ -72,27 +100,29 @@ def load() -> ctypes.CDLL:
   if not os.path.exists(path):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{path}.{os.getpid()}.tmp'
-    cmd = [nvcc_path()] + NVCC_FLAGS + ['-o', tmp] + \
-        [s for s in srcs if s.endswith('.cu')]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = _compile_all([s for s in srcs if s.endswith('.cu')], tmp)
+    res = subprocess.run([nvcc_path(), '-shared', '-o', tmp] + objs,
+                         capture_output=True, text=True)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = res.stdout + res.stderr
+    BuildInfo.log += res.stdout + res.stderr
+    for o in objs:
+      os.remove(o)
     if res.returncode != 0:
-      raise RuntimeError(f'nvcc failed ({res.returncode}):\n{BuildInfo.log}')
+      raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
+                         f'{BuildInfo.log}')
     os.replace(tmp, path)
   BuildInfo.path = path
   lib = ctypes.CDLL(path)
-  for name in ('mwt_k1_launch', 'mwt_k4_launch'):
-    fn = getattr(lib, name)
+  for k in KERNELS:
+    fn = getattr(lib, f'mwt_{k}_launch')
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-  lib.mwt_k1_params_size.restype = ctypes.c_int
-  lib.mwt_k4_params_size.restype = ctypes.c_int
-  lib.mwt_k1_scratch_rows.argtypes = [ctypes.c_int] * 4
-  lib.mwt_k1_scratch_rows.restype = ctypes.c_int
-  lib.mwt_k4_scratch_rows.argtypes = [ctypes.c_int] * 4
-  lib.mwt_k4_scratch_rows.restype = ctypes.c_int
+    getattr(lib, f'mwt_{k}_params_size').restype = ctypes.c_int
+  for k, nargs in SCRATCH_ARGS.items():
+    fn = getattr(lib, f'mwt_{k}_scratch_rows')
+    fn.argtypes = [ctypes.c_int] * nargs
+    fn.restype = ctypes.c_int
   _LIB = lib
   return lib
 

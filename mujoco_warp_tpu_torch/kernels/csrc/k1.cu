@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas kernel mujoco_warp_tpu/pallas/fused.py _make_k1
 // (:986, launched by _k1_call :1075) together with
-// mujoco_warp_tpu/pallas/smooth.py mass_chain_core (:43).
+// mujoco_warp_tpu/pallas/smooth.py mass_chain_core (:43), which lives in
+// mass_chain.cuh, shared with the standalone mass-chain kernel.
 //
 // Design.  Pallas unrolled the model at trace time and folded its
 // constants; here the kernel walks device tables the wrapper uploads once
@@ -23,7 +24,7 @@
 // accesses.  Keeping the scratch in shared memory or registers is later
 // work.
 
-#include "common.cuh"
+#include "mass_chain.cuh"
 
 struct K1Params {
   int W, nq, nv, nbody, njnt, ngeom, ngroup, need_qld, run_col, no_gravity;
@@ -106,11 +107,6 @@ struct K1Scratch {
     rows = gmat + 9 * ngeom;
   }
 };
-
-#define LOAD(dst, ptr, r0, n) \
-  for (int _k = 0; _k < (n); ++_k) (dst)[_k] = LANE(ptr, (r0) + _k)
-#define STORE(ptr, r0, src, n) \
-  for (int _k = 0; _k < (n); ++_k) LANE(ptr, (r0) + _k) = (src)[_k]
 
 // contact frame rows [n, t1, t2] from a normal (fused.py _make_frame_g)
 __device__ void make_frame(const float* normal, float* fr) {
@@ -380,16 +376,6 @@ __device__ void narrowphase_pair(const K1Params& p, const K1Scratch& s, int W,
   }
 }
 
-// 6x6 row-major (lanes-last at row r0) times a 6-vector
-__device__ void mat6vec(const float* base, int r0, const float* v, float* out,
-                        int W, int w) {
-  for (int r = 0; r < 6; ++r) {
-    float acc = 0.0f;
-    for (int c = 0; c < 6; ++c) acc = acc + LANE(base, r0 + 6 * r + c) * v[c];
-    out[r] = acc;
-  }
-}
-
 __global__ void __launch_bounds__(128) k1_kernel(const K1Params p) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int W = p.W;
@@ -577,102 +563,15 @@ __global__ void __launch_bounds__(128) k1_kernel(const K1Params p) {
   }
 
   // ---- mass chain: crb, qM, [Cholesky], com_vel, cdof_dot, RNE
-  for (int r = 0; r < 36 * nb; ++r) LANE(S, s.crb + r) = LANE(S, s.cinert + r);
-  for (int t = nb - 2; t >= 0; --t) {
-    const int b = p.topo[t], par = p.body_parent[b];
-    for (int r = 0; r < 36; ++r)
-      LANE(S, s.crb + 36 * par + r) =
-          LANE(S, s.crb + 36 * par + r) + LANE(S, s.crb + 36 * b + r);
-  }
-  for (int i = 0; i < nv; ++i) {
-    float cd[6], f[6];
-    LOAD(cd, p.cdof, 6 * i, 6);
-    mat6vec(S, s.crb + 36 * p.dof_bodyid[i], cd, f, W, w);
-    STORE(S, s.f + 6 * i, f, 6);
-  }
-  for (int i = 0; i < nv; ++i)
-    for (int j = 0; j < nv; ++j) {
-      float v = 0.0f;
-      const bool ij = p.ancestor[i * nv + j], ji = p.ancestor[j * nv + i];
-      if (ij || ji) {
-        const int jj = ij ? j : i, ii = ij ? i : j;
-        for (int k = 0; k < 6; ++k)
-          v = v + LANE(p.cdof, 6 * jj + k) * LANE(S, s.f + 6 * ii + k);
-      }
-      if (i == j) v = v + p.armature[i];
-      LANE(p.qM, i * nv + j) = v;
-    }
-  if (p.need_qld) chol_lanes(p.qM, p.qLD, nv, W, w);
-
-  for (int k = 0; k < 6; ++k) LANE(S, s.cvel + k) = 0.0f;
-  for (int t = 0; t < nb - 1; ++t) {
-    const int b = p.topo[t], par = p.body_parent[b];
-    float acc[6];
-    LOAD(acc, S, s.cvel + 6 * par, 6);
-    for (int i = p.body_dofadr[b]; i < p.body_dofadr[b] + p.body_dofnum[b]; ++i) {
-      const float qv = LANE(p.qvel, i);
-      for (int k = 0; k < 6; ++k) acc[k] = acc[k] + LANE(p.cdof, 6 * i + k) * qv;
-    }
-    STORE(S, s.cvel + 6 * b, acc, 6);
-  }
-  for (int i = 0; i < nv; ++i) {
-    float vb[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    bool any = false;
-    for (int j = 0; j < nv; ++j) {
-      if (!p.cdofdot[i * nv + j]) continue;
-      const float qv = LANE(p.qvel, j);
-      for (int k = 0; k < 6; ++k) {
-        float t = LANE(p.cdof, 6 * j + k) * qv;
-        vb[k] = any ? vb[k] + t : t;
-      }
-      any = true;
-    }
-    float u[6], out[6], t1[3], t2[3];
-    LOAD(u, p.cdof, 6 * i, 6);
-    cross3(vb, u, out);
-    cross3(vb + 3, u, t1);
-    cross3(vb, u + 3, t2);
-    for (int k = 0; k < 3; ++k) out[3 + k] = t1[k] + t2[k];
-    STORE(S, s.cdotd + 6 * i, out, 6);
-  }
-  for (int k = 0; k < 6; ++k) {
-    LANE(S, s.cacc + k) = (k < 3 || p.no_gravity) ? 0.0f : -p.gravity[k - 3];
-    LANE(S, s.cfrc + k) = 0.0f;
-  }
-  for (int t = 0; t < nb - 1; ++t) {
-    const int b = p.topo[t], par = p.body_parent[b];
-    float acc[6], cv[6], iv[6], ia[6];
-    LOAD(acc, S, s.cacc + 6 * par, 6);
-    for (int i = p.body_dofadr[b]; i < p.body_dofadr[b] + p.body_dofnum[b]; ++i) {
-      const float qv = LANE(p.qvel, i);
-      for (int k = 0; k < 6; ++k) acc[k] = acc[k] + LANE(S, s.cdotd + 6 * i + k) * qv;
-    }
-    STORE(S, s.cacc + 6 * b, acc, 6);
-    LOAD(cv, S, s.cvel + 6 * b, 6);
-    mat6vec(S, s.cinert + 36 * b, cv, iv, W, w);
-    mat6vec(S, s.cinert + 36 * b, acc, ia, W, w);
-    float a1[3], a2[3], a3[3];
-    cross3(cv, iv, a1);
-    cross3(cv + 3, iv + 3, a2);
-    cross3(cv, iv + 3, a3);
-    for (int k = 0; k < 3; ++k) {
-      LANE(S, s.cfrc + 6 * b + k) = ia[k] + (a1[k] + a2[k]);
-      LANE(S, s.cfrc + 6 * b + 3 + k) = ia[3 + k] + a3[k];
-    }
-  }
-  for (int t = nb - 2; t >= 0; --t) {
-    const int b = p.topo[t], par = p.body_parent[b];
-    for (int k = 0; k < 6; ++k)
-      LANE(S, s.cfrc + 6 * par + k) =
-          LANE(S, s.cfrc + 6 * par + k) + LANE(S, s.cfrc + 6 * b + k);
-  }
-  for (int i = 0; i < nv; ++i) {
-    float v = 0.0f;
-    const int b = p.dof_bodyid[i];
-    for (int k = 0; k < 6; ++k)
-      v = v + LANE(S, s.cfrc + 6 * b + k) * LANE(p.cdof, 6 * i + k);
-    LANE(p.bias, i) = v;
-  }
+  const MassChainTables mt{nb, nv, p.no_gravity, p.topo, p.body_parent,
+                           p.body_dofadr, p.body_dofnum, p.dof_bodyid,
+                           p.ancestor, p.cdofdot, p.armature, p.gravity};
+  const MassChainBufs mb{S + (size_t)s.cinert * W, p.cdof, p.qvel,
+                         S + (size_t)s.crb * W, S + (size_t)s.f * W,
+                         S + (size_t)s.cvel * W, S + (size_t)s.cdotd * W,
+                         S + (size_t)s.cacc * W, S + (size_t)s.cfrc * W,
+                         p.qM, p.need_qld ? p.qLD : nullptr, p.bias};
+  mass_chain_world(mt, mb, W, w);
 }
 
 extern "C" {

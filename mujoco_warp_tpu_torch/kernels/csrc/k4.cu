@@ -7,7 +7,8 @@
 // Replaces the Pallas kernel mujoco_warp_tpu/pallas/fused.py _make_k4
 // (:1247, launched by _k4_call :1538) with
 // mujoco_warp_tpu/pallas/solver.py solve_core (:269), _chol_tile (:158)
-// and _chol_solve_tile (:176).
+// and _chol_solve_tile (:176).  The Newton solve lives in newton.cuh,
+// shared with the standalone solver kernel (solve.cu).
 //
 // Design.  The Pallas kernel ran every loop at the pace of the slowest
 // world of its 128-world tile; here each thread leaves the Newton and the
@@ -27,7 +28,7 @@
 // only ~11%.  A warp per world, H in shared memory and wgmma for the H
 // product are later work.
 
-#include "common.cuh"
+#include "newton.cuh"
 
 struct K4Params {
   int W, nq, nv, njnt, nlim, neq, ncon, nrow, ncr, iterations, ls_iterations,
@@ -116,15 +117,12 @@ __device__ void kbi(float tc, float dr, const float* si, float pos, float h,
   *imp = im;
 }
 
-__device__ __forceinline__ float sdiv(float a, float b) {
-  float d = fabsf(b) > MWT_MINVAL ? b : (b >= 0.0f ? MWT_MINVAL : -MWT_MINVAL);
-  return a / d;
-}
-
+// K4's rows for the shared Newton (newton.cuh): one-hot limit rows first,
+// then dense joint-equality and contact rows, all in scratch
 struct Rows {
   const K4Params& p;
   const K4Scratch& s;
-  int W, w;
+  int W, w, nrow;
 
   __device__ float J(int r, int v) const {
     return p.scr[(size_t)(s.J + r * p.nv + v) * W + w];
@@ -135,6 +133,14 @@ struct Rows {
   __device__ bool is_eq(int r) const {
     return r >= p.nlim && r < p.nlim + p.neq;
   }
+  __device__ int kind(int r) const { return is_eq(r) ? ROW_EQ : ROW_INEQ; }
+  __device__ float D(int r) const { return at(s.D, r); }
+  __device__ float aref(int r) const { return at(s.aref, r); }
+  __device__ float fl(int r) const { return 0.0f; }
+  __device__ float& jaref(int r) const { return at(s.jaref, r); }
+  __device__ float& jv(int r) const { return at(s.jv, r); }
+  __device__ float& quad(int r) const { return at(s.quad, r); }
+  __device__ float* L() const { return p.scr + (size_t)s.L * W; }
   // J v for every row into scratch row block `out`.  Inactive contact
   // rows (D == 0) are zero rows: their product is an exact zero.
   __device__ void jvec(const float* v, int out) const {
@@ -147,18 +153,14 @@ struct Rows {
       at(out, p.nlim + r) = acc;
     }
   }
-  // the row force of the current constraint state
-  __device__ float force(int r) const {
-    float ja = at(s.jaref, r);
-    float f = -at(s.D, r) * ja;
-    return (is_eq(r) || ja < 0.0f) ? f : f * 0.0f;
-  }
+  __device__ void jvec_jaref(const float* v) const { jvec(v, s.jaref); }
+  __device__ void jvec_jv(const float* v) const { jvec(v, s.jv); }
   // J^T f with f the current row forces; rows with zero force add exact
   // zeros and are skipped (J is read row by row, once)
   __device__ void jtforce(float* out) const {
     for (int v = 0; v < p.nv; ++v) out[v] = 0.0f;
     for (int r = 0; r < p.ncr; ++r) {
-      const float f = force(p.nlim + r);
+      const float f = row_force(*this, p.nlim + r);
       if (f == 0.0f) continue;
       for (int v = 0; v < p.nv; ++v) out[v] = out[v] + J(r, v) * f;
     }
@@ -167,7 +169,7 @@ struct Rows {
       bool any = false;
       for (int l = 0; l < p.nlim; ++l) {
         if (p.lim_i[2 * l + 1] != v) continue;
-        float t = at(s.sgn, l) * force(l);
+        float t = at(s.sgn, l) * row_force(*this, l);
         corr = any ? corr + t : t;
         any = true;
       }
@@ -213,62 +215,7 @@ struct Rows {
     }
     chol_lanes(Lb, Lb, nv, W, w);
   }
-  // constraint-state mask of the current Jaref; returns true if it changed
-  __device__ bool update_quad() const {
-    bool flip = false;
-    for (int r = 0; r < p.nrow; ++r) {
-      float q = (is_eq(r) || at(s.jaref, r) < 0.0f) ? 1.0f : 0.0f;
-      flip = flip || (q != at(s.quad, r));
-      at(s.quad, r) = q;
-    }
-    return flip;
-  }
-  // cost, slope and curvature of the row terms at three step sizes
-  __device__ void eval3(const float* a, float* c, float* g, float* hh) const {
-    for (int t = 0; t < 3; ++t) c[t] = g[t] = hh[t] = 0.0f;
-    for (int r = 0; r < p.nrow; ++r) {
-      const float D = at(s.D, r);
-      if (D == 0.0f) continue;  // a zero row adds exact zeros
-      const float ja = at(s.jaref, r), jv = at(s.jv, r);
-      const float jvD = jv * D, grad0 = jvD * ja, hess = jv * jvD;
-      const float quad0 = 0.5f * D * ja * ja;
-      const float cost0 = quad0 * (ja < 0.0f ? 1.0f : 0.0f);
-      const float offset = quad0 - cost0;
-      const bool eq = is_eq(r);
-      for (int t = 0; t < 3; ++t) {
-        const float x = ja + a[t] * jv;
-        const float g_eq = grad0 + a[t] * hess;
-        const float c_eq = 0.5f * a[t] * (grad0 + g_eq);
-        if (eq) {
-          c[t] = c[t] + c_eq;
-          g[t] = g[t] + g_eq;
-          hh[t] = hh[t] + hess;
-        } else if (x < 0.0f) {
-          c[t] = c[t] + (c_eq + offset);
-          g[t] = g[t] + g_eq;
-          hh[t] = hh[t] + hess;
-        } else {
-          c[t] = c[t] + (-cost0);
-        }
-      }
-    }
-  }
 };
-
-__device__ __forceinline__ bool in_bracket(float xg, float yg) {
-  return (xg < yg && yg < 0.0f) || (xg > yg && yg > 0.0f);
-}
-
-struct Pt {
-  float c, g, h, a;
-};
-
-// swap `cur` for `nw` when nw brackets tighter (solver.py swap3)
-__device__ __forceinline__ bool swap3(Pt* cur, const Pt& nw) {
-  bool sw = in_bracket(cur->g, nw.g);
-  if (sw) *cur = nw;
-  return sw;
-}
 
 __global__ void __launch_bounds__(128) k4_kernel(const K4Params p) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
@@ -276,7 +223,7 @@ __global__ void __launch_bounds__(128) k4_kernel(const K4Params p) {
   if (w >= W) return;
   const int nv = p.nv;
   const K4Scratch s(p.nrow, p.ncr, p.nlim, nv);
-  const Rows R{p, s, W, w};
+  const Rows R{p, s, W, w, p.nrow};
   const float h = p.h;
   const bool refsafe = p.refsafe != 0;
 
@@ -423,125 +370,10 @@ __global__ void __launch_bounds__(128) k4_kernel(const K4Params p) {
       }
     }
 
-    // ---- Newton solve (pallas/solver.py solve_core)
-    const float tol = p.tol, ls_tol = p.ls_tol, mi = p.meaninertia;
-    const float rescale = 1.0f / (mi * (float)nv);
-    float Ma[MWT_MAX_NV], grad[MWT_MAX_NV], search[MWT_MAX_NV];
-    float mv[MWT_MAX_NV];
-    for (int i = 0; i < nv; ++i) qacc[i] = LANE(p.ws, i);
-    R.jvec(qacc, s.jaref);
-    for (int r = 0; r < p.nrow; ++r) R.at(s.jaref, r) = R.at(s.jaref, r) - R.at(s.aref, r);
-    for (int i = 0; i < nv; ++i) {
-      float acc = 0.0f;
-      for (int k = 0; k < nv; ++k) acc = acc + LANE(p.qM, i * nv + k) * qacc[k];
-      Ma[i] = acc;
-    }
-    R.update_quad();
-    R.factor();
-    R.jtforce(grad);
-    float gg = 0.0f;
-    for (int i = 0; i < nv; ++i) {
-      grad[i] = Ma[i] - LANE(p.qfs, i) - grad[i];
-      gg = gg + grad[i] * grad[i];
-    }
-    chol_solve_lanes(p.scr + (size_t)s.L * W, grad, search, nv, W, w);
-    for (int i = 0; i < nv; ++i) search[i] = -search[i];
-    bool done = rescale * sqrtf(fmaxf(gg, 0.0f)) < tol;
-
-    while (!done) {
-      // -- linesearch along `search`
-      R.jvec(search, s.jv);
-      float g1 = 0.0f, g2 = 0.0f, ss = 0.0f;
-      for (int i = 0; i < nv; ++i) {
-        float acc = 0.0f;
-        for (int k = 0; k < nv; ++k) acc = acc + LANE(p.qM, i * nv + k) * search[k];
-        mv[i] = acc;
-        g1 = g1 + search[i] * (Ma[i] - LANE(p.qfs, i));
-        g2 = g2 + search[i] * mv[i];
-        ss = ss + search[i] * search[i];
-      }
-      g2 = 0.5f * g2;
-      const float snorm = sqrtf(fmaxf(ss, 0.0f));
-      const float gtol = fmaxf(tol * ls_tol * snorm * mi * (float)nv, 1e-6f);
-      float p1 = 0.0f, p2 = 0.0f;
-      for (int r = 0; r < p.nrow; ++r) {
-        const float ja = R.at(s.jaref, r), jv = R.at(s.jv, r);
-        const float jvD = jv * R.at(s.D, r);
-        if (R.is_eq(r) || ja < 0.0f) {
-          p1 = p1 + jvD * ja;
-          p2 = p2 + jv * jvD;
-        }
-      }
-      p1 = p1 + g1;
-      p2 = p2 + 2.0f * g2;
-      auto finish = [&](float* a, Pt* out) {
-        float c[3], g[3], hh[3];
-        R.eval3(a, c, g, hh);
-        for (int t = 0; t < 3; ++t)
-          out[t] = Pt{c[t] + a[t] * a[t] * g2 + a[t] * g1,
-                      g[t] + 2.0f * a[t] * g2 + g1, hh[t] + 2.0f * g2, a[t]};
-      };
-      const float lo_alpha_in = -sdiv(p1, p2);
-      Pt li[3];
-      {
-        float a[3] = {lo_alpha_in, lo_alpha_in, lo_alpha_in};
-        finish(a, li);
-      }
-      const bool init_conv = fabsf(li[0].g) < gtol && li[0].c < 0.0f;
-      const bool lo_less = li[0].g < p1;
-      const Pt p0{0.0f, p1, p2, 0.0f};
-      Pt lo = lo_less ? li[0] : p0, hi = lo_less ? p0 : li[0];
-      float alpha = 0.0f, improve = 0.0f;
-      bool ls_done = init_conv;
-      for (int it = 0; it < p.ls_iterations && !ls_done; ++it) {
-        float a[3] = {lo.a - sdiv(lo.g, lo.h), hi.a - sdiv(hi.g, hi.h),
-                      0.5f * (lo.a + hi.a)};
-        Pt e[3];  // lo_next, hi_next, mid
-        finish(a, e);
-        bool swap_lo = swap3(&lo, e[0]);
-        swap_lo = swap3(&lo, e[2]) || swap_lo;
-        swap_lo = swap3(&lo, e[1]) || swap_lo;
-        bool swap_hi = swap3(&hi, e[1]);
-        swap_hi = swap3(&hi, e[2]) || swap_hi;
-        swap_hi = swap3(&hi, e[0]) || swap_hi;
-        ls_done = (!swap_lo && !swap_hi) ||
-                  (lo.c < 0.0f && lo.g < 0.0f && lo.g > -gtol) ||
-                  (hi.c < 0.0f && hi.g > 0.0f && hi.g < gtol);
-        if (lo.c < 0.0f || hi.c < 0.0f) {
-          const bool lb = lo.c < hi.c;
-          alpha = lb ? lo.a : hi.a;
-          improve = -(lb ? lo.c : hi.c);
-        }
-      }
-      if (init_conv) {
-        alpha = lo_alpha_in;
-        improve = -li[0].c;
-      }
-
-      // -- step, constraint state, gradient
-      for (int i = 0; i < nv; ++i) {
-        qacc[i] = qacc[i] + alpha * search[i];
-        Ma[i] = Ma[i] + alpha * mv[i];
-      }
-      for (int r = 0; r < p.nrow; ++r)
-        R.at(s.jaref, r) = R.at(s.jaref, r) + alpha * R.at(s.jv, r);
-      if (R.update_quad()) R.factor();
-      R.jtforce(grad);
-      gg = 0.0f;
-      for (int i = 0; i < nv; ++i) {
-        grad[i] = Ma[i] - LANE(p.qfs, i) - grad[i];
-        gg = gg + grad[i] * grad[i];
-      }
-      chol_solve_lanes(p.scr + (size_t)s.L * W, grad, search, nv, W, w);
-      float gm = 0.0f;
-      for (int i = 0; i < nv; ++i) gm = gm + grad[i] * search[i];
-      niter = niter + 1.0f;
-      const float gnorm = rescale * sqrtf(fmaxf(gg, 0.0f));
-      const float model_impr = rescale * 0.5f * gm;
-      done = rescale * improve < tol || gnorm < tol || model_impr < tol ||
-             niter >= (float)p.iterations;
-      for (int i = 0; i < nv; ++i) search[i] = -search[i];
-    }
+    // ---- Newton solve (newton.cuh, pallas/solver.py solve_core)
+    niter = newton_solve(R, p.qM, p.qfs, p.ws, qacc, nv, p.iterations,
+                         p.ls_iterations, p.tol, p.ls_tol, p.meaninertia,
+                         W, w);
   } else {
     float b[MWT_MAX_NV];
     for (int i = 0; i < nv; ++i) b[i] = LANE(p.qfs, i);

@@ -1,0 +1,98 @@
+"""Standalone Newton solve wrapper of the general step.
+
+CPU tensors run the plain version (``fused/solver_ref.py``
+``solve_tiles``); CUDA tensors launch ``csrc/solve.cu``, which replaces
+``mujoco_warp_tpu/pallas/solver.py`` ``_make_kernel`` (:1041, called by
+``_solve_tiles`` :1126 from ``solve_batched`` :1145) for pyramidal and
+frictionless rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from mujoco_warp_tpu_torch import types
+from mujoco_warp_tpu_torch.fused import MAX_NV, solver_ref
+from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
+    device_tables, ptr
+
+# launches of the CUDA kernel (not of the plain version)
+launches = 0
+
+# row kinds of the shared Newton (csrc/newton.cuh)
+ROW_INEQ, ROW_EQ, ROW_FRI = 0, 1, 2
+
+SolveParams = build.params_struct(
+    'SolveParams', ints=('W', 'nv', 'nefc', 'iterations', 'ls_iterations'),
+    floats=('tol', 'ls_tol', 'meaninertia'),
+    ptrs=('J', 'D', 'aref', 'fl', 'M', 'qfs', 'qacc0', 'qacc_out',
+          'force_out', 'qfrc_out', 'niter_out', 'scr', 'kind'))
+
+
+def row_kinds(m: types.Model) -> np.ndarray:
+  """(nefc,) ROW_EQ for equality rows, ROW_FRI for friction-loss rows,
+  ROW_INEQ for the rest (``pallas/solver.py`` ``_masks`` :133)."""
+  t = m.efc.efc_type
+  _CT = types.ConstraintType
+  kind = np.full(len(t), ROW_INEQ, np.int32)
+  kind[t == _CT.EQUALITY] = ROW_EQ
+  kind[(t == _CT.FRICTION_DOF) | (t == _CT.FRICTION_TENDON)] = ROW_FRI
+  return kind
+
+
+_TABLES = TableCache(lambda m, dev: device_tables({'kind': row_kinds(m)},
+                                                  dev)['kind'])
+
+
+def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0):
+  """The Newton solve on lanes-last tensors: J (nefc, nv, W), D, aref, fl
+  (nefc, W), M (nv, nv, W), qfs and qacc0 (nv, W).  Returns qacc (nv, W),
+  efc_force (nefc, W), qfrc_constraint (nv, W) and niter (1, W) int32."""
+  global launches
+  if qfs.device.type == 'cpu':
+    return solver_ref.solve_tiles(m, J, D, aref, fl, M, qfs, qacc0)
+  if qfs.device.type != 'cuda':
+    raise ValueError(f'solve runs on cpu or cuda tensors, not {qfs.device}')
+  if m.opt.cone == types.ConeType.ELLIPTIC and m.ncon:
+    raise NotImplementedError('elliptic cones (_ell_perm) are not ported')
+  dev = qfs.device
+  nefc, nv = m.nefc, m.nv
+  W = qfs.shape[-1]
+  if nv > MAX_NV:
+    raise ValueError(f'solve caps nv at {MAX_NV}, got {nv}')
+  check(J, (nefc, nv, W), 'J', dev)
+  for t, name in ((D, 'D'), (aref, 'aref'), (fl, 'fl')):
+    check(t, (nefc, W), name, dev)
+  check(M, (nv, nv, W), 'M', dev)
+  check(qfs, (nv, W), 'qfs', dev)
+  check(qacc0, (nv, W), 'qacc0', dev)
+  lib = build.load()
+  if lib.mwt_solve_params_size() != ctypes.sizeof(SolveParams):
+    raise RuntimeError('SolveParams layout differs between C and Python')
+  new = lambda rows, dt=torch.float32: torch.empty((rows, W), dtype=dt,
+                                                   device=dev)
+  qacc, force, qfrc, niter = new(nv), new(nefc), new(nv), new(1, torch.int32)
+  scr = new(lib.mwt_solve_scratch_rows(nefc, nv))
+  tol, ls_tol, mi = [float(x) for x in solver_ref.scalars(m, 'cpu')]
+  p = SolveParams(
+      W=W, nv=nv, nefc=nefc, iterations=int(m.opt.iterations),
+      ls_iterations=int(m.opt.ls_iterations), tol=tol, ls_tol=ls_tol,
+      meaninertia=mi, J=ptr(J), D=ptr(D), aref=ptr(aref), fl=ptr(fl),
+      M=ptr(M), qfs=ptr(qfs), qacc0=ptr(qacc0), qacc_out=ptr(qacc),
+      force_out=ptr(force), qfrc_out=ptr(qfrc), niter_out=ptr(niter),
+      scr=ptr(scr), kind=ptr(_TABLES.get(m, dev)))
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  rc = lib.mwt_solve_launch(ctypes.byref(p), ctypes.c_void_p(stream))
+  if rc != 0:
+    raise RuntimeError(f'solve launch failed: cudaError {rc}')
+  launches += 1
+  return qacc, force, qfrc, niter
+
+
+def solve_batched(m: types.Model, d: types.Data) -> types.Data:
+  """The batched Newton solve on world-major Data (``pallas/solver.py``
+  ``solve_batched`` :1145) through ``solve_tiles``."""
+  return solver_ref.solve_batched(m, d, solve=solve_tiles)

@@ -1,0 +1,224 @@
+"""The general stage-split step, world-major.
+
+Counterpart of ``mujoco_warp_tpu/ops/forward.py``: ``fwd_actuation``
+(:333), ``fwd_smooth_force`` (:479), ``_next_position`` (:497),
+``_advance`` (:523), ``euler`` (:540), ``_step_batched`` (:696) and
+``step`` (:649) for batched Data.  The stage order of ``_step_batched`` is
+kept: the position stages (``pre``), the mass chain (kernel), the
+constraint rows, passive and actuator forces (``mid``), qacc_smooth
+(Cholesky-solve kernel), the Newton solve (kernel), the damped Euler solve
+(kernel) and ``_advance``.  On CUDA tensors the four kernels launch; on
+CPU tensors their plain versions run.
+
+``unsupported`` is this slice's gate: the models the general step runs
+are those it returns None for.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_warp_tpu_torch import types
+from mujoco_warp_tpu_torch.fused import k4_ref
+from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+from mujoco_warp_tpu_torch.kernels import solver as ksolver
+from mujoco_warp_tpu_torch.ops import constraint, math, passive, smooth, \
+    support
+from mujoco_warp_tpu_torch.ops.util import bmask, ix
+
+_JT = types.JointType
+_GT = types.GainType
+_BT = types.BiasType
+
+# beyond this nefc * nv the JAX package leaves the Pallas solver for the
+# jnp Newton (pallas/solver.py _use_big), which is not ported yet
+MAX_NEFC_NV = 12_000
+
+
+def unsupported(m: types.Model):
+  """Why the general step cannot run ``m`` yet, or None."""
+  o = m.opt
+  if m.ncand and o.run_collision_detection:
+    return f'collision (ncand {m.ncand})'
+  for n, what in ((m.ntendon, 'tendons'), (m.nsensor, 'sensors'),
+                  (m.nflex, 'flex'), (m.nmocap, 'mocap'),
+                  (m.na, 'actuator activation'), (m.nhistory, 'history'),
+                  (m.ncam + m.nlight, 'cameras and lights')):
+    if n:
+      return what
+  if o.enableflags & types.EnableBit.SLEEP:
+    return 'sleep'
+  if o.solver != types.SolverType.NEWTON:
+    return 'solver (CG)'
+  if o.integrator != types.IntegratorType.EULER:
+    return 'integrator (RK4, implicit)'
+  if o.cone != types.ConeType.PYRAMIDAL:
+    return 'elliptic cones'
+  if m.nu:
+    if not np.all(m.actuator_trntype == types.TrnType.JOINT):
+      return 'actuator transmission'
+    if not np.all(m.actuator_dyntype == types.DynType.NONE):
+      return 'actuator dynamics'
+    if not (np.all(np.isin(m.actuator_gaintype, (_GT.FIXED, _GT.AFFINE))) and
+            np.all(np.isin(m.actuator_biastype, (_BT.NONE, _BT.AFFINE)))):
+      return 'muscle, dcmotor or user actuators'
+  if np.any(m.jnt_actgravcomp) or np.any(m.jnt_actfrclimited):
+    return 'actuator gravcomp or force limits'
+  if m.neq:
+    if len(m.efc.tendon_id) or len(m.efc.flex_id):
+      return 'tendon or flex equality'
+    if np.any(m.eq_objtype == 6):  # mjOBJ_SITE
+      return 'site-anchored equality'
+  if float(types.host(m.opt.density)) or float(types.host(m.opt.viscosity)):
+    return 'fluid forces'
+  if np.any(types.host(m.body_gravcomp) != 0):
+    return 'gravcomp'
+  if m.nv > kmass.MAX_NV or m.nbody > kmass.MAX_NBODY:
+    return (f'large tree (nv {m.nv}, nbody {m.nbody}): the ancm mass chain '
+            'and its factor')
+  if m.nefc * m.nv > MAX_NEFC_NV:
+    return f'large constraint system (nefc {m.nefc} x nv {m.nv})'
+  return None
+
+
+def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
+  """Actuator forces: FIXED or AFFINE gain and bias, no activation, ctrl
+  clamped to its range (``forward.py:333``)."""
+  zero_v = torch.zeros_like(d.qvel)
+  if not m.nu or (m.opt.disableflags & types.DisableBit.ACTUATION):
+    return d.replace(actuator_force=d.ctrl[:, :0].expand(-1, m.nu) * 0.0,
+                     qfrc_actuator=zero_v)
+  ctrl = d.ctrl
+  if not (m.opt.disableflags & types.DisableBit.CLAMPCTRL):
+    lim = bmask(m.actuator_ctrllimited, ctrl.device)
+    cr = m.actuator_ctrlrange
+    ctrl = torch.where(lim, torch.minimum(torch.maximum(ctrl, cr[:, 0]),
+                                          cr[:, 1]), ctrl)
+  length, velocity = d.actuator_length, d.actuator_velocity
+  gt, gp = m.actuator_gaintype, m.actuator_gainprm
+  gain = torch.zeros_like(ctrl)
+  gain = torch.where(bmask(gt == _GT.FIXED, ctrl.device),
+                     gp[:, 0], gain)
+  if np.any(gt == _GT.AFFINE):
+    gain = torch.where(bmask(gt == _GT.AFFINE, ctrl.device),
+                       gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity,
+                       gain)
+  bias = torch.zeros_like(ctrl)
+  bt, bp = m.actuator_biastype, m.actuator_biasprm
+  if np.any(bt == _BT.AFFINE):
+    bias = torch.where(bmask(bt == _BT.AFFINE, ctrl.device),
+                       bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity,
+                       bias)
+  force = gain * ctrl + bias
+  if np.any(m.actuator_forcelimited):
+    lim = bmask(m.actuator_forcelimited, ctrl.device)
+    fr = m.actuator_forcerange
+    force = torch.where(lim, torch.minimum(torch.maximum(force, fr[:, 0]),
+                                           fr[:, 1]), force)
+  qfrc = torch.einsum('wuv,wu->wv', d.actuator_moment, force)
+  return d.replace(actuator_force=force, qfrc_actuator=qfrc)
+
+
+def fwd_smooth_force(m: types.Model, d: types.Data) -> types.Data:
+  """qfrc_smooth = passive - bias + actuator + applied (``forward.py:479``)."""
+  qfrc_applied = d.qfrc_applied + support.xfrc_accumulate(m, d)
+  return d.replace(qfrc_smooth=d.qfrc_passive - d.qfrc_bias +
+                   d.qfrc_actuator + qfrc_applied)
+
+
+def _next_position(m: types.Model, qpos, qvel, dt):
+  """qpos advanced by dt qvel per joint type (``forward.py:497``)."""
+  dev = qpos.device
+  out = qpos.clone()
+  for jt in np.unique(m.jnt_type):
+    jids = np.nonzero(m.jnt_type == jt)[0]
+    qadr, dadr = m.jnt_qposadr[jids], m.jnt_dofadr[jids]
+    span = lambda adr, a, b: ix(adr[:, None] + np.arange(a, b), dev)
+    if jt == _JT.FREE:
+      q3, d3 = span(qadr, 0, 3), span(dadr, 0, 3)
+      out[:, q3] = qpos[:, q3] + dt * qvel[:, d3]
+      q4 = span(qadr, 3, 7)
+      quat = math.normalize_quat(qpos[:, q4])
+      out[:, q4] = math.quat_integrate(quat, qvel[:, span(dadr, 3, 6)], dt)
+    elif jt == _JT.BALL:
+      q4 = span(qadr, 0, 4)
+      quat = math.normalize_quat(qpos[:, q4])
+      out[:, q4] = math.quat_integrate(quat, qvel[:, span(dadr, 0, 3)], dt)
+    else:
+      qa = ix(qadr, dev)
+      out[:, qa] = qpos[:, qa] + dt * qvel[:, ix(dadr, dev)]
+  return out
+
+
+def _advance(m: types.Model, d: types.Data, qacc) -> types.Data:
+  """Integrate by one timestep (``forward.py:523``)."""
+  dt = m.opt.timestep
+  qvel = d.qvel + dt * qacc
+  return d.replace(qvel=qvel, qpos=_next_position(m, d.qpos, qvel, dt),
+                   time=d.time + dt, qacc_warmstart=d.qacc)
+
+
+def euler(m: types.Model, d: types.Data) -> types.Data:
+  """Semi-implicit Euler with implicit joint damping (``forward.py:540``),
+  the damped system solved whole by the damped-solve kernel."""
+  if k4_ref.damped(m):
+    return _advance(m, d, klinalg.damped_solve_batched(m, d.qM, d.qacc))
+  return _advance(m, d, d.qacc)
+
+
+def solve(m: types.Model, d: types.Data) -> types.Data:
+  """qacc from qacc_smooth and the constraint rows (``ops/solver.py``
+  ``solve_batched`` :704): the Newton kernel, or qacc_smooth when the
+  model has no rows."""
+  if m.nefc == 0 or (m.opt.disableflags & types.DisableBit.CONSTRAINT):
+    W = d.qpos.shape[0]
+    return d.replace(
+        qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth,
+        qfrc_constraint=torch.zeros_like(d.qvel),
+        solver_niter=torch.zeros(W, dtype=torch.int32, device=d.qpos.device))
+  return ksolver.solve_batched(m, d)
+
+
+def pre(m: types.Model, d: types.Data) -> types.Data:
+  """The position stages before the mass chain (``_step_batched`` pre)."""
+  d = smooth.kinematics(m, d)
+  d = smooth.com_pos(m, d)
+  return smooth.camlight(m, d)
+
+
+def mid(m: types.Model, d: types.Data) -> types.Data:
+  """The stages after the mass chain: constraint rows, transmission,
+  passive and actuator forces, qfrc_smooth (``_step_batched`` mid)."""
+  d = constraint.make_constraint(m, d)
+  d = smooth.transmission(m, d)
+  if m.nu:
+    d = d.replace(actuator_velocity=torch.einsum(
+        'wuv,wv->wu', d.actuator_moment, d.qvel))
+  d = passive.passive(m, d)
+  d = fwd_actuation(m, d)
+  return fwd_smooth_force(m, d)
+
+
+def _step_batched(m: types.Model, d: types.Data) -> types.Data:
+  """One stage-split step of batched Data (``forward.py:696``)."""
+  d = pre(m, d)
+  # crb, qM, qLD, com_vel, cdof_dot and rne in one kernel
+  d = kmass.mass_chain(m, d)
+  d = mid(m, d)
+  # qacc_smooth through the mass factor
+  d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
+                                                       d.qfrc_smooth))
+  d = solve(m, d)
+  return euler(m, d)
+
+
+def step(m: types.Model, d: types.Data) -> types.Data:
+  """One physics step of batched Data (``forward.py:649``)."""
+  if d.qpos.dim() != 2:
+    raise ValueError('the general step takes batched (W, nq) Data')
+  why = unsupported(m)
+  if why is not None:
+    raise NotImplementedError(f'general step: {why} is not ported yet')
+  return _step_batched(m, d)

@@ -1,0 +1,46 @@
+"""Static tables of the world-major stages as device tensors, made once
+per device: a host array used in a step would otherwise be copied to the
+device, and wait for it, on every call."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_IDX = {}
+
+
+def ix(arr, device) -> torch.Tensor:
+  """A static numpy index array as an int64 tensor on ``device``, made
+  once: indexing with a host array would copy it to the device on every
+  call."""
+  a = np.asarray(arr, np.int64)
+  key = (str(device), a.shape, a.tobytes())
+  t = _IDX.get(key)
+  if t is None:
+    t = torch.as_tensor(a, device=device)
+    _IDX[key] = t
+  return t
+
+
+def bmask(arr, device) -> torch.Tensor:
+  """A static numpy mask as a bool tensor on ``device``, made once."""
+  a = np.asarray(arr, bool)
+  key = ('b', str(device), a.shape, a.tobytes())
+  t = _IDX.get(key)
+  if t is None:
+    t = torch.as_tensor(a, device=device)
+    _IDX[key] = t
+  return t
+
+
+def fmask(arr, like: torch.Tensor) -> torch.Tensor:
+  """A static numpy mask or table as a tensor of ``like``'s dtype and
+  device, made once."""
+  a = np.asarray(arr)
+  key = ('f', str(like.device), like.dtype, a.shape, a.dtype.str, a.tobytes())
+  t = _IDX.get(key)
+  if t is None:
+    t = torch.as_tensor(a.astype(np.float64), device=like.device).to(like.dtype)
+    _IDX[key] = t
+  return t

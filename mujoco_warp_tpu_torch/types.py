@@ -1,11 +1,14 @@
-"""Enums and the model subset of the fused humanoid step, as PyTorch types.
+"""Enums, the Model subset and the world-major Data, as PyTorch types.
 
 Counterpart of ``mujoco_warp_tpu/types.py``.  Enum values are copied from
 it (they mirror MuJoCo's public C enums).  ``Model`` holds only the fields
-the fused lanes-last step reads (``mujoco_warp_tpu/pallas/fused.py``):
-physical parameters are float32 ``torch.Tensor``s, index and type tables
-are numpy arrays (host constants the plain versions fold and the CUDA
-wrappers upload once per model).
+the ported paths read: the fused lanes-last step
+(``mujoco_warp_tpu/pallas/fused.py``) and the general stage-split step
+(``mujoco_warp_tpu/ops/forward.py`` ``_step_batched``).  Physical
+parameters are float32 ``torch.Tensor``s, index and type tables are numpy
+arrays (host constants the plain versions fold and the CUDA wrappers
+upload once per model).  ``Data`` is world-major: every field carries a
+leading ``nworld`` axis, as the JAX Data does under ``vmap``.
 """
 
 from __future__ import annotations
@@ -220,28 +223,39 @@ class TreeInfo(_Replace):
   ancestor_mask: np.ndarray = static()  # (nv, nv) dof j is i or above i
   subtree_mask: np.ndarray = static()  # (nbody, nbody) j in subtree(i)
   body_dof_mask: np.ndarray = static()  # (nbody, nv) dof j moves body i
+  dof_subtree_mask: np.ndarray = static()  # (nv, nbody) b in subtree(dof i)
   cdofdot_mask: np.ndarray = static()  # (nv, nv) dofs feeding cdof_dot[i]
 
 
 @dataclasses.dataclass(frozen=True)
 class EfcLayout(_Replace):
-  """Static constraint-row layout (subset the fused gate reads)."""
+  """Static constraint-row layout: ids and first row of each group."""
 
   connect_id: np.ndarray = static()
+  connect_adr: np.ndarray = static()
   weld_id: np.ndarray = static()
+  weld_adr: np.ndarray = static()
   joint_id: np.ndarray = static()
+  joint_adr: np.ndarray = static()
   tendon_id: np.ndarray = static()
+  tendon_adr: np.ndarray = static()
   flex_id: np.ndarray = static()
+  flex_adr: np.ndarray = static()
   fri_dof_id: np.ndarray = static()
+  fri_dof_adr: np.ndarray = static()
   fri_ten_id: np.ndarray = static()
+  fri_ten_adr: np.ndarray = static()
   lim_jnt_id: np.ndarray = static()
+  lim_jnt_adr: np.ndarray = static()
   lim_ten_id: np.ndarray = static()
+  lim_ten_adr: np.ndarray = static()
   efc_type: np.ndarray = static()
+  efc_id: np.ndarray = static()
 
 
 @dataclasses.dataclass(frozen=True)
 class Model(_Replace):
-  """Model fields the fused step reads (``mujoco_warp_tpu.types.Model``)."""
+  """Model fields the ported steps read (``mujoco_warp_tpu.types.Model``)."""
 
   nq: int = scalar()
   nv: int = scalar()
@@ -250,6 +264,9 @@ class Model(_Replace):
   nbody: int = scalar()
   njnt: int = scalar()
   ngeom: int = scalar()
+  nsite: int = scalar()
+  ncam: int = scalar()
+  nlight: int = scalar()
   nmocap: int = scalar()
   neq: int = scalar()
   ntendon: int = scalar()
@@ -278,6 +295,8 @@ class Model(_Replace):
   body_rootid: np.ndarray = static()
   body_jntadr: np.ndarray = static()
   body_jntnum: np.ndarray = static()
+  body_dofadr: np.ndarray = static()
+  body_dofnum: np.ndarray = static()
   body_pos: torch.Tensor = array()
   body_quat: torch.Tensor = array()
   body_ipos: torch.Tensor = array()
@@ -292,6 +311,7 @@ class Model(_Replace):
   jnt_qposadr: np.ndarray = static()
   jnt_dofadr: np.ndarray = static()
   jnt_bodyid: np.ndarray = static()
+  jnt_limited: np.ndarray = static()
   jnt_actfrclimited: np.ndarray = static()
   jnt_actgravcomp: np.ndarray = static()
   jnt_solref: torch.Tensor = array()
@@ -303,6 +323,10 @@ class Model(_Replace):
   jnt_margin: torch.Tensor = array()
 
   dof_bodyid: np.ndarray = static()
+  dof_jntid: np.ndarray = static()
+  dof_solref: torch.Tensor = array()
+  dof_solimp: torch.Tensor = array()
+  dof_frictionloss: torch.Tensor = array()
   dof_armature: torch.Tensor = array()
   dof_damping: torch.Tensor = array()
   dof_invweight0: torch.Tensor = array()
@@ -313,6 +337,8 @@ class Model(_Replace):
   geom_pos: torch.Tensor = array()
   geom_quat: torch.Tensor = array()
 
+  eq_type: np.ndarray = static()
+  eq_objtype: np.ndarray = static()
   eq_obj1id: np.ndarray = static()
   eq_obj2id: np.ndarray = static()
   eq_active0: np.ndarray = static()
@@ -328,6 +354,7 @@ class Model(_Replace):
   actuator_ctrllimited: np.ndarray = static()
   actuator_forcelimited: np.ndarray = static()
   actuator_gainprm: torch.Tensor = array()
+  actuator_biasprm: torch.Tensor = array()
   actuator_ctrlrange: torch.Tensor = array()
   actuator_forcerange: torch.Tensor = array()
   actuator_gear: torch.Tensor = array()
@@ -337,6 +364,7 @@ class Model(_Replace):
   pair_geom2: np.ndarray = static()
   con_pair: np.ndarray = static()  # (ncand,) slot -> pair index
   con_dim: np.ndarray = static()  # (ncon,) condim per contact slot
+  con_efc_address: np.ndarray = static()  # (ncon,) first efc row per slot
   # ((geomtype1, geomtype2, pair_index_array, slot_start), ...)
   pair_groups: Tuple[Any, ...] = scalar(())
   cand_friction: torch.Tensor = array()
@@ -345,8 +373,85 @@ class Model(_Replace):
   cand_includemargin: torch.Tensor = array()
 
 
+@dataclasses.dataclass
+class Data:
+  """World-major state and intermediates (``mujoco_warp_tpu.types.Data``
+  fields under ``vmap``): every tensor has a leading ``nworld`` axis.
+  Fields a path does not compute stay None."""
+
+  time: torch.Tensor = None  # (W,)
+  qpos: torch.Tensor = None  # (W, nq)
+  qvel: torch.Tensor = None  # (W, nv)
+  act: torch.Tensor = None  # (W, na)
+  ctrl: torch.Tensor = None  # (W, nu)
+  qfrc_applied: torch.Tensor = None  # (W, nv)
+  xfrc_applied: torch.Tensor = None  # (W, nbody, 6)
+  eq_active: torch.Tensor = None  # (W, neq) bool
+  # position stages
+  xpos: torch.Tensor = None  # (W, nbody, 3)
+  xquat: torch.Tensor = None  # (W, nbody, 4)
+  xmat: torch.Tensor = None  # (W, nbody, 3, 3)
+  xipos: torch.Tensor = None  # (W, nbody, 3)
+  ximat: torch.Tensor = None  # (W, nbody, 3, 3)
+  xanchor: torch.Tensor = None  # (W, njnt, 3)
+  xaxis: torch.Tensor = None  # (W, njnt, 3)
+  geom_xpos: torch.Tensor = None  # (W, ngeom, 3)
+  geom_xmat: torch.Tensor = None  # (W, ngeom, 3, 3)
+  subtree_com: torch.Tensor = None  # (W, nbody, 3)
+  cinert: torch.Tensor = None  # (W, nbody, 6, 6)
+  cdof: torch.Tensor = None  # (W, nv, 6)
+  qM: torch.Tensor = None  # (W, nv, nv)
+  qLD: torch.Tensor = None  # (W, nv, nv) lower Cholesky factor of qM
+  actuator_length: torch.Tensor = None  # (W, nu)
+  actuator_moment: torch.Tensor = None  # (W, nu, nv)
+  # velocity stages
+  cvel: torch.Tensor = None  # (W, nbody, 6)
+  cdof_dot: torch.Tensor = None  # (W, nv, 6)
+  actuator_velocity: torch.Tensor = None  # (W, nu)
+  qfrc_bias: torch.Tensor = None  # (W, nv)
+  qfrc_spring: torch.Tensor = None  # (W, nv)
+  qfrc_damper: torch.Tensor = None  # (W, nv)
+  qfrc_gravcomp: torch.Tensor = None  # (W, nv)
+  qfrc_fluid: torch.Tensor = None  # (W, nv)
+  qfrc_passive: torch.Tensor = None  # (W, nv)
+  # forces and accelerations
+  actuator_force: torch.Tensor = None  # (W, nu)
+  qfrc_actuator: torch.Tensor = None  # (W, nv)
+  qfrc_smooth: torch.Tensor = None  # (W, nv)
+  qacc_smooth: torch.Tensor = None  # (W, nv)
+  qfrc_constraint: torch.Tensor = None  # (W, nv)
+  qacc: torch.Tensor = None  # (W, nv)
+  qacc_warmstart: torch.Tensor = None  # (W, nv)
+  # constraint rows
+  efc_J: torch.Tensor = None  # (W, nefc, nv)
+  efc_pos: torch.Tensor = None  # (W, nefc)
+  efc_margin: torch.Tensor = None  # (W, nefc)
+  efc_frictionloss: torch.Tensor = None  # (W, nefc)
+  efc_D: torch.Tensor = None  # (W, nefc)
+  efc_aref: torch.Tensor = None  # (W, nefc)
+  efc_force: torch.Tensor = None  # (W, nefc)
+  efc_active: torch.Tensor = None  # (W, nefc) bool
+  solver_niter: torch.Tensor = None  # (W,) int32
+  overflow: torch.Tensor = None  # (W,) int32 OverflowType bits
+
+  def replace(self, **kw):
+    return dataclasses.replace(self, **kw)
+
+
+_HOST = {}
+
+
 def host(x, dtype=np.float64) -> np.ndarray:
-  """A model field as a numpy array (float64 by default)."""
+  """A model field as a numpy array (float64 by default).  The host copy
+  of a device tensor is made once: a copy on every call would wait for
+  the device's stream, and the model's fields do not change."""
   if isinstance(x, torch.Tensor):
-    x = x.detach().cpu().numpy()
+    if x.device.type == 'cpu':
+      x = x.detach().numpy()
+    else:
+      hit = _HOST.get(id(x))
+      if hit is None or hit[0] is not x:
+        hit = (x, x.detach().cpu().numpy())
+        _HOST[id(x)] = hit
+      x = hit[1]
   return np.asarray(x, dtype)

@@ -19,7 +19,7 @@ def bench_keys():
 
 @pytest.mark.parametrize('replay', [False, True])
 def test_run_reports_the_jax_harness_keys(replay):
-  m = io.load_model_npz()
+  m = io.load_model_npz(device='cpu')
   rp = None
   if replay:
     rng = np.random.default_rng(0)
@@ -71,3 +71,37 @@ def test_devprofile_summary_of_a_trace():
   assert dm['other'] == pytest.approx(0.0075)
   with pytest.raises(ValueError):
     devprofile.summarize(ev[:1], nsteps=2)
+
+
+def test_devprofile_attributes_each_kernel_by_its_name():
+  """solve_kernel is a suffix of chol_solve_kernel and damped_solve_kernel:
+  each trace event counts for its own kernel only."""
+  from mujoco_warp_tpu_torch import devprofile
+  ev = [{'ph': 'X', 'cat': 'user_annotation', 'name': 'rollout', 'ts': 0,
+         'dur': 100}]
+  for i, name in enumerate(('solve_kernel(SolveParams)',
+                            'chol_solve_kernel(CholSolveParams)',
+                            'damped_solve_kernel(DampedSolveParams)',
+                            'mass_chain_kernel(MassChainParams)')):
+    ev.append({'ph': 'X', 'cat': 'kernel', 'name': name, 'ts': 10 * i,
+               'dur': i + 1})
+  dm = devprofile.summarize(ev, nsteps=1)['device_ms_per_step']
+  assert dm['solve'] == pytest.approx(0.001)
+  assert dm['chol_solve'] == pytest.approx(0.002)
+  assert dm['damped_solve'] == pytest.approx(0.003)
+  assert dm['mass_chain'] == pytest.approx(0.004)
+  assert dm['other'] == 0.0
+
+
+def test_run_takes_the_general_step_outside_the_fused_gate():
+  """The constraints scene fails the fused gate: run steps it with the
+  general step (world-major state) and reports the same keys."""
+  from mujoco_warp_tpu_torch import fused, types
+  m = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT, device='cpu')
+  assert not fused.supported(m)
+  res = benchmarks.run(m, nworld=8, nstep=3, warmup_steps=2, device='cpu')
+  st = res.pop('state')
+  assert isinstance(st, types.Data) and st.qpos.shape == (8, m.nq)
+  assert set(res) == bench_keys()
+  assert res['converged_worlds'] == 8 and res['overflow_worlds'] == 0
+  assert st.ctrl.abs().max() > 0

@@ -17,6 +17,7 @@ from mujoco_warp_tpu_torch import fused, io, parity
 from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref
 from mujoco_warp_tpu_torch.kernels import k1 as kk1
 from mujoco_warp_tpu_torch.kernels import k4 as kk4
+from mujoco_warp_tpu_torch.kernels import lanes
 
 
 @pytest.fixture
@@ -34,7 +35,7 @@ def state(m, W, seed, drop, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('drop', [0.0, 0.28])
 def test_k1_cuda_matches_plain(cuda, drop):
-  m = io.load_model_npz()
+  m = io.load_model_npz(device=cuda)
   qpos, qvel, _, _ = state(m, 1000, 2, drop, cuda)  # W not a multiple of 128
   n = kk1.launches
   got = kk1.k1(m, qpos, qvel, need_qLD=True)
@@ -47,7 +48,7 @@ def test_k1_cuda_matches_plain(cuda, drop):
 @pytest.mark.cuda
 @pytest.mark.parametrize('drop', [0.0, 0.28])
 def test_k4_cuda_matches_plain(cuda, drop):
-  m = io.load_model_npz()
+  m = io.load_model_npz(device=cuda)
   qpos, qvel, ctrl, ws = state(m, 1000, 5, drop, cuda)
   qM, _, bias, cdof, dist, cpos, cframe, stcom = k1_ref.k1(
       m, qpos, qvel, need_qLD=False)
@@ -65,8 +66,8 @@ def test_k4_cuda_matches_plain(cuda, drop):
 @pytest.mark.cuda
 def test_step_lane_cuda_matches_cpu(cuda):
   """Three fused steps through the kernels against the plain path."""
-  m = io.load_model_npz()
-  d = io.make_data(m, 256)
+  m = io.load_model_npz(device=cuda)
+  d = io.make_data(m, 256, device='cpu')
   rng = np.random.default_rng(9)
   d = d.replace(qpos=d.qpos + torch.as_tensor(
       0.01 * rng.standard_normal(d.qpos.shape), dtype=torch.float32))
@@ -78,4 +79,78 @@ def test_step_lane_cuda_matches_cpu(cuda):
   np.testing.assert_allclose(st_c.qpos.cpu().numpy(), st_h.qpos.numpy(),
                              atol=2e-4, rtol=1e-3)
   np.testing.assert_allclose(st_c.qvel.cpu().numpy(), st_h.qvel.numpy(),
+                             atol=5e-3, rtol=5e-3)
+
+
+def general_inputs(cuda, W=1000, seed=3):
+  """The constraints scene's position stages on the card for the parity
+  state, with a seeded warmstart."""
+  from mujoco_warp_tpu_torch.ops import forward
+  m = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT, device=cuda)
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=cuda)
+                      for x in parity.general_state(m, W, seed)]
+  ws = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal(
+      (W, m.nv)), dtype=torch.float32, device=cuda)
+  d = io.make_data(m, W, device=cuda).replace(qpos=qpos, qvel=qvel,
+                                              ctrl=ctrl, qacc_warmstart=ws)
+  return m, forward.pre(m, d)
+
+
+@pytest.mark.cuda
+def test_general_kernels_cuda_match_plain(cuda):
+  """The mass chain, the two Cholesky solves and the Newton solve of the
+  general step against their plain versions, each fed the plain
+  version's upstream outputs."""
+  from mujoco_warp_tpu_torch.fused import solver_ref
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  from mujoco_warp_tpu_torch.ops import forward
+  m, d = general_inputs(cuda)
+  nv, nb = m.nv, m.nbody
+  args = (m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+  n = kmass.launches
+  got = kmass.mass_chain_lanes(*args)
+  assert kmass.launches == n + 1
+  want = kmass.mass_chain_plain(*args)
+  parity.check_rel(got, want, parity.MASS_NAMES)
+  d = forward.mid(m, kmass.mass_chain(m, d))
+  L, b = lanes(d.qLD, nv * nv), lanes(d.qfrc_smooth)
+  parity.check_world_scale(klinalg.chol_solve_lanes(L, b),
+                           klinalg.chol_solve_plain(L, b), 'chol_solve',
+                           parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  d = d.replace(qacc_smooth=klinalg.chol_solve_plain(L, b).T)
+  sa = (m, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
+        lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
+        lanes(d.qacc_warmstart))
+  n = ksolver.launches
+  got = ksolver.solve_tiles(*sa)
+  assert ksolver.launches == n + 1
+  want = solver_ref.solve_tiles(*sa)
+  parity.check_solve(got, want)
+  M = lanes(d.qM, nv * nv)
+  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  parity.check_world_scale(klinalg.damped_solve_lanes(m, M, want[0]),
+                           klinalg.damped_solve_plain(M, want[0], dmp),
+                           'damped_solve', parity.SOLVE_ATOL,
+                           parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+def test_general_step_cuda_matches_cpu(cuda):
+  """Three general steps through the kernels against the plain path."""
+  from mujoco_warp_tpu_torch.ops import forward
+  mh = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT, device='cpu')
+  mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT, device=cuda)
+  qpos, qvel, ctrl = parity.general_state(mh, 256, 5)
+  dh = io.make_data(mh, 256, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl))
+  dc = io.make_data(mc, 256, device=cuda).replace(
+      qpos=dh.qpos.to(cuda), qvel=dh.qvel.to(cuda), ctrl=dh.ctrl.to(cuda))
+  for _ in range(3):
+    dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+  np.testing.assert_allclose(dc.qpos.cpu().numpy(), dh.qpos.numpy(),
+                             atol=2e-4, rtol=1e-3)
+  np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                              atol=5e-3, rtol=5e-3)

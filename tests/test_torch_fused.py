@@ -39,7 +39,7 @@ def test_compact_matches_xla(nconmax):
   """Compaction of a contact-rich humanoid state, with the benchmark's
   slot budget and with one small enough to overflow."""
   mjm = benchmarks.load_humanoid_benchmark()
-  mj, m = jio.put_model(mjm, nconmax=nconmax), tio.put_model(mjm, nconmax)
+  mj, m = jio.put_model(mjm, nconmax=nconmax), tio.put_model(mjm, nconmax, device='cpu')
   _, _, (_, _, _, _, dist, cpos, cframe, stcom) = k1_outputs(m, 32, 11, 0.3)
   con_t, ov_t = glue.compact(m, dist, cpos, cframe, stcom)
   j = lambda x: jnp.asarray(x.numpy())
@@ -56,7 +56,7 @@ def test_compact_matches_xla(nconmax):
 def test_identity_con_and_middle_match_xla():
   """No-compaction contacts (box scene) and the smooth forces."""
   mjm = mujoco.MjModel.from_xml_string(_BOX46)
-  mj, m = jio.put_model(mjm), tio.put_model(mjm)
+  mj, m = jio.put_model(mjm), tio.put_model(mjm, device='cpu')
   qpos, qvel, out = k1_outputs(m, 16, 12, 0.0)
   _, _, bias, _, dist, cpos, cframe, stcom = out
   con_t, _ = glue.identity_con(m, dist, cpos, cframe, stcom)
@@ -68,7 +68,7 @@ def test_identity_con_and_middle_match_xla():
                                   err_msg=k)
 
   mjm = benchmarks.load_humanoid_benchmark()
-  mj, m = jio.put_model(mjm), tio.put_model(mjm)
+  mj, m = jio.put_model(mjm), tio.put_model(mjm, device='cpu')
   qpos, qvel, out = k1_outputs(m, 16, 13, 0.0)
   ctrl = np.random.default_rng(14).standard_normal((m.nu, 16)).astype(
       np.float32)
@@ -82,12 +82,12 @@ def test_identity_con_and_middle_match_xla():
 
 def test_sort_worlds_matches_jax():
   """Same stable permutation (ties keep lane order), world_id undoes it."""
-  m = tio.load_model_npz()
+  m = tio.load_model_npz(device='cpu')
   W = 64
   rng = np.random.default_rng(15)
   niter = rng.integers(0, 4, size=(1, W)).astype(np.int32)
   qpos = rng.standard_normal((m.nq, W)).astype(np.float32)
-  d = tio.make_data(m, W)
+  d = tio.make_data(m, W, device='cpu')
   st_t = tfused.to_lane(m, d).replace(
       qpos=torch.as_tensor(qpos), solver_niter=torch.as_tensor(niter))
   st_j = jfused.FusedState(
@@ -107,7 +107,7 @@ def test_sort_worlds_matches_jax():
 def run_steps(mjm, nconmax, nstep, seed, qpos_noise=0.01, qvel_noise=0.2,
               ctrl_noise=0.0):
   """nstep port steps and nstep JAX interpret steps from one state."""
-  mj, m = jio.put_model(mjm, nconmax=nconmax), tio.put_model(mjm, nconmax)
+  mj, m = jio.put_model(mjm, nconmax=nconmax), tio.put_model(mjm, nconmax, device='cpu')
   assert tfused.supported_features(m)
   rng = np.random.default_rng(seed)
   qpos = (m.qpos0.numpy()[None] + qpos_noise * rng.standard_normal(
@@ -116,7 +116,7 @@ def run_steps(mjm, nconmax, nstep, seed, qpos_noise=0.01, qvel_noise=0.2,
       np.float32)
   ctrl = (ctrl_noise * rng.standard_normal((W_STEP, m.nu))).astype(
       np.float32)
-  d = tio.make_data(m, W_STEP)
+  d = tio.make_data(m, W_STEP, device='cpu')
   d = d.replace(qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
                 ctrl=torch.as_tensor(ctrl))
   st = tfused.to_lane(m, d)

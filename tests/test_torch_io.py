@@ -71,15 +71,16 @@ def test_model_from_numpy_of_jax_fields():
   Model exactly."""
   mjm, nconmax = _scene('humanoid')
   mj = jio.put_model(mjm, nconmax=nconmax)
-  assert_models_equal(tio.model_from_numpy(jax_model_numpy(mj)),
-                      tio.put_model(mjm, nconmax=nconmax))
+  assert_models_equal(tio.model_from_numpy(jax_model_numpy(mj), device='cpu'),
+                      tio.put_model(mjm, nconmax=nconmax,
+                                    device='cpu'))
 
 
 @pytest.mark.parametrize('scene', ['humanoid', 'box46'])
 def test_put_model_matches_jax(scene):
   mjm, nconmax = _scene(scene)
   mj = jio.put_model(mjm, nconmax=nconmax)
-  m = tio.put_model(mjm, nconmax=nconmax)
+  m = tio.put_model(mjm, nconmax=nconmax, device='cpu')
   ref = jax_model_numpy(mj)
   got = tio.model_to_numpy(m)
   for k, v in got.items():
@@ -93,19 +94,20 @@ def test_snapshot_matches_fresh_put_model(tmp_path):
   """The committed snapshot is what ``--snapshot`` writes today."""
   path = str(tmp_path / 'humanoid_bench.npz')
   fresh = tio.make_snapshot(path)
-  assert_models_equal(tio.load_model_npz(tio.SNAPSHOT), fresh)
-  assert_models_equal(tio.load_model_npz(path), fresh)
+  assert_models_equal(tio.load_model_npz(tio.SNAPSHOT, device='cpu'), fresh)
+  assert_models_equal(tio.load_model_npz(path, device='cpu'), fresh)
   # the port's loader builds the scene the JAX benchmark loads
   assert_models_equal(tio.put_model(benchmarks.load_humanoid_benchmark(),
-                                    nconmax=tio.BENCH_NCONMAX), fresh)
-  m = tio.load_model_npz()
+                                    nconmax=tio.BENCH_NCONMAX,
+                                    device='cpu'), fresh)
+  m = tio.load_model_npz(device='cpu')
   assert (m.nq, m.nv, m.nbody, m.ncand, m.ncon, m.nefc) == \
       (28, 27, 17, 177, 36, 129)
 
 
 def test_make_data_at_qpos0():
-  m = tio.load_model_npz()
-  d = tio.make_data(m, nworld=3)
+  m = tio.load_model_npz(device='cpu')
+  d = tio.make_data(m, nworld=3, device='cpu')
   assert d.qpos.shape == (3, m.nq) and d.qvel.shape == (3, m.nv)
   np.testing.assert_array_equal(d.qpos.numpy()[1], m.qpos0.numpy())
   assert d.solver_niter.dtype.is_floating_point is False

@@ -36,8 +36,8 @@ def models(scene):
     mjm, nconmax = benchmarks.load_humanoid_benchmark(), tio.BENCH_NCONMAX
   else:
     mjm, nconmax = mujoco.MjModel.from_xml_string(_BOX46), None
-  return jio.put_model(mjm, nconmax=nconmax), tio.put_model(mjm,
-                                                            nconmax=nconmax)
+  return jio.put_model(mjm, nconmax=nconmax), tio.put_model(
+      mjm, nconmax=nconmax, device='cpu')
 
 
 def lane_state(m, W, seed):
@@ -83,13 +83,15 @@ def test_k1_stages_match_jax(scene):
     close(a, b, name)
 
   for need_L in (False, True):
-    qM_j, L_j, _, _, bias_j = psmooth.mass_chain_core(
+    qM_j, L_j, cvel_j, cdd_j, bias_j = psmooth.mass_chain_core(
         mj, f32, jc[1], jc[2], [jnp.asarray(qvel[i:i + 1])
                                 for i in range(m.nv)],
         mj.dof_armature[:, None], mj.opt.gravity[:, None], need_L=need_L)
-    qM_t, L_t, bias_t = k1_ref.mass_chain(
+    qM_t, L_t, cvel_t, cdd_t, bias_t = k1_ref.mass_chain(
         m, tc[1], tc[2], torch.as_tensor(qvel), m.dof_armature,
         m.opt.gravity, need_L=need_L)
+    close(torch.cat(cvel_t), jnp.concatenate(cvel_j), 'cvel')
+    close(torch.cat(cdd_t), jnp.concatenate(cdd_j), 'cdof_dot')
     scale = float(jnp.max(jnp.abs(qM_j)))
     close(qM_t, qM_j, 'qM', atol=MASS_RTOL * scale)
     close(bias_t, bias_j, 'bias', atol=MASS_RTOL * float(
