@@ -51,7 +51,7 @@ NSTEP = 300
 GEN_NSTEP = 200
 WARMUP = 10
 NCMP = 1024
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, float32 flop/s
+# H100 SXM peaks: HBM bytes/s, float32 flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 F32 = 4
 
