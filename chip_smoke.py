@@ -26,6 +26,21 @@ Phases, one line each or more, any failure exits non-zero:
     launch beside its plain version, the one PyTorch call that computes
     the same function where there is one, and the world-major <->
     lanes-last transposes of its wrapper.
+ 6. the large-tree contact path: benchmarks.run on the snapshot
+    clutter_arm_nosleep (nv 75, 183 contact slots, nefc 732) at 4096
+    worlds, 150 steps after 10 warmup.  Exact launch counts: the mass
+    chain and damped_solve once per step; chol_batched and chol_solve
+    twice per step (qLD and the Newton's first gradient; qacc_smooth and
+    the first gradient) plus once per Newton trip the solver counted; the
+    solve kernel, K1 and K4 never.  No world may overflow, every world
+    must stay finite, and the mean live contacts per world must be at
+    least 20 at the end.  Then the four kernels of the path against their
+    plain versions on the rollout's last state and timed, beside the one
+    PyTorch call of the same function where there is one.
+ Phase 3 also holds those four kernels (the mass chain in its large-tree
+ form, chol_batched on qM and on the Newton H, chol_solve and damped_solve
+ at n 75) against their plain versions at 1024 worlds of the seeded
+ contact-rich clutter state (parity.clutter_state).
 A kernel's time is its own device time per launch, read with
 torch.profiler; 'call' beside it is the wall time of one wrapper call
 (CUDA events over 20 calls), which the host's work bounds for the short
@@ -49,6 +64,8 @@ import torch
 NWORLD = 8192
 NSTEP = 300
 GEN_NSTEP = 200
+CL_NWORLD = 4096
+CL_NSTEP = 150
 WARMUP = 10
 NCMP = 1024
 # H100 SXM peaks: HBM bytes/s, float32 flop/s
@@ -164,6 +181,7 @@ def main():
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
   from mujoco_warp_tpu_torch.kernels import solver as ksolver
   from mujoco_warp_tpu_torch.ops import forward
+  from mujoco_warp_tpu_torch.ops import solver as osolver
 
   # ---- 2. build
   t0 = time.perf_counter()
@@ -177,8 +195,10 @@ def main():
   dev = torch.device('cuda')
   m = io.load_model_npz()
   mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT)
+  mcl = io.load_model_npz(io.CLUTTER_SNAPSHOT)
   h = float(k4_ref.scalars(m)[3])
-  err = {k: 0.0 for k in build.KERNELS}
+  err = {k: 0.0 for k in build.KERNELS + ('mass_chain_big', 'chol_solve_n75',
+                                          'damped_solve_n75')}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -187,6 +207,7 @@ def main():
 
   def zero_counters():
     kk1.launches = kk4.launches = kmass.launches = ksolver.launches = 0
+    osolver.trips = 0
     for k in klinalg.launches:
       klinalg.launches[k] = 0
 
@@ -295,31 +316,110 @@ def main():
           dtype=torch.float32, device=dev))
   general_compare(f'constraints W={NCMP}', d0)
 
+  # ---- 3c. the large-tree kernels against their plain versions
+  nvl, nbl = mcl.nv, mcl.nbody
+  SB = (parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+  def clutter_compare(label, d):
+    """The big-tree mass chain, chol_batched (on qM and on the Newton H),
+    chol_solve and damped_solve at n 75 against their plain versions on
+    world-major clutter state d (qpos, qvel, ctrl, qacc_warmstart); each
+    kernel gets the plain version's upstream outputs.  Returns each
+    kernel's arguments."""
+    d = forward.pre(mcl, d)
+    am = (mcl, lanes(d.cinert, 36 * nbl), lanes(d.cdof, 6 * nvl),
+          lanes(d.qvel))
+    got, want = kmass.mass_chain_lanes(*am), kmass.mass_chain_plain(*am)
+    try:
+      if got[1] is not None or want[1] is not None:
+        fail(f'{label}: the large-tree mass chain computed a factor')
+      keep = (0, 2, 3, 4)
+      e_mc, rel_mc = parity.check_rel([got[i] for i in keep],
+                                      [want[i] for i in keep],
+                                      ('qM', 'cvel', 'cdof_dot', 'bias'))
+      qM, _, cvel, cdd, bias = want
+      qM_w = world(qM, nvl, nvl).contiguous()
+      acb = (mcl, qM_w, kmass.BIG_JITTER)
+      L = klinalg.chol_batched_plain(qM_w, kmass.BIG_JITTER)
+      e_cb = parity.check_world_scale(
+          lanes(klinalg.chol_batched(*acb), nvl * nvl), lanes(L, nvl * nvl),
+          'qLD', *SB)
+      d = forward.mid(mcl, d.replace(
+          qM=qM_w, qLD=L, cvel=world(cvel, nbl, 6),
+          cdof_dot=world(cdd, nvl, 6), qfrc_bias=bias.T))
+      acs = (lanes(L, nvl * nvl), lanes(d.qfrc_smooth))
+      x = klinalg.chol_solve_plain(*acs)
+      e_cs = parity.check_world_scale(klinalg.chol_solve_lanes(*acs), x,
+                                      'qacc_smooth', *SB)
+      # the Newton's first H, at the warmstart
+      J = d.efc_J
+      jaref = torch.matmul(J, d.qacc_warmstart[..., None])[..., 0] - \
+          d.efc_aref
+      Dq = d.efc_D * (jaref < 0).float()
+      H = (qM_w + torch.matmul(J.transpose(1, 2) * Dq[:, None, :], J)
+           ).contiguous()
+      e_h = parity.check_world_scale(
+          lanes(klinalg.chol_batched(mcl, H, 1e-15), nvl * nvl),
+          lanes(klinalg.chol_batched_plain(H, 1e-15), nvl * nvl),
+          'Newton H factor', *SB)
+      d = osolver.solve(mcl, d.replace(qacc_smooth=x.T))
+      ads = (mcl, qM, lanes(d.qacc))
+      dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
+      e_ds = parity.check_world_scale(
+          klinalg.damped_solve_lanes(*ads),
+          klinalg.damped_solve_plain(qM, ads[2], dmp), 'qacc (damped)', *SB)
+    except AssertionError as e:
+      fail(f'{label}: {e}')
+    err['mass_chain_big'] = max(err['mass_chain_big'], e_mc)
+    err['chol_batched'] = max(err['chol_batched'], e_cb, e_h)
+    err['chol_solve_n75'] = max(err['chol_solve_n75'], e_cs)
+    err['damped_solve_n75'] = max(err['damped_solve_n75'], e_ds)
+    live = int((d.contact.dist < d.contact.includemargin).sum())
+    say(f'[compare] {label}: large-tree mass chain max abs err {e_mc:.3e}, '
+        f'worst relative {rel_mc:.2e} (tol {parity.K1_TOL}); chol_batched '
+        f'qLD {e_cb:.3e}, Newton H {e_h:.3e}; chol_solve {e_cs:.3e}, '
+        f'damped_solve {e_ds:.3e} (atol {parity.SOLVE_ATOL} + rtol '
+        f'{parity.SOLVE_RTOL} of world scale); live contacts {live} in '
+        f'{d.qpos.shape[0]} worlds, Newton niter mean '
+        f'{float(d.solver_niter.float().mean()):.3f}')
+    return {'mass_chain_big': am, 'chol_batched': acb, 'chol_solve_n75': acs,
+            'damped_solve_n75': ads}
+
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                      parity.clutter_state(mcl, NCMP, 7)]
+  clutter_compare(f'clutter W={NCMP}', io.make_data(mcl, NCMP).replace(
+      qpos=qpos, qvel=qvel, ctrl=ctrl))
+
   # ---- 4. the fused main path
-  def main_path(model, nstep, expect):
+  def main_path(model, nstep, expect, nworld=NWORLD):
+    """benchmarks.run from zeroed counters; ``expect(steps, trips)`` gives
+    each kernel's launch count that must be seen (0 when absent)."""
     zero_counters()
-    res = benchmarks.run(model, nworld=NWORLD, nstep=nstep,
+    res = benchmarks.run(model, nworld=nworld, nstep=nstep,
                          warmup_steps=WARMUP)
     launches = counters()
     steps = nstep + WARMUP
-    want = {k: steps if k in expect else 0 for k in launches}
+    want = {k: 0 for k in launches}
+    want.update(expect(steps, osolver.trips))
     if launches != want:
       fail(f'launch counts {launches} != {want}')
     if res['overflow_worlds'] != 0:
       fail(f"overflow in {res['overflow_worlds']} worlds")
-    if res['converged_worlds'] != NWORLD:
-      fail(f"{res['converged_worlds']} of {NWORLD} worlds finite")
+    if res['converged_worlds'] != nworld:
+      fail(f"{res['converged_worlds']} of {nworld} worlds finite")
     st = res.pop('state')
-    say(f"[main path] {NWORLD} worlds x {nstep} steps (+{WARMUP} warmup): "
+    say(f"[main path] {nworld} worlds x {nstep} steps (+{WARMUP} warmup): "
         f"{res['steps_per_sec']:.1f} steps/s, first step "
         f"{res['jit_duration']:.3f} s, solver_niter_mean "
         f"{res['solver_niter_mean']:.4f}, solver_cap_worlds "
         f"{res['solver_cap_worlds']}, overflow_worlds 0, "
-        f"{res['converged_worlds']}/{NWORLD} finite, launches {launches}")
+        f"{res['converged_worlds']}/{nworld} finite, launches {launches}, "
+        f"Newton trips {osolver.trips}")
     say('[main path] metrics ' + json.dumps(res))
     return res, st, launches
 
-  res, st, launches = main_path(m, NSTEP, ('k1', 'k4'))
+  res, st, launches = main_path(m, NSTEP,
+                                lambda n, _: {'k1': n, 'k4': n})
   k1_out, a4, niter4 = compare(f'rollout W={NWORLD}', st.qpos, st.qvel,
                                st.ctrl, st.warmstart, 'contact', False)
   _, _, bias, _, dist, cpos, cframe, stcom = k1_out
@@ -360,7 +460,8 @@ def main():
 
   # ---- 5. the general main path
   res, st, launches = main_path(
-      mc, GEN_NSTEP, ('mass_chain', 'solve', 'chol_solve', 'damped_solve'))
+      mc, GEN_NSTEP, lambda n, _: {k: n for k in (
+          'mass_chain', 'solve', 'chol_solve', 'damped_solve')})
   for k in ('mass_chain', 'solve', 'chol_solve', 'damped_solve'):
     kernel_launches[k] = launches[k]
   d = types.Data(qpos=st.qpos, qvel=st.qvel, ctrl=st.ctrl,
@@ -438,14 +539,109 @@ def main():
         f"{transpose_ms[k]:.4f} ms")
   say(f"[timing] general step {1e3 * NWORLD / res['steps_per_sec']:.3f} ms")
 
+  # ---- 6. the large-tree contact path
+  res, st, launches = main_path(
+      mcl, CL_NSTEP, lambda n, trips: {
+          'mass_chain': n, 'damped_solve': n, 'chol_batched': 2 * n + trips,
+          'chol_solve': 2 * n + trips}, nworld=CL_NWORLD)
+  ncon = float(st.ncon_active.float().mean())
+  if not ncon >= 20.0:
+    fail(f'mean live contacts per world {ncon:.2f} < 20 at the end')
+  say(f'[main path] clutter: mean live contacts per world {ncon:.2f}, '
+      f'Newton trips per step {osolver.trips / (CL_NSTEP + WARMUP):.3f}')
+  for k, name in (('mass_chain', 'mass_chain_big'),
+                  ('chol_batched', 'chol_batched'),
+                  ('chol_solve', 'chol_solve_n75'),
+                  ('damped_solve', 'damped_solve_n75')):
+    kernel_launches[name] = launches[k]
+  d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
+  args = clutter_compare(f'clutter rollout W={CL_NWORLD}', d)
+  am, acb, acs, ads = (args['mass_chain_big'], args['chol_batched'],
+                       args['chol_solve_n75'], args['damped_solve_n75'])
+  dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
+  calls = {
+      'mass_chain_big': ('mass_chain_kernel',
+                         lambda: kmass.mass_chain_lanes(*am)),
+      'chol_batched': ('chol_batched_kernel',
+                       lambda: klinalg.chol_batched(*acb)),
+      'chol_solve_n75': ('chol_solve_kernel',
+                         lambda: klinalg.chol_solve_lanes(*acs)),
+      'damped_solve_n75': ('damped_solve_kernel',
+                           lambda: klinalg.damped_solve_lanes(*ads)),
+  }
+  ms.update({k: kernel_ms(fn, kern, 20) for k, (kern, fn) in calls.items()})
+  call_ms.update({k: time_ms(fn, 20) for k, (_, fn) in calls.items()})
+  plain_ms.update({
+      'mass_chain_big': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
+      'chol_batched': time_ms(lambda: klinalg.chol_batched_plain(
+          acb[1], acb[2]), 3),
+      'chol_solve_n75': time_ms(lambda: klinalg.chol_solve_plain(*acs), 3),
+      'damped_solve_n75': time_ms(
+          lambda: klinalg.damped_solve_plain(ads[1], ads[2], dmp), 3),
+  })
+  # one PyTorch call of the same function, timed here only
+  eye = torch.eye(nvl, device=dev)
+  A_j = (acb[1] + acb[2] * eye).contiguous()
+  L_w, b_w = world(acs[0], nvl, nvl), acs[1].T.contiguous()[:, :, None]
+  M_w = world(ads[1], nvl, nvl).contiguous()
+  A_w = M_w + torch.diag(dmp)
+  rhs_w = torch.einsum('wij,wj->wi', M_w, ads[2].T)
+  library_ms.update({
+      'mass_chain_big': None,
+      'chol_batched': time_ms(lambda: torch.linalg.cholesky(A_j), 20),
+      'chol_solve_n75': time_ms(lambda: torch.cholesky_solve(b_w, L_w), 20),
+      'damped_solve_n75': time_ms(lambda: torch.linalg.solve(A_w, rhs_w),
+                                  20),
+  })
+  dw = forward.pre(mcl, d)
+  out_mc = kmass.mass_chain_lanes(*am)
+  transpose_ms.update({
+      'mass_chain_big': time_ms(lambda: (
+          lanes(dw.cinert, 36 * nbl), lanes(dw.cdof, 6 * nvl),
+          lanes(dw.qvel), world(out_mc[0], nvl, nvl),
+          world(out_mc[2], nbl, 6), world(out_mc[3], nvl, 6),
+          out_mc[4].T.contiguous()), 20),
+      'chol_batched': 0.0,  # the kernel reads and writes world-major
+      'chol_solve_n75': time_ms(lambda: (
+          lanes(L_w, nvl * nvl), lanes(dw.qvel), acs[1].T.contiguous()), 20),
+      'damped_solve_n75': time_ms(lambda: (
+          lanes(M_w, nvl * nvl), lanes(dw.qvel), acs[1].T.contiguous()), 20),
+  })
+  W = CL_NWORLD
+  bounds.update({
+      'mass_chain_big': bound(
+          W * F32 * (36 * nbl + 7 * nvl + nvl * nvl + 6 * nbl + 7 * nvl),
+          W * mass_chain_flops(mcl, False)),
+      'chol_batched': bound(W * F32 * 2 * nvl * nvl, W * chol_flops(nvl)),
+      'chol_solve_n75': bound(W * F32 * (nvl * nvl + 2 * nvl),
+                              W * 2 * nvl * nvl),
+      'damped_solve_n75': bound(W * F32 * (nvl * nvl + 2 * nvl) + F32 * nvl,
+                                W * (chol_flops(nvl) + 4 * nvl * nvl + nvl)),
+  })
+  for k in calls:
+    lib = library_ms[k]
+    say(f"[timing] {k} W={CL_NWORLD} per launch: cuda {ms[k]:.4f} ms (call "
+        f"{call_ms[k]:.4f}), plain {plain_ms[k]:.3f} ms, library "
+        f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
+        f"{transpose_ms[k]:.4f} ms")
+  say(f"[timing] clutter step {1e3 * CL_NWORLD / res['steps_per_sec']:.3f} "
+      'ms')
+
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
       'k1': ('k1.cu', 'mujoco_warp_tpu/pallas/fused.py:986'),
       'k4': ('k4.cu', 'mujoco_warp_tpu/pallas/fused.py:1247'),
       'mass_chain': ('mass_chain.cu', 'mujoco_warp_tpu/pallas/smooth.py:211'),
+      'mass_chain_big': ('mass_chain.cu',
+                         'mujoco_warp_tpu/pallas/smooth.py:211'),
       'solve': ('solve.cu', 'mujoco_warp_tpu/pallas/solver.py:1041'),
+      'chol_batched': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:65'),
       'chol_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:109'),
+      'chol_solve_n75': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:109'),
       'damped_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:145'),
+      'damped_solve_n75': ('linalg.cu',
+                           'mujoco_warp_tpu/pallas/linalg.py:145'),
   }
   print(json.dumps({'kernels': [
       {'name': k, 'route': 'cuda', 'source': src + f, 'replaces': r,

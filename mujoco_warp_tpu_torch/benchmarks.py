@@ -10,6 +10,11 @@ count with a stable argsort (the OU noise rides the same permutation), OU
 noise drives ctrl every step, and steps/s is timed after a warmup.  A
 number counts only when no world overflowed a contact or constraint
 buffer.  Tensors go to the CUDA device unless ``device='cpu'``.
+
+The scenes are the committed snapshots of ``io``: the humanoid (fused
+step, 8192 worlds), ``constraints`` (general step, 8192 worlds) and
+``clutter_arm_nosleep`` (general step with collision, the large-tree mass
+chain and the torch Newton; the JAX registry runs it at 4096 worlds).
 """
 
 from __future__ import annotations

@@ -1,11 +1,16 @@
 """Where the card's time goes in the benchmark rollout.
 
-  python -m mujoco_warp_tpu_torch.devprofile [--scene constraints]
+  python -m mujoco_warp_tpu_torch.devprofile \
+      [--scene constraints|clutter_arm_nosleep]
 
-Runs ``benchmarks.rollout`` on a committed scene at 8192 worlds for 300
-steps (the humanoid, by default, then rests its feet on the floor; the
-``constraints`` scene runs the general step), traces 40 more with
-``torch.profiler`` (CPU and CUDA activities) and prints one JSON line:
+Runs ``benchmarks.rollout`` on a committed scene for a number of steps
+(the humanoid, by default, 8192 worlds x 300, then rests its feet on the
+floor; the ``constraints`` scene, 8192 x 300, runs the general step;
+``clutter_arm_nosleep``, 4096 x 80, the general step with collision, the
+large-tree mass chain and the torch Newton, by then past its first
+contacts), traces a few more with ``torch.profiler`` (CPU and CUDA
+activities; 40 steps, 4 for the clutter scene, whose step launches tens
+of thousands of kernels) and prints one JSON line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
   that closes after a device synchronize);
@@ -13,7 +18,12 @@ steps (the humanoid, by default, then rests its feet on the floor; the
   copies, memsets) inside the window, over the window;
 - ``kernels_per_step`` and ``h2d_copies_per_step``;
 - ``device_ms_per_step``: each of the port's kernels and all other device
-  work.
+  work;
+- ``other_top``: the other kernels with the most device time, by name
+  (cut to 100 characters), each with its ms and launches per step;
+- ``stage_host_ms_per_step``: the host time of each stage of the general
+  step (its ``stage:<name>`` annotations, ``ops/forward.py``; empty on
+  the fused path).
 
 The profiler itself slows the host, so the idle share it reads is an upper
 bound.  The chrome trace is kept under ``build/mujoco_warp_tpu_torch/``.
@@ -33,10 +43,15 @@ from mujoco_warp_tpu_torch.kernels import build
 _DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 _KERNELS = {'k1': 'k1_kernel', 'k4': 'k4_kernel',
             'mass_chain': 'mass_chain_kernel', 'solve': 'solve_kernel',
+            'chol_batched': 'chol_batched_kernel',
             'chol_solve': 'chol_solve_kernel',
             'damped_solve': 'damped_solve_kernel'}
-SCENES = {'humanoid': io.SNAPSHOT, 'constraints': io.CONSTRAINTS_SNAPSHOT}
-NWORLD, SKIP, STEPS = 8192, 300, 40
+# scene: (snapshot, worlds, steps before the window, steps traced)
+SCENES = {'humanoid': (io.SNAPSHOT, 8192, 300, 40),
+          'constraints': (io.CONSTRAINTS_SNAPSHOT, 8192, 300, 40),
+          'clutter_arm_nosleep': (io.CLUTTER_SNAPSHOT, 4096, 80, 4)}
+# other kernels listed by name
+TOP = 8
 
 
 def summarize(events: list, nsteps: int) -> dict:
@@ -64,12 +79,25 @@ def summarize(events: list, nsteps: int) -> dict:
   per_kernel = {k: 0.0 for k in _KERNELS}
   other = 0.0
   by_name = {name: k for k, name in _KERNELS.items()}
+  others = {}  # name -> [us, launches] of the other kernels
   for a, b, e in dev:
     k = by_name.get(e['name'].split('(')[0].strip())
     if k is None:
       other += b - a
+      if e['cat'] == 'kernel':
+        o = others.setdefault(e['name'][:100], [0.0, 0])
+        o[0] += b - a
+        o[1] += 1
     else:
       per_kernel[k] += b - a
+  top = sorted(others.items(), key=lambda x: -x[1][0])[:TOP]
+  stages = {}
+  for e in events:
+    name = e.get('name', '')
+    if e.get('cat') == 'user_annotation' and name.startswith('stage:') and \
+        t0 <= float(e['ts']) < t1:
+      key = name[len('stage:'):]
+      stages[key] = stages.get(key, 0.0) + float(e['dur'])
   window = t1 - t0
   return {
       'steps': nsteps,
@@ -84,22 +112,28 @@ def summarize(events: list, nsteps: int) -> dict:
       'device_ms_per_step': {**{k: v / 1e3 / nsteps
                                 for k, v in per_kernel.items()},
                              'other': other / 1e3 / nsteps},
+      'other_top': [{'name': name, 'ms_per_step': us / 1e3 / nsteps,
+                     'launches_per_step': n / nsteps}
+                    for name, (us, n) in top],
+      'stage_host_ms_per_step': {k: v / 1e3 / nsteps
+                                 for k, v in stages.items()},
   }
 
 
 def profile(scene: str = 'humanoid') -> dict:
   if not torch.cuda.is_available():
     raise RuntimeError('devprofile needs a CUDA device')
-  m = io.load_model_npz(SCENES[scene])
-  steps_of = benchmarks.rollout(m, NWORLD, device='cuda')
-  for _ in range(SKIP):
+  path, nworld, skip, steps = SCENES[scene]
+  m = io.load_model_npz(path)
+  steps_of = benchmarks.rollout(m, nworld, device='cuda')
+  for _ in range(skip):
     next(steps_of)
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function('rollout'):
-      for _ in range(STEPS):
+      for _ in range(steps):
         next(steps_of)
       torch.cuda.synchronize()
   trace = os.path.join(build.BUILD_DIR, f'rollout_trace_{scene}.json')
@@ -107,8 +141,8 @@ def profile(scene: str = 'humanoid') -> dict:
   prof.export_chrome_trace(trace)
   with open(trace) as f:
     events = json.load(f)['traceEvents']
-  return {'scene': scene, 'nworld': NWORLD, 'skip': SKIP, 'trace': trace,
-          **summarize(events, STEPS)}
+  return {'scene': scene, 'nworld': nworld, 'skip': skip, 'trace': trace,
+          **summarize(events, steps)}
 
 
 if __name__ == '__main__':

@@ -361,13 +361,16 @@ def narrowphase(m: types.Model, gx, gmat, sizes):
 
 
 def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
-               need_L=True):
+               need_L=True, ancm=None):
   """crb -> qM (+ armature) -> [Cholesky] -> com_vel -> RNE bias.
 
-  ``mass_chain_core`` of ``mujoco_warp_tpu/pallas/smooth.py`` without the
-  ``ancm`` form (the large-tree form).  ``cinert`` and ``cdof`` are lists of
-  (36, W) per body and (6, W) per dof.  Returns (qM (nv, nv, W), L or None,
-  cvel list (6, W) per body, cdof_dot list (6, W) per dof, bias (nv, W)).
+  ``mass_chain_core`` of ``mujoco_warp_tpu/pallas/smooth.py`` (:43).
+  ``cinert`` and ``cdof`` are lists of (36, W) per body and (6, W) per dof.
+  ``ancm`` (nv, nv) selects the large-tree form (:99-110): qM from twelve
+  (nv, nv, W) products masked by the ancestor relation (1: cdof[j] f[i],
+  2: cdof[i] f[j], 0: zero), and no factor.  Returns (qM (nv, nv, W), L
+  or None, cvel list (6, W) per body, cdof_dot list (6, W) per dof, bias
+  (nv, W)).
   """
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
@@ -387,18 +390,31 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
   for b in reversed(topo):
     crbs[parent[b]] = crbs[parent[b]] + crbs[b]
   f = [mat6vec(crbs[dof_bodyid[i]], cdof[i]) for i in range(nv)]
-  zrow = torch.zeros((1, W), **kw)
-  rows = []
-  for i in range(nv):
-    cols = []
-    for j in range(nv):
-      if anc[i, j] or anc[j, i]:
-        jj, ii = (j, i) if anc[i, j] else (i, j)
-        cols.append(torch.sum(cdof[jj] * f[ii], dim=0, keepdim=True))
-      else:
-        cols.append(zrow)
-    rows.append(L.cat(cols))
-  qM = torch.stack(rows)
+  if ancm is not None:
+    F, CD = torch.stack(f), torch.stack(list(cdof))  # (nv, 6, W)
+    G1 = G2 = None
+    for k in range(6):
+      t1 = F[:, k][:, None] * CD[:, k][None]
+      t2 = CD[:, k][:, None] * F[:, k][None]
+      G1 = t1 if G1 is None else G1 + t1
+      G2 = t2 if G2 is None else G2 + t2
+    sel = torch.as_tensor(np.asarray(ancm), device=qvel.device)[:, :, None]
+    zero = torch.zeros_like(G1)
+    qM = torch.where(sel == 1, G1, zero) + torch.where(sel == 2, G2, zero)
+    need_L = False
+  else:
+    zrow = torch.zeros((1, W), **kw)
+    rows = []
+    for i in range(nv):
+      cols = []
+      for j in range(nv):
+        if anc[i, j] or anc[j, i]:
+          jj, ii = (j, i) if anc[i, j] else (i, j)
+          cols.append(torch.sum(cdof[jj] * f[ii], dim=0, keepdim=True))
+        else:
+          cols.append(zrow)
+      rows.append(L.cat(cols))
+    qM = torch.stack(rows)
   eye = torch.eye(nv, **kw)
   arm = torch.as_tensor(host(armature, np.float32), **kw)
   qM = qM + eye[:, :, None] * arm[:, None, None]

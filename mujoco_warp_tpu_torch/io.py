@@ -7,7 +7,7 @@ imports it inside the function; everything else (``model_from_numpy``,
 ``load_model_npz``, ``make_data``) runs without it, so a machine without
 ``mujoco`` loads the committed snapshots instead::
 
-  python -m mujoco_warp_tpu_torch.io --snapshot   # regenerate both snapshots
+  python -m mujoco_warp_tpu_torch.io --snapshot   # regenerate the snapshots
 
 Every entry point puts its tensors on the CUDA device unless the caller
 passes ``device='cpu'``; without a CUDA device it raises.
@@ -31,13 +31,19 @@ _ASSETS = os.path.join(os.path.dirname(__file__), 'assets')
 SNAPSHOT = os.path.join(_ASSETS, 'humanoid_bench.npz')
 # the general path's benchmark scene (mujoco_warp_tpu/models/constraints.xml)
 CONSTRAINTS_SNAPSHOT = os.path.join(_ASSETS, 'constraints.npz')
-CONSTRAINTS_XML = os.path.join(
+_MODELS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    'mujoco_warp_tpu', 'models', 'constraints.xml')
+    'mujoco_warp_tpu', 'models')
+CONSTRAINTS_XML = os.path.join(_MODELS, 'constraints.xml')
+# the large-tree contact scene: clutter_arm.xml with sleep off
+# (the registered benchmark clutter_arm_nosleep, lossless contact slots)
+CLUTTER_SNAPSHOT = os.path.join(_ASSETS, 'clutter_arm_nosleep.npz')
+CLUTTER_XML = os.path.join(_MODELS, 'clutter_arm.xml')
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
-# contact points per pair for the lane colliders of the fused step
+# contact points per pair for the lane colliders of the fused step (the
+# general step's are ops/collision_driver.py group_ncon)
 PAIR_NCON = {
     (_GT.PLANE, _GT.SPHERE): 1,
     (_GT.PLANE, _GT.CAPSULE): 2,
@@ -304,7 +310,9 @@ def _con_classes(con_dim: np.ndarray, nconmax) -> Tuple:
 
 def _collision_pairs(mjm):
   """Filtered candidate pairs grouped by collider
-  (``mujoco_warp_tpu/ops/collision_driver.py:49`` for the lane colliders).
+  (``mujoco_warp_tpu/ops/collision_driver.py:49``): the primitive
+  colliders and, for two convex types without one (box-box), MPR with
+  ``convex_ncon`` points per pair (:167-231).
 
   Returns (pair_geom1, pair_geom2, pair condim, con_pair, groups).
   """
@@ -341,13 +349,10 @@ def _collision_pairs(mjm):
       else:
         g1s.append(b)
         g2s.append(a)
+  from mujoco_warp_tpu_torch.ops import collision_driver
   keys = [(int(gt[a]), int(gt[b])) for a, b in zip(g1s, g2s)]
-  for key in keys:
-    if key not in PAIR_NCON:
-      raise NotImplementedError(
-          f'collision pair {key} has no lane collider of the fused step, and '
-          f'the general step runs no collision yet (ncand > 0: '
-          f'{len(keys)} candidate pairs)')
+  for key in set(keys):
+    collision_driver.collider(*key)  # raises for a pair without one
   pdim = np.zeros(len(g1s), np.int32)
   for i, (a, b) in enumerate(zip(g1s, g2s)):
     p1, p2 = mjm.geom_priority[a], mjm.geom_priority[b]
@@ -368,7 +373,7 @@ def _collision_pairs(mjm):
     j = i
     while j < len(keys) and keys[j] == keys[i] and pdim[j] == pdim[i]:
       j += 1
-    k = PAIR_NCON[keys[i]]
+    k = collision_driver.group_ncon(*keys[i])
     groups.append((keys[i][0], keys[i][1], np.arange(i, j, dtype=np.int32),
                    slot))
     for _ in range(k):  # slots are contact-point-major per group
@@ -567,16 +572,36 @@ def make_constraints_snapshot(path: str = CONSTRAINTS_SNAPSHOT
   return m
 
 
+def load_clutter():
+  """``clutter_arm.xml`` as a ``mujoco.MjModel`` with ``opt.enableflags``
+  0, the override of the benchmark ``clutter_arm_nosleep`` (needs
+  ``mujoco``)."""
+  import mujoco
+  mjm = mujoco.MjModel.from_xml_path(CLUTTER_XML)
+  mjm.opt.enableflags = 0
+  return mjm
+
+
+def make_clutter_snapshot(path: str = CLUTTER_SNAPSHOT) -> types.Model:
+  """The ``clutter_arm_nosleep`` scene with lossless contact slots
+  (``nconmax=None``), written to ``path``."""
+  m = put_model(load_clutter(), nconmax=None, device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
 def main(argv: Optional[list] = None):
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--snapshot', action='store_true',
-                 help='regenerate assets/humanoid_bench.npz and '
-                 'assets/constraints.npz')
+                 help='regenerate assets/humanoid_bench.npz, '
+                 'assets/constraints.npz and assets/clutter_arm_nosleep.npz')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
   for path, make in ((SNAPSHOT, make_snapshot),
-                     (CONSTRAINTS_SNAPSHOT, make_constraints_snapshot)):
+                     (CONSTRAINTS_SNAPSHOT, make_constraints_snapshot),
+                     (CLUTTER_SNAPSHOT, make_clutter_snapshot)):
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')

@@ -32,7 +32,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # the kernels of the library: each has mwt_<name>_launch(params, stream)
 # and mwt_<name>_params_size(); some size their scratch with
 # mwt_<name>_scratch_rows(<ints>)
-KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_solve', 'damped_solve')
+KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_batched', 'chol_solve',
+           'damped_solve')
 SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2, 'solve': 2}
 
 

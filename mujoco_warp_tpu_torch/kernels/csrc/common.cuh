@@ -1,4 +1,5 @@
-// Shared device helpers for the fused-step kernels (k1.cu, k4.cu).
+// Shared device helpers of the kernels (k1.cu, k4.cu, mass_chain.cu,
+// solve.cu, linalg.cu).
 //
 // Layout: every per-world array is lanes-last, (rows, W) float32, and
 // thread w owns column w, so row r of world w is base[r * W + w] and a
@@ -13,8 +14,12 @@
 #define MWT_BIGW 1e10f
 
 // nv cap of the fused gate (mujoco_warp_tpu_torch/fused/__init__.py,
-// checked by the wrappers): it sizes the per-thread local arrays
+// checked by the wrappers): it sizes the per-thread local arrays of K4
+// and the Newton solve
 #define MWT_MAX_NV 64
+// n cap of the batched Cholesky kernels (linalg.cu; kernels/linalg.py
+// MAX_N), which sizes only their own local arrays
+#define MWT_LINALG_MAX_N 128
 
 // row r of the calling world's column
 #define LANE(ptr, r) (ptr)[(size_t)(r) * W + w]
@@ -113,11 +118,12 @@ __device__ __forceinline__ void chol_lanes(const float* A, float* Lf, int n,
 }
 
 // Solve L L^T x = b (pallas/solver.py _chol_solve_tile), divisors
-// max(L_jj, 1e-15); x may alias b.
+// max(L_jj, 1e-15); x may alias b.  CAP (>= n) sizes the local array.
+template <int CAP = MWT_MAX_NV>
 __device__ __forceinline__ void chol_solve_lanes(const float* Lf,
                                                  const float* b, float* x,
                                                  int n, int W, int w) {
-  float y[MWT_MAX_NV];
+  float y[CAP];
   for (int i = 0; i < n; ++i) {
     float r = b[i];
     for (int j = 0; j < i; ++j) r = r - LANE(Lf, i * n + j) * y[j];

@@ -3,17 +3,21 @@
 // one thread per world, from the cinert and cdof of the position stages.
 //
 // Replaces the Pallas kernel mujoco_warp_tpu/pallas/smooth.py _make_kernel
-// (:211, launched by mass_chain :286), small-tree form (nv <= 48 and
-// nbody <= 32; the vectorised ancm form and its separate factor belong to
-// the large-tree scenes).  The per-world chain is mass_chain.cuh, shared
-// with K1.
+// (:211, launched by mass_chain :286) in both its forms: the small tree
+// (nv <= 48 and nbody <= 32) with its factor, and the large tree, whose
+// qM the Pallas kernel builds with the ancm selector (the same entries
+// as the ancestor walk here) and factors apart (pallas/linalg.py
+// chol_batched, linalg.cu here): the wrapper passes qLD = null and the
+// factor is skipped.  The per-world chain is mass_chain.cuh, shared with
+// K1; no per-thread array grows with nv or nbody.
 //
 // Bound.  Per world it reads 36 nbody + 7 nv floats and writes 2 nv^2 +
-// 6 nbody + 7 nv (6.6 KB at the constraints scene, nv 13, nbody 7: 54 MB
-// at 8192 worlds, 16 us at 3.35 TB/s); the flops (~nv^3 / 3 for the
-// factor plus ~100 nbody) are far below the card's rate.  With one thread
-// per world the kernel is latency-bound by each thread's chain of
-// dependent scratch accesses.
+// 6 nbody + 7 nv (nv^2 without the factor): 6.6 KB at the constraints
+// scene (nv 13, nbody 7; 54 MB at 8192 worlds, 16 us at 3.35 TB/s) and
+// 25 KB at clutter_arm (nv 75, nbody 16; 101 MB at 4096 worlds, 30 us);
+// the flops (~nv^3 / 3 for the factor plus ~100 nbody + 12 nv^2) are far
+// below the card's rate.  With one thread per world the kernel is
+// latency-bound by each thread's chain of dependent scratch accesses.
 
 #include "mass_chain.cuh"
 

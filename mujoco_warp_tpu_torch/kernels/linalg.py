@@ -1,12 +1,13 @@
-"""Batched Cholesky solves of the general step: qacc_smooth from the mass
-factor, and Euler's implicit-damping solve.
+"""Batched Cholesky kernels of the general step: the factor of a batch of
+SPD matrices (the large-tree mass factor and the large-system Newton H),
+qacc_smooth from the mass factor, and Euler's implicit-damping solve.
 
 Each function has its plain PyTorch version here (``*_plain``), built on
 the lane Cholesky of ``fused/solver_ref.py`` (``_chol_tile`` and
 ``_chol_solve_tile`` of ``pallas/solver.py``, with their 1e-15 floors).
 CPU tensors run the plain version; CUDA tensors launch ``csrc/linalg.cu``,
-which replaces ``mujoco_warp_tpu/pallas/linalg.py`` ``chol_solve_batched``
-(:109) and ``damped_solve_batched`` (:145).
+which replaces ``mujoco_warp_tpu/pallas/linalg.py`` ``chol_batched``
+(:65), ``chol_solve_batched`` (:109) and ``damped_solve_batched`` (:145).
 """
 
 from __future__ import annotations
@@ -17,14 +18,21 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.fused import MAX_NV
 from mujoco_warp_tpu_torch.fused.solver_ref import chol_solve_tile, chol_tile
 from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
     device_tables, lanes, ptr
 
 # launches of the CUDA kernels (not of the plain versions)
-launches = {'chol_solve': 0, 'damped_solve': 0}
+launches = {'chol_batched': 0, 'chol_solve': 0, 'damped_solve': 0}
 
+# the kernels' size cap (csrc/common.cuh MWT_LINALG_MAX_N): it sizes the
+# per-thread arrays of chol_solve and damped_solve, and chol_batched's
+# shared memory (n (n | 1) floats per world)
+MAX_N = 128
+
+CholBatchedParams = build.params_struct(
+    'CholBatchedParams', ints=('W', 'n'), floats=('jitter',),
+    ptrs=('A', 'L'))
 CholSolveParams = build.params_struct('CholSolveParams', ints=('W', 'n'),
                                       ptrs=('L', 'b', 'x'))
 DampedSolveParams = build.params_struct(
@@ -39,6 +47,15 @@ def damping_terms(m: types.Model) -> np.ndarray:
 
 _DMP = TableCache(lambda m, dev: device_tables({'dmp': damping_terms(m)},
                                                dev)['dmp'])
+
+
+def chol_batched_plain(A, jitter: float = 0.0):
+  """L with L L^T = A + jitter I, world-major A (W, n, n) -> (W, n, n),
+  zero above the diagonal."""
+  n = A.shape[-1]
+  if jitter:
+    A = A + torch.eye(n, dtype=A.dtype, device=A.device) * jitter
+  return chol_tile(A.permute(1, 2, 0), n).permute(2, 0, 1).contiguous()
 
 
 def chol_solve_plain(L, b):
@@ -77,13 +94,34 @@ def _device(x, what):
   return x.device.type == 'cuda'
 
 
+def _cap(n, what):
+  if n > MAX_N:
+    raise ValueError(f'{what} caps n at {MAX_N}, got {n}')
+
+
+def chol_batched(m: types.Model, A, jitter: float = 0.0):
+  """L with L L^T = A + jitter I for world-major A (W, n, n)
+  (``pallas/linalg.py`` ``chol_batched`` :65); the kernel reads and
+  writes world-major.  A CPU tensor takes the plain version, after the
+  same checks."""
+  W, n = A.shape[0], A.shape[-1]
+  _cap(n, 'chol_batched')
+  check(A, (W, n, n), 'A', A.device)
+  if not _device(A, 'chol_batched'):
+    return chol_batched_plain(A, jitter)
+  L = torch.empty_like(A)
+  with torch.cuda.device(A.device):
+    _launch('chol_batched', CholBatchedParams, W=W, n=n, jitter=jitter,
+            A=ptr(A), L=ptr(L))
+  return L
+
+
 def chol_solve_lanes(L, b):
   """x = (L L^T)^-1 b on lanes-last tensors L (n n, W), b (n, W)."""
   if not _device(b, 'chol_solve'):
     return chol_solve_plain(L, b)
   n, W = b.shape
-  if n > MAX_NV:
-    raise ValueError(f'chol_solve caps n at {MAX_NV}, got {n}')
+  _cap(n, 'chol_solve')
   check(L, (n * n, W), 'L', b.device)
   check(b, (n, W), 'b', b.device)
   x = torch.empty_like(b)
@@ -100,8 +138,9 @@ def damped_solve_lanes(m: types.Model, M, a):
     dmp = torch.as_tensor(damping_terms(m), device=a.device)
     return damped_solve_plain(M, a, dmp)
   n, W = a.shape
-  if n != m.nv or n > MAX_NV:
-    raise ValueError(f'damped_solve: n {n} (model nv {m.nv}, cap {MAX_NV})')
+  if n != m.nv:
+    raise ValueError(f'damped_solve: n {n}, model nv {m.nv}')
+  _cap(n, 'damped_solve')
   check(M, (n * n, W), 'M', a.device)
   check(a, (n, W), 'a', a.device)
   x = torch.empty_like(a)

@@ -4,7 +4,9 @@ the RNE bias of the general step.
 CPU tensors run the plain version (``fused/k1_ref.py`` ``mass_chain``);
 CUDA tensors launch ``csrc/mass_chain.cu``, which replaces
 ``mujoco_warp_tpu/pallas/smooth.py`` ``_make_kernel`` (:211, called by
-``mass_chain`` :286) in its small-tree form.
+``mass_chain`` :286) in both its forms.  A large tree (``big_tree``: nv >
+48 or nbody > 32) skips the factor in the kernel; qLD then comes from the
+``chol_batched`` kernel with jitter 1e-12 (``pallas/smooth.py:296-304``).
 """
 
 from __future__ import annotations
@@ -18,13 +20,16 @@ from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused import k1_ref
 from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
     device_tables, lanes, ptr, world
+from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
 
-# the small-tree form (pallas/smooth.py _big_tree): beyond it the ancm
+# the small-tree form (pallas/smooth.py _big_tree :196): beyond it the ancm
 # mass chain and the separate factor (pallas/linalg.py chol_batched) run
 MAX_NV, MAX_NBODY = 48, 32
+# the jitter of the large-tree factor (pallas/smooth.py:303)
+BIG_JITTER = 1e-12
 
 _TABLE_PTRS = ('topo', 'body_parent', 'body_dofadr', 'body_dofnum',
                'dof_bodyid', 'ancestor', 'cdofdot', 'armature', 'gravity')
@@ -34,16 +39,24 @@ MassChainParams = build.params_struct(
           'scr') + _TABLE_PTRS)
 
 
-def _small_tree(m: types.Model):
-  if m.nv > MAX_NV or m.nbody > MAX_NBODY:
-    raise NotImplementedError(
-        f'mass chain caps nv at {MAX_NV} and nbody at {MAX_NBODY} (got '
-        f'{m.nv}, {m.nbody}): the large-tree form is not ported yet')
+def big_tree(m: types.Model) -> bool:
+  """The large-tree form: no factor in the mass chain."""
+  return m.nv > MAX_NV or m.nbody > MAX_NBODY
+
+
+def ancm_table(m: types.Model) -> np.ndarray:
+  """(nv, nv) qM selector of the large-tree form
+  (``pallas/smooth.py:201``): 1 -> cdof[j] f[i] (j an ancestor of i),
+  2 -> cdof[i] f[j], 0 -> a structural zero."""
+  anc = m.tree.ancestor_mask
+  sel = np.zeros(anc.shape, np.float32)
+  sel[anc] = 1.0
+  sel[anc.T & ~anc] = 2.0
+  return sel
 
 
 def tables(m: types.Model) -> dict:
   """Model tables the kernel walks, as numpy."""
-  _small_tree(m)
   h = lambda x: np.asarray(types.host(x), np.float32)
   return dict(
       topo=[int(b) for lvl in m.tree.body_levels for b in lvl],
@@ -63,17 +76,18 @@ def mass_chain_plain(m: types.Model, cinert, cdof, qvel):
   W = qvel.shape[-1]
   qM, Lf, cvel, cdd, bias = k1_ref.mass_chain(
       m, list(cinert.reshape(nb, 36, W)), list(cdof.reshape(nv, 6, W)),
-      qvel, m.dof_armature, m.opt.gravity)
-  return (qM.reshape(nv * nv, W), Lf.reshape(nv * nv, W), torch.cat(cvel),
+      qvel, m.dof_armature, m.opt.gravity,
+      ancm=ancm_table(m) if big_tree(m) else None)
+  return (qM.reshape(nv * nv, W),
+          None if Lf is None else Lf.reshape(nv * nv, W), torch.cat(cvel),
           torch.cat(cdd), bias)
 
 
 def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
   """The mass chain on lanes-last tensors: cinert (36 nbody, W), cdof
-  (6 nv, W), qvel (nv, W).  Returns qM, qLD (nv nv, W), cvel (6 nbody, W),
-  cdof_dot (6 nv, W) and bias (nv, W)."""
+  (6 nv, W), qvel (nv, W).  Returns qM, qLD (nv nv, W; None for a large
+  tree), cvel (6 nbody, W), cdof_dot (6 nv, W) and bias (nv, W)."""
   global launches
-  _small_tree(m)
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
   if qvel.device.type == 'cpu':
@@ -90,8 +104,8 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
     raise RuntimeError('MassChainParams layout differs between C and Python')
   tab = _TABLES.get(m, dev)
   new = lambda rows: torch.empty((rows, W), dtype=torch.float32, device=dev)
-  qM, qLD, cvel, cdd, bias = (new(nv * nv), new(nv * nv), new(6 * nb),
-                              new(6 * nv), new(nv))
+  qM, cvel, cdd, bias = new(nv * nv), new(6 * nb), new(6 * nv), new(nv)
+  qLD = None if big_tree(m) else new(nv * nv)
   scr = new(lib.mwt_mass_chain_scratch_rows(nb, nv))
   p = MassChainParams(
       W=W, nb=nb, nv=nv,
@@ -110,10 +124,15 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
 def mass_chain(m: types.Model, d: types.Data) -> types.Data:
   """The batched mass chain on world-major Data after the position stages
   (``pallas/smooth.py`` ``mass_chain`` :246): qM, qLD, cvel, cdof_dot and
-  qfrc_bias."""
+  qfrc_bias; a large tree's qLD from the ``chol_batched`` kernel."""
   nb, nv = m.nbody, m.nv
   qM, qLD, cvel, cdd, bias = mass_chain_lanes(
       m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
-  return d.replace(qM=world(qM, nv, nv), qLD=world(qLD, nv, nv),
+  qM = world(qM, nv, nv)
+  if qLD is None:
+    qLD = klinalg.chol_batched(m, qM.contiguous(), jitter=BIG_JITTER)
+  else:
+    qLD = world(qLD, nv, nv)
+  return d.replace(qM=qM, qLD=qLD,
                    cvel=world(cvel, nb, 6), cdof_dot=world(cdd, nv, 6),
                    qfrc_bias=bias.T)

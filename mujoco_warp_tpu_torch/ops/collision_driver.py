@@ -1,0 +1,83 @@
+"""Collision of the general step over the static candidate table,
+world-major.
+
+Counterpart of ``mujoco_warp_tpu/ops/collision_driver.py``:
+``group_ncon`` (:317), ``_narrowphase_candidates`` (:516) and the branch
+of ``collision`` without contact compaction (:559-599).  Every candidate
+pair runs its collider every step; a slot is live iff its dist is below
+the pair's includemargin.  The compacted branch (:601-640) and the
+broadphase-pruned one (:650) belong to later slices
+(``ops/forward.py`` ``unsupported`` refuses ``con_compact``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_warp_tpu_torch import types
+from mujoco_warp_tpu_torch.ops import collision_convex, collision_primitive, \
+    math
+from mujoco_warp_tpu_torch.ops.util import ix
+
+
+def group_ncon(t1, t2) -> int:
+  """Contact points per pair of a (t1, t2) collider group."""
+  key = (int(t1), int(t2))
+  if key in collision_primitive.PAIR_NCON:
+    return collision_primitive.PAIR_NCON[key]
+  return collision_convex.convex_ncon(*key)
+
+
+def collider(t1, t2):
+  """The collider function of a (t1, t2) group, or NotImplementedError."""
+  fn = collision_primitive.COLLIDERS.get((int(t1), int(t2)))
+  if fn is not None:
+    return fn
+  if int(t1) in collision_convex.CONVEX_TYPES and \
+      int(t2) in collision_convex.CONVEX_TYPES:
+    return collision_convex.make_convex_collider(int(t1), int(t2))
+  raise NotImplementedError(
+      f'collision pair {(types.GeomType(int(t1)).name, types.GeomType(int(t2)).name)}'
+      ' has no collider in the general step')
+
+
+def _narrowphase_candidates(m: types.Model, d: types.Data):
+  """dist (W, ncon), pos (W, ncon, 3) and frame (W, ncon, 3, 3) over every
+  candidate slot, group by group in slot order (each group's slots are
+  contact-point-major, (k, npair))."""
+  dists, poss, frames = [], [], []
+  W = d.geom_xpos.shape[0]
+  for (t1, t2, idx, _) in m.pair_groups:
+    out = collider(t1, t2)(m, d, m.pair_geom1[idx], m.pair_geom2[idx])
+    dist, pos, normal = out[:3]
+    frame = out[3] if len(out) == 4 else math.make_frame(normal)
+    dists.append(dist.reshape(W, -1))
+    poss.append(pos.reshape(W, -1, 3))
+    frames.append(frame.reshape(W, -1, 3, 3))
+  return torch.cat(dists, 1), torch.cat(poss, 1), torch.cat(frames, 1)
+
+
+def collision(m: types.Model, d: types.Data) -> types.Data:
+  """Narrowphase over all candidate pairs into the contact slots, and the
+  count of live slots per world (``collision_driver.py:545``)."""
+  if m.ncon == 0 or (m.opt.disableflags & types.DisableBit.CONTACT):
+    return d
+  if m.con_compact:
+    raise NotImplementedError('contact compaction on the general step')
+  dist, pos, frame = _narrowphase_candidates(m, d)
+  W, dev = dist.shape[0], dist.device
+  per_world = lambda x: x[None].expand((W,) + tuple(x.shape))
+  im = m.cand_includemargin
+  cp = m.con_pair
+  contact = types.Contact(
+      dist=dist, pos=pos, frame=frame, includemargin=per_world(im),
+      friction=per_world(m.cand_friction),
+      solref=per_world(m.cand_solref),
+      solreffriction=per_world(torch.zeros_like(m.cand_solref)),
+      solimp=per_world(m.cand_solimp),
+      geom1=per_world(ix(m.pair_geom1[cp], dev).int()),
+      geom2=per_world(ix(m.pair_geom2[cp], dev).int()),
+      cand=per_world(ix(np.arange(m.ncon), dev).int()))
+  ncon_active = torch.sum((dist < im).int(), dim=1, dtype=torch.int32)
+  return d.replace(contact=contact, ncon_active=ncon_active)

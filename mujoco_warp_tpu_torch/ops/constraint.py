@@ -5,10 +5,11 @@ Counterpart of ``mujoco_warp_tpu/ops/constraint.py``: ``_kbi`` (:32),
 ``_row_values`` (:66), ``_jac`` (:76), ``_cdof_dot_jac`` (:102),
 ``_jac_dot`` (:118), the row writer (:142-206), ``_equality_connect``
 (:208), ``_equality_weld`` (:262), ``_equality_joint`` (:383),
-``_friction`` (:594), ``_limit`` (:619) and ``make_constraint`` (:919).
-Every potential row exists every step; inactive rows are zeroed.  The
-Jacobian is dense (W, nefc, nv).  Contact, tendon and flex rows are not
-ported yet.
+``_friction`` (:594), ``_limit`` (:619), ``_contact`` (:777, frictionless
+and pyramidal rows) and ``make_constraint`` (:919).  Every potential row
+exists every step; inactive rows are zeroed.  The Jacobian is dense (W,
+nefc, nv).  Elliptic contact rows, compact contact rows and tendon and
+flex rows are not ported yet.
 """
 
 from __future__ import annotations
@@ -362,14 +363,80 @@ def _limit(m, d, rows):
   rows.set(m.efc.lim_jnt_adr, J, posv, margin, D, aref, None, active)
 
 
+def _contact(m, d, rows):
+  """Frictionless and pyramidal contact rows over the static slots
+  (``constraint.py:777``): the frame-projected Jacobian of the two bodies
+  without the (k, nv, 3) point Jacobians, rows n +- mu_i d_i."""
+  if m.opt.cone == types.ConeType.ELLIPTIC:
+    raise NotImplementedError('elliptic contact rows are not ported yet')
+  con, dev, dt = d.contact, d.qpos.device, d.qpos.dtype
+  W = d.qpos.shape[0]
+  impratio_inv = 1.0 / torch.clamp(m.opt.impratio, min=MJ_MINVAL)
+  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]  # (W, nv, 3)
+  dims = np.asarray(m.con_dim)
+  cand_geom1 = m.pair_geom1[m.con_pair]
+  cand_geom2 = m.pair_geom2[m.con_pair]
+  for dim in np.unique(dims):
+    dim = int(dim)
+    idx = np.nonzero(dims == dim)[0]
+    k, ti = len(idx), ix(idx, dev)
+    body1 = m.geom_bodyid[cand_geom1[idx]]
+    body2 = m.geom_bodyid[cand_geom2[idx]]
+    pos, frame = con.pos[:, ti], con.frame[:, ti]  # (W, k, 3), (W, k, 3, 3)
+    dist, margin = con.dist[:, ti], con.includemargin[:, ti]
+    cpos = dist - margin
+    active = dist < margin
+    invweight = (m.body_invweight0[ix(body1, dev), 0] +
+                 m.body_invweight0[ix(body2, dev), 0])
+    Fl = torch.einsum('wkij,wvj->wkiv', frame, lin)
+    Fa = torch.einsum('wkij,wvj->wkiv', frame, ang)
+
+    def proj(body):
+      mask = fmask(m.tree.body_dof_mask[body], d.qpos)[None, :, None, :]
+      off = pos - d.subtree_com[:, ix(m.body_rootid[body], dev)]
+      w = math.cross(off[:, :, None, :], frame)  # off x each frame row
+      return ((Fl + torch.einsum('wkij,wvj->wkiv', w, ang)) * mask,
+              Fa * mask)
+
+    Jp1, Jr1 = proj(body1)
+    Jp2, Jr2 = proj(body2)
+    Jp, Jr = Jp2 - Jp1, Jr2 - Jr1  # (W, k, 3, nv): rows n, t1, t2
+    friction = con.friction[:, ti]
+    solref, solimp = con.solref[:, ti], con.solimp[:, ti]
+    if dim == 1:
+      nrow = 1
+      Jrows = Jp[:, :, :1]
+      iw = invweight[:, None]
+    else:
+      nrow = 2 * (dim - 1)
+      dirs = [Jp[:, :, 1], Jp[:, :, 2], Jr[:, :, 0], Jr[:, :, 1],
+              Jr[:, :, 2]]
+      Jrows = torch.stack(
+          [Jp[:, :, 0] + (1.0 - 2.0 * float(o & 1)) *
+           friction[:, :, o // 2][..., None] * dirs[o // 2]
+           for o in range(nrow)], dim=2)  # (W, k, nrow, nv)
+      fri0 = friction[:, :, 0]
+      iw = invweight + fri0 * fri0 * invweight
+      iw = (iw * 2.0 * fri0 * fri0 * impratio_inv)[..., None]
+    Jqvel = torch.einsum('wkrv,wv->wkr', Jrows, d.qvel)
+    shape = (W, k, nrow)
+    D, aref, posv = _row_values(
+        m, cpos[..., None].expand(shape), cpos[..., None], iw,
+        solref[:, :, None, :], solimp[:, :, None, :], margin[..., None],
+        Jqvel)
+    adr = (m.con_efc_address[idx][:, None] + np.arange(nrow)).reshape(-1)
+    flat = lambda x: x.expand(shape).reshape(W, k * nrow)
+    rows.set(adr, Jrows.reshape(W, k * nrow, m.nv), flat(posv),
+             flat(margin[..., None]), flat(D), flat(aref), None,
+             flat(active[..., None]))
+
+
 def make_constraint(m: types.Model, d: types.Data) -> types.Data:
-  """The EFC system of equality, friction-loss and limit rows
+  """The EFC system of equality, friction-loss, limit and contact rows
   (``constraint.py:919``)."""
   rows = _Rows(m, d)
   dsbl = m.opt.disableflags
   if m.nefc and not (dsbl & types.DisableBit.CONSTRAINT):
-    if m.ncon and not (dsbl & types.DisableBit.CONTACT):
-      raise NotImplementedError('contact rows are not ported yet')
     if len(m.efc.tendon_id) or len(m.efc.flex_id) or \
         len(m.efc.fri_ten_id) or len(m.efc.lim_ten_id):
       raise NotImplementedError('tendon and flex rows are not ported yet')
@@ -382,6 +449,8 @@ def make_constraint(m: types.Model, d: types.Data) -> types.Data:
       _friction(m, d, rows)
     if m.nl and not (dsbl & types.DisableBit.LIMIT):
       _limit(m, d, rows)
+    if m.ncon and not (dsbl & types.DisableBit.CONTACT):
+      _contact(m, d, rows)
   return d.replace(efc_J=rows.J, efc_pos=rows.pos, efc_margin=rows.margin,
                    efc_D=rows.D, efc_aref=rows.aref,
                    efc_frictionloss=rows.frictionloss,

@@ -4,11 +4,14 @@ Counterpart of ``mujoco_warp_tpu/ops/forward.py``: ``fwd_actuation``
 (:333), ``fwd_smooth_force`` (:479), ``_next_position`` (:497),
 ``_advance`` (:523), ``euler`` (:540), ``_step_batched`` (:696) and
 ``step`` (:649) for batched Data.  The stage order of ``_step_batched`` is
-kept: the position stages (``pre``), the mass chain (kernel), the
+kept: the position stages (``pre``), the mass chain (kernel; a large
+tree's factor from the ``chol_batched`` kernel), collision, the
 constraint rows, passive and actuator forces (``mid``), qacc_smooth
-(Cholesky-solve kernel), the Newton solve (kernel), the damped Euler solve
-(kernel) and ``_advance``.  On CUDA tensors the four kernels launch; on
-CPU tensors their plain versions run.
+(Cholesky-solve kernel), the Newton solve (the solve kernel, or for a
+large system the torch Newton of ``ops/solver.py`` around the
+``chol_batched`` and ``chol_solve`` kernels), the damped Euler solve
+(kernel) and ``_advance``.  On CUDA tensors the kernels launch; on CPU
+tensors their plain versions run.
 
 ``unsupported`` is this slice's gate: the models the general step runs
 are those it returns None for.
@@ -24,8 +27,9 @@ from mujoco_warp_tpu_torch.fused import k4_ref
 from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
-from mujoco_warp_tpu_torch.ops import constraint, math, passive, smooth, \
-    support
+from mujoco_warp_tpu_torch.ops import collision_driver, constraint, math, \
+    passive, smooth, support
+from mujoco_warp_tpu_torch.ops import solver as osolver
 from mujoco_warp_tpu_torch.ops.util import bmask, ix
 
 _JT = types.JointType
@@ -33,15 +37,24 @@ _GT = types.GainType
 _BT = types.BiasType
 
 # beyond this nefc * nv the JAX package leaves the Pallas solver for the
-# jnp Newton (pallas/solver.py _use_big), which is not ported yet
+# jnp Newton (pallas/solver.py _use_big :65), ops/solver.py here
 MAX_NEFC_NV = 12_000
+
+
+def large_system(m: types.Model) -> bool:
+  """Does ``m`` take the torch Newton of ``ops/solver.py``?"""
+  return m.nefc * m.nv > MAX_NEFC_NV
 
 
 def unsupported(m: types.Model):
   """Why the general step cannot run ``m`` yet, or None."""
   o = m.opt
   if m.ncand and o.run_collision_detection:
-    return f'collision (ncand {m.ncand})'
+    if m.con_compact:
+      return f'contact compaction (ncand {m.ncand}, ncon {m.ncon})'
+    if not large_system(m):
+      return (f'contacts through the small-system solve kernel (ncand '
+              f'{m.ncand}, nefc {m.nefc} x nv {m.nv} <= {MAX_NEFC_NV})')
   for n, what in ((m.ntendon, 'tendons'), (m.nsensor, 'sensors'),
                   (m.nflex, 'flex'), (m.nmocap, 'mocap'),
                   (m.na, 'actuator activation'), (m.nhistory, 'history'),
@@ -75,11 +88,8 @@ def unsupported(m: types.Model):
     return 'fluid forces'
   if np.any(types.host(m.body_gravcomp) != 0):
     return 'gravcomp'
-  if m.nv > kmass.MAX_NV or m.nbody > kmass.MAX_NBODY:
-    return (f'large tree (nv {m.nv}, nbody {m.nbody}): the ancm mass chain '
-            'and its factor')
-  if m.nefc * m.nv > MAX_NEFC_NV:
-    return f'large constraint system (nefc {m.nefc} x nv {m.nv})'
+  if m.nv > klinalg.MAX_N:
+    return f'nv {m.nv} above the Cholesky kernels\' cap {klinalg.MAX_N}'
   return None
 
 
@@ -170,14 +180,17 @@ def euler(m: types.Model, d: types.Data) -> types.Data:
 
 def solve(m: types.Model, d: types.Data) -> types.Data:
   """qacc from qacc_smooth and the constraint rows (``ops/solver.py``
-  ``solve_batched`` :704): the Newton kernel, or qacc_smooth when the
-  model has no rows."""
+  ``solve_batched`` :704): the Newton kernel, the torch Newton for a
+  system beyond nefc * nv 12,000 (``pallas/solver.py`` ``supported``
+  :120), or qacc_smooth when the model has no rows."""
   if m.nefc == 0 or (m.opt.disableflags & types.DisableBit.CONSTRAINT):
     W = d.qpos.shape[0]
     return d.replace(
         qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth,
         qfrc_constraint=torch.zeros_like(d.qvel),
         solver_niter=torch.zeros(W, dtype=torch.int32, device=d.qpos.device))
+  if large_system(m):
+    return osolver.solve(m, d)
   return ksolver.solve_batched(m, d)
 
 
@@ -188,30 +201,48 @@ def pre(m: types.Model, d: types.Data) -> types.Data:
   return smooth.camlight(m, d)
 
 
+def stage(name: str):
+  """A ``torch.profiler`` annotation ``stage:<name>`` around one stage of
+  the step (``devprofile`` sums their host time; a no-op otherwise)."""
+  return torch.profiler.record_function(f'stage:{name}')
+
+
 def mid(m: types.Model, d: types.Data) -> types.Data:
-  """The stages after the mass chain: constraint rows, transmission,
-  passive and actuator forces, qfrc_smooth (``_step_batched`` mid)."""
-  d = constraint.make_constraint(m, d)
-  d = smooth.transmission(m, d)
-  if m.nu:
-    d = d.replace(actuator_velocity=torch.einsum(
-        'wuv,wv->wu', d.actuator_moment, d.qvel))
-  d = passive.passive(m, d)
-  d = fwd_actuation(m, d)
-  return fwd_smooth_force(m, d)
+  """The stages after the mass chain: collision, constraint rows,
+  transmission, passive and actuator forces, qfrc_smooth
+  (``_step_batched`` mid)."""
+  if m.opt.run_collision_detection:
+    with stage('collision'):
+      d = collision_driver.collision(m, d)
+  with stage('rows'):
+    d = constraint.make_constraint(m, d)
+  with stage('forces'):
+    d = smooth.transmission(m, d)
+    if m.nu:
+      d = d.replace(actuator_velocity=torch.einsum(
+          'wuv,wv->wu', d.actuator_moment, d.qvel))
+    d = passive.passive(m, d)
+    d = fwd_actuation(m, d)
+    return fwd_smooth_force(m, d)
 
 
 def _step_batched(m: types.Model, d: types.Data) -> types.Data:
   """One stage-split step of batched Data (``forward.py:696``)."""
-  d = pre(m, d)
-  # crb, qM, qLD, com_vel, cdof_dot and rne in one kernel
-  d = kmass.mass_chain(m, d)
+  with stage('pre'):
+    d = pre(m, d)
+  # crb, qM, qLD, com_vel, cdof_dot and rne in one kernel (a large tree's
+  # qLD from the chol_batched kernel)
+  with stage('mass_chain'):
+    d = kmass.mass_chain(m, d)
   d = mid(m, d)
   # qacc_smooth through the mass factor
-  d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
-                                                       d.qfrc_smooth))
-  d = solve(m, d)
-  return euler(m, d)
+  with stage('qacc_smooth'):
+    d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
+                                                         d.qfrc_smooth))
+  with stage('solve'):
+    d = solve(m, d)
+  with stage('euler'):
+    return euler(m, d)
 
 
 def step(m: types.Model, d: types.Data) -> types.Data:

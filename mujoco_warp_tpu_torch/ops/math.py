@@ -177,6 +177,11 @@ def transform_force(vec, offset):
   return torch.cat([ang - cross(offset, lin), lin], dim=-1)
 
 
+def dot(a, b, keepdim=False):
+  """Inner product over the last axis."""
+  return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
 def safe_norm(v, dim=-1):
   return torch.sqrt(torch.sum(v * v, dim=dim) + _EPS * _EPS)
 

@@ -38,6 +38,19 @@ with the output's name and by how much it missed.
   96.1-99.2% of worlds and the plain port and the Pallas kernel in
   92.2-99.2%, never more than one iteration apart, with qacc within the
   bars above.
+- The large-tree kernels (``clutter_arm_nosleep``, seeded by
+  ``clutter_state``): the large-tree mass chain's qM, cvel, cdof_dot and
+  bias within ``K1_TOL`` of max(1, max |reference|), as the small form
+  (the same float32 sums, no factor); ``chol_batched``'s L, and
+  ``chol_solve`` and ``damped_solve`` at n 75, within ``SOLVE_ATOL`` +
+  ``SOLVE_RTOL`` of the world's largest |reference| (the same right-
+  looking updates and substitutions; the factor is a 75-step chain of
+  rank-1 updates, so its rounding grows with n, and the world scale keeps
+  the bar relative to the matrix).  The torch Newton against the JAX
+  package's jnp Newton (``tests/test_torch_clutter_solver.py``): qacc,
+  efc_force and qfrc_constraint at the K4 bars and Newton counts at the
+  'contact' bar, for the linesearch reason above (the JAX side factors H
+  with LAPACK on a CPU, the port with the lane Cholesky).
 """
 
 from __future__ import annotations
@@ -92,6 +105,52 @@ def general_state(m, W: int, seed: int):
       qpos[:, q] /= np.linalg.norm(qpos[:, q], axis=1, keepdims=True)
   qvel = (0.2 * rng.standard_normal((W, m.nv))).astype(np.float32)
   ctrl = (0.3 * rng.standard_normal((W, m.nu))).astype(np.float32)
+  return qpos, qvel, ctrl
+
+
+# clutter_arm's free bodies packed into touching rows on the floor: (x
+# spacing, y, z) per geom type, so that sphere-sphere, box-box and
+# capsule-capsule neighbours overlap by 5-10 mm, the sphere and capsule
+# rows touch the box row, every body touches the floor, and the last
+# capsule stands against the last sphere
+_PACK = {int(types.GeomType.SPHERE): (0.19, -0.17, 0.095),
+         int(types.GeomType.BOX): (0.155, 0.0, 0.075),
+         int(types.GeomType.CAPSULE): (0.11, 0.13, 0.135)}
+_LAST_CAPSULE = (0.72, -0.17, 0.135)
+
+
+def clutter_state(m, W: int, seed: int):
+  """World-major float32 numpy (qpos, qvel, ctrl) of the contact-rich
+  clutter_arm state, drawn in that order from ``default_rng(seed)``: the
+  free bodies packed by ``_PACK`` plus 2 mm N in position and 0.01 N in
+  their quaternions (renormalised), the arm's hinges at qpos0 + 0.1 N;
+  qvel 0.1 N (free bodies) and 0.2 N (hinges); ctrl 0.3 N."""
+  rng = np.random.default_rng(seed)
+  qpos = np.broadcast_to(types.host(m.qpos0, np.float32),
+                         (W, m.nq)).copy()
+  noise = rng.standard_normal((W, m.nq)).astype(np.float32)
+  qvel_n = rng.standard_normal((W, m.nv)).astype(np.float32)
+  ctrl = (0.3 * rng.standard_normal((W, m.nu))).astype(np.float32)
+  qvel = np.zeros((W, m.nv), np.float32)
+  seen = {}
+  for j in range(m.njnt):
+    a, da = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+    if int(m.jnt_type[j]) != types.JointType.FREE:
+      qpos[:, a] += 0.1 * noise[:, a]
+      qvel[:, da] = 0.2 * qvel_n[:, da]
+      continue
+    body = int(m.jnt_bodyid[j])
+    gt = int(m.geom_type[np.nonzero(m.geom_bodyid == body)[0][0]])
+    c = seen.get(gt, 0)
+    seen[gt] = c + 1
+    dx, y, z = _PACK[gt]
+    pos = _LAST_CAPSULE if (gt == types.GeomType.CAPSULE and c == 3) else \
+        (dx * c, y, z)
+    qpos[:, a:a + 3] = np.asarray(pos, np.float32) + 0.002 * noise[:, a:a + 3]
+    q = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32) + \
+        0.01 * noise[:, a + 3:a + 7]
+    qpos[:, a + 3:a + 7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qvel[:, da:da + 6] = 0.1 * qvel_n[:, da:da + 6]
   return qpos, qvel, ctrl
 
 

@@ -336,6 +336,7 @@ class Model(_Replace):
   geom_size: torch.Tensor = array()
   geom_pos: torch.Tensor = array()
   geom_quat: torch.Tensor = array()
+  geom_margin: torch.Tensor = array()
 
   eq_type: np.ndarray = static()
   eq_objtype: np.ndarray = static()
@@ -371,6 +372,28 @@ class Model(_Replace):
   cand_solref: torch.Tensor = array()
   cand_solimp: torch.Tensor = array()
   cand_includemargin: torch.Tensor = array()
+
+
+@dataclasses.dataclass
+class Contact:
+  """World-major contact slots (``mujoco_warp_tpu.types.Contact`` under
+  ``vmap``): one slot per candidate contact point, in the static slot
+  order of ``Model.con_pair``.  A slot is live iff dist < includemargin."""
+
+  dist: torch.Tensor = None  # (W, ncon)
+  pos: torch.Tensor = None  # (W, ncon, 3)
+  frame: torch.Tensor = None  # (W, ncon, 3, 3) rows: normal, t1, t2
+  includemargin: torch.Tensor = None  # (W, ncon)
+  friction: torch.Tensor = None  # (W, ncon, 5)
+  solref: torch.Tensor = None  # (W, ncon, NREF)
+  solreffriction: torch.Tensor = None  # (W, ncon, NREF)
+  solimp: torch.Tensor = None  # (W, ncon, NIMP)
+  geom1: torch.Tensor = None  # (W, ncon) int32
+  geom2: torch.Tensor = None  # (W, ncon) int32
+  cand: torch.Tensor = None  # (W, ncon) int32 candidate slot id
+
+  def replace(self, **kw):
+    return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass
@@ -431,6 +454,9 @@ class Data:
   efc_aref: torch.Tensor = None  # (W, nefc)
   efc_force: torch.Tensor = None  # (W, nefc)
   efc_active: torch.Tensor = None  # (W, nefc) bool
+  # collision
+  contact: Contact = None
+  ncon_active: torch.Tensor = None  # (W,) int32 live contact slots
   solver_niter: torch.Tensor = None  # (W,) int32
   overflow: torch.Tensor = None  # (W,) int32 OverflowType bits
 

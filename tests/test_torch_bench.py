@@ -58,6 +58,12 @@ def test_devprofile_summary_of_a_trace():
        'dur': 10},
       {'ph': 'X', 'cat': 'cpu_op', 'name': 'aten::add', 'ts': 1000,
        'dur': 90},
+      {'ph': 'X', 'cat': 'user_annotation', 'name': 'stage:solve',
+       'ts': 1010, 'dur': 30},
+      {'ph': 'X', 'cat': 'user_annotation', 'name': 'stage:solve',
+       'ts': 1050, 'dur': 10},
+      {'ph': 'X', 'cat': 'user_annotation', 'name': 'stage:pre',
+       'ts': 3000, 'dur': 10},
   ]
   s = devprofile.summarize(ev, nsteps=2)
   assert s['window_ms'] == pytest.approx(0.1)
@@ -69,20 +75,29 @@ def test_devprofile_summary_of_a_trace():
   dm = s['device_ms_per_step']
   assert dm['k4'] == pytest.approx(0.02) and dm['k1'] == pytest.approx(0.01)
   assert dm['other'] == pytest.approx(0.0075)
+  # the other kernels by name: only 'elementwise' (the copy is no kernel)
+  (top,) = s['other_top']
+  assert top['name'] == 'elementwise'
+  assert top['ms_per_step'] == pytest.approx(0.0025)
+  assert top['launches_per_step'] == 0.5
+  # host time of the step's stages inside the window
+  assert s['stage_host_ms_per_step'] == {'solve': pytest.approx(0.02)}
   with pytest.raises(ValueError):
     devprofile.summarize(ev[:1], nsteps=2)
 
 
 def test_devprofile_attributes_each_kernel_by_its_name():
   """solve_kernel is a suffix of chol_solve_kernel and damped_solve_kernel:
-  each trace event counts for its own kernel only."""
+  each trace event counts for its own kernel only (chol_batched_kernel
+  too)."""
   from mujoco_warp_tpu_torch import devprofile
   ev = [{'ph': 'X', 'cat': 'user_annotation', 'name': 'rollout', 'ts': 0,
          'dur': 100}]
   for i, name in enumerate(('solve_kernel(SolveParams)',
                             'chol_solve_kernel(CholSolveParams)',
                             'damped_solve_kernel(DampedSolveParams)',
-                            'mass_chain_kernel(MassChainParams)')):
+                            'mass_chain_kernel(MassChainParams)',
+                            'chol_batched_kernel(CholBatchedParams)')):
     ev.append({'ph': 'X', 'cat': 'kernel', 'name': name, 'ts': 10 * i,
                'dur': i + 1})
   dm = devprofile.summarize(ev, nsteps=1)['device_ms_per_step']
@@ -90,6 +105,7 @@ def test_devprofile_attributes_each_kernel_by_its_name():
   assert dm['chol_solve'] == pytest.approx(0.002)
   assert dm['damped_solve'] == pytest.approx(0.003)
   assert dm['mass_chain'] == pytest.approx(0.004)
+  assert dm['chol_batched'] == pytest.approx(0.005)
   assert dm['other'] == 0.0
 
 
@@ -104,4 +120,25 @@ def test_run_takes_the_general_step_outside_the_fused_gate():
   assert isinstance(st, types.Data) and st.qpos.shape == (8, m.nq)
   assert set(res) == bench_keys()
   assert res['converged_worlds'] == 8 and res['overflow_worlds'] == 0
+  assert st.ctrl.abs().max() > 0
+
+
+def test_run_takes_the_clutter_snapshot():
+  """clutter_arm_nosleep (large tree, 183 contact slots, nefc 732) runs the
+  general step with collision and the torch Newton through the same
+  harness: the free OU form drives the arm's motors, worlds are sorted
+  every 4 steps, and the metric keys are the JAX harness's."""
+  from mujoco_warp_tpu_torch import fused, types
+  from mujoco_warp_tpu_torch.ops import solver as osolver
+  m = io.load_model_npz(io.CLUTTER_SNAPSHOT, device='cpu')
+  assert not fused.supported(m)
+  trips = osolver.trips
+  res = benchmarks.run(m, nworld=4, nstep=2, warmup_steps=1, device='cpu')
+  st = res.pop('state')
+  assert isinstance(st, types.Data) and st.qpos.shape == (4, m.nq)
+  assert st.contact.dist.shape == (4, m.ncon)
+  assert st.ncon_active.shape == (4,)
+  assert osolver.trips - trips >= 3  # one solve per step at least
+  assert set(res) == bench_keys()
+  assert res['converged_worlds'] == 4 and res['overflow_worlds'] == 0
   assert st.ctrl.abs().max() > 0

@@ -154,3 +154,89 @@ def test_general_step_cuda_matches_cpu(cuda):
                              atol=2e-4, rtol=1e-3)
   np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                              atol=5e-3, rtol=5e-3)
+
+
+def clutter_inputs(cuda, W=1000, seed=3):
+  """clutter_arm_nosleep's position stages on the card for the contact-rich
+  parity state."""
+  from mujoco_warp_tpu_torch.ops import forward
+  m = io.load_model_npz(io.CLUTTER_SNAPSHOT, device=cuda)
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=cuda)
+                      for x in parity.clutter_state(m, W, seed)]
+  d = io.make_data(m, W, device=cuda).replace(qpos=qpos, qvel=qvel,
+                                              ctrl=ctrl)
+  return m, forward.pre(m, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [75, 27])
+def test_chol_batched_cuda_matches_plain(cuda, n):
+  """The chol_batched kernel reads and writes world-major (W, n, n) and
+  agrees with its plain version on seeded SPD matrices."""
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  g = np.random.default_rng(n).standard_normal((1000, n, n))
+  A = torch.as_tensor(g @ g.transpose(0, 2, 1) / n + 0.1 * np.eye(n),
+                      dtype=torch.float32, device=cuda)
+  k = klinalg.launches['chol_batched']
+  got = klinalg.chol_batched(None, A, jitter=1e-12)
+  assert klinalg.launches['chol_batched'] == k + 1
+  want = klinalg.chol_batched_plain(A, 1e-12)
+  assert torch.all(torch.triu(got, 1) == 0.0)
+  parity.check_world_scale(got.reshape(1000, -1).T, want.reshape(1000, -1).T,
+                           'L', parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+def test_large_tree_kernels_cuda_match_plain(cuda):
+  """The large-tree mass chain (no factor), chol_batched for qLD, and
+  chol_solve and damped_solve at n 75 against their plain versions."""
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.kernels import world
+  m, d = clutter_inputs(cuda)
+  nv, nb = m.nv, m.nbody
+  args = (m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+  got, want = kmass.mass_chain_lanes(*args), kmass.mass_chain_plain(*args)
+  assert got[1] is None and want[1] is None
+  keep = (0, 2, 3, 4)
+  parity.check_rel([got[i] for i in keep], [want[i] for i in keep],
+                   ('qM', 'cvel', 'cdof_dot', 'bias'))
+  qM = world(want[0], nv, nv).contiguous()
+  L = klinalg.chol_batched_plain(qM, kmass.BIG_JITTER)
+  parity.check_world_scale(
+      lanes(klinalg.chol_batched(m, qM, kmass.BIG_JITTER), nv * nv),
+      lanes(L, nv * nv), 'qLD', parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  Ll = lanes(L, nv * nv)
+  b = torch.as_tensor(np.random.default_rng(4).standard_normal((nv, 1000)),
+                      dtype=torch.float32, device=cuda)
+  parity.check_world_scale(klinalg.chol_solve_lanes(Ll, b),
+                           klinalg.chol_solve_plain(Ll, b), 'chol_solve',
+                           parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  parity.check_world_scale(klinalg.damped_solve_lanes(m, want[0], b),
+                           klinalg.damped_solve_plain(want[0], b, dmp),
+                           'damped_solve', parity.SOLVE_ATOL,
+                           parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+def test_clutter_step_cuda_matches_cpu(cuda):
+  """Three clutter_arm_nosleep steps through the four kernels against the
+  plain path, each from the plain path's state of the step before."""
+  from mujoco_warp_tpu_torch.ops import forward
+  mh = io.load_model_npz(io.CLUTTER_SNAPSHOT, device='cpu')
+  mc = io.load_model_npz(io.CLUTTER_SNAPSHOT, device=cuda)
+  qpos, qvel, ctrl = parity.clutter_state(mh, 64, 5)
+  dh = io.make_data(mh, 64, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl))
+  for _ in range(3):
+    dc = io.make_data(mc, 64, device=cuda).replace(**{
+        k: getattr(dh, k).to(cuda) for k in
+        ('time', 'qpos', 'qvel', 'ctrl', 'qacc_warmstart')})
+    dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+    np.testing.assert_allclose(dc.qpos.cpu().numpy(), dh.qpos.numpy(),
+                               atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
+                               atol=5e-3, rtol=5e-3)
+    assert int(dc.overflow.max()) == 0
