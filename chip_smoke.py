@@ -37,14 +37,32 @@ Phases, one line each or more, any failure exits non-zero:
     least 20 at the end.  Then the four kernels of the path against their
     plain versions on the rollout's last state and timed, beside the one
     PyTorch call of the same function where there is one.
+ 7. contacts through the solve kernel, pyramidal: benchmarks.run on the
+    snapshot spheres (nv 36, 33 contact slots of condim 3, 4 and 6, nefc
+    192) at 8192 worlds, 150 steps after 10 warmup.  Exact launch counts:
+    the mass chain, chol_solve and the solve kernel once per step;
+    damped_solve, chol_batched, K1 and K4 never, and no trip of the torch
+    Newton.  No world may overflow, every world must stay finite, and the
+    mean live contacts per world must be at least SPHERES_MIN_CONTACTS at
+    the end.  Then the solve kernel against its plain version on the
+    rollout's last state, timed beside its plain version, its bound and
+    its wrapper's transposes (no one PyTorch call computes a Newton
+    solve).
+ 8. elliptic cones: the same on the snapshot spheres_elliptic (nefc 129)
+    at 4096 worlds, through the solve kernel's elliptic form.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, chol_batched on qM and on the Newton H, chol_solve and damped_solve
  at n 75) against their plain versions at 1024 worlds of the seeded
- contact-rich clutter state (parity.clutter_state).
+ contact-rich clutter state (parity.clutter_state), and the solve kernel
+ in both its contact forms against its plain version at 1024 worlds of
+ the seeded spheres state of each cone (parity.spheres_state, with live
+ contacts in all three elliptic zones, whose counts it prints).
 A kernel's time is its own device time per launch, read with
-torch.profiler; 'call' beside it is the wall time of one wrapper call
-(CUDA events over 20 calls), which the host's work bounds for the short
-kernels.
+torch.profiler over 20 launches ('ms_source' "profiler", with
+'launches_seen' the launches the trace held); where the trace held fewer
+than MIN_SEEN of them, the wall time of one wrapper call (CUDA events over
+20 calls) stands in ('ms_source' "events").  'call' beside it is that wall
+time, which the host's work bounds for the short kernels.
 The tolerances are those of mujoco_warp_tpu_torch.parity.  The last three
 lines are the kernel JSON (every kernel with its launches on its main
 path, error, times and its bound on this card), the nvidia-smi line (name
@@ -61,13 +79,18 @@ import time
 import numpy as np
 import torch
 
-NWORLD = 8192
+# every rollout runs its scene at the width benchmarks.SCENES registers
 NSTEP = 300
 GEN_NSTEP = 200
-CL_NWORLD = 4096
 CL_NSTEP = 150
+# the spheres scenes' bodies fall onto the floor within ~140 steps
+SP_NSTEP = 150
+SPHERES_MIN_CONTACTS = 10.0
 WARMUP = 10
 NCMP = 1024
+# profiler timing: launches per kernel, the least of them the trace must
+# hold, and the idle seconds around them inside the trace's window
+NTIME, MIN_SEEN, PAD_S = 20, 10, 1.0
 # H100 SXM peaks: HBM bytes/s, float32 flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 F32 = 4
@@ -95,19 +118,27 @@ def time_ms(fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, kernel, reps):
-  """The kernel's own device time per launch: ``fn`` launches ``kernel``
-  once per call; ``torch.profiler`` records each launch's duration on the
-  card.  (A wall-clock time over the calls would measure the wrapper's
-  host work for kernels shorter than it.)"""
+def kernel_ms(fn, kernel):
+  """(ms, source, seen): the kernel's own device time per launch; ``fn``
+  launches ``kernel`` once per call and ``torch.profiler`` records each
+  launch's duration on the card.  (A wall-clock time over the calls would
+  measure the wrapper's host work for kernels shorter than it.)  The trace
+  has dropped launches, more of them the longer the process had run (up
+  to 20 of 20 ~11 ms launches), as if the card's and the host's clocks
+  drifted apart and launches fell outside the trace's window; PAD_S of
+  idle time on each side of the launches widens that window.  When the
+  trace holds fewer than MIN_SEEN launches, the time per call from CUDA
+  events stands in (source 'events')."""
   fn()
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
-    for _ in range(reps):
+    time.sleep(PAD_S)
+    for _ in range(NTIME):
       fn()
     torch.cuda.synchronize()
+    time.sleep(PAD_S)
   with tempfile.TemporaryDirectory() as tmp:
     path = os.path.join(tmp, 'trace.json')
     prof.export_chrome_trace(path)
@@ -116,10 +147,13 @@ def kernel_ms(fn, kernel, reps):
   durs = [float(e['dur']) for e in events
           if e.get('cat') == 'kernel' and
           e.get('name', '').split('(')[0].strip() == kernel]
-  # the profiler may miss a launch at the start of its window
-  if len(durs) < reps // 2:
-    fail(f'profiler saw {len(durs)} launches of {kernel}, expected {reps}')
-  return sum(durs) / 1e3 / len(durs)
+  if len(durs) < NTIME:
+    say(f'[timing] profiler saw {len(durs)} of {NTIME} launches of {kernel}'
+        + ('; timed with CUDA events instead' if len(durs) < MIN_SEEN
+           else ''))
+  if len(durs) < MIN_SEEN:
+    return time_ms(fn, NTIME), 'events', len(durs)
+  return sum(durs) / 1e3 / len(durs), 'profiler', len(durs)
 
 
 def bound(nbytes, flops):
@@ -154,6 +188,13 @@ def newton_flops(nrow, nv, niter):
   linesearch's row terms."""
   return (nrow * nv * nv + chol_flops(nv) +
           niter * (4 * nrow * nv + 8 * nv * nv + 60 * nrow))
+
+
+def newton_ell_flops(nrow, nv, niter):
+  """``newton_flops`` plus the H build and factor of every iteration, as
+  the elliptic form rebuilds H each time."""
+  return newton_flops(nrow, nv, niter) + niter * (nrow * nv * nv +
+                                                  chol_flops(nv))
 
 
 def main():
@@ -193,12 +234,21 @@ def main():
       say(f'[build] ptxas: {line.strip()}')
 
   dev = torch.device('cuda')
-  m = io.load_model_npz()
-  mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT)
-  mcl = io.load_model_npz(io.CLUTTER_SNAPSHOT)
+
+  def scene(name):
+    """The scene's snapshot model and its registered width."""
+    path, nworld = benchmarks.SCENES[name]
+    return io.load_model_npz(path), nworld
+
+  m, w_h = scene('humanoid')
+  mc, w_c = scene('constraints')
+  mcl, w_cl = scene('clutter_arm_nosleep')
+  msp, w_sp = scene('spheres')
+  mse, w_se = scene('spheres_elliptic')
   h = float(k4_ref.scalars(m)[3])
   err = {k: 0.0 for k in build.KERNELS + ('mass_chain_big', 'chol_solve_n75',
-                                          'damped_solve_n75')}
+                                          'damped_solve_n75', 'solve_spheres',
+                                          'solve_elliptic')}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -390,8 +440,49 @@ def main():
   clutter_compare(f'clutter W={NCMP}', io.make_data(mcl, NCMP).replace(
       qpos=qpos, qvel=qvel, ctrl=ctrl))
 
+  # ---- 3d. the solve kernel on contact rows, pyramidal and elliptic
+  def spheres_compare(label, model, key, d, every_zone=False):
+    """The solve kernel against its plain version on world-major state d
+    of a spheres scene, fed the plain upstream outputs; prints the zone
+    counts of the elliptic contacts at the plain solution (with
+    ``every_zone``, each must be non-zero).  Returns the solve's
+    arguments, the world-major Data and the plain mean Newton count."""
+    args, dw = parity.solve_args(model, d)
+    got, want = ksolver.solve_tiles(*args), solver_ref.solve_tiles(*args)
+    zones = {} if args[8] is None else solver_ref.ell_zone_counts(
+        *args[:4], want[0], args[8])
+    try:
+      rs = parity.check_solve(got, want, 'elliptic')
+      if zones and every_zone:
+        assert min(zones.values()) > 0, f'a zone without contacts: {zones}'
+    except AssertionError as e:
+      fail(f'{label}: {e}')
+    err[key] = max(err[key], rs['qacc_max_abs_err'])
+    live = int((dw.contact.dist < dw.contact.includemargin).sum())
+    say(f'[compare] {label}: solve qacc max abs err '
+        f'{rs["qacc_max_abs_err"]:.3e}, efc_force '
+        f'{rs["force_max_abs_err"]:.3e} (in the {rs["force_worlds"]} worlds '
+        f'whose Newton counts agree; atol {parity.QACC_ATOL} + rtol '
+        f'{parity.QACC_RTOL} of world scale); niter equal in '
+        f'{rs["niter_share"]:.4f} of worlds (bar '
+        f'{parity.NITER_SHARE["elliptic"]}), max diff {rs["niter_max_diff"]} '
+        f'(bar {parity.NITER_MAX_DIFF}); niter mean {rs["niter_mean"]:.3f}; '
+        f'live contacts {live} in {d.qpos.shape[0]} worlds'
+        + (f'; elliptic zones at the solution {zones}' if zones else ''))
+    return args, dw, rs['niter_mean']
+
+  for key, model in (('solve_spheres', msp), ('solve_elliptic', mse)):
+    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                        parity.spheres_state(model, NCMP, 7)]
+    spheres_compare(f'{key} W={NCMP}', model, key, io.make_data(
+        model, NCMP).replace(
+            qpos=qpos, qvel=qvel, ctrl=ctrl,
+            qacc_warmstart=0.1 * torch.as_tensor(
+                np.random.default_rng(8).standard_normal((NCMP, model.nv)),
+                dtype=torch.float32, device=dev)), every_zone=True)
+
   # ---- 4. the fused main path
-  def main_path(model, nstep, expect, nworld=NWORLD):
+  def main_path(model, nstep, expect, nworld):
     """benchmarks.run from zeroed counters; ``expect(steps, trips)`` gives
     each kernel's launch count that must be seen (0 when absent)."""
     zero_counters()
@@ -419,8 +510,8 @@ def main():
     return res, st, launches
 
   res, st, launches = main_path(m, NSTEP,
-                                lambda n, _: {'k1': n, 'k4': n})
-  k1_out, a4, niter4 = compare(f'rollout W={NWORLD}', st.qpos, st.qvel,
+                                lambda n, _: {'k1': n, 'k4': n}, w_h)
+  k1_out, a4, niter4 = compare(f'rollout W={w_h}', st.qpos, st.qvel,
                                st.ctrl, st.warmstart, 'contact', False)
   _, _, bias, _, dist, cpos, cframe, stcom = k1_out
   glue_ms = time_ms(lambda: (glue.compact(m, dist, cpos, cframe, stcom),
@@ -428,7 +519,15 @@ def main():
                     20)
   calls = {'k1': lambda: kk1.k1(m, st.qpos, st.qvel, need_qLD=False),
            'k4': lambda: kk4.k4(*a4)}
-  ms = {k: kernel_ms(fn, f'{k}_kernel', 20) for k, fn in calls.items()}
+  ms, ms_src = {}, {}
+
+  def time_kernel(key, fn, kern):
+    """Fills ms[key] and ms_src[key] = (source, launches seen)."""
+    ms[key], source, seen = kernel_ms(fn, kern)
+    ms_src[key] = (source, seen)
+
+  for k, fn in calls.items():
+    time_kernel(k, fn, f'{k}_kernel')
   call_ms = {k: time_ms(fn, 20) for k, fn in calls.items()}
   plain_ms = {
       'k1': time_ms(lambda: k1_ref.k1(m, st.qpos, st.qvel, need_qLD=False),
@@ -438,7 +537,7 @@ def main():
   library_ms = {'k1': None, 'k4': None}
   ncon_rows = kk4.con_rows(m) + len(k4_ref.eq_joint_tables(m))
   nrow4 = ncon_rows + len(k4_ref.limit_tables(m))
-  W = NWORLD
+  W = w_h
   bounds = {
       'k1': bound(W * F32 * (m.nq + m.nv + m.nv * m.nv + m.nv + 6 * m.nv +
                              13 * m.ncand + 3 * m.nbody),
@@ -450,24 +549,24 @@ def main():
                        newton_flops(nrow4, m.nv, niter4))),
   }
   kernel_launches = {'k1': launches['k1'], 'k4': launches['k4']}
-  say(f"[timing] W={NWORLD} per launch: K1 cuda {ms['k1']:.3f} ms (call "
+  say(f"[timing] W={w_h} per launch: K1 cuda {ms['k1']:.3f} ms (call "
       f"{call_ms['k1']:.3f}), plain {plain_ms['k1']:.3f} ms, bound "
       f"{bounds['k1'][0]:.4f} ms ({bounds['k1'][1]}); K4 cuda "
       f"{ms['k4']:.3f} ms (call {call_ms['k4']:.3f}), plain "
       f"{plain_ms['k4']:.3f} ms, bound {bounds['k4'][0]:.4f} ms "
       f"({bounds['k4'][1]}); glue (compaction + smooth forces) "
-      f"{glue_ms:.3f} ms; step {1e3 * NWORLD / res['steps_per_sec']:.3f} ms")
+      f"{glue_ms:.3f} ms; step {1e3 * w_h / res['steps_per_sec']:.3f} ms")
 
   # ---- 5. the general main path
   res, st, launches = main_path(
       mc, GEN_NSTEP, lambda n, _: {k: n for k in (
-          'mass_chain', 'solve', 'chol_solve', 'damped_solve')})
+          'mass_chain', 'solve', 'chol_solve', 'damped_solve')}, w_c)
   for k in ('mass_chain', 'solve', 'chol_solve', 'damped_solve'):
     kernel_launches[k] = launches[k]
   d = types.Data(qpos=st.qpos, qvel=st.qvel, ctrl=st.ctrl,
                  qacc_warmstart=st.qacc_warmstart, eq_active=st.eq_active,
                  qfrc_applied=st.qfrc_applied, xfrc_applied=st.xfrc_applied)
-  args, niter3 = general_compare(f'constraints rollout W={NWORLD}', d)
+  args, niter3 = general_compare(f'constraints rollout W={w_c}', d)
   am, acs, asv, ads = (args['mass_chain'], args['chol_solve'],
                        args['solve'], args['damped_solve'])
   dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
@@ -477,7 +576,8 @@ def main():
       'solve': lambda: ksolver.solve_tiles(*asv),
       'damped_solve': lambda: klinalg.damped_solve_lanes(*ads),
   }
-  ms.update({k: kernel_ms(fn, f'{k}_kernel', 20) for k, fn in calls.items()})
+  for k, fn in calls.items():
+    time_kernel(k, fn, f'{k}_kernel')
   call_ms.update({k: time_ms(fn, 20) for k, fn in calls.items()})
   plain_ms.update({
       'mass_chain': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
@@ -516,7 +616,7 @@ def main():
           lanes(dw.qM, nv * nv), lanes(dw.qvel), acs[1].T.contiguous()),
           20),
   }
-  nefc = mc.nefc
+  nefc, W = mc.nefc, w_c
   bounds.update({
       'mass_chain': bound(
           W * F32 * (36 * nb + 7 * nv + 2 * nv * nv + 6 * nb + 7 * nv),
@@ -531,19 +631,19 @@ def main():
   })
   for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'):
     lib = library_ms[k]
-    say(f"[timing] {k} W={NWORLD} per launch: cuda {ms[k]:.4f} ms (call "
+    say(f"[timing] {k} W={w_c} per launch: cuda {ms[k]:.4f} ms (call "
         f"{call_ms[k]:.4f}), plain "
         f"{plain_ms[k]:.3f} ms, library "
         f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
         f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
         f"{transpose_ms[k]:.4f} ms")
-  say(f"[timing] general step {1e3 * NWORLD / res['steps_per_sec']:.3f} ms")
+  say(f"[timing] general step {1e3 * w_c / res['steps_per_sec']:.3f} ms")
 
   # ---- 6. the large-tree contact path
   res, st, launches = main_path(
       mcl, CL_NSTEP, lambda n, trips: {
           'mass_chain': n, 'damped_solve': n, 'chol_batched': 2 * n + trips,
-          'chol_solve': 2 * n + trips}, nworld=CL_NWORLD)
+          'chol_solve': 2 * n + trips}, w_cl)
   ncon = float(st.ncon_active.float().mean())
   if not ncon >= 20.0:
     fail(f'mean live contacts per world {ncon:.2f} < 20 at the end')
@@ -555,7 +655,7 @@ def main():
                   ('damped_solve', 'damped_solve_n75')):
     kernel_launches[name] = launches[k]
   d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
-  args = clutter_compare(f'clutter rollout W={CL_NWORLD}', d)
+  args = clutter_compare(f'clutter rollout W={w_cl}', d)
   am, acb, acs, ads = (args['mass_chain_big'], args['chol_batched'],
                        args['chol_solve_n75'], args['damped_solve_n75'])
   dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
@@ -569,7 +669,8 @@ def main():
       'damped_solve_n75': ('damped_solve_kernel',
                            lambda: klinalg.damped_solve_lanes(*ads)),
   }
-  ms.update({k: kernel_ms(fn, kern, 20) for k, (kern, fn) in calls.items()})
+  for k, (kern, fn) in calls.items():
+    time_kernel(k, fn, kern)
   call_ms.update({k: time_ms(fn, 20) for k, (_, fn) in calls.items()})
   plain_ms.update({
       'mass_chain_big': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
@@ -607,7 +708,7 @@ def main():
       'damped_solve_n75': time_ms(lambda: (
           lanes(M_w, nvl * nvl), lanes(dw.qvel), acs[1].T.contiguous()), 20),
   })
-  W = CL_NWORLD
+  W = w_cl
   bounds.update({
       'mass_chain_big': bound(
           W * F32 * (36 * nbl + 7 * nvl + nvl * nvl + 6 * nbl + 7 * nvl),
@@ -620,13 +721,57 @@ def main():
   })
   for k in calls:
     lib = library_ms[k]
-    say(f"[timing] {k} W={CL_NWORLD} per launch: cuda {ms[k]:.4f} ms (call "
+    say(f"[timing] {k} W={w_cl} per launch: cuda {ms[k]:.4f} ms (call "
         f"{call_ms[k]:.4f}), plain {plain_ms[k]:.3f} ms, library "
         f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
         f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
         f"{transpose_ms[k]:.4f} ms")
-  say(f"[timing] clutter step {1e3 * CL_NWORLD / res['steps_per_sec']:.3f} "
+  say(f"[timing] clutter step {1e3 * w_cl / res['steps_per_sec']:.3f} "
       'ms')
+
+  # ---- 7-8. contacts through the solve kernel, pyramidal and elliptic
+  for key, model, nworld, kern in (
+      ('solve_spheres', msp, w_sp, 'solve_kernel'),
+      ('solve_elliptic', mse, w_se, 'solve_ell_kernel')):
+    res, st, launches = main_path(
+        model, SP_NSTEP, lambda n, _: {'mass_chain': n, 'chol_solve': n,
+                                       'solve': n}, nworld=nworld)
+    if osolver.trips:
+      fail(f'{key}: {osolver.trips} trips of the torch Newton')
+    ncon = float(st.ncon_active.float().mean())
+    if not ncon >= SPHERES_MIN_CONTACTS:
+      fail(f'{key}: mean live contacts per world {ncon:.2f} < '
+           f'{SPHERES_MIN_CONTACTS} at the end')
+    say(f'[main path] {key}: mean live contacts per world {ncon:.2f}')
+    kernel_launches[key] = launches['solve']
+    d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
+    asv, dw, niter = spheres_compare(f'{key} rollout W={nworld}', model, key,
+                                     d)
+    time_kernel(key, lambda: ksolver.solve_tiles(*asv), kern)
+    call_ms[key] = time_ms(lambda: ksolver.solve_tiles(*asv), 20)
+    plain_ms[key] = time_ms(lambda: solver_ref.solve_tiles(*asv), 1)
+    library_ms[key] = None  # no one PyTorch call computes a Newton solve
+    out = ksolver.solve_tiles(*asv)
+    transpose_ms[key] = time_ms(lambda: [lanes(x) for x in (
+        dw.efc_J, dw.efc_D, dw.efc_aref, dw.efc_frictionloss, dw.qM,
+        dw.qfrc_smooth, dw.qacc_warmstart)] + (
+            [solver_ref.ell_scales(model, dw.contact.friction)]
+            if asv[8] is not None else []) + [
+                x.T.contiguous() for x in out[:3]], 20)
+    nefc, nvs = model.nefc, model.nv
+    live_rows = float((asv[2] > 0).sum()) / nworld
+    flops = newton_ell_flops if asv[8] is not None else newton_flops
+    bounds[key] = bound(
+        nworld * F32 * (nefc * nvs + 3 * nefc + nvs * nvs + 2 * nvs +
+                        (nefc if asv[8] is not None else 0) + 2 * nvs +
+                        nefc + 1),
+        nworld * flops(live_rows, nvs, niter))
+    say(f"[timing] {key} W={nworld} per launch: cuda {ms[key]:.4f} ms "
+        f"(call {call_ms[key]:.4f}), plain {plain_ms[key]:.3f} ms, library "
+        f"none, bound {bounds[key][0]:.4f} ms ({bounds[key][1]}; "
+        f"{live_rows:.2f} live rows per world, niter mean {niter:.3f}), "
+        f"wrapper transposes {transpose_ms[key]:.4f} ms; step "
+        f"{1e3 * nworld / res['steps_per_sec']:.3f} ms")
 
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -642,10 +787,14 @@ def main():
       'damped_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:145'),
       'damped_solve_n75': ('linalg.cu',
                            'mujoco_warp_tpu/pallas/linalg.py:145'),
+      'solve_spheres': ('solve.cu', 'mujoco_warp_tpu/pallas/solver.py:1041'),
+      'solve_elliptic': ('solve.cu',
+                         'mujoco_warp_tpu/pallas/solver.py:1041'),
   }
   print(json.dumps({'kernels': [
       {'name': k, 'route': 'cuda', 'source': src + f, 'replaces': r,
        'launches': kernel_launches[k], 'max_abs_err': err[k], 'ms': ms[k],
+       'ms_source': ms_src[k][0], 'launches_seen': ms_src[k][1],
        'plain_ms': plain_ms[k], 'bound_ms': bounds[k][0],
        'bound_by': bounds[k][1], 'library_ms': library_ms[k]}
       for k, (f, r) in replaces.items()]}))

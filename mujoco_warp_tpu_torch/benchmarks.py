@@ -12,9 +12,13 @@ number counts only when no world overflowed a contact or constraint
 buffer.  Tensors go to the CUDA device unless ``device='cpu'``.
 
 The scenes are the committed snapshots of ``io``: the humanoid (fused
-step, 8192 worlds), ``constraints`` (general step, 8192 worlds) and
+step, 8192 worlds), ``constraints`` (general step, 8192 worlds),
 ``clutter_arm_nosleep`` (general step with collision, the large-tree mass
-chain and the torch Newton; the JAX registry runs it at 4096 worlds).
+chain and the torch Newton; the JAX registry runs it at 4096 worlds), and
+``spheres`` (8192 worlds) and ``spheres_elliptic`` (4096 worlds): the
+general step with collision and its contacts, pyramidal and elliptic,
+through the solve kernel.  ``SCENES`` names each with its snapshot and
+registered width.
 """
 
 from __future__ import annotations
@@ -32,6 +36,16 @@ from mujoco_warp_tpu_torch.ops import forward
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision('highest')
+
+
+# scene: (snapshot, registered worlds) of ``benchmarks/__init__.py``
+SCENES = {
+    'humanoid': (io.SNAPSHOT, 8192),
+    'constraints': (io.CONSTRAINTS_SNAPSHOT, 8192),
+    'clutter_arm_nosleep': (io.CLUTTER_SNAPSHOT, 4096),
+    'spheres': (io.SPHERES_SNAPSHOT, 8192),
+    'spheres_elliptic': (io.SPHERES_ELLIPTIC_SNAPSHOT, 4096),
+}
 
 
 def build(m: types.Model, nworld: int, seed: int = 0, device=None,

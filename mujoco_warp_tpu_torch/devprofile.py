@@ -1,16 +1,20 @@
 """Where the card's time goes in the benchmark rollout.
 
   python -m mujoco_warp_tpu_torch.devprofile \
-      [--scene constraints|clutter_arm_nosleep]
+      [--scene constraints|clutter_arm_nosleep|spheres|spheres_elliptic]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
 (the humanoid, by default, 8192 worlds x 300, then rests its feet on the
 floor; the ``constraints`` scene, 8192 x 300, runs the general step;
 ``clutter_arm_nosleep``, 4096 x 80, the general step with collision, the
 large-tree mass chain and the torch Newton, by then past its first
-contacts), traces a few more with ``torch.profiler`` (CPU and CUDA
+contacts; ``spheres`` at 8192 and ``spheres_elliptic`` at 4096 worlds,
+150 steps, the general step with collision and contacts through the
+solve kernel, pyramidal and elliptic, by then with every body on the
+floor), traces a few more with ``torch.profiler`` (CPU and CUDA
 activities; 40 steps, 4 for the clutter scene, whose step launches tens
-of thousands of kernels) and prints one JSON line:
+of thousands of kernels, 10 for the spheres scenes) and prints one JSON
+line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
   that closes after a device synchronize);
@@ -43,13 +47,15 @@ from mujoco_warp_tpu_torch.kernels import build
 _DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 _KERNELS = {'k1': 'k1_kernel', 'k4': 'k4_kernel',
             'mass_chain': 'mass_chain_kernel', 'solve': 'solve_kernel',
+            'solve_elliptic': 'solve_ell_kernel',
             'chol_batched': 'chol_batched_kernel',
             'chol_solve': 'chol_solve_kernel',
             'damped_solve': 'damped_solve_kernel'}
-# scene: (snapshot, worlds, steps before the window, steps traced)
-SCENES = {'humanoid': (io.SNAPSHOT, 8192, 300, 40),
-          'constraints': (io.CONSTRAINTS_SNAPSHOT, 8192, 300, 40),
-          'clutter_arm_nosleep': (io.CLUTTER_SNAPSHOT, 4096, 80, 4)}
+# scene: (steps before the window, steps traced); the snapshot and worlds
+# are benchmarks.SCENES'
+WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
+           'clutter_arm_nosleep': (80, 4), 'spheres': (150, 10),
+           'spheres_elliptic': (150, 10)}
 # other kernels listed by name
 TOP = 8
 
@@ -123,7 +129,8 @@ def summarize(events: list, nsteps: int) -> dict:
 def profile(scene: str = 'humanoid') -> dict:
   if not torch.cuda.is_available():
     raise RuntimeError('devprofile needs a CUDA device')
-  path, nworld, skip, steps = SCENES[scene]
+  path, nworld = benchmarks.SCENES[scene]
+  skip, steps = WINDOWS[scene]
   m = io.load_model_npz(path)
   steps_of = benchmarks.rollout(m, nworld, device='cuda')
   for _ in range(skip):
@@ -147,5 +154,5 @@ def profile(scene: str = 'humanoid') -> dict:
 
 if __name__ == '__main__':
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  p.add_argument('--scene', choices=sorted(SCENES), default='humanoid')
+  p.add_argument('--scene', choices=sorted(WINDOWS), default='humanoid')
   print(json.dumps(profile(p.parse_args().scene)))

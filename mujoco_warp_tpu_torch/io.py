@@ -39,6 +39,12 @@ CONSTRAINTS_XML = os.path.join(_MODELS, 'constraints.xml')
 # (the registered benchmark clutter_arm_nosleep, lossless contact slots)
 CLUTTER_SNAPSHOT = os.path.join(_ASSETS, 'clutter_arm_nosleep.npz')
 CLUTTER_XML = os.path.join(_MODELS, 'clutter_arm.xml')
+# the contact zoo spheres.xml (condim 3/4/6 pairs of planes, spheres,
+# capsules and boxes) in both cones: the registered benchmarks spheres
+# (pyramidal) and spheres_elliptic (opt.cone=elliptic), lossless slots
+SPHERES_XML = os.path.join(_MODELS, 'spheres.xml')
+SPHERES_SNAPSHOT = os.path.join(_ASSETS, 'spheres.npz')
+SPHERES_ELLIPTIC_SNAPSHOT = os.path.join(_ASSETS, 'spheres_elliptic.npz')
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
@@ -591,17 +597,46 @@ def make_clutter_snapshot(path: str = CLUTTER_SNAPSHOT) -> types.Model:
   return m
 
 
+def load_spheres(cone: int = types.ConeType.PYRAMIDAL):
+  """``spheres.xml`` as a ``mujoco.MjModel`` with ``opt.cone`` set to
+  ``cone``, as the JAX ``benchmarks.build`` sets it before ``put_model``
+  (needs ``mujoco``)."""
+  import mujoco
+  mjm = mujoco.MjModel.from_xml_path(SPHERES_XML)
+  mjm.opt.cone = int(cone)
+  return mjm
+
+
+def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
+                          path: Optional[str] = None) -> types.Model:
+  """The ``spheres`` (pyramidal) or ``spheres_elliptic`` scene with
+  lossless contact slots (``nconmax=None``), written to ``path`` (by
+  default its committed snapshot)."""
+  if path is None:
+    path = SPHERES_ELLIPTIC_SNAPSHOT if cone == types.ConeType.ELLIPTIC \
+        else SPHERES_SNAPSHOT
+  m = put_model(load_spheres(cone), nconmax=None, device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
 def main(argv: Optional[list] = None):
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--snapshot', action='store_true',
                  help='regenerate assets/humanoid_bench.npz, '
-                 'assets/constraints.npz and assets/clutter_arm_nosleep.npz')
+                 'assets/constraints.npz, assets/clutter_arm_nosleep.npz, '
+                 'assets/spheres.npz and assets/spheres_elliptic.npz')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
   for path, make in ((SNAPSHOT, make_snapshot),
                      (CONSTRAINTS_SNAPSHOT, make_constraints_snapshot),
-                     (CLUTTER_SNAPSHOT, make_clutter_snapshot)):
+                     (CLUTTER_SNAPSHOT, make_clutter_snapshot),
+                     (SPHERES_SNAPSHOT, lambda p: make_spheres_snapshot(
+                         types.ConeType.PYRAMIDAL, p)),
+                     (SPHERES_ELLIPTIC_SNAPSHOT, lambda p: make_spheres_snapshot(
+                         types.ConeType.ELLIPTIC, p))):
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')

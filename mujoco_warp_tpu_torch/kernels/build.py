@@ -34,7 +34,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # mwt_<name>_scratch_rows(<ints>)
 KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_batched', 'chol_solve',
            'damped_solve')
-SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2, 'solve': 2}
+SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2, 'solve': 3}
 
 
 class BuildInfo:

@@ -120,6 +120,7 @@ __device__ void kbi(float tc, float dr, const float* si, float pos, float h,
 // K4's rows for the shared Newton (newton.cuh): one-hot limit rows first,
 // then dense joint-equality and contact rows, all in scratch
 struct Rows {
+  static constexpr bool ELL = false;  // pyramidal and frictionless only
   const K4Params& p;
   const K4Scratch& s;
   int W, w, nrow;

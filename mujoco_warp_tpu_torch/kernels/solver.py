@@ -3,8 +3,9 @@
 CPU tensors run the plain version (``fused/solver_ref.py``
 ``solve_tiles``); CUDA tensors launch ``csrc/solve.cu``, which replaces
 ``mujoco_warp_tpu/pallas/solver.py`` ``_make_kernel`` (:1041, called by
-``_solve_tiles`` :1126 from ``solve_batched`` :1145) for pyramidal and
-frictionless rows.
+``_solve_tiles`` :1126 from ``solve_batched`` :1145): ``solve_kernel``
+for equality, friction-loss, limit and frictionless or pyramidal contact
+rows, ``solve_ell_kernel`` for a model with elliptic contacts.
 """
 
 from __future__ import annotations
@@ -23,41 +24,55 @@ from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
 launches = 0
 
 # row kinds of the shared Newton (csrc/newton.cuh)
-ROW_INEQ, ROW_EQ, ROW_FRI = 0, 1, 2
+ROW_INEQ, ROW_EQ, ROW_FRI, ROW_ELL = 0, 1, 2, 3
 
 SolveParams = build.params_struct(
     'SolveParams', ints=('W', 'nv', 'nefc', 'iterations', 'ls_iterations'),
     floats=('tol', 'ls_tol', 'meaninertia'),
     ptrs=('J', 'D', 'aref', 'fl', 'M', 'qfs', 'qacc0', 'qacc_out',
-          'force_out', 'qfrc_out', 'niter_out', 'scr', 'kind'))
+          'force_out', 'qfrc_out', 'niter_out', 'scr', 'kind', 's', 'etab'))
 
 
 def row_kinds(m: types.Model) -> np.ndarray:
   """(nefc,) ROW_EQ for equality rows, ROW_FRI for friction-loss rows,
-  ROW_INEQ for the rest (``pallas/solver.py`` ``_masks`` :133)."""
+  ROW_ELL for the rows of elliptic contacts, ROW_INEQ for the rest
+  (``pallas/solver.py`` ``_masks`` :133, ``_ell_perm`` :70)."""
   t = m.efc.efc_type
   _CT = types.ConstraintType
   kind = np.full(len(t), ROW_INEQ, np.int32)
   kind[t == _CT.EQUALITY] = ROW_EQ
   kind[(t == _CT.FRICTION_DOF) | (t == _CT.FRICTION_TENDON)] = ROW_FRI
+  for _, _, rows in solver_ref.ell_groups(m):
+    kind[rows.reshape(-1)] = ROW_ELL
   return kind
 
 
-_TABLES = TableCache(lambda m, dev: device_tables({'kind': row_kinds(m)},
-                                                  dev)['kind'])
+def ell_table(m: types.Model) -> np.ndarray:
+  """(nefc, 3) int32 per row: its place in its elliptic contact, the
+  contact's dim and the contact's index (zeros on the other rows)."""
+  tab = np.zeros((m.nefc, 3), np.int32)
+  for d0, ids, rows in solver_ref.ell_groups(m):
+    tab[rows, 0] = np.arange(d0)
+    tab[rows, 1] = d0
+    tab[rows, 2] = ids[:, None]
+  return tab
 
 
-def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0):
+_TABLES = TableCache(lambda m, dev: device_tables(
+    {'kind': row_kinds(m), 'etab': ell_table(m)}, dev))
+
+
+def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0, s=None):
   """The Newton solve on lanes-last tensors: J (nefc, nv, W), D, aref, fl
-  (nefc, W), M (nv, nv, W), qfs and qacc0 (nv, W).  Returns qacc (nv, W),
-  efc_force (nefc, W), qfrc_constraint (nv, W) and niter (1, W) int32."""
+  (nefc, W), M (nv, nv, W), qfs and qacc0 (nv, W), and for a model with
+  elliptic contacts their row scales s (nefc, W)
+  (``solver_ref.ell_scales``).  Returns qacc (nv, W), efc_force (nefc,
+  W), qfrc_constraint (nv, W) and niter (1, W) int32."""
   global launches
   if qfs.device.type == 'cpu':
-    return solver_ref.solve_tiles(m, J, D, aref, fl, M, qfs, qacc0)
+    return solver_ref.solve_tiles(m, J, D, aref, fl, M, qfs, qacc0, s)
   if qfs.device.type != 'cuda':
     raise ValueError(f'solve runs on cpu or cuda tensors, not {qfs.device}')
-  if m.opt.cone == types.ConeType.ELLIPTIC and m.ncon:
-    raise NotImplementedError('elliptic cones (_ell_perm) are not ported')
   dev = qfs.device
   nefc, nv = m.nefc, m.nv
   W = qfs.shape[-1]
@@ -69,21 +84,28 @@ def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0):
   check(M, (nv, nv, W), 'M', dev)
   check(qfs, (nv, W), 'qfs', dev)
   check(qacc0, (nv, W), 'qacc0', dev)
+  ncon = m.ncon if solver_ref.ell_groups(m) else 0
+  if ncon:
+    if s is None:
+      raise ValueError('elliptic contacts need their row scales s')
+    check(s, (nefc, W), 's', dev)
   lib = build.load()
   if lib.mwt_solve_params_size() != ctypes.sizeof(SolveParams):
     raise RuntimeError('SolveParams layout differs between C and Python')
   new = lambda rows, dt=torch.float32: torch.empty((rows, W), dtype=dt,
                                                    device=dev)
   qacc, force, qfrc, niter = new(nv), new(nefc), new(nv), new(1, torch.int32)
-  scr = new(lib.mwt_solve_scratch_rows(nefc, nv))
+  scr = new(lib.mwt_solve_scratch_rows(nefc, nv, ncon))
   tol, ls_tol, mi = [float(x) for x in solver_ref.scalars(m, 'cpu')]
+  tab = _TABLES.get(m, dev)
   p = SolveParams(
       W=W, nv=nv, nefc=nefc, iterations=int(m.opt.iterations),
       ls_iterations=int(m.opt.ls_iterations), tol=tol, ls_tol=ls_tol,
       meaninertia=mi, J=ptr(J), D=ptr(D), aref=ptr(aref), fl=ptr(fl),
       M=ptr(M), qfs=ptr(qfs), qacc0=ptr(qacc0), qacc_out=ptr(qacc),
       force_out=ptr(force), qfrc_out=ptr(qfrc), niter_out=ptr(niter),
-      scr=ptr(scr), kind=ptr(_TABLES.get(m, dev)))
+      scr=ptr(scr), kind=ptr(tab['kind']), s=ptr(s if ncon else None),
+      etab=ptr(tab['etab']))
   stream = torch.cuda.current_stream(dev).cuda_stream
   rc = lib.mwt_solve_launch(ctypes.byref(p), ctypes.c_void_p(stream))
   if rc != 0:

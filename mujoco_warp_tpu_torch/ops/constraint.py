@@ -5,11 +5,11 @@ Counterpart of ``mujoco_warp_tpu/ops/constraint.py``: ``_kbi`` (:32),
 ``_row_values`` (:66), ``_jac`` (:76), ``_cdof_dot_jac`` (:102),
 ``_jac_dot`` (:118), the row writer (:142-206), ``_equality_connect``
 (:208), ``_equality_weld`` (:262), ``_equality_joint`` (:383),
-``_friction`` (:594), ``_limit`` (:619), ``_contact`` (:777, frictionless
-and pyramidal rows) and ``make_constraint`` (:919).  Every potential row
-exists every step; inactive rows are zeroed.  The Jacobian is dense (W,
-nefc, nv).  Elliptic contact rows, compact contact rows and tendon and
-flex rows are not ported yet.
+``_friction`` (:594), ``_limit`` (:619), ``_contact`` (:777, frictionless,
+pyramidal and elliptic rows) and ``make_constraint`` (:919).  Every
+potential row exists every step; inactive rows are zeroed.  The Jacobian
+is dense (W, nefc, nv).  Compact contact rows and tendon and flex rows are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -364,11 +364,12 @@ def _limit(m, d, rows):
 
 
 def _contact(m, d, rows):
-  """Frictionless and pyramidal contact rows over the static slots
-  (``constraint.py:777``): the frame-projected Jacobian of the two bodies
-  without the (k, nv, 3) point Jacobians, rows n +- mu_i d_i."""
-  if m.opt.cone == types.ConeType.ELLIPTIC:
-    raise NotImplementedError('elliptic contact rows are not ported yet')
+  """Contact rows over the static slots (``constraint.py:777``): the
+  frame-projected Jacobian of the two bodies without the (k, nv, 3) point
+  Jacobians; frictionless rows n, pyramidal rows n +- mu_i d_i (condim 3,
+  4 and 6: 4, 6 and 10 rows), elliptic rows [n, t1, t2, r1, r2, r3][:dim]
+  (:883-905)."""
+  is_elliptic = m.opt.cone == types.ConeType.ELLIPTIC
   con, dev, dt = d.contact, d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
   impratio_inv = 1.0 / torch.clamp(m.opt.impratio, min=MJ_MINVAL)
@@ -403,10 +404,34 @@ def _contact(m, d, rows):
     Jp, Jr = Jp2 - Jp1, Jr2 - Jr1  # (W, k, 3, nv): rows n, t1, t2
     friction = con.friction[:, ti]
     solref, solimp = con.solref[:, ti], con.solimp[:, ti]
+    ref = solref[:, :, None, :]
+    pos_aref = cpos[..., None].expand(W, k, 1)
     if dim == 1:
       nrow = 1
       Jrows = Jp[:, :, :1]
       iw = invweight[:, None]
+    elif is_elliptic:
+      nrow = dim
+      parts = [Jp[:, :, 0], Jp[:, :, 1], Jp[:, :, 2], Jr[:, :, 0],
+               Jr[:, :, 1], Jr[:, :, 2]]
+      Jrows = torch.stack(parts[:dim], dim=2)  # (W, k, dim, nv)
+      # friction-row invweights (reference :4268-4285)
+      iw_f = invweight * impratio_inv
+      iw_list = [invweight.expand(W, k), iw_f.expand(W, k)]
+      for o in range(2, dim):
+        fri0, frii = friction[:, :, 0], friction[:, :, o - 1]
+        iw_list.append(iw_f * fri0 * fri0 /
+                       torch.clamp(frii * frii, min=MJ_MINVAL))
+      iw = torch.stack(iw_list, dim=-1)
+      srf = con.solreffriction[:, ti]
+      has_srf = (srf[..., 0:1] != 0) | (srf[..., 1:2] != 0)
+      fref = torch.where(has_srf, srf, solref)
+      ref = torch.cat([solref[:, :, None, :],
+                       fref[:, :, None, :].expand(W, k, dim - 1, types.NREF)],
+                      dim=2)
+      pos_aref = torch.cat([cpos[..., None],
+                            torch.zeros((W, k, dim - 1), dtype=dt,
+                                        device=dev)], dim=-1)
     else:
       nrow = 2 * (dim - 1)
       dirs = [Jp[:, :, 1], Jp[:, :, 2], Jr[:, :, 0], Jr[:, :, 1],
@@ -421,9 +446,8 @@ def _contact(m, d, rows):
     Jqvel = torch.einsum('wkrv,wv->wkr', Jrows, d.qvel)
     shape = (W, k, nrow)
     D, aref, posv = _row_values(
-        m, cpos[..., None].expand(shape), cpos[..., None], iw,
-        solref[:, :, None, :], solimp[:, :, None, :], margin[..., None],
-        Jqvel)
+        m, pos_aref.expand(shape), cpos[..., None], iw, ref,
+        solimp[:, :, None, :], margin[..., None], Jqvel)
     adr = (m.con_efc_address[idx][:, None] + np.arange(nrow)).reshape(-1)
     flat = lambda x: x.expand(shape).reshape(W, k * nrow)
     rows.set(adr, Jrows.reshape(W, k * nrow, m.nv), flat(posv),

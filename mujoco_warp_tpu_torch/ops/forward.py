@@ -14,7 +14,10 @@ large system the torch Newton of ``ops/solver.py`` around the
 tensors their plain versions run.
 
 ``unsupported`` is this slice's gate: the models the general step runs
-are those it returns None for.
+are those it returns None for.  Contact rows go through either solver,
+pyramidal or frictionless in both; elliptic cones only through the solve
+kernel (nefc x nv up to 12,000), since the torch Newton has no cone
+Hessian yet.
 """
 
 from __future__ import annotations
@@ -52,9 +55,6 @@ def unsupported(m: types.Model):
   if m.ncand and o.run_collision_detection:
     if m.con_compact:
       return f'contact compaction (ncand {m.ncand}, ncon {m.ncon})'
-    if not large_system(m):
-      return (f'contacts through the small-system solve kernel (ncand '
-              f'{m.ncand}, nefc {m.nefc} x nv {m.nv} <= {MAX_NEFC_NV})')
   for n, what in ((m.ntendon, 'tendons'), (m.nsensor, 'sensors'),
                   (m.nflex, 'flex'), (m.nmocap, 'mocap'),
                   (m.na, 'actuator activation'), (m.nhistory, 'history'),
@@ -67,8 +67,9 @@ def unsupported(m: types.Model):
     return 'solver (CG)'
   if o.integrator != types.IntegratorType.EULER:
     return 'integrator (RK4, implicit)'
-  if o.cone != types.ConeType.PYRAMIDAL:
-    return 'elliptic cones'
+  if o.cone != types.ConeType.PYRAMIDAL and large_system(m):
+    return (f'elliptic cones in the torch Newton (nefc {m.nefc} x nv {m.nv} '
+            f'> {MAX_NEFC_NV})')
   if m.nu:
     if not np.all(m.actuator_trntype == types.TrnType.JOINT):
       return 'actuator transmission'

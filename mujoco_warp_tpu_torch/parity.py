@@ -51,6 +51,28 @@ with the output's name and by how much it missed.
   efc_force and qfrc_constraint at the K4 bars and Newton counts at the
   'contact' bar, for the linesearch reason above (the JAX side factors H
   with LAPACK on a CPU, the port with the lane Cholesky).
+- The spheres scenes (``spheres`` pyramidal, ``spheres_elliptic``; seeded
+  by ``spheres_state``, with live contacts in all three elliptic zones):
+  the Newton solve at the K4 bars above, and Newton counts at the
+  'elliptic' bar in both cones.  Over 8 seeds of 128 worlds on a CPU,
+  against the JAX package's Pallas kernel in interpret mode: the plain
+  port agreed in 98.4-100% of worlds in both cones, and the JAX package's
+  jnp Newton (``ops/solver.solve`` under vmap) in 97.7-100% with
+  pyramidal cones; with elliptic cones the jnp Newton agreed in only
+  21.9-30.5% (it hit its 100-iteration cap in 15 of the 128 worlds of
+  seed 0 and its qacc missed the bars), so it gives no bar there.  Never
+  more than two iterations apart (port against Pallas), qacc within the
+  bars above; 'elliptic' is set at the 'constraints' share, below every
+  measured one.  Row forces are compared at these bars only in the worlds
+  whose Newton counts agree (``FORCE_WHERE_NITER_AGREES``): a world that
+  stops one iteration apart ends on another iterate, whose qacc meets its
+  bar, while each contact row's force, D (aref - J qacc), carries that
+  qacc difference times the row's |J| (about 1.4 for a pyramid row at
+  mu 1), of the order of the force bar itself: on an H100, at the last
+  state of chip_smoke's spheres rollout, the one world of 8192 whose
+  counts differed missed the force bar by 0.0013 of its 0.0101, with its
+  qacc within its own bar.
+  qacc and qfrc_constraint (J^T f) are held in every world.
 """
 
 from __future__ import annotations
@@ -65,8 +87,11 @@ K1_NAMES = ('qM', 'qLD', 'bias', 'cdof', 'dist', 'pos', 'frame',
 K1_TOL = 1e-4
 QACC_ATOL, QACC_RTOL = 1e-4, 1e-3
 QPOS_ATOL, QPOS_RTOL = 1e-5, 1e-5
-NITER_SHARE = {'rest': 0.99, 'contact': 0.85, 'constraints': 0.90}
+NITER_SHARE = {'rest': 0.99, 'contact': 0.85, 'constraints': 0.90,
+               'elliptic': 0.90}
 NITER_MAX_DIFF = 2
+# Newton-count bars whose efc_force is compared only where counts agree
+FORCE_WHERE_NITER_AGREES = ('elliptic',)
 # root drop of each seeded state; 0.28 m puts the feet in the floor
 DROP = {'rest': 0.0, 'contact': 0.28}
 MASS_NAMES = ('qM', 'qLD', 'cvel', 'cdof_dot', 'bias')
@@ -154,6 +179,70 @@ def clutter_state(m, W: int, seed: int):
   return qpos, qvel, ctrl
 
 
+# how far spheres_state lowers each body of the spheres scenes into the
+# floor: 3 mm, three times its 1 mm noise, so that every body starts in
+# contact
+SPHERES_DEPTH = 0.003
+
+
+def spheres_state(m, W: int, seed: int):
+  """World-major float32 numpy (qpos, qvel, ctrl) of the seeded contact
+  state of the spheres scenes, drawn in that order from
+  ``default_rng(seed)``: every free body at its qpos0 x and y, lying on
+  the floor (capsules on their side, boxes upright) ``SPHERES_DEPTH`` +
+  1 mm N below contact, its quaternion perturbed by 0.02 N and renormalised;
+  qvel 0.3 N on the linear and 2 N on the angular dofs, so that contacts
+  slide, stick and lift off (all three elliptic zones); ctrl 0.3 N."""
+  rng = np.random.default_rng(seed)
+  noise = rng.standard_normal((W, m.nq)).astype(np.float32)
+  qvel_n = rng.standard_normal((W, m.nv)).astype(np.float32)
+  ctrl = (0.3 * rng.standard_normal((W, m.nu))).astype(np.float32)
+  qpos = np.broadcast_to(types.host(m.qpos0, np.float32), (W, m.nq)).copy()
+  qvel = np.zeros((W, m.nv), np.float32)
+  size = types.host(m.geom_size, np.float32)
+  side = np.asarray([np.cos(np.pi / 4), 0.0, np.sin(np.pi / 4), 0.0],
+                    np.float32)  # the capsule's axis along x
+  for j in range(m.njnt):
+    a, da = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
+    if int(m.jnt_type[j]) != types.JointType.FREE:
+      continue
+    g = int(np.nonzero(m.geom_bodyid == int(m.jnt_bodyid[j]))[0][0])
+    gt = int(m.geom_type[g])
+    half = size[g, 2] if gt == types.GeomType.BOX else size[g, 0]
+    quat = side if gt == types.GeomType.CAPSULE else \
+        np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+    qpos[:, a + 2] = half - SPHERES_DEPTH + 0.001 * noise[:, a + 2]
+    q = quat + 0.02 * noise[:, a + 3:a + 7]
+    qpos[:, a + 3:a + 7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qvel[:, da:da + 3] = 0.3 * qvel_n[:, da:da + 3]
+    qvel[:, da + 3:da + 6] = 2.0 * qvel_n[:, da + 3:da + 6]
+  return qpos, qvel, ctrl
+
+
+def solve_args(m, d):
+  """The standalone solve's arguments (``kernels.solver.solve_tiles``: m,
+  J, D, aref, fl, M, qfrc_smooth, warmstart, and the elliptic row scales
+  or None) at world-major state d (qpos, qvel, ctrl, qacc_warmstart) of a
+  small-tree model, through the position stages, the plain mass chain,
+  collision, rows and forces.  Returns (args, the world-major Data)."""
+  from mujoco_warp_tpu_torch.fused import solver_ref
+  from mujoco_warp_tpu_torch.kernels import lanes, world
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.ops import forward
+  d = forward.pre(m, d)
+  nv, nb = m.nv, m.nbody
+  qM, qLD, cvel, cdd, bias = kmass.mass_chain_plain(
+      m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+  d = forward.mid(m, d.replace(
+      qM=world(qM, nv, nv), qLD=world(qLD, nv, nv), cvel=world(cvel, nb, 6),
+      cdof_dot=world(cdd, nv, 6), qfrc_bias=bias.T))
+  s = solver_ref.ell_scales(m, d.contact.friction) \
+      if solver_ref.ell_groups(m) else None
+  return (m, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
+          lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
+          lanes(d.qacc_warmstart), s), d
+
+
 def _t(x, like=None):
   x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
   return x if like is None else x.to(like.device)
@@ -190,8 +279,10 @@ def check_world_scale(got, want, name: str, atol: float = QACC_ATOL,
   want = _t(want)
   err = (_t(got, want) - want).abs()
   scale = want.abs().amax(dim=0, keepdim=True)
-  excess = float((err - (atol + rtol * scale)).max())
-  assert excess <= 0.0, f'{name}: exceeds tolerance by {excess}'
+  over = (err - (atol + rtol * scale)).amax(dim=0)
+  excess = float(over.max())
+  assert excess <= 0.0, (f'{name}: exceeds tolerance by {excess} (world '
+                         f'{int(over.argmax())})')
   return float(err.max())
 
 
@@ -228,13 +319,21 @@ def check_k4(got, want, qvel, h: float, state: str) -> dict:
           'niter_max_diff': diff, 'niter_mean': float(want[4].float().mean())}
 
 
-def check_solve(got, want) -> dict:
+def check_solve(got, want, state: str = 'constraints') -> dict:
   """Standalone Newton solve outputs (qacc, efc_force, qfrc_constraint,
-  niter), lanes-last, on the same inputs.  Returns the errors seen."""
+  niter), lanes-last, on the same inputs; Newton counts at the ``state``
+  bar, and for the bars of ``FORCE_WHERE_NITER_AGREES`` efc_force only in
+  the worlds whose counts agree.  Returns the errors seen."""
   qacc_err = check_world_scale(got[0], want[0], 'qacc')
-  force_err = check_world_scale(got[1], want[1], 'efc_force')
+  f_got, f_want = _t(got[1]), _t(want[1])
+  if state in FORCE_WHERE_NITER_AGREES:
+    agree = (_t(got[3], f_want).reshape(-1) ==
+             _t(want[3], f_want).reshape(-1))
+    f_got, f_want = f_got[:, agree], f_want[:, agree]
+  force_err = check_world_scale(f_got, f_want, 'efc_force')
   check_world_scale(got[2], want[2], 'qfrc_constraint')
-  share, diff = check_niter(got[3], want[3], 'constraints')
+  share, diff = check_niter(got[3], want[3], state)
   return {'qacc_max_abs_err': qacc_err, 'force_max_abs_err': force_err,
+          'force_worlds': int(f_want.shape[1]),
           'niter_share': share, 'niter_max_diff': diff,
           'niter_mean': float(_t(want[3]).float().mean())}

@@ -240,3 +240,62 @@ def test_clutter_step_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                                atol=5e-3, rtol=5e-3)
     assert int(dc.overflow.max()) == 0
+
+
+def spheres_args(cuda, path, W=1000, seed=3):
+  """The solve's arguments on the card for the seeded spheres state."""
+  m = io.load_model_npz(path, device=cuda)
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=cuda)
+                      for x in parity.spheres_state(m, W, seed)]
+  ws = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal(
+      (W, m.nv)), dtype=torch.float32, device=cuda)
+  d = io.make_data(m, W, device=cuda).replace(qpos=qpos, qvel=qvel,
+                                              ctrl=ctrl, qacc_warmstart=ws)
+  return parity.solve_args(m, d)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['spheres', 'spheres_elliptic'])
+def test_spheres_solve_cuda_matches_plain(cuda, scene):
+  """Kernel 3 in its contact-pyramidal and elliptic forms against the
+  plain version on the seeded spheres state (live contacts in all three
+  elliptic zones), at the 'elliptic' Newton-count bar."""
+  from mujoco_warp_tpu_torch.fused import solver_ref
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  path = io.SPHERES_SNAPSHOT if scene == 'spheres' else \
+      io.SPHERES_ELLIPTIC_SNAPSHOT
+  args = spheres_args(cuda, path)
+  n = ksolver.launches
+  got = ksolver.solve_tiles(*args)
+  assert ksolver.launches == n + 1
+  want = solver_ref.solve_tiles(*args)
+  parity.check_solve(got, want, 'elliptic')
+  if scene == 'spheres_elliptic':
+    zones = solver_ref.ell_zone_counts(*args[:4], want[0], args[8])
+    assert min(zones.values()) > 0, zones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['spheres', 'spheres_elliptic'])
+def test_spheres_step_cuda_matches_cpu(cuda, scene):
+  """Three spheres steps through the kernels against the plain path, each
+  from the plain path's state of the step before."""
+  from mujoco_warp_tpu_torch.ops import forward
+  path = io.SPHERES_SNAPSHOT if scene == 'spheres' else \
+      io.SPHERES_ELLIPTIC_SNAPSHOT
+  mh = io.load_model_npz(path, device='cpu')
+  mc = io.load_model_npz(path, device=cuda)
+  qpos, qvel, ctrl = parity.spheres_state(mh, 64, 5)
+  dh = io.make_data(mh, 64, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl))
+  for _ in range(3):
+    dc = io.make_data(mc, 64, device=cuda).replace(**{
+        k: getattr(dh, k).to(cuda) for k in
+        ('time', 'qpos', 'qvel', 'ctrl', 'qacc_warmstart')})
+    dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+    np.testing.assert_allclose(dc.qpos.cpu().numpy(), dh.qpos.numpy(),
+                               atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
+                               atol=5e-3, rtol=5e-3)
+    assert int(dc.overflow.max()) == 0
