@@ -11,7 +11,9 @@ Phases, one line each or more, any failure exits non-zero:
     (contacts active); the mass chain, the two Cholesky solves and the
     Newton solve on the snapshot constraints scene for its seeded state
     (qpos0 + 0.1 N, quaternions renormalised, qvel 0.2 N), each kernel fed
-    the plain version's upstream outputs.
+    the plain version's upstream outputs; the two Cholesky solves in both
+    layouts they read in place (world-major, and a world() view of
+    lanes-last).
  4. the fused main path: mujoco_warp_tpu_torch.benchmarks.run on the
     humanoid at 8192 worlds with world sorting every 4 steps and OU ctrl
     noise; the K1 and K4 launch counts must equal the steps run (the
@@ -25,7 +27,7 @@ Phases, one line each or more, any failure exits non-zero:
     versions at 8192 worlds on the rollout's last state, each timed per
     launch beside its plain version, the one PyTorch call that computes
     the same function where there is one, and the world-major <->
-    lanes-last transposes of its wrapper.
+    lanes-last transposes of its wrapper (none for the Cholesky solves).
  6. the large-tree contact path: benchmarks.run on the snapshot
     clutter_arm_nosleep (nv 75, 183 contact slots, nefc 732) at 4096
     worlds, 150 steps after 10 warmup.  Exact launch counts: the mass
@@ -47,21 +49,24 @@ Phases, one line each or more, any failure exits non-zero:
     the end.  Then the solve kernel against its plain version on the
     rollout's last state, timed beside its plain version, its bound and
     its wrapper's transposes (no one PyTorch call computes a Newton
-    solve).
+    solve); on spheres also chol_solve at n 36 (qacc_smooth), against its
+    plain version in both layouts and timed beside torch.cholesky_solve.
  8. elliptic cones: the same on the snapshot spheres_elliptic (nefc 129)
     at 4096 worlds, through the solve kernel's elliptic form.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, chol_batched on qM and on the Newton H, chol_solve and damped_solve
- at n 75) against their plain versions at 1024 worlds of the seeded
- contact-rich clutter state (parity.clutter_state), and the solve kernel
- in both its contact forms against its plain version at 1024 worlds of
- the seeded spheres state of each cone (parity.spheres_state, with live
- contacts in all three elliptic zones, whose counts it prints).
+ at n 75 in both layouts) against their plain versions at 1024 worlds of
+ the seeded contact-rich clutter state (parity.clutter_state), and the
+ solve kernel in both its contact forms against its plain version at
+ 1024 worlds of the seeded spheres state of each cone
+ (parity.spheres_state, with live contacts in all three elliptic zones,
+ whose counts it prints).
 A kernel's time is its own device time per launch, read with
-torch.profiler over 20 launches ('ms_source' "profiler", with
-'launches_seen' the launches the trace held); where the trace held fewer
-than MIN_SEEN of them, the wall time of one wrapper call (CUDA events over
-20 calls) stands in ('ms_source' "events").  'call' beside it is that wall
+torch.profiler from up to WINDOWS traces of 20 launches each until they
+hold 20 ('ms_source' "profiler", with 'launches_seen' the launches the
+traces held); where they held fewer than MIN_SEEN, the wall time of one
+wrapper call (CUDA events over 20 calls) stands in ('ms_source'
+"events").  'call' beside it is that wall
 time, which the host's work bounds for the short kernels.
 The tolerances are those of mujoco_warp_tpu_torch.parity.  The last three
 lines are the kernel JSON (every kernel with its launches on its main
@@ -70,10 +75,8 @@ and power limit) and the device JSON.
 """
 
 import json
-import os
 import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -88,9 +91,9 @@ SP_NSTEP = 150
 SPHERES_MIN_CONTACTS = 10.0
 WARMUP = 10
 NCMP = 1024
-# profiler timing: launches per kernel, the least of them the trace must
-# hold, and the idle seconds around them inside the trace's window
-NTIME, MIN_SEEN, PAD_S = 20, 10, 1.0
+# profiler timing: launches per trace, traces per kernel at most, and the
+# least launches the traces must hold
+NTIME, WINDOWS, MIN_SEEN = 20, 4, 10
 # H100 SXM peaks: HBM bytes/s, float32 flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 F32 = 4
@@ -121,39 +124,28 @@ def time_ms(fn, reps):
 def kernel_ms(fn, kernel):
   """(ms, source, seen): the kernel's own device time per launch; ``fn``
   launches ``kernel`` once per call and ``torch.profiler`` records each
-  launch's duration on the card.  (A wall-clock time over the calls would
-  measure the wrapper's host work for kernels shorter than it.)  The trace
-  has dropped launches, more of them the longer the process had run (up
-  to 20 of 20 ~11 ms launches), as if the card's and the host's clocks
-  drifted apart and launches fell outside the trace's window; PAD_S of
-  idle time on each side of the launches widens that window.  When the
-  trace holds fewer than MIN_SEEN launches, the time per call from CUDA
-  events stands in (source 'events')."""
-  fn()
-  torch.cuda.synchronize()
-  acts = [torch.profiler.ProfilerActivity.CPU,
-          torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=acts) as prof:
-    time.sleep(PAD_S)
-    for _ in range(NTIME):
-      fn()
-    torch.cuda.synchronize()
-    time.sleep(PAD_S)
-  with tempfile.TemporaryDirectory() as tmp:
-    path = os.path.join(tmp, 'trace.json')
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-      events = json.load(f)['traceEvents']
-  durs = [float(e['dur']) for e in events
-          if e.get('cat') == 'kernel' and
-          e.get('name', '').split('(')[0].strip() == kernel]
-  if len(durs) < NTIME:
-    say(f'[timing] profiler saw {len(durs)} of {NTIME} launches of {kernel}'
-        + ('; timed with CUDA events instead' if len(durs) < MIN_SEEN
-           else ''))
-  if len(durs) < MIN_SEEN:
-    return time_ms(fn, NTIME), 'events', len(durs)
-  return sum(durs) / 1e3 / len(durs), 'profiler', len(durs)
+  launch's duration on the card (``kerneltime.profiled_ms``).  (A wall-
+  clock time over the calls would measure the wrapper's host work for
+  kernels shorter than it.)  The trace drops launches, more of them the
+  longer the process has run (7 of 20 late in a run, for a 0.05 ms and
+  a 14 ms kernel alike), so up to WINDOWS traces of NTIME calls each are
+  read until they hold NTIME launches in all.  When they hold fewer than
+  MIN_SEEN, the time per call from CUDA events stands in (source
+  'events')."""
+  from mujoco_warp_tpu_torch.kerneltime import profiled_ms
+  total, seen = 0.0, 0
+  for w in range(WINDOWS):
+    mean, n = profiled_ms(torch, fn, NTIME, kernel)
+    total, seen = total + (mean or 0.0) * n, seen + n
+    if seen >= NTIME:
+      break
+  if seen < NTIME * (w + 1):
+    say(f'[timing] profiler saw {seen} of {NTIME * (w + 1)} launches of '
+        f'{kernel}' + ('; timed with CUDA events instead'
+                       if seen < MIN_SEEN else ''))
+  if seen < MIN_SEEN:
+    return time_ms(fn, NTIME), 'events', seen
+  return total / seen, 'profiler', seen
 
 
 def bound(nbytes, flops):
@@ -161,6 +153,12 @@ def bound(nbytes, flops):
   the memory rate and the flops over the float32 rate, and which one."""
   tb, tf = nbytes / PEAK_BYTES, flops / PEAK_F32
   return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
+
+
+def chol_solve_bytes(n):
+  """Bytes one world's x = (L L^T)^-1 b must move: L's lower triangle
+  (all of L the solve reads), b and x."""
+  return F32 * (n * (n + 1) // 2 + 2 * n)
 
 
 def chol_flops(n):
@@ -246,9 +244,9 @@ def main():
   msp, w_sp = scene('spheres')
   mse, w_se = scene('spheres_elliptic')
   h = float(k4_ref.scalars(m)[3])
-  err = {k: 0.0 for k in build.KERNELS + ('mass_chain_big', 'chol_solve_n75',
-                                          'damped_solve_n75', 'solve_spheres',
-                                          'solve_elliptic')}
+  err = {k: 0.0 for k in build.KERNELS + (
+      'mass_chain_big', 'chol_solve_n36', 'chol_solve_n75',
+      'damped_solve_n75', 'solve_spheres', 'solve_elliptic')}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -260,6 +258,43 @@ def main():
     osolver.trips = 0
     for k in klinalg.launches:
       klinalg.launches[k] = 0
+
+  SB = (parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+  def layouts(x):
+    """World-major x in the two layouts the Cholesky solves read in
+    place: contiguous, and a world() view of its lanes-last copy."""
+    shape = tuple(x.shape[1:])
+    return {'world-major': x.contiguous(),
+            'lanes-last': world(lanes(x, int(np.prod(shape))), *shape)}
+
+  def yardsticks(acs, ads=None, dmp=None):
+    """The plain version and the one PyTorch call of the same function
+    (``torch.cholesky_solve``, ``torch.linalg.solve``) for chol_solve_batched
+    arguments ``acs`` and damped_solve_batched arguments ``ads``, their
+    inputs made ahead so that each call times only its own work: a dict
+    of name -> call."""
+    n = acs[2].shape[1]
+    pcs = (lanes(acs[1], n * n), lanes(acs[2]))
+    L_w, b_w = acs[1].contiguous(), acs[2].contiguous()[:, :, None]
+    out = {'chol_solve_plain': lambda: klinalg.chol_solve_plain(*pcs),
+           'chol_solve_library': lambda: torch.cholesky_solve(b_w, L_w)}
+    if ads is not None:
+      pds = (lanes(ads[1], n * n), lanes(ads[2]), dmp)
+      M_w = ads[1].contiguous()
+      A_w = M_w + torch.diag(dmp)
+      rhs_w = torch.einsum('wij,wj->wi', M_w, ads[2])
+      out['damped_solve_plain'] = lambda: klinalg.damped_solve_plain(*pds)
+      out['damped_solve_library'] = lambda: torch.linalg.solve(A_w, rhs_w)
+    return out
+
+  def check_layouts(fn, model, mat, vec, want, name):
+    """fn (chol_solve_batched or damped_solve_batched) on (mat, vec) in
+    both layouts against the plain version's lanes-last ``want``.
+    Returns the max abs error."""
+    return max(parity.check_world_scale(
+        fn(model, layouts(mat)[k], layouts(vec)[k]).T, want,
+        f'{name} ({k})', *SB) for k in ('world-major', 'lanes-last'))
 
   # ---- 3a. the fused kernels against their plain versions
   def compare(label, qpos, qvel, ctrl, ws, state, need_qLD):
@@ -319,11 +354,12 @@ def main():
           qM=world(qM, nv, nv), qLD=world(qLD, nv, nv),
           cvel=world(cvel, nb, 6), cdof_dot=world(cdd, nv, 6),
           qfrc_bias=bias.T))
-      args['chol_solve'] = (qLD, lanes(d.qfrc_smooth))
-      got, want = (klinalg.chol_solve_lanes(*args['chol_solve']),
-                   klinalg.chol_solve_plain(*args['chol_solve']))
-      e_cs = parity.check_world_scale(got, want, 'qacc_smooth',
-                                      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+      # the main path's layouts: qLD a world() view, qfrc_smooth as the
+      # forces leave it
+      args['chol_solve'] = (mc, d.qLD, d.qfrc_smooth)
+      want = klinalg.chol_solve_plain(qLD, lanes(d.qfrc_smooth))
+      e_cs = check_layouts(klinalg.chol_solve_batched, *args['chol_solve'],
+                           want, 'qacc_smooth')
       d = d.replace(qacc_smooth=want.T)
       args['solve'] = (mc, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
                        lanes(d.efc_frictionloss), lanes(d.qM),
@@ -331,12 +367,12 @@ def main():
       got, want = (ksolver.solve_tiles(*args['solve']),
                    solver_ref.solve_tiles(*args['solve']))
       rs = parity.check_solve(got, want)
-      args['damped_solve'] = (mc, qM, want[0])
+      args['damped_solve'] = (mc, d.qM, want[0].T)
       dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
-      got, want = (klinalg.damped_solve_lanes(*args['damped_solve']),
-                   klinalg.damped_solve_plain(qM, want[0], dmp))
-      e_ds = parity.check_world_scale(got, want, 'qacc (damped)',
-                                      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+      e_ds = check_layouts(klinalg.damped_solve_batched,
+                           *args['damped_solve'],
+                           klinalg.damped_solve_plain(qM, want[0], dmp),
+                           'qacc (damped)')
     except AssertionError as e:
       fail(f'{label}: {e}')
     err['mass_chain'] = max(err['mass_chain'], e_mc)
@@ -345,8 +381,9 @@ def main():
     err['damped_solve'] = max(err['damped_solve'], e_ds)
     say(f'[compare] {label}: mass chain max abs err {e_mc:.3e}, worst '
         f'relative {rel_mc:.2e} (tol {parity.K1_TOL}); chol_solve max abs '
-        f'err {e_cs:.3e}, damped_solve {e_ds:.3e} (atol {parity.SOLVE_ATOL} '
-        f'+ rtol {parity.SOLVE_RTOL} of world scale); solve qacc max abs '
+        f'err {e_cs:.3e}, damped_solve {e_ds:.3e} (both layouts; atol '
+        f'{parity.SOLVE_ATOL} + rtol {parity.SOLVE_RTOL} of world scale); '
+        f'solve qacc max abs '
         f'err {rs["qacc_max_abs_err"]:.3e}, efc_force '
         f'{rs["force_max_abs_err"]:.3e} (atol {parity.QACC_ATOL} + rtol '
         f'{parity.QACC_RTOL} of world scale); niter equal in '
@@ -368,7 +405,6 @@ def main():
 
   # ---- 3c. the large-tree kernels against their plain versions
   nvl, nbl = mcl.nv, mcl.nbody
-  SB = (parity.SOLVE_ATOL, parity.SOLVE_RTOL)
 
   def clutter_compare(label, d):
     """The big-tree mass chain, chol_batched (on qM and on the Newton H),
@@ -397,10 +433,11 @@ def main():
       d = forward.mid(mcl, d.replace(
           qM=qM_w, qLD=L, cvel=world(cvel, nbl, 6),
           cdof_dot=world(cdd, nvl, 6), qfrc_bias=bias.T))
-      acs = (lanes(L, nvl * nvl), lanes(d.qfrc_smooth))
-      x = klinalg.chol_solve_plain(*acs)
-      e_cs = parity.check_world_scale(klinalg.chol_solve_lanes(*acs), x,
-                                      'qacc_smooth', *SB)
+      # the main path's layouts: L world-major from chol_batched
+      acs = (mcl, L, d.qfrc_smooth)
+      x = klinalg.chol_solve_plain(lanes(L, nvl * nvl), lanes(d.qfrc_smooth))
+      e_cs = check_layouts(klinalg.chol_solve_batched, *acs, x,
+                           'qacc_smooth')
       # the Newton's first H, at the warmstart
       J = d.efc_J
       jaref = torch.matmul(J, d.qacc_warmstart[..., None])[..., 0] - \
@@ -413,11 +450,13 @@ def main():
           lanes(klinalg.chol_batched_plain(H, 1e-15), nvl * nvl),
           'Newton H factor', *SB)
       d = osolver.solve(mcl, d.replace(qacc_smooth=x.T))
-      ads = (mcl, qM, lanes(d.qacc))
+      # the main path's layouts: qM a world() view of the mass chain's
+      # lanes-last output, qacc world-major
+      ads = (mcl, world(qM, nvl, nvl), d.qacc)
       dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
-      e_ds = parity.check_world_scale(
-          klinalg.damped_solve_lanes(*ads),
-          klinalg.damped_solve_plain(qM, ads[2], dmp), 'qacc (damped)', *SB)
+      e_ds = check_layouts(
+          klinalg.damped_solve_batched, *ads,
+          klinalg.damped_solve_plain(qM, lanes(d.qacc), dmp), 'qacc (damped)')
     except AssertionError as e:
       fail(f'{label}: {e}')
     err['mass_chain_big'] = max(err['mass_chain_big'], e_mc)
@@ -428,8 +467,8 @@ def main():
     say(f'[compare] {label}: large-tree mass chain max abs err {e_mc:.3e}, '
         f'worst relative {rel_mc:.2e} (tol {parity.K1_TOL}); chol_batched '
         f'qLD {e_cb:.3e}, Newton H {e_h:.3e}; chol_solve {e_cs:.3e}, '
-        f'damped_solve {e_ds:.3e} (atol {parity.SOLVE_ATOL} + rtol '
-        f'{parity.SOLVE_RTOL} of world scale); live contacts {live} in '
+        f'damped_solve {e_ds:.3e} (both layouts; atol {parity.SOLVE_ATOL} '
+        f'+ rtol {parity.SOLVE_RTOL} of world scale); live contacts {live} in '
         f'{d.qpos.shape[0]} worlds, Newton niter mean '
         f'{float(d.solver_niter.float().mean()):.3f}')
     return {'mass_chain_big': am, 'chol_batched': acb, 'chol_solve_n75': acs,
@@ -572,29 +611,25 @@ def main():
   dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
   calls = {
       'mass_chain': lambda: kmass.mass_chain_lanes(*am),
-      'chol_solve': lambda: klinalg.chol_solve_lanes(*acs),
+      'chol_solve': lambda: klinalg.chol_solve_batched(*acs),
       'solve': lambda: ksolver.solve_tiles(*asv),
-      'damped_solve': lambda: klinalg.damped_solve_lanes(*ads),
+      'damped_solve': lambda: klinalg.damped_solve_batched(*ads),
   }
   for k, fn in calls.items():
     time_kernel(k, fn, f'{k}_kernel')
   call_ms.update({k: time_ms(fn, 20) for k, fn in calls.items()})
+  ys = yardsticks(acs, ads, dmp)
   plain_ms.update({
       'mass_chain': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
-      'chol_solve': time_ms(lambda: klinalg.chol_solve_plain(*acs), 3),
+      'chol_solve': time_ms(ys['chol_solve_plain'], 3),
       'solve': time_ms(lambda: solver_ref.solve_tiles(*asv), 3),
-      'damped_solve': time_ms(
-          lambda: klinalg.damped_solve_plain(ads[1], ads[2], dmp), 3),
+      'damped_solve': time_ms(ys['damped_solve_plain'], 3),
   })
   # one PyTorch call of the same function, timed here only
-  L_w, b_w = world(acs[0], nv, nv), acs[1].T.contiguous()[:, :, None]
-  M_w = world(ads[1], nv, nv).contiguous()
-  A_w = M_w + torch.diag(dmp)
-  rhs_w = torch.einsum('wij,wj->wi', M_w, ads[2].T)
   library_ms.update({
       'mass_chain': None, 'solve': None,
-      'chol_solve': time_ms(lambda: torch.cholesky_solve(b_w, L_w), 20),
-      'damped_solve': time_ms(lambda: torch.linalg.solve(A_w, rhs_w), 20),
+      'chol_solve': time_ms(ys['chol_solve_library'], 20),
+      'damped_solve': time_ms(ys['damped_solve_library'], 20),
   })
   # the wrappers' world-major <-> lanes-last transposes, alone
   dw = forward.mid(mc, kmass.mass_chain(mc, forward.pre(mc, d)))
@@ -605,23 +640,20 @@ def main():
           world(out_mc[0], nv, nv), world(out_mc[1], nv, nv),
           world(out_mc[2], nb, 6), world(out_mc[3], nv, 6),
           out_mc[4].T.contiguous()), 20),
-      'chol_solve': time_ms(lambda: (
-          lanes(dw.qLD, nv * nv), lanes(dw.qfrc_smooth),
-          acs[1].T.contiguous()), 20),
+      # the Cholesky solves read their operands in place
+      'chol_solve': 0.0,
       'solve': time_ms(lambda: [lanes(x) for x in (
           dw.efc_J, dw.efc_D, dw.efc_aref, dw.efc_frictionloss, dw.qM,
           dw.qfrc_smooth, dw.qacc_warmstart)] + [
               x.T.contiguous() for x in asv[6:8]], 20),
-      'damped_solve': time_ms(lambda: (
-          lanes(dw.qM, nv * nv), lanes(dw.qvel), acs[1].T.contiguous()),
-          20),
+      'damped_solve': 0.0,
   }
   nefc, W = mc.nefc, w_c
   bounds.update({
       'mass_chain': bound(
           W * F32 * (36 * nb + 7 * nv + 2 * nv * nv + 6 * nb + 7 * nv),
           W * mass_chain_flops(mc, True)),
-      'chol_solve': bound(W * F32 * (nv * nv + 2 * nv), W * 2 * nv * nv),
+      'chol_solve': bound(W * chol_solve_bytes(nv), W * 2 * nv * nv),
       'solve': bound(
           W * F32 * (nefc * nv + 3 * nefc + nv * nv + 2 * nv + 2 * nv +
                      nefc + 1),
@@ -665,34 +697,29 @@ def main():
       'chol_batched': ('chol_batched_kernel',
                        lambda: klinalg.chol_batched(*acb)),
       'chol_solve_n75': ('chol_solve_kernel',
-                         lambda: klinalg.chol_solve_lanes(*acs)),
+                         lambda: klinalg.chol_solve_batched(*acs)),
       'damped_solve_n75': ('damped_solve_kernel',
-                           lambda: klinalg.damped_solve_lanes(*ads)),
+                           lambda: klinalg.damped_solve_batched(*ads)),
   }
   for k, (kern, fn) in calls.items():
     time_kernel(k, fn, kern)
   call_ms.update({k: time_ms(fn, 20) for k, (_, fn) in calls.items()})
+  ys = yardsticks(acs, ads, dmp)
   plain_ms.update({
       'mass_chain_big': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
       'chol_batched': time_ms(lambda: klinalg.chol_batched_plain(
           acb[1], acb[2]), 3),
-      'chol_solve_n75': time_ms(lambda: klinalg.chol_solve_plain(*acs), 3),
-      'damped_solve_n75': time_ms(
-          lambda: klinalg.damped_solve_plain(ads[1], ads[2], dmp), 3),
+      'chol_solve_n75': time_ms(ys['chol_solve_plain'], 3),
+      'damped_solve_n75': time_ms(ys['damped_solve_plain'], 3),
   })
   # one PyTorch call of the same function, timed here only
   eye = torch.eye(nvl, device=dev)
   A_j = (acb[1] + acb[2] * eye).contiguous()
-  L_w, b_w = world(acs[0], nvl, nvl), acs[1].T.contiguous()[:, :, None]
-  M_w = world(ads[1], nvl, nvl).contiguous()
-  A_w = M_w + torch.diag(dmp)
-  rhs_w = torch.einsum('wij,wj->wi', M_w, ads[2].T)
   library_ms.update({
       'mass_chain_big': None,
       'chol_batched': time_ms(lambda: torch.linalg.cholesky(A_j), 20),
-      'chol_solve_n75': time_ms(lambda: torch.cholesky_solve(b_w, L_w), 20),
-      'damped_solve_n75': time_ms(lambda: torch.linalg.solve(A_w, rhs_w),
-                                  20),
+      'chol_solve_n75': time_ms(ys['chol_solve_library'], 20),
+      'damped_solve_n75': time_ms(ys['damped_solve_library'], 20),
   })
   dw = forward.pre(mcl, d)
   out_mc = kmass.mass_chain_lanes(*am)
@@ -702,11 +729,8 @@ def main():
           lanes(dw.qvel), world(out_mc[0], nvl, nvl),
           world(out_mc[2], nbl, 6), world(out_mc[3], nvl, 6),
           out_mc[4].T.contiguous()), 20),
-      'chol_batched': 0.0,  # the kernel reads and writes world-major
-      'chol_solve_n75': time_ms(lambda: (
-          lanes(L_w, nvl * nvl), lanes(dw.qvel), acs[1].T.contiguous()), 20),
-      'damped_solve_n75': time_ms(lambda: (
-          lanes(M_w, nvl * nvl), lanes(dw.qvel), acs[1].T.contiguous()), 20),
+      # these kernels read (and chol_batched writes) in place
+      'chol_batched': 0.0, 'chol_solve_n75': 0.0, 'damped_solve_n75': 0.0,
   })
   W = w_cl
   bounds.update({
@@ -714,8 +738,7 @@ def main():
           W * F32 * (36 * nbl + 7 * nvl + nvl * nvl + 6 * nbl + 7 * nvl),
           W * mass_chain_flops(mcl, False)),
       'chol_batched': bound(W * F32 * 2 * nvl * nvl, W * chol_flops(nvl)),
-      'chol_solve_n75': bound(W * F32 * (nvl * nvl + 2 * nvl),
-                              W * 2 * nvl * nvl),
+      'chol_solve_n75': bound(W * chol_solve_bytes(nvl), W * 2 * nvl * nvl),
       'damped_solve_n75': bound(W * F32 * (nvl * nvl + 2 * nvl) + F32 * nvl,
                                 W * (chol_flops(nvl) + 4 * nvl * nvl + nvl)),
   })
@@ -772,6 +795,32 @@ def main():
         f"{live_rows:.2f} live rows per world, niter mean {niter:.3f}), "
         f"wrapper transposes {transpose_ms[key]:.4f} ms; step "
         f"{1e3 * nworld / res['steps_per_sec']:.3f} ms")
+    if key != 'solve_spheres':
+      continue
+    # chol_solve at n 36 (qacc_smooth) on the same last state, in the
+    # main path's layouts
+    k36, nvs = 'chol_solve_n36', model.nv
+    kernel_launches[k36] = launches['chol_solve']
+    acs = (model, dw.qLD, dw.qfrc_smooth)
+    ys = yardsticks(acs)
+    try:
+      err[k36] = check_layouts(klinalg.chol_solve_batched, *acs,
+                               ys['chol_solve_plain'](), 'qacc_smooth n 36')
+    except AssertionError as e:
+      fail(f'{key} rollout W={nworld}: {e}')
+    time_kernel(k36, lambda: klinalg.chol_solve_batched(*acs),
+                'chol_solve_kernel')
+    call_ms[k36] = time_ms(lambda: klinalg.chol_solve_batched(*acs), 20)
+    plain_ms[k36] = time_ms(ys['chol_solve_plain'], 3)
+    library_ms[k36] = time_ms(ys['chol_solve_library'], 20)
+    transpose_ms[k36] = 0.0  # the kernel reads its operands in place
+    bounds[k36] = bound(nworld * chol_solve_bytes(nvs),
+                        nworld * 2 * nvs * nvs)
+    say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
+        f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
+        f"{library_ms[k36]:.4f} ms, bound {bounds[k36][0]:.4f} ms "
+        f"({bounds[k36][1]}), max abs err {err[k36]:.3e} (both layouts), "
+        f"wrapper transposes 0.0000 ms")
 
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -783,6 +832,7 @@ def main():
       'solve': ('solve.cu', 'mujoco_warp_tpu/pallas/solver.py:1041'),
       'chol_batched': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:65'),
       'chol_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:109'),
+      'chol_solve_n36': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:109'),
       'chol_solve_n75': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:109'),
       'damped_solve': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:145'),
       'damped_solve_n75': ('linalg.cu',

@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
-Each wrapper takes lanes-last tensors: on a CPU tensor it runs the plain
-PyTorch version, on a CUDA tensor it launches the kernel (``csrc/*.cu``)
-or raises.  ``k1`` and ``k4`` serve the fused step; ``mass_chain``,
-``solver`` and ``linalg`` the general step, each also with a world-major
-entry that transposes with ``lanes`` and ``world``.  Each wrapper counts
-its kernel launches in ``launches``.
+On a CPU tensor each wrapper runs the plain PyTorch version, on a CUDA
+tensor it launches the kernel (``csrc/*.cu``) or raises.  ``k1`` and
+``k4`` serve the fused step on lanes-last tensors; ``mass_chain`` and
+``solver`` the general step, each on lanes-last tensors with a
+world-major entry that transposes with ``lanes`` and ``world``;
+``linalg``'s kernels read world-major tensors (its Cholesky solves also
+``world()`` views of lanes-last ones) in place.  Each wrapper counts its
+kernel launches in ``launches``.
 """
 
 from __future__ import annotations

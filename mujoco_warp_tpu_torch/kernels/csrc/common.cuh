@@ -17,9 +17,6 @@
 // checked by the wrappers): it sizes the per-thread local arrays of K4
 // and the Newton solve
 #define MWT_MAX_NV 64
-// n cap of the batched Cholesky kernels (linalg.cu; kernels/linalg.py
-// MAX_N), which sizes only their own local arrays
-#define MWT_LINALG_MAX_N 128
 
 // row r of the calling world's column
 #define LANE(ptr, r) (ptr)[(size_t)(r) * W + w]

@@ -8,6 +8,11 @@ the lane Cholesky of ``fused/solver_ref.py`` (``_chol_tile`` and
 CPU tensors run the plain version; CUDA tensors launch ``csrc/linalg.cu``,
 which replaces ``mujoco_warp_tpu/pallas/linalg.py`` ``chol_batched``
 (:65), ``chol_solve_batched`` (:109) and ``damped_solve_batched`` (:145).
+
+The world-major entries (``*_batched``) take each (W, n, n) matrix and
+(W, n) vector world-major or as a ``world()`` view of a lanes-last
+tensor: ``chol_solve`` and ``damped_solve`` read either in place at the
+strides the tensor has, so no copy surrounds their launch.
 """
 
 from __future__ import annotations
@@ -25,18 +30,19 @@ from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
 # launches of the CUDA kernels (not of the plain versions)
 launches = {'chol_batched': 0, 'chol_solve': 0, 'damped_solve': 0}
 
-# the kernels' size cap (csrc/common.cuh MWT_LINALG_MAX_N): it sizes the
-# per-thread arrays of chol_solve and damped_solve, and chol_batched's
-# shared memory (n (n | 1) floats per world)
+# the kernels' size cap: one world's matrix lies in shared memory, n (n |
+# 1) floats (66 KB at 128)
 MAX_N = 128
 
 CholBatchedParams = build.params_struct(
     'CholBatchedParams', ints=('W', 'n'), floats=('jitter',),
     ptrs=('A', 'L'))
-CholSolveParams = build.params_struct('CholSolveParams', ints=('W', 'n'),
-                                      ptrs=('L', 'b', 'x'))
+CholSolveParams = build.params_struct(
+    'CholSolveParams', ints=('W', 'n', 'L_ws', 'L_es', 'b_ws', 'b_es'),
+    ptrs=('L', 'b', 'x'))
 DampedSolveParams = build.params_struct(
-    'DampedSolveParams', ints=('W', 'n'), ptrs=('M', 'a', 'dmp', 'x', 'scr'))
+    'DampedSolveParams', ints=('W', 'n', 'M_ws', 'M_es', 'a_ws', 'a_es'),
+    ptrs=('M', 'a', 'dmp', 'x'))
 
 
 def damping_terms(m: types.Model) -> np.ndarray:
@@ -99,6 +105,26 @@ def _cap(n, what):
     raise ValueError(f'{what} caps n at {MAX_N}, got {n}')
 
 
+def strides(t, shape, name, device):
+  """(world stride, element stride) of a float32 tensor of ``shape`` (W,
+  n) or (W, n, n) on ``device`` whose elements (row-major within a world)
+  lie one element stride apart: world-major, or a ``world()`` view of
+  lanes-last.  Raises for any other layout."""
+  if not isinstance(t, torch.Tensor):
+    raise TypeError(f'{name}: expected a tensor, got {type(t).__name__}')
+  if t.device != device or t.dtype != torch.float32 or \
+      tuple(t.shape) != tuple(shape):
+    raise ValueError(f'{name}: {tuple(t.shape)} {t.dtype} on {t.device}, '
+                     f'expected {tuple(shape)} float32 on {device}')
+  es = t.stride(-1)
+  if len(shape) == 3 and shape[1] > 1 and t.stride(1) != shape[2] * es:
+    raise ValueError(f'{name}: strides {t.stride()} do not place a '
+                     'world\'s elements one element stride apart')
+  if max(t.stride(0), es) >= 2 ** 31:
+    raise ValueError(f'{name}: strides {t.stride()} beyond int32')
+  return t.stride(0), es
+
+
 def chol_batched(m: types.Model, A, jitter: float = 0.0):
   """L with L L^T = A + jitter I for world-major A (W, n, n)
   (``pallas/linalg.py`` ``chol_batched`` :65); the kernel reads and
@@ -116,51 +142,45 @@ def chol_batched(m: types.Model, A, jitter: float = 0.0):
   return L
 
 
-def chol_solve_lanes(L, b):
-  """x = (L L^T)^-1 b on lanes-last tensors L (n n, W), b (n, W)."""
-  if not _device(b, 'chol_solve'):
-    return chol_solve_plain(L, b)
-  n, W = b.shape
+def chol_solve_batched(m: types.Model, L, rhs):
+  """x = (L L^T)^-1 rhs for L (W, n, n) and rhs (W, n), each world-major
+  or a ``world()`` view of lanes-last (``pallas/linalg.py``
+  ``chol_solve_batched`` :109); x (W, n) world-major.  The kernel reads
+  only L's lower triangle.  A CPU tensor takes the plain version, after
+  the same layout checks."""
+  W, n = rhs.shape
+  on_card = _device(rhs, 'chol_solve')
+  ls = strides(L, (W, n, n), 'L', rhs.device)
+  bs = strides(rhs, (W, n), 'rhs', rhs.device)
+  if not on_card:
+    return chol_solve_plain(lanes(L, n * n), lanes(rhs)).T
   _cap(n, 'chol_solve')
-  check(L, (n * n, W), 'L', b.device)
-  check(b, (n, W), 'b', b.device)
-  x = torch.empty_like(b)
-  with torch.cuda.device(b.device):
-    _launch('chol_solve', CholSolveParams, W=W, n=n, L=ptr(L), b=ptr(b),
-            x=ptr(x))
+  x = torch.empty((W, n), dtype=torch.float32, device=rhs.device)
+  with torch.cuda.device(rhs.device):
+    _launch('chol_solve', CholSolveParams, W=W, n=n, L_ws=ls[0], L_es=ls[1],
+            b_ws=bs[0], b_es=bs[1], L=ptr(L), b=ptr(rhs), x=ptr(x))
   return x
-
-
-def damped_solve_lanes(m: types.Model, M, a):
-  """(M + h diag(damping))^-1 (M a) on lanes-last tensors M (nv nv, W),
-  a (nv, W), with h and damping of ``m``."""
-  if not _device(a, 'damped_solve'):
-    dmp = torch.as_tensor(damping_terms(m), device=a.device)
-    return damped_solve_plain(M, a, dmp)
-  n, W = a.shape
-  if n != m.nv:
-    raise ValueError(f'damped_solve: n {n}, model nv {m.nv}')
-  _cap(n, 'damped_solve')
-  check(M, (n * n, W), 'M', a.device)
-  check(a, (n, W), 'a', a.device)
-  x = torch.empty_like(a)
-  scr = torch.empty((n * n, W), dtype=torch.float32, device=a.device)
-  with torch.cuda.device(a.device):
-    _launch('damped_solve', DampedSolveParams, W=W, n=n, M=ptr(M), a=ptr(a),
-            dmp=ptr(_DMP.get(m, a.device)), x=ptr(x), scr=ptr(scr))
-  return x
-
-
-def chol_solve_batched(m: types.Model, qLD, rhs):
-  """x = (L L^T)^-1 rhs for world-major qLD (W, n, n) and rhs (W, n)
-  (``pallas/linalg.py`` ``chol_solve_batched`` :109)."""
-  n = rhs.shape[1]
-  return chol_solve_lanes(lanes(qLD, n * n), lanes(rhs)).T
 
 
 def damped_solve_batched(m: types.Model, qM, qacc):
-  """(M + h diag(damping))^-1 (M qacc) for world-major qM (W, nv, nv) and
-  qacc (W, nv), h and damping from ``m`` (``pallas/linalg.py``
-  ``damped_solve_batched`` :145)."""
-  n = qacc.shape[1]
-  return damped_solve_lanes(m, lanes(qM, n * n), lanes(qacc)).T
+  """(M + h diag(damping))^-1 (M qacc) for qM (W, nv, nv) and qacc (W,
+  nv), each world-major or a ``world()`` view of lanes-last, h and
+  damping from ``m`` (``pallas/linalg.py`` ``damped_solve_batched``
+  :145); x (W, nv) world-major.  A CPU tensor takes the plain version,
+  after the same layout checks."""
+  W, n = qacc.shape
+  on_card = _device(qacc, 'damped_solve')
+  ms = strides(qM, (W, n, n), 'qM', qacc.device)
+  as_ = strides(qacc, (W, n), 'qacc', qacc.device)
+  if not on_card:
+    dmp = torch.as_tensor(damping_terms(m), device=qacc.device)
+    return damped_solve_plain(lanes(qM, n * n), lanes(qacc), dmp).T
+  if n != m.nv:
+    raise ValueError(f'damped_solve: n {n}, model nv {m.nv}')
+  _cap(n, 'damped_solve')
+  x = torch.empty((W, n), dtype=torch.float32, device=qacc.device)
+  with torch.cuda.device(qacc.device):
+    _launch('damped_solve', DampedSolveParams, W=W, n=n, M_ws=ms[0],
+            M_es=ms[1], a_ws=as_[0], a_es=as_[1], M=ptr(qM), a=ptr(qacc),
+            dmp=ptr(_DMP.get(m, qacc.device)), x=ptr(x))
+  return x

@@ -1,5 +1,7 @@
-"""Per-launch times of the two kernels that share ``csrc/newton.cuh``: K4
-on the humanoid and the solve kernel on the constraints scene.
+"""Per-launch times of the two kernels that share ``csrc/newton.cuh`` (K4
+on the humanoid, the solve kernel on the constraints scene), of the two
+Cholesky solves at n 75 on ``clutter_arm_nosleep`` and of ``chol_solve``
+at n 36 on ``spheres``.
 
   python3 mujoco_warp_tpu_torch/kerneltime.py [--root DIR]
 
@@ -13,9 +15,21 @@ lowered into the floor, ``parity.DROP['contact']``; the solve:
 and is timed with CUDA events over CALLS back-to-back launches, BLOCKS
 times.  Both kernels run far longer than their wrappers' host
 work, so the card stays busy and the time per call is the kernel's device
-time.  Prints one JSON line: the root and the package directory imported
-from it, the card (nvidia-smi name and power limit) and each kernel's ms
-per launch in every block.
+time.  ``chol_solve`` and ``damped_solve`` get ``parity.clutter_state``
+at CL_NWORLD worlds through the plain mass chain (qM a ``world()`` view
+of its lanes-last output, as on the main path), the factor of qM from
+the plain ``chol_batched`` (world-major) and seeded right-hand sides,
+and are called through ``chol_solve_batched`` and
+``damped_solve_batched``; ``chol_solve`` at n 36 gets the factor of
+``parity.spheres_state`` at NWORLD worlds from the plain mass chain (a
+``world()`` view of its lanes-last qLD, as on the main path) and a
+seeded right-hand side.  For these three, CUDA events time each call's
+whole device work (with any copies the wrapper makes) and
+``torch.profiler`` the kernel's own launches (``kernel_ms``): the n 36
+kernel is shorter than its wrapper's host work, so only the profiler
+sees its time.  Prints one JSON line: the root
+and the package directory imported from it, the card (nvidia-smi name
+and power limit) and each kernel's ms per launch in every block.
 """
 
 import argparse
@@ -23,9 +37,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import time
 
-# the registered width of both scenes; launches per timing, timings
-NWORLD, CALLS, BLOCKS = 8192, 50, 3
+# the registered widths of the scenes; launches per timing, timings
+NWORLD, CL_NWORLD, CALLS, BLOCKS = 8192, 4096, 50, 3
+# idle seconds on each side of the profiled calls, inside the trace's
+# window
+PAD_S = 1.0
 
 
 def events_ms(torch, fn, calls):
@@ -40,6 +59,33 @@ def events_ms(torch, fn, calls):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / calls
+
+
+def profiled_ms(torch, fn, calls, kernel):
+  """Mean device time (ms) of the launches of ``kernel`` (its function
+  name) over ``calls`` calls of ``fn``, read from ``torch.profiler``'s
+  chrome trace with PAD_S of idle time on each side of the calls, and the
+  number of launches the trace held (the mean is None when it held
+  none).  chip_smoke.py reads its kernel times here too."""
+  fn()
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    time.sleep(PAD_S)
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+    time.sleep(PAD_S)
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f)['traceEvents']
+  durs = [float(e['dur']) for e in events
+          if e.get('cat') == 'kernel' and
+          e.get('name', '').split('(')[0].strip() == kernel]
+  return (sum(durs) / 1e3 / len(durs) if durs else None), len(durs)
 
 
 def main():
@@ -60,6 +106,7 @@ def main():
   from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref
   from mujoco_warp_tpu_torch.kernels import build, lanes, world
   from mujoco_warp_tpu_torch.kernels import k4 as kk4
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
   from mujoco_warp_tpu_torch.kernels import solver as ksolver
   from mujoco_warp_tpu_torch.ops import forward
@@ -103,15 +150,54 @@ def main():
          lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
          lanes(d.qacc_warmstart))
 
-  calls = {'k4': lambda: kk4.k4(*a4), 'solve': lambda: ksolver.solve_tiles(
-      *asv)}
+  # the Cholesky solves at n 75 on the clutter state
+  mcl = io.load_model_npz(io.CLUTTER_SNAPSHOT)
+  nv, nb, Wc = mcl.nv, mcl.nbody, CL_NWORLD
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                      parity.clutter_state(mcl, Wc, 7)]
+  d = forward.pre(mcl, io.make_data(mcl, Wc).replace(qpos=qpos, qvel=qvel,
+                                                     ctrl=ctrl))
+  qM = kmass.mass_chain_plain(mcl, lanes(d.cinert, 36 * nb),
+                              lanes(d.cdof, 6 * nv), lanes(d.qvel))[0]
+  qM = world(qM, nv, nv)
+  L = klinalg.chol_batched_plain(qM.contiguous(), kmass.BIG_JITTER)
+  rhs, qacc = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
+               np.random.default_rng(9).standard_normal((2, Wc, nv))]
+
+  # chol_solve at n 36 on the spheres state, its factor lanes-last
+  msp = io.load_model_npz(io.SPHERES_SNAPSHOT)
+  nvs, nbs = msp.nv, msp.nbody
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                      parity.spheres_state(msp, W, 7)]
+  d = forward.pre(msp, io.make_data(msp, W).replace(qpos=qpos, qvel=qvel,
+                                                    ctrl=ctrl))
+  Ls = kmass.mass_chain_plain(msp, lanes(d.cinert, 36 * nbs),
+                              lanes(d.cdof, 6 * nvs), lanes(d.qvel))[1]
+  Ls = world(Ls, nvs, nvs)
+  rhs_s = torch.as_tensor(np.random.default_rng(10).standard_normal(
+      (W, nvs)), dtype=torch.float32, device=dev)
+
+  calls = {
+      'k4': lambda: kk4.k4(*a4),
+      'solve': lambda: ksolver.solve_tiles(*asv),
+      'chol_solve_n75': lambda: klinalg.chol_solve_batched(mcl, L, rhs),
+      'damped_solve_n75': lambda: klinalg.damped_solve_batched(mcl, qM, qacc),
+      'chol_solve_n36': lambda: klinalg.chol_solve_batched(msp, Ls, rhs_s),
+  }
+  kernels = {'chol_solve_n75': 'chol_solve_kernel',
+             'damped_solve_n75': 'damped_solve_kernel',
+             'chol_solve_n36': 'chol_solve_kernel'}
   times = {k: [] for k in calls}
+  kernel_ms = {k: [] for k in kernels}
   for _ in range(BLOCKS):
     for k, fn in calls.items():
       times[k].append(events_ms(torch, fn, CALLS))
+    for k, name in kernels.items():
+      kernel_ms[k].append(profiled_ms(torch, calls[k], CALLS, name))
   print(json.dumps({'root': root, 'package': os.path.dirname(io.__file__),
                     'card': smi.stdout.strip(), 'nworld': W,
-                    'calls': CALLS, 'ms': times}), flush=True)
+                    'clutter_nworld': Wc, 'calls': CALLS, 'ms': times,
+                    'kernel_ms': kernel_ms}), flush=True)
 
 
 if __name__ == '__main__':

@@ -7,7 +7,8 @@ interpret mode, at 128 worlds.
   matrices.  Bar: atol 1e-5 + rtol 1e-4 of each world's largest |L| (the
   same right-looking updates; XLA may fuse a product and a difference).
 - ``chol_solve`` and ``damped_solve`` at n 75 on clutter_arm's mass
-  matrices: the same bar on x.
+  matrices, each operand world-major or a ``world()`` view of lanes-
+  last: the same bar on x.
 - The big-tree mass chain (``ancm`` qM, then ``chol_batched`` for qLD)
   against ``psmooth.mass_chain(m, d, interpret=True)`` on the contact-
   rich clutter state: qM, qLD, cvel, cdof_dot and qfrc_bias within 1e-4
@@ -30,6 +31,7 @@ from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import forward, smooth
 from tests.test_torch_clutter_io import states
+from tests.test_torch_linalg import layout
 
 W = 128
 
@@ -84,20 +86,38 @@ def test_big_tree_mass_chain_matches_pallas_interpret():
         atol=1e-4 * max(1.0, float(np.abs(want).max())), err_msg=name)
 
 
-def test_chol_solve_n75_matches_pallas_interpret():
+@functools.lru_cache(maxsize=None)
+def chol_solve_n75():
+  """(b, the Pallas x) on mass_chains()'s qLD, once for both layouts."""
   mj, m, _, d = mass_chains()
   b = np.random.default_rng(4).standard_normal((W, m.nv)).astype(np.float32)
-  got = klinalg.chol_solve_batched(m, d.qLD, torch.as_tensor(b))
-  want = plinalg.chol_solve_batched(mj, jnp.asarray(d.qLD.numpy()),
-                                    jnp.asarray(b), interpret=True)
+  return b, plinalg.chol_solve_batched(mj, jnp.asarray(d.qLD.numpy()),
+                                       jnp.asarray(b), interpret=True)
+
+
+@functools.lru_cache(maxsize=None)
+def damped_solve_n75():
+  """(qacc, the Pallas x) on mass_chains()'s qM, once for both layouts."""
+  mj, m, _, d = mass_chains()
+  a = np.random.default_rng(5).standard_normal((W, m.nv)).astype(np.float32)
+  return a, plinalg.damped_solve_batched(
+      mj, jnp.asarray(d.qM.numpy()), mj.dof_damping, mj.opt.timestep,
+      jnp.asarray(a), interpret=True)
+
+
+@pytest.mark.parametrize('kind', ['world', 'lanes'])
+def test_chol_solve_n75_matches_pallas_interpret(kind):
+  _, m, _, d = mass_chains()
+  b, want = chol_solve_n75()
+  got = klinalg.chol_solve_batched(m, layout(d.qLD, kind),
+                                   layout(torch.as_tensor(b), kind))
   world_scale(got.numpy(), want, 'chol_solve n 75')
 
 
-def test_damped_solve_n75_matches_pallas_interpret():
-  mj, m, _, d = mass_chains()
-  a = np.random.default_rng(5).standard_normal((W, m.nv)).astype(np.float32)
-  got = klinalg.damped_solve_batched(m, d.qM, torch.as_tensor(a))
-  want = plinalg.damped_solve_batched(
-      mj, jnp.asarray(d.qM.numpy()), mj.dof_damping, mj.opt.timestep,
-      jnp.asarray(a), interpret=True)
+@pytest.mark.parametrize('kind', ['world', 'lanes'])
+def test_damped_solve_n75_matches_pallas_interpret(kind):
+  _, m, _, d = mass_chains()
+  a, want = damped_solve_n75()
+  got = klinalg.damped_solve_batched(m, layout(d.qM, kind),
+                                     layout(torch.as_tensor(a), kind))
   world_scale(got.numpy(), want, 'damped_solve n 75')

@@ -116,9 +116,10 @@ def test_general_kernels_cuda_match_plain(cuda):
   parity.check_rel(got, want, parity.MASS_NAMES)
   d = forward.mid(m, kmass.mass_chain(m, d))
   L, b = lanes(d.qLD, nv * nv), lanes(d.qfrc_smooth)
-  parity.check_world_scale(klinalg.chol_solve_lanes(L, b),
-                           klinalg.chol_solve_plain(L, b), 'chol_solve',
-                           parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  parity.check_world_scale(
+      klinalg.chol_solve_batched(m, d.qLD, d.qfrc_smooth).T,
+      klinalg.chol_solve_plain(L, b), 'chol_solve', parity.SOLVE_ATOL,
+      parity.SOLVE_RTOL)
   d = d.replace(qacc_smooth=klinalg.chol_solve_plain(L, b).T)
   sa = (m, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
         lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
@@ -130,10 +131,10 @@ def test_general_kernels_cuda_match_plain(cuda):
   parity.check_solve(got, want)
   M = lanes(d.qM, nv * nv)
   dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
-  parity.check_world_scale(klinalg.damped_solve_lanes(m, M, want[0]),
-                           klinalg.damped_solve_plain(M, want[0], dmp),
-                           'damped_solve', parity.SOLVE_ATOL,
-                           parity.SOLVE_RTOL)
+  parity.check_world_scale(
+      klinalg.damped_solve_batched(m, d.qM, want[0].T).T,
+      klinalg.damped_solve_plain(M, want[0], dmp), 'damped_solve',
+      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
 
 
 @pytest.mark.cuda
@@ -187,6 +188,60 @@ def test_chol_batched_cuda_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('n', [13, 36, 75])
+@pytest.mark.parametrize('kind', ['world', 'lanes'])
+def test_cholesky_solves_cuda_read_in_place(cuda, n, kind, monkeypatch):
+  """chol_solve and damped_solve at 1000 worlds (not a multiple of the
+  worlds per block) against their plain versions, each operand world-
+  major or a ``world()`` view of lanes-last: the wrapper hands the kernel
+  the operand's own storage, so no copy surrounds the launch."""
+  import types as pytypes
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import world
+  W = 1000
+  rng = np.random.default_rng(n)
+  g = rng.standard_normal((W, n, n))
+  f32 = dict(dtype=torch.float32, device=cuda)
+  A = torch.as_tensor(g @ g.transpose(0, 2, 1) / n + 0.1 * np.eye(n), **f32)
+  b = torch.as_tensor(rng.standard_normal((W, n)), **f32)
+  m = pytypes.SimpleNamespace(
+      nv=n, opt=pytypes.SimpleNamespace(timestep=0.002),
+      dof_damping=rng.uniform(0.0, 3.0, n).astype(np.float32))
+  L = klinalg.chol_batched_plain(A, 1e-12)
+  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  want_cs = klinalg.chol_solve_plain(lanes(L, n * n), lanes(b))
+  want_ds = klinalg.damped_solve_plain(lanes(A, n * n), lanes(b), dmp)
+
+  def put(x):
+    if kind == 'world':
+      return x.contiguous()
+    return world(lanes(x, int(np.prod(x.shape[1:]))), *x.shape[1:])
+
+  Lx, Ax, bx = put(L), put(A), put(b)
+  seen = []
+  launch = klinalg._launch
+
+  def spy(name, params_cls, **kw):
+    seen.append((name, {k: v.value for k, v in kw.items()
+                        if k in ('L', 'M', 'a', 'b')}))
+    return launch(name, params_cls, **kw)
+
+  monkeypatch.setattr(klinalg, '_launch', spy)
+  k = dict(klinalg.launches)
+  got_cs = klinalg.chol_solve_batched(m, Lx, bx)
+  got_ds = klinalg.damped_solve_batched(m, Ax, bx)
+  assert klinalg.launches['chol_solve'] == k['chol_solve'] + 1
+  assert klinalg.launches['damped_solve'] == k['damped_solve'] + 1
+  assert seen == [('chol_solve', {'L': Lx.data_ptr(), 'b': bx.data_ptr()}),
+                  ('damped_solve', {'M': Ax.data_ptr(),
+                                    'a': bx.data_ptr()})]
+  parity.check_world_scale(got_cs.T, want_cs, f'chol_solve n {n} {kind}',
+                           parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  parity.check_world_scale(got_ds.T, want_ds, f'damped_solve n {n} {kind}',
+                           parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
 def test_large_tree_kernels_cuda_match_plain(cuda):
   """The large-tree mass chain (no factor), chol_batched for qLD, and
   chol_solve and damped_solve at n 75 against their plain versions."""
@@ -209,14 +264,14 @@ def test_large_tree_kernels_cuda_match_plain(cuda):
   Ll = lanes(L, nv * nv)
   b = torch.as_tensor(np.random.default_rng(4).standard_normal((nv, 1000)),
                       dtype=torch.float32, device=cuda)
-  parity.check_world_scale(klinalg.chol_solve_lanes(Ll, b),
+  parity.check_world_scale(klinalg.chol_solve_batched(m, L, b.T).T,
                            klinalg.chol_solve_plain(Ll, b), 'chol_solve',
                            parity.SOLVE_ATOL, parity.SOLVE_RTOL)
   dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
-  parity.check_world_scale(klinalg.damped_solve_lanes(m, want[0], b),
-                           klinalg.damped_solve_plain(want[0], b, dmp),
-                           'damped_solve', parity.SOLVE_ATOL,
-                           parity.SOLVE_RTOL)
+  parity.check_world_scale(
+      klinalg.damped_solve_batched(m, world(want[0], nv, nv), b.T).T,
+      klinalg.damped_solve_plain(want[0], b, dmp), 'damped_solve',
+      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
 
 
 @pytest.mark.cuda
