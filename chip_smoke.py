@@ -4,7 +4,10 @@
 
 Phases, one line each or more, any failure exits non-zero:
  1. device: needs CUDA; prints the card's name and power limit.
- 2. build: compiles kernels/csrc with nvcc for sm_90a, one nvcc per source.
+ 2. build: compiles kernels/csrc with nvcc for sm_90a, one nvcc per source;
+    prints ptxas's registers per kernel, and for the solve kernel (on
+    each scene's sizes) and chol_batched (at n 75) the registers per
+    thread, worlds per block and shared bytes per block they launch with.
  3. kernels against their plain PyTorch versions on the card at 1024
     worlds: K1 and K4 on the snapshot humanoid for a seeded state at rest
     (qpos0 + 0.01 N, qvel 0.2 N) and the same state lowered into the floor
@@ -244,6 +247,13 @@ def main():
   msp, w_sp = scene('spheres')
   mse, w_se = scene('spheres_elliptic')
   h = float(k4_ref.scalars(m)[3])
+  # the one-warp-per-world kernels' launch shapes at the scenes' sizes
+  for label, model in (('constraints', mc), ('spheres', msp),
+                       ('spheres_elliptic', mse)):
+    say(f'[kernels] solve on {label} (nefc {model.nefc}, nv {model.nv}): '
+        + json.dumps(ksolver.kernel_info(model)))
+  say(f'[kernels] chol_batched at n {mcl.nv}: '
+      + json.dumps(klinalg.chol_batched_info(mcl.nv)))
   err = {k: 0.0 for k in build.KERNELS + (
       'mass_chain_big', 'chol_solve_n36', 'chol_solve_n75',
       'damped_solve_n75', 'solve_spheres', 'solve_elliptic')}

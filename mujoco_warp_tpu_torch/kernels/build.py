@@ -34,7 +34,11 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # mwt_<name>_scratch_rows(<ints>)
 KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_batched', 'chol_solve',
            'damped_solve')
-SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2, 'solve': 3}
+SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2}
+# other entry points: name -> argument types (each returns an int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+EXTRA = {'mwt_solve_world_floats': [_I, _I, _I],
+         'mwt_solve_info': [_P, _P], 'mwt_chol_batched_info': [_I, _P]}
 
 
 class BuildInfo:
@@ -123,6 +127,10 @@ def load() -> ctypes.CDLL:
   for k, nargs in SCRATCH_ARGS.items():
     fn = getattr(lib, f'mwt_{k}_scratch_rows')
     fn.argtypes = [ctypes.c_int] * nargs
+    fn.restype = ctypes.c_int
+  for name, args in EXTRA.items():
+    fn = getattr(lib, name)
+    fn.argtypes = args
     fn.restype = ctypes.c_int
   _LIB = lib
   return lib

@@ -1,11 +1,13 @@
-// The Newton solve shared by K4 (k4.cu) and the standalone solver kernel
-// (solve.cu), one thread per world: the constraint-state update, the
-// gradient, H = M + J^T D J with Cholesky-factor reuse, the exact
-// bracketed 3-alpha linesearch and the per-world stop.  Counterpart of
-// mujoco_warp_tpu/pallas/solver.py solve_core (:269) for pyramidal and
-// frictionless rows, equality rows (w_eq), friction-loss rows (w_fri,
-// :321-329, :434, :717-720) and elliptic friction cones (ell, :445-486,
-// :499-519, :619-713).
+// The Newton solve of K4 (k4.cu), one thread per world: the
+// constraint-state update, the gradient, H = M + J^T D J with
+// Cholesky-factor reuse, the exact bracketed 3-alpha linesearch and the
+// per-world stop.  Its per-row code (row_force, quad_row, eval3_row,
+// p0_row and the elliptic contacts' ell_*) also serves the standalone
+// solver kernel's one-warp-per-world Newton (newton_warp.cuh, solve.cu).
+// Counterpart of mujoco_warp_tpu/pallas/solver.py solve_core (:269) for
+// pyramidal and frictionless rows, equality rows (w_eq), friction-loss
+// rows (w_fri, :321-329, :434, :717-720) and elliptic friction cones
+// (ell, :445-486, :499-519, :619-713).
 //
 // A row set R supplies the rows.  Per row r: D(r), aref(r), fl(r),
 // kind(r) (ROW_INEQ, ROW_EQ, ROW_FRI or ROW_ELL) and the per-world slots
@@ -111,7 +113,7 @@ __device__ __forceinline__ float ell_dm(const R& rows, int r0) {
 // forces and mask of one elliptic contact (:445-470): none in the top
 // zone, -D Jaref (mask 1) in the bottom zone, the cone force in the middle
 template <class R>
-__device__ void ell_update(const R& rows, int r0) {
+__device__ __forceinline__ void ell_update(const R& rows, int r0) {
   const int dim = rows.dim(r0);
   const float mu = rows.s(r0);
   float N, TT, T;
@@ -142,7 +144,8 @@ enum {
 };
 
 template <class R>
-__device__ void ell_hoist(const R& rows, int r0, float* g0, float* h0) {
+__device__ __forceinline__ void ell_hoist(const R& rows, int r0, float* g0,
+                                          float* h0) {
   const int dim = rows.dim(r0), c = rows.con(r0);
   const float mu = rows.s(r0);
   float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, uu = 0.0f, uv = 0.0f, vv = 0.0f;
@@ -189,8 +192,9 @@ __device__ void ell_hoist(const R& rows, int r0, float* g0, float* h0) {
 // the contact's cost change, slope and curvature at three step sizes
 // (_ell_ev :653-696), added to c, g, hh
 template <class R>
-__device__ void ell_eval3(const R& rows, int r0, const float* a, float* c,
-                          float* g, float* hh) {
+__device__ __forceinline__ void ell_eval3(const R& rows, int r0,
+                                          const float* a, float* c, float* g,
+                                          float* hh) {
   float e[EC_N];
   const int ci = rows.con(r0);
   for (int k = 0; k < EC_N; ++k) e[k] = rows.coef(ci, k);
@@ -240,6 +244,24 @@ __device__ void ell_eval3(const R& rows, int r0, const float* a, float* c,
   }
 }
 
+// the mask of row r (not of an elliptic contact) at the current Jaref;
+// returns true if it changed
+template <class R>
+__device__ __forceinline__ bool quad_row(const R& rows, int r) {
+  const float ja = rows.jaref(r);
+  const int k = rows.kind(r);
+  float q;
+  if (k == ROW_FRI) {
+    const float rf = row_rf(rows, r);
+    q = (ja > -rf && ja < rf) ? 1.0f : 0.0f;
+  } else {
+    q = (k == ROW_EQ || ja < 0.0f) ? 1.0f : 0.0f;
+  }
+  const bool flip = q != rows.quad(r);
+  rows.quad(r) = q;
+  return flip;
+}
+
 // constraint-state mask of the current Jaref; returns true if it changed
 // (elliptic contacts also set their forces)
 template <class R>
@@ -253,19 +275,61 @@ __device__ bool update_quad(const R& rows) {
         continue;
       }
     }
-    const float ja = rows.jaref(r);
-    const int k = rows.kind(r);
-    float q;
-    if (k == ROW_FRI) {
-      const float rf = row_rf(rows, r);
-      q = (ja > -rf && ja < rf) ? 1.0f : 0.0f;
-    } else {
-      q = (k == ROW_EQ || ja < 0.0f) ? 1.0f : 0.0f;
-    }
-    flip = flip || (q != rows.quad(r));
-    rows.quad(r) = q;
+    flip = quad_row(rows, r) || flip;
   }
   return flip;
+}
+
+// the cost change, slope and curvature of row r (not of an elliptic
+// contact) at three step sizes, added to c, g, hh
+template <class R>
+__device__ __forceinline__ void eval3_row(const R& rows, int r,
+                                          const float* a, float* c, float* g,
+                                          float* hh) {
+  const float D = rows.D(r);
+  if (D == 0.0f) return;  // a zero row adds exact zeros
+  const float ja = rows.jaref(r), jv = rows.jv(r);
+  const float jvD = jv * D, grad0 = jvD * ja, hess = jv * jvD;
+  const float quad0 = 0.5f * D * ja * ja;
+  const float cost0 = quad0 * (ja < 0.0f ? 1.0f : 0.0f);
+  const float offset = quad0 - cost0;
+  const int kind = rows.kind(r);
+  if (kind == ROW_FRI) {
+    const float rf = row_rf(rows, r), fl = rows.fl(r);
+    const float cf0 = (-rf < ja && ja < rf)
+                          ? quad0
+                          : (ja <= -rf ? fl * (-0.5f * rf - ja)
+                                       : fl * (-0.5f * rf + ja));
+    for (int t = 0; t < 3; ++t) {
+      const float x = ja + a[t] * jv;
+      const bool mid = -rf < x && x < rf;
+      const float cf = mid ? 0.5f * D * x * x
+                           : (x <= -rf ? fl * (-0.5f * rf - x)
+                                       : fl * (-0.5f * rf + x));
+      const float gf = mid ? jvD * x : (x <= -rf ? -fl * jv : fl * jv);
+      c[t] = c[t] + (cf - cf0);
+      g[t] = g[t] + gf;
+      hh[t] = hh[t] + hess * (mid ? 1.0f : 0.0f);
+    }
+    return;
+  }
+  const bool eq = kind == ROW_EQ;
+  for (int t = 0; t < 3; ++t) {
+    const float x = ja + a[t] * jv;
+    const float g_eq = grad0 + a[t] * hess;
+    const float c_eq = 0.5f * a[t] * (grad0 + g_eq);
+    if (eq) {
+      c[t] = c[t] + c_eq;
+      g[t] = g[t] + g_eq;
+      hh[t] = hh[t] + hess;
+    } else if (x < 0.0f) {
+      c[t] = c[t] + (c_eq + offset);
+      g[t] = g[t] + g_eq;
+      hh[t] = hh[t] + hess;
+    } else {
+      c[t] = c[t] + (-cost0);
+    }
+  }
 }
 
 // cost, slope and curvature of the row terms at three step sizes
@@ -280,50 +344,26 @@ __device__ void eval3(const R& rows, const float* a, float* c, float* g,
         continue;
       }
     }
-    const float D = rows.D(r);
-    if (D == 0.0f) continue;  // a zero row adds exact zeros
-    const float ja = rows.jaref(r), jv = rows.jv(r);
-    const float jvD = jv * D, grad0 = jvD * ja, hess = jv * jvD;
-    const float quad0 = 0.5f * D * ja * ja;
-    const float cost0 = quad0 * (ja < 0.0f ? 1.0f : 0.0f);
-    const float offset = quad0 - cost0;
-    const int kind = rows.kind(r);
-    if (kind == ROW_FRI) {
-      const float rf = row_rf(rows, r), fl = rows.fl(r);
-      const float cf0 = (-rf < ja && ja < rf)
-                            ? quad0
-                            : (ja <= -rf ? fl * (-0.5f * rf - ja)
-                                         : fl * (-0.5f * rf + ja));
-      for (int t = 0; t < 3; ++t) {
-        const float x = ja + a[t] * jv;
-        const bool mid = -rf < x && x < rf;
-        const float cf = mid ? 0.5f * D * x * x
-                             : (x <= -rf ? fl * (-0.5f * rf - x)
-                                         : fl * (-0.5f * rf + x));
-        const float gf = mid ? jvD * x : (x <= -rf ? -fl * jv : fl * jv);
-        c[t] = c[t] + (cf - cf0);
-        g[t] = g[t] + gf;
-        hh[t] = hh[t] + hess * (mid ? 1.0f : 0.0f);
-      }
-      continue;
-    }
-    const bool eq = kind == ROW_EQ;
-    for (int t = 0; t < 3; ++t) {
-      const float x = ja + a[t] * jv;
-      const float g_eq = grad0 + a[t] * hess;
-      const float c_eq = 0.5f * a[t] * (grad0 + g_eq);
-      if (eq) {
-        c[t] = c[t] + c_eq;
-        g[t] = g[t] + g_eq;
-        hh[t] = hh[t] + hess;
-      } else if (x < 0.0f) {
-        c[t] = c[t] + (c_eq + offset);
-        g[t] = g[t] + g_eq;
-        hh[t] = hh[t] + hess;
-      } else {
-        c[t] = c[t] + (-cost0);
-      }
-    }
+    eval3_row(rows, r, a, c, g, hh);
+  }
+}
+
+// the slope and curvature of row r (not of an elliptic contact) at
+// alpha = 0, added to *p1, *p2
+template <class R>
+__device__ __forceinline__ void p0_row(const R& rows, int r, float* p1,
+                                       float* p2) {
+  const float ja = rows.jaref(r), jv = rows.jv(r);
+  const float jvD = jv * rows.D(r);
+  const int kind = rows.kind(r);
+  if (kind == ROW_FRI) {
+    const float rf = row_rf(rows, r), fl = rows.fl(r);
+    const bool mid = -rf < ja && ja < rf;
+    *p1 = *p1 + (mid ? jvD * ja : (ja <= -rf ? -fl * jv : fl * jv));
+    *p2 = *p2 + jv * jvD * (mid ? 1.0f : 0.0f);
+  } else if (kind == ROW_EQ || ja < 0.0f) {
+    *p1 = *p1 + jvD * ja;
+    *p2 = *p2 + jv * jvD;
   }
 }
 
@@ -384,18 +424,7 @@ __device__ float newton_solve(const R& rows, const float* qM, const float* qfs,
           continue;
         }
       }
-      const float ja = rows.jaref(r), jv = rows.jv(r);
-      const float jvD = jv * rows.D(r);
-      const int kind = rows.kind(r);
-      if (kind == ROW_FRI) {
-        const float rf = row_rf(rows, r), fl = rows.fl(r);
-        const bool mid = -rf < ja && ja < rf;
-        p1 = p1 + (mid ? jvD * ja : (ja <= -rf ? -fl * jv : fl * jv));
-        p2 = p2 + jv * jvD * (mid ? 1.0f : 0.0f);
-      } else if (kind == ROW_EQ || ja < 0.0f) {
-        p1 = p1 + jvD * ja;
-        p2 = p2 + jv * jvD;
-      }
+      p0_row(rows, r, &p1, &p2);
     }
     p1 = p1 + g1;
     p2 = p2 + 2.0f * g2;

@@ -25,7 +25,7 @@ import torch
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused.solver_ref import chol_solve_tile, chol_tile
 from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
-    device_tables, lanes, ptr
+    device_tables, ptr
 
 # launches of the CUDA kernels (not of the plain versions)
 launches = {'chol_batched': 0, 'chol_solve': 0, 'damped_solve': 0}
@@ -125,6 +125,13 @@ def strides(t, shape, name, device):
   return t.stride(0), es
 
 
+def read(t, rows: int, st):
+  """The (rows, W) lanes-last operand as the kernels read ``t``: element
+  e of world w at ``t``'s storage offset + w ws + e es, for ``st`` = (ws,
+  es) from ``strides``.  A view of ``t``'s storage, not a copy."""
+  return torch.as_strided(t, (rows, t.shape[0]), (st[1], st[0]))
+
+
 def chol_batched(m: types.Model, A, jitter: float = 0.0):
   """L with L L^T = A + jitter I for world-major A (W, n, n)
   (``pallas/linalg.py`` ``chol_batched`` :65); the kernel reads and
@@ -142,18 +149,30 @@ def chol_batched(m: types.Model, A, jitter: float = 0.0):
   return L
 
 
+def chol_batched_info(n: int) -> dict:
+  """``chol_batched``'s kernel on the card at size n: registers per
+  thread, worlds (warps) per block and shared bytes per block."""
+  out = (ctypes.c_int * 3)()
+  rc = build.load().mwt_chol_batched_info(n, out)
+  if rc != 0:
+    raise RuntimeError(f'chol_batched kernel attributes: cudaError {rc}')
+  return {'registers': out[0], 'worlds_per_block': out[1],
+          'shared_bytes_per_block': out[2]}
+
+
 def chol_solve_batched(m: types.Model, L, rhs):
   """x = (L L^T)^-1 rhs for L (W, n, n) and rhs (W, n), each world-major
   or a ``world()`` view of lanes-last (``pallas/linalg.py``
   ``chol_solve_batched`` :109); x (W, n) world-major.  The kernel reads
   only L's lower triangle.  A CPU tensor takes the plain version, after
-  the same layout checks."""
+  the same layout checks, on its operands read at the strides the kernel
+  takes (``read``)."""
   W, n = rhs.shape
   on_card = _device(rhs, 'chol_solve')
   ls = strides(L, (W, n, n), 'L', rhs.device)
   bs = strides(rhs, (W, n), 'rhs', rhs.device)
   if not on_card:
-    return chol_solve_plain(lanes(L, n * n), lanes(rhs)).T
+    return chol_solve_plain(read(L, n * n, ls), read(rhs, n, bs)).T
   _cap(n, 'chol_solve')
   x = torch.empty((W, n), dtype=torch.float32, device=rhs.device)
   with torch.cuda.device(rhs.device):
@@ -167,16 +186,18 @@ def damped_solve_batched(m: types.Model, qM, qacc):
   nv), each world-major or a ``world()`` view of lanes-last, h and
   damping from ``m`` (``pallas/linalg.py`` ``damped_solve_batched``
   :145); x (W, nv) world-major.  A CPU tensor takes the plain version,
-  after the same layout checks."""
+  after the same checks, on its operands read at the strides the kernel
+  takes (``read``)."""
   W, n = qacc.shape
   on_card = _device(qacc, 'damped_solve')
   ms = strides(qM, (W, n, n), 'qM', qacc.device)
   as_ = strides(qacc, (W, n), 'qacc', qacc.device)
-  if not on_card:
-    dmp = torch.as_tensor(damping_terms(m), device=qacc.device)
-    return damped_solve_plain(lanes(qM, n * n), lanes(qacc), dmp).T
   if n != m.nv:
     raise ValueError(f'damped_solve: n {n}, model nv {m.nv}')
+  if not on_card:
+    dmp = torch.as_tensor(damping_terms(m), device=qacc.device)
+    return damped_solve_plain(read(qM, n * n, ms), read(qacc, n, as_),
+                              dmp).T
   _cap(n, 'damped_solve')
   x = torch.empty((W, n), dtype=torch.float32, device=qacc.device)
   with torch.cuda.device(qacc.device):

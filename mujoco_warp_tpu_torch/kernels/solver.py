@@ -5,7 +5,11 @@ CPU tensors run the plain version (``fused/solver_ref.py``
 ``mujoco_warp_tpu/pallas/solver.py`` ``_make_kernel`` (:1041, called by
 ``_solve_tiles`` :1126 from ``solve_batched`` :1145): ``solve_kernel``
 for equality, friction-loss, limit and frictionless or pyramidal contact
-rows, ``solve_ell_kernel`` for a model with elliptic contacts.
+rows, ``solve_ell_kernel`` for a model with elliptic contacts.  The
+kernel gives each world one warp and holds the world's system in shared
+memory: ``world_floats`` counts its floats, and ``fits`` says whether one
+world fits in a block (``ops/forward.py`` sends a model that does not to
+the torch Newton, as the JAX package bounds its kernel's VMEM).
 """
 
 from __future__ import annotations
@@ -26,11 +30,40 @@ launches = 0
 # row kinds of the shared Newton (csrc/newton.cuh)
 ROW_INEQ, ROW_EQ, ROW_FRI, ROW_ELL = 0, 1, 2, 3
 
+# the elliptic form's per-contact terms (csrc/solve.cu CONE_N: the cone
+# block's, which outnumber the linesearch's EC_N of csrc/newton.cuh)
+CONE_N = 20
+# shared memory one block may use on the card
+SMEM_BLOCK = 232448
+
 SolveParams = build.params_struct(
-    'SolveParams', ints=('W', 'nv', 'nefc', 'iterations', 'ls_iterations'),
+    'SolveParams',
+    ints=('W', 'nv', 'nefc', 'ncon', 'iterations', 'ls_iterations'),
     floats=('tol', 'ls_tol', 'meaninertia'),
     ptrs=('J', 'D', 'aref', 'fl', 'M', 'qfs', 'qacc0', 'qacc_out',
-          'force_out', 'qfrc_out', 'niter_out', 'scr', 'kind', 's', 'etab'))
+          'force_out', 'qfrc_out', 'niter_out', 'kind', 's', 'etab'))
+
+
+def ell_ncon(m: types.Model) -> int:
+  """The contacts the elliptic form walks (m.ncon), 0 without elliptic
+  contacts."""
+  return m.ncon if solver_ref.ell_groups(m) else 0
+
+
+def world_floats(nefc: int, nv: int, ncon: int) -> int:
+  """Shared floats of one world of the kernel (``csrc/solve.cu``
+  ``SolveLayout``): J, M and L at row stride nv | 1, seven per-row slots,
+  for elliptic contacts (ncon > 0) two more and the per-contact terms,
+  six vectors of nv and 16-bit row lists."""
+  ld, ne = nv | 1, (nefc if ncon else 0)
+  return (nefc * ld + 2 * nv * ld + 7 * nefc + 2 * ne + CONE_N * ncon +
+          6 * nv + 1 +
+          (3 * nefc + 2 * ncon + 1) // 2)
+
+
+def fits(m: types.Model) -> bool:
+  """Does one world of ``m`` fit in the shared memory of a block?"""
+  return 4 * world_floats(m.nefc, m.nv, ell_ncon(m)) <= SMEM_BLOCK
 
 
 def row_kinds(m: types.Model) -> np.ndarray:
@@ -84,27 +117,32 @@ def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0, s=None):
   check(M, (nv, nv, W), 'M', dev)
   check(qfs, (nv, W), 'qfs', dev)
   check(qacc0, (nv, W), 'qacc0', dev)
-  ncon = m.ncon if solver_ref.ell_groups(m) else 0
+  if not fits(m):
+    raise ValueError(f'solve: one world (nefc {nefc}, nv {nv}) does not fit '
+                     'in a block\'s shared memory')
+  ncon = ell_ncon(m)
   if ncon:
     if s is None:
       raise ValueError('elliptic contacts need their row scales s')
     check(s, (nefc, W), 's', dev)
   lib = build.load()
-  if lib.mwt_solve_params_size() != ctypes.sizeof(SolveParams):
-    raise RuntimeError('SolveParams layout differs between C and Python')
+  if lib.mwt_solve_params_size() != ctypes.sizeof(SolveParams) or \
+      lib.mwt_solve_world_floats(nefc, nv, ncon) != world_floats(nefc, nv,
+                                                                 ncon):
+    raise RuntimeError('SolveParams or the shared layout differs between C '
+                       'and Python')
   new = lambda rows, dt=torch.float32: torch.empty((rows, W), dtype=dt,
                                                    device=dev)
   qacc, force, qfrc, niter = new(nv), new(nefc), new(nv), new(1, torch.int32)
-  scr = new(lib.mwt_solve_scratch_rows(nefc, nv, ncon))
   tol, ls_tol, mi = [float(x) for x in solver_ref.scalars(m, 'cpu')]
   tab = _TABLES.get(m, dev)
   p = SolveParams(
-      W=W, nv=nv, nefc=nefc, iterations=int(m.opt.iterations),
+      W=W, nv=nv, nefc=nefc, ncon=ncon, iterations=int(m.opt.iterations),
       ls_iterations=int(m.opt.ls_iterations), tol=tol, ls_tol=ls_tol,
       meaninertia=mi, J=ptr(J), D=ptr(D), aref=ptr(aref), fl=ptr(fl),
       M=ptr(M), qfs=ptr(qfs), qacc0=ptr(qacc0), qacc_out=ptr(qacc),
       force_out=ptr(force), qfrc_out=ptr(qfrc), niter_out=ptr(niter),
-      scr=ptr(scr), kind=ptr(tab['kind']), s=ptr(s if ncon else None),
+      kind=ptr(tab['kind']), s=ptr(s if ncon else None),
       etab=ptr(tab['etab']))
   stream = torch.cuda.current_stream(dev).cuda_stream
   rc = lib.mwt_solve_launch(ctypes.byref(p), ctypes.c_void_p(stream))
@@ -112,6 +150,21 @@ def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0, s=None):
     raise RuntimeError(f'solve launch failed: cudaError {rc}')
   launches += 1
   return qacc, force, qfrc, niter
+
+
+def kernel_info(m: types.Model) -> dict:
+  """The kernel of ``m``'s form on the card: registers per thread, worlds
+  (warps) per block and shared bytes per block at ``m``'s sizes."""
+  ncon = ell_ncon(m)
+  # a non-null s selects the elliptic form; nothing is read through it
+  p = SolveParams(nv=m.nv, nefc=m.nefc, ncon=ncon,
+                  s=ctypes.c_void_p(1 if ncon else 0))
+  out = (ctypes.c_int * 3)()
+  rc = build.load().mwt_solve_info(ctypes.byref(p), out)
+  if rc != 0:
+    raise RuntimeError(f'solve kernel attributes: cudaError {rc}')
+  return {'registers': out[0], 'worlds_per_block': out[1],
+          'shared_bytes_per_block': out[2]}
 
 
 def solve_batched(m: types.Model, d: types.Data) -> types.Data:

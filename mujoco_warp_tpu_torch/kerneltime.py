@@ -1,7 +1,8 @@
-"""Per-launch times of the two kernels that share ``csrc/newton.cuh`` (K4
-on the humanoid, the solve kernel on the constraints scene), of the two
-Cholesky solves at n 75 on ``clutter_arm_nosleep`` and of ``chol_solve``
-at n 36 on ``spheres``.
+"""Per-launch times of K4 (humanoid) and of the solve kernel (constraints,
+spheres and spheres_elliptic), which share ``csrc/newton.cuh``'s per-row
+code, of ``chol_batched`` and the two Cholesky solves at n 75 on
+``clutter_arm_nosleep`` (beside ``torch.linalg.cholesky`` of the same
+matrices) and of ``chol_solve`` at n 36 on ``spheres``.
 
   python3 mujoco_warp_tpu_torch/kerneltime.py [--root DIR]
 
@@ -11,7 +12,10 @@ kernels: unpack that commit with ``git archive`` into a directory and
 alternate the two roots, one process each, on one card.  Each kernel gets
 the seeded state of ``parity`` at NWORLD worlds (K4: the humanoid
 lowered into the floor, ``parity.DROP['contact']``; the solve:
-``parity.general_state``), its upstream inputs from the plain versions,
+``parity.general_state`` on constraints, ``parity.spheres_state`` on the
+spheres scenes at their
+registered widths, 8192 and 4096 worlds), its upstream inputs from the
+plain versions,
 and is timed with CUDA events over CALLS back-to-back launches, BLOCKS
 times.  Both kernels run far longer than their wrappers' host
 work, so the card stays busy and the time per call is the kernel's device
@@ -20,10 +24,12 @@ at CL_NWORLD worlds through the plain mass chain (qM a ``world()`` view
 of its lanes-last output, as on the main path), the factor of qM from
 the plain ``chol_batched`` (world-major) and seeded right-hand sides,
 and are called through ``chol_solve_batched`` and
-``damped_solve_batched``; ``chol_solve`` at n 36 gets the factor of
+``damped_solve_batched``; ``chol_batched`` factors that qM (world-major)
+with the mass factor's jitter, beside ``torch.linalg.cholesky`` of qM +
+jitter I; ``chol_solve`` at n 36 gets the factor of
 ``parity.spheres_state`` at NWORLD worlds from the plain mass chain (a
 ``world()`` view of its lanes-last qLD, as on the main path) and a
-seeded right-hand side.  For these three, CUDA events time each call's
+seeded right-hand side.  For these four, CUDA events time each call's
 whole device work (with any copies the wrapper makes) and
 ``torch.profiler`` the kernel's own launches (``kernel_ms``): the n 36
 kernel is shorter than its wrapper's host work, so only the profiler
@@ -164,6 +170,22 @@ def main():
   rhs, qacc = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
                np.random.default_rng(9).standard_normal((2, Wc, nv))]
 
+  qMc = qM.contiguous()
+  A_j = (qMc + kmass.BIG_JITTER * torch.eye(nv, device=dev)).contiguous()
+
+  # the solve kernel on the spheres scenes' seeded contact states
+  def spheres_solve(path, nworld):
+    ms = io.load_model_npz(path)
+    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                        parity.spheres_state(ms, nworld, 7)]
+    ws = 0.1 * torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (nworld, ms.nv)), dtype=torch.float32, device=dev)
+    return parity.solve_args(ms, io.make_data(ms, nworld).replace(
+        qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=ws))[0]
+
+  asp = spheres_solve(io.SPHERES_SNAPSHOT, W)
+  ase = spheres_solve(io.SPHERES_ELLIPTIC_SNAPSHOT, CL_NWORLD)
+
   # chol_solve at n 36 on the spheres state, its factor lanes-last
   msp = io.load_model_npz(io.SPHERES_SNAPSHOT)
   nvs, nbs = msp.nv, msp.nbody
@@ -180,11 +202,17 @@ def main():
   calls = {
       'k4': lambda: kk4.k4(*a4),
       'solve': lambda: ksolver.solve_tiles(*asv),
+      'solve_spheres': lambda: ksolver.solve_tiles(*asp),
+      'solve_elliptic': lambda: ksolver.solve_tiles(*ase),
+      'chol_batched_n75': lambda: klinalg.chol_batched(mcl, qMc,
+                                                       kmass.BIG_JITTER),
+      'cholesky_n75': lambda: torch.linalg.cholesky(A_j),
       'chol_solve_n75': lambda: klinalg.chol_solve_batched(mcl, L, rhs),
       'damped_solve_n75': lambda: klinalg.damped_solve_batched(mcl, qM, qacc),
       'chol_solve_n36': lambda: klinalg.chol_solve_batched(msp, Ls, rhs_s),
   }
-  kernels = {'chol_solve_n75': 'chol_solve_kernel',
+  kernels = {'chol_batched_n75': 'chol_batched_kernel',
+             'chol_solve_n75': 'chol_solve_kernel',
              'damped_solve_n75': 'damped_solve_kernel',
              'chol_solve_n36': 'chol_solve_kernel'}
   times = {k: [] for k in calls}

@@ -45,8 +45,11 @@ MAX_NEFC_NV = 12_000
 
 
 def large_system(m: types.Model) -> bool:
-  """Does ``m`` take the torch Newton of ``ops/solver.py``?"""
-  return m.nefc * m.nv > MAX_NEFC_NV
+  """Does ``m`` take the torch Newton of ``ops/solver.py``?  Beyond
+  nefc * nv 12,000, or where one world's system does not fit in the solve
+  kernel's shared memory (as the JAX package bounds its kernel's VMEM,
+  ``pallas/solver.py`` ``supported`` :128)."""
+  return m.nefc * m.nv > MAX_NEFC_NV or not ksolver.fits(m)
 
 
 def unsupported(m: types.Model):
@@ -69,7 +72,7 @@ def unsupported(m: types.Model):
     return 'integrator (RK4, implicit)'
   if o.cone != types.ConeType.PYRAMIDAL and large_system(m):
     return (f'elliptic cones in the torch Newton (nefc {m.nefc} x nv {m.nv} '
-            f'> {MAX_NEFC_NV})')
+            f'beyond the solve kernel)')
   if m.nu:
     if not np.all(m.actuator_trntype == types.TrnType.JOINT):
       return 'actuator transmission'

@@ -7,8 +7,9 @@ interpret mode, at 128 worlds.
   matrices.  Bar: atol 1e-5 + rtol 1e-4 of each world's largest |L| (the
   same right-looking updates; XLA may fuse a product and a difference).
 - ``chol_solve`` and ``damped_solve`` at n 75 on clutter_arm's mass
-  matrices, each operand world-major or a ``world()`` view of lanes-
-  last: the same bar on x.
+  matrices, each operand in the layouts of ``test_torch_linalg.layout``
+  (world-major, a ``world()`` view of lanes-last, every other world of
+  a wider tensor): the same bar on x.
 - The big-tree mass chain (``ancm`` qM, then ``chol_batched`` for qLD)
   against ``psmooth.mass_chain(m, d, interpret=True)`` on the contact-
   rich clutter state: qM, qLD, cvel, cdof_dot and qfrc_bias within 1e-4
@@ -31,7 +32,7 @@ from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import forward, smooth
 from tests.test_torch_clutter_io import states
-from tests.test_torch_linalg import layout
+from tests.test_torch_linalg import LAYOUTS, layout
 
 W = 128
 
@@ -105,7 +106,7 @@ def damped_solve_n75():
       jnp.asarray(a), interpret=True)
 
 
-@pytest.mark.parametrize('kind', ['world', 'lanes'])
+@pytest.mark.parametrize('kind', LAYOUTS)
 def test_chol_solve_n75_matches_pallas_interpret(kind):
   _, m, _, d = mass_chains()
   b, want = chol_solve_n75()
@@ -114,7 +115,7 @@ def test_chol_solve_n75_matches_pallas_interpret(kind):
   world_scale(got.numpy(), want, 'chol_solve n 75')
 
 
-@pytest.mark.parametrize('kind', ['world', 'lanes'])
+@pytest.mark.parametrize('kind', LAYOUTS)
 def test_damped_solve_n75_matches_pallas_interpret(kind):
   _, m, _, d = mass_chains()
   a, want = damped_solve_n75()

@@ -170,21 +170,23 @@ def clutter_inputs(cuda, W=1000, seed=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [75, 27])
-def test_chol_batched_cuda_matches_plain(cuda, n):
-  """The chol_batched kernel reads and writes world-major (W, n, n) and
-  agrees with its plain version on seeded SPD matrices."""
+@pytest.mark.parametrize('n', [13, 27, 36, 75])
+@pytest.mark.parametrize('jitter', [0.0, 1e-12])
+def test_chol_batched_cuda_matches_plain(cuda, n, jitter):
+  """The chol_batched kernel reads and writes world-major (W, n, n) at
+  1000 worlds (not a multiple of the worlds per block) and equals its
+  plain version to the last bit on seeded SPD matrices: the same pivots,
+  scalings and rank-1 updates in the same order, with --fmad=false."""
   from mujoco_warp_tpu_torch.kernels import linalg as klinalg
   g = np.random.default_rng(n).standard_normal((1000, n, n))
   A = torch.as_tensor(g @ g.transpose(0, 2, 1) / n + 0.1 * np.eye(n),
                       dtype=torch.float32, device=cuda)
   k = klinalg.launches['chol_batched']
-  got = klinalg.chol_batched(None, A, jitter=1e-12)
+  got = klinalg.chol_batched(None, A, jitter=jitter)
   assert klinalg.launches['chol_batched'] == k + 1
-  want = klinalg.chol_batched_plain(A, 1e-12)
+  want = klinalg.chol_batched_plain(A, jitter)
   assert torch.all(torch.triu(got, 1) == 0.0)
-  parity.check_world_scale(got.reshape(1000, -1).T, want.reshape(1000, -1).T,
-                           'L', parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  assert torch.equal(got, want), float((got - want).abs().max())
 
 
 @pytest.mark.cuda
@@ -297,11 +299,12 @@ def test_clutter_step_cuda_matches_cpu(cuda):
     assert int(dc.overflow.max()) == 0
 
 
-def spheres_args(cuda, path, W=1000, seed=3):
-  """The solve's arguments on the card for the seeded spheres state."""
+def spheres_args(cuda, path, W=1000, seed=3, state=parity.spheres_state):
+  """The solve's arguments on the card for the seeded spheres state (or
+  another seeded ``state`` of ``parity``)."""
   m = io.load_model_npz(path, device=cuda)
   qpos, qvel, ctrl = [torch.as_tensor(x, device=cuda)
-                      for x in parity.spheres_state(m, W, seed)]
+                      for x in state(m, W, seed)]
   ws = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal(
       (W, m.nv)), dtype=torch.float32, device=cuda)
   d = io.make_data(m, W, device=cuda).replace(qpos=qpos, qvel=qvel,
@@ -328,6 +331,41 @@ def test_spheres_solve_cuda_matches_plain(cuda, scene):
   if scene == 'spheres_elliptic':
     zones = solver_ref.ell_zone_counts(*args[:4], want[0], args[8])
     assert min(zones.values()) > 0, zones
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['constraints', 'spheres',
+                                   'spheres_elliptic'])
+def test_solve_cuda_stops_on_the_cap(cuda, scene):
+  """Kernel 3 in both forms with opt.iterations cut to about the scene's
+  mean Newton count, so that many worlds stop on the cap, against its
+  plain version at 1000 worlds: Newton counts at the bar, and the worlds that stopped on a tolerance
+  on both sides under ``parity.check_solve``.  A capped world's last
+  iterate is not a solution: two solvers that sum in different orders
+  may take different linesearch steps on the way (the parent commit's
+  kernel and the plain version differ there too), so its qacc is not
+  held to the solution's bar, only its finite value."""
+  from mujoco_warp_tpu_torch.fused import solver_ref
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  if scene == 'constraints':
+    args = spheres_args(cuda, io.CONSTRAINTS_SNAPSHOT,
+                        state=parity.general_state)
+  else:
+    args = spheres_args(cuda, io.SPHERES_SNAPSHOT if scene == 'spheres'
+                        else io.SPHERES_ELLIPTIC_SNAPSHOT)
+  cap = {'constraints': 3, 'spheres': 4, 'spheres_elliptic': 5}[scene]
+  m = args[0].replace(opt=args[0].opt.replace(iterations=cap))
+  args = (m,) + tuple(args[1:])
+  got = ksolver.solve_tiles(*args)
+  want = solver_ref.solve_tiles(*args)
+  bar = 'constraints' if scene == 'constraints' else 'elliptic'
+  parity.check_niter(got[3], want[3], bar)
+  assert int(got[3].max()) == cap
+  assert torch.isfinite(got[0]).all()
+  free = ((got[3] < cap) & (want[3] < cap)).reshape(-1)
+  assert 0 < int(free.sum()) < free.numel(), int(free.sum())
+  parity.check_solve([x[:, free] for x in got], [x[:, free] for x in want],
+                     bar)
 
 
 @pytest.mark.cuda

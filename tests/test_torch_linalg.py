@@ -4,11 +4,14 @@ against the JAX Pallas kernels in interpret mode, at 128 worlds and nv 13
 
 ``chol_solve_batched`` (x = (L L^T)^-1 b) and ``damped_solve_batched``
 ((M + h diag(damping))^-1 M qacc) call the JAX functions directly.  Each
-takes its operands in the two layouts the kernels read in place: world-
-major, and a ``world()`` view of lanes-last (``layout``); the JAX
-reference is computed once for both.  Bar: atol 1e-5 + rtol 1e-4 of each
-world's largest |x| (the same lane Cholesky and substitutions, summed in
-another order).
+takes its operands in the layouts the kernels read in place: world-
+major, a ``world()`` view of lanes-last, and every other world of a
+world-major tensor twice as wide whose other worlds are NaN (``layout``);
+the JAX reference is computed once for all.  On the CPU the wrappers hand
+the plain version views of the operands' storage at the strides the
+kernel takes, so each layout is its own read.  Bar: atol 1e-5 + rtol
+1e-4 of each world's largest |x| (the same lane Cholesky and
+substitutions, summed in another order).
 """
 
 import functools
@@ -37,11 +40,21 @@ def mass_matrices():
   return mj, m, d, b
 
 
+LAYOUTS = ['world', 'lanes', 'strided']
+
+
 def layout(x, kind):
-  """World-major (W, ...) x, contiguous ('world') or as a ``world()``
-  view of its lanes-last copy ('lanes')."""
+  """World-major (W, ...) x, contiguous ('world'), as a ``world()`` view
+  of its lanes-last copy ('lanes'), or as every other world of a tensor
+  twice as wide whose other worlds are NaN ('strided'), which a read at
+  the wrong world stride turns into NaN."""
   if kind == 'world':
     return x.contiguous()
+  if kind == 'strided':
+    wide = torch.full((2 * x.shape[0],) + tuple(x.shape[1:]), float('nan'),
+                      dtype=x.dtype)
+    wide[::2] = x
+    return wide[::2]
   return world(lanes(x, int(np.prod(x.shape[1:]))), *x.shape[1:])
 
 
@@ -65,7 +78,7 @@ def check(got, want, name):
                            parity.SOLVE_ATOL, parity.SOLVE_RTOL)
 
 
-@pytest.mark.parametrize('kind', ['world', 'lanes'])
+@pytest.mark.parametrize('kind', LAYOUTS)
 def test_chol_solve_matches_pallas_interpret(kind):
   _, m, d, b = mass_matrices()
   n = klinalg.launches['chol_solve']
@@ -75,10 +88,44 @@ def test_chol_solve_matches_pallas_interpret(kind):
   check(got, pallas_chol_solve(), 'chol_solve')
 
 
-@pytest.mark.parametrize('kind', ['world', 'lanes'])
+@pytest.mark.parametrize('kind', LAYOUTS)
 def test_damped_solve_matches_pallas_interpret(kind):
   _, m, d, b = mass_matrices()
   assert k4_ref.damped(m)
   got = klinalg.damped_solve_batched(m, layout(d.qM, kind),
                                      layout(torch.as_tensor(b), kind))
   check(got, pallas_damped_solve(), 'damped_solve')
+
+
+@pytest.mark.parametrize('kind', ['world', 'lanes'])
+@pytest.mark.parametrize('name', ['chol_solve', 'damped_solve'])
+def test_cholesky_solves_cpu_read_in_place(name, kind, monkeypatch):
+  """On the CPU the plain version gets views of the operands' own storage
+  at the kernel's strides, not copies."""
+  _, m, d, b = mass_matrices()
+  mat = layout(d.qLD if name == 'chol_solve' else d.qM, kind)
+  vec = layout(torch.as_tensor(b), kind)
+  seen = []
+  plain = getattr(klinalg, f'{name}_plain')
+
+  def spy(x, y, *rest):
+    seen.append((x.untyped_storage().data_ptr(), x.stride(),
+                 y.untyped_storage().data_ptr(), y.stride()))
+    return plain(x, y, *rest)
+
+  monkeypatch.setattr(klinalg, f'{name}_plain', spy)
+  getattr(klinalg, f'{name}_batched')(m, mat, vec)
+  W, n = vec.shape
+  # (element stride, world stride) of each read
+  st = {'world': ((1, n * n), (1, n)), 'lanes': ((W, 1), (W, 1))}[kind]
+  assert seen == [(mat.untyped_storage().data_ptr(), st[0],
+                   vec.untyped_storage().data_ptr(), st[1])]
+
+
+def test_damped_solve_checks_n_on_cpu():
+  """n other than the model's nv raises before the plain version runs."""
+  _, m, d, b = mass_matrices()
+  n = m.nv - 1
+  with pytest.raises(ValueError, match='model nv'):
+    klinalg.damped_solve_batched(m, d.qM[:, :n, :n].contiguous(),
+                                 torch.as_tensor(b[:, :n]))
