@@ -5,18 +5,22 @@
 Phases, one line each or more, any failure exits non-zero:
  1. device: needs CUDA; prints the card's name and power limit.
  2. build: compiles kernels/csrc with nvcc for sm_90a, one nvcc per source;
-    prints ptxas's registers per kernel, and for the solve kernel (on
-    each scene's sizes) and chol_batched (at n 75) the registers per
-    thread, worlds per block and shared bytes per block they launch with.
+    prints ptxas's registers per kernel, and for K4 (on the humanoid), the
+    solve kernel (on each scene's sizes) and chol_batched (at n 75) the
+    registers per thread, worlds per block and shared bytes per block
+    they launch with.
  3. kernels against their plain PyTorch versions on the card at 1024
     worlds: K1 and K4 on the snapshot humanoid for a seeded state at rest
     (qpos0 + 0.01 N, qvel 0.2 N) and the same state lowered into the floor
-    (contacts active); the mass chain, the two Cholesky solves and the
-    Newton solve on the snapshot constraints scene for its seeded state
-    (qpos0 + 0.1 N, quaternions renormalised, qvel 0.2 N), each kernel fed
-    the plain version's upstream outputs; the two Cholesky solves in both
-    layouts they read in place (world-major, and a world() view of
-    lanes-last).
+    (contacts active); K4 also on the small gated scenes eq_joint (JOINT
+    equality rows) and implicitfast (the implicitfast integrator), each
+    at rest and with a body lowered into the floor, and on implicitfast
+    with collision off (no rows: qacc from K1's qLD); the mass chain, the
+    two Cholesky solves and the Newton solve on the snapshot constraints
+    scene for its seeded state (qpos0 + 0.1 N, quaternions renormalised,
+    qvel 0.2 N), each kernel fed the plain version's upstream outputs; the
+    two Cholesky solves in both layouts they read in place (world-major,
+    and a world() view of lanes-last).
  4. the fused main path: mujoco_warp_tpu_torch.benchmarks.run on the
     humanoid at 8192 worlds with world sorting every 4 steps and OU ctrl
     noise; the K1 and K4 launch counts must equal the steps run (the
@@ -73,8 +77,10 @@ wrapper call (CUDA events over 20 calls) stands in ('ms_source'
 time, which the host's work bounds for the short kernels.
 The tolerances are those of mujoco_warp_tpu_torch.parity.  The last three
 lines are the kernel JSON (every kernel with its launches on its main
-path, error, times and its bound on this card), the nvidia-smi line (name
-and power limit) and the device JSON.
+path, error, times and its bound on this card; for the one-warp kernels
+also the registers, worlds per block and shared bytes per block they
+launch with), the nvidia-smi line (name and power limit) and the device
+JSON.
 """
 
 import json
@@ -248,12 +254,18 @@ def main():
   mse, w_se = scene('spheres_elliptic')
   h = float(k4_ref.scalars(m)[3])
   # the one-warp-per-world kernels' launch shapes at the scenes' sizes
-  for label, model in (('constraints', mc), ('spheres', msp),
-                       ('spheres_elliptic', mse)):
+  shapes = {'k4': kk4.kernel_info(m)}
+  say(f'[kernels] k4 on humanoid (nrow {kk4.nrow(m)}, nv {m.nv}): '
+      + json.dumps(shapes['k4']))
+  for key, label, model in (('solve', 'constraints', mc),
+                            ('solve_spheres', 'spheres', msp),
+                            ('solve_elliptic', 'spheres_elliptic', mse)):
+    shapes[key] = ksolver.kernel_info(model)
     say(f'[kernels] solve on {label} (nefc {model.nefc}, nv {model.nv}): '
-        + json.dumps(ksolver.kernel_info(model)))
+        + json.dumps(shapes[key]))
+  shapes['chol_batched'] = klinalg.chol_batched_info(mcl.nv)
   say(f'[kernels] chol_batched at n {mcl.nv}: '
-      + json.dumps(klinalg.chol_batched_info(mcl.nv)))
+      + json.dumps(shapes['chol_batched']))
   err = {k: 0.0 for k in build.KERNELS + (
       'mass_chain_big', 'chol_solve_n36', 'chol_solve_n75',
       'damped_solve_n75', 'solve_spheres', 'solve_elliptic')}
@@ -343,6 +355,26 @@ def main():
     qpos, qvel, ctrl, ws = [torch.as_tensor(x, device=dev) for x in
                             parity.lane_state(m, NCMP, 7, drop)]
     compare(f'{state} W={NCMP}', qpos, qvel, ctrl, ws, state, True)
+
+  # K4's other forms: JOINT equality rows, implicitfast, no rows
+  for scene, state in (('eq_joint', 'rest'), ('eq_joint', 'contact'),
+                       ('implicitfast', 'rest'), ('implicitfast', 'contact'),
+                       ('implicitfast_no_rows', 'rest')):
+    ms, a4s = parity.k4_case(scene, state, NCMP, 7, dev)
+    try:
+      r4 = parity.check_k4(kk4.k4(*a4s), k4_ref.k4(*a4s), a4s[5],
+                           float(k4_ref.scalars(ms)[3]), state)
+    except AssertionError as e:
+      fail(f'{scene} {state} W={NCMP} K4: {e}')
+    err['k4'] = max(err['k4'], r4['qacc_max_abs_err'])
+    act = 0 if a4s[8] is None else int(
+        (a4s[8]['dist'] < a4s[8]['im']).sum())
+    say(f'[compare] {scene} {state} W={NCMP}: K4 (nrow '
+        f'{kk4.nrow(ms) if k4_ref.has_rows(ms) else 0}, nv {ms.nv}) qacc '
+        f'max abs err {r4["qacc_max_abs_err"]:.3e}; niter equal in '
+        f'{r4["niter_share"]:.4f} of worlds (bar '
+        f'{parity.NITER_SHARE[state]}), max diff {r4["niter_max_diff"]}; '
+        f'niter mean {r4["niter_mean"]:.3f}; active contacts {act}')
 
   # ---- 3b. the general step's kernels against their plain versions
   nv, nb = mc.nv, mc.nbody
@@ -856,7 +888,8 @@ def main():
        'launches': kernel_launches[k], 'max_abs_err': err[k], 'ms': ms[k],
        'ms_source': ms_src[k][0], 'launches_seen': ms_src[k][1],
        'plain_ms': plain_ms[k], 'bound_ms': bounds[k][0],
-       'bound_by': bounds[k][1], 'library_ms': library_ms[k]}
+       'bound_by': bounds[k][1], 'library_ms': library_ms[k],
+       **shapes.get(k, {})}
       for k, (f, r) in replaces.items()]}))
   print(card)
   print(json.dumps({'ok': True, 'device': {

@@ -45,6 +45,13 @@ CLUTTER_XML = os.path.join(_MODELS, 'clutter_arm.xml')
 SPHERES_XML = os.path.join(_MODELS, 'spheres.xml')
 SPHERES_SNAPSHOT = os.path.join(_ASSETS, 'spheres.npz')
 SPHERES_ELLIPTIC_SNAPSHOT = os.path.join(_ASSETS, 'spheres_elliptic.npz')
+# the fused step's small gated scenes: JOINT equality rows (a coupled
+# polynomial and a constant target) and the implicitfast integrator with
+# joint damping; K4's forms beside the humanoid's damped Euler
+EQ_JOINT_XML = os.path.join(_ASSETS, 'eq_joint.xml')
+EQ_JOINT_SNAPSHOT = os.path.join(_ASSETS, 'eq_joint.npz')
+IMPLICITFAST_XML = os.path.join(_ASSETS, 'implicitfast.xml')
+IMPLICITFAST_SNAPSHOT = os.path.join(_ASSETS, 'implicitfast.npz')
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
@@ -621,12 +628,23 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
   return m
 
 
+def make_xml_snapshot(xml: str, path: str) -> types.Model:
+  """The scene of the MJCF file ``xml`` (default contact slots), written
+  to ``path``."""
+  import mujoco
+  m = put_model(mujoco.MjModel.from_xml_path(xml), device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
 def main(argv: Optional[list] = None):
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--snapshot', action='store_true',
                  help='regenerate assets/humanoid_bench.npz, '
                  'assets/constraints.npz, assets/clutter_arm_nosleep.npz, '
-                 'assets/spheres.npz and assets/spheres_elliptic.npz')
+                 'assets/spheres.npz, assets/spheres_elliptic.npz, '
+                 'assets/eq_joint.npz and assets/implicitfast.npz')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
@@ -636,7 +654,11 @@ def main(argv: Optional[list] = None):
                      (SPHERES_SNAPSHOT, lambda p: make_spheres_snapshot(
                          types.ConeType.PYRAMIDAL, p)),
                      (SPHERES_ELLIPTIC_SNAPSHOT, lambda p: make_spheres_snapshot(
-                         types.ConeType.ELLIPTIC, p))):
+                         types.ConeType.ELLIPTIC, p)),
+                     (EQ_JOINT_SNAPSHOT,
+                      lambda p: make_xml_snapshot(EQ_JOINT_XML, p)),
+                     (IMPLICITFAST_SNAPSHOT,
+                      lambda p: make_xml_snapshot(IMPLICITFAST_XML, p))):
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')

@@ -34,11 +34,12 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # mwt_<name>_scratch_rows(<ints>)
 KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_batched', 'chol_solve',
            'damped_solve')
-SCRATCH_ARGS = {'k1': 4, 'k4': 4, 'mass_chain': 2}
+SCRATCH_ARGS = {'k1': 4, 'mass_chain': 2}
 # other entry points: name -> argument types (each returns an int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 EXTRA = {'mwt_solve_world_floats': [_I, _I, _I],
-         'mwt_solve_info': [_P, _P], 'mwt_chol_batched_info': [_I, _P]}
+         'mwt_solve_info': [_P, _P], 'mwt_chol_batched_info': [_I, _P],
+         'mwt_k4_world_floats': [_I, _I, _I], 'mwt_k4_info': [_P, _P]}
 
 
 class BuildInfo:

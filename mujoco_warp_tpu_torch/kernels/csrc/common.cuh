@@ -14,8 +14,8 @@
 #define MWT_BIGW 1e10f
 
 // nv cap of the fused gate (mujoco_warp_tpu_torch/fused/__init__.py,
-// checked by the wrappers): it sizes the per-thread local arrays of K4
-// and the Newton solve
+// checked by the wrappers): the shapes of the factor and substitutions
+// the one-warp Newton (K4 and the solve kernel) instantiates
 #define MWT_MAX_NV 64
 
 // row r of the calling world's column
@@ -111,24 +111,5 @@ __device__ __forceinline__ void chol_lanes(const float* A, float* Lf, int n,
       LANE(Lf, i * n + j) = t * piv;
     }
     for (int i = 0; i < j; ++i) LANE(Lf, i * n + j) = 0.0f;
-  }
-}
-
-// Solve L L^T x = b (pallas/solver.py _chol_solve_tile), divisors
-// max(L_jj, 1e-15); x may alias b.  CAP (>= n) sizes the local array.
-template <int CAP = MWT_MAX_NV>
-__device__ __forceinline__ void chol_solve_lanes(const float* Lf,
-                                                 const float* b, float* x,
-                                                 int n, int W, int w) {
-  float y[CAP];
-  for (int i = 0; i < n; ++i) {
-    float r = b[i];
-    for (int j = 0; j < i; ++j) r = r - LANE(Lf, i * n + j) * y[j];
-    y[i] = r / fmaxf(LANE(Lf, i * n + i), MWT_MINVAL);
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    float r = y[i];
-    for (int k = n - 1; k > i; --k) r = r - LANE(Lf, k * n + i) * x[k];
-    x[i] = r / fmaxf(LANE(Lf, i * n + i), MWT_MINVAL);
   }
 }

@@ -1,21 +1,16 @@
-// The Newton solve of K4 (k4.cu), one thread per world: the
-// constraint-state update, the gradient, H = M + J^T D J with
-// Cholesky-factor reuse, the exact bracketed 3-alpha linesearch and the
-// per-world stop.  Its per-row code (row_force, quad_row, eval3_row,
-// p0_row and the elliptic contacts' ell_*) also serves the standalone
-// solver kernel's one-warp-per-world Newton (newton_warp.cuh, solve.cu).
-// Counterpart of mujoco_warp_tpu/pallas/solver.py solve_core (:269) for
-// pyramidal and frictionless rows, equality rows (w_eq), friction-loss
-// rows (w_fri, :321-329, :434, :717-720) and elliptic friction cones
-// (ell, :445-486, :499-519, :619-713).
+// The per-row code of the one-warp-per-world Newton solve
+// (newton_warp.cuh), which the solve kernel (solve.cu) and K4 (k4.cu) run:
+// the row force and constraint-state mask of the current Jaref, and each
+// row's terms of the exact bracketed 3-alpha linesearch, for pyramidal
+// and frictionless rows, equality rows (w_eq), friction-loss rows (w_fri,
+// :321-329, :434, :717-720) and elliptic friction cones (ell, :445-486,
+// :499-519, :619-713) of mujoco_warp_tpu/pallas/solver.py solve_core
+// (:269).
 //
 // A row set R supplies the rows.  Per row r: D(r), aref(r), fl(r),
 // kind(r) (ROW_INEQ, ROW_EQ, ROW_FRI or ROW_ELL) and the per-world slots
-// jaref(r), jv(r), quad(r); for the whole set: nrow, jvec_jaref(v) and
-// jvec_jv(v) (J v into the slot), jtforce(out) (J^T of the current row
-// forces), factor() (H of the current state, factored into L()) and L().
-// Rows with D == 0 are zero rows and add exact zeros wherever they are
-// skipped.
+// jaref(r), jv(r), quad(r).  Rows with D == 0 are zero rows and add exact
+// zeros wherever they are skipped.
 //
 // R::ELL (a compile-time constant) says whether the set holds elliptic
 // contacts; without them every elliptic branch below compiles away.  An
@@ -262,24 +257,6 @@ __device__ __forceinline__ bool quad_row(const R& rows, int r) {
   return flip;
 }
 
-// constraint-state mask of the current Jaref; returns true if it changed
-// (elliptic contacts also set their forces)
-template <class R>
-__device__ bool update_quad(const R& rows) {
-  bool flip = false;
-  for (int r = 0; r < rows.nrow; ++r) {
-    if constexpr (R::ELL) {
-      if (rows.kind(r) == ROW_ELL) {
-        ell_update(rows, r);
-        r += rows.dim(r) - 1;
-        continue;
-      }
-    }
-    flip = quad_row(rows, r) || flip;
-  }
-  return flip;
-}
-
 // the cost change, slope and curvature of row r (not of an elliptic
 // contact) at three step sizes, added to c, g, hh
 template <class R>
@@ -332,22 +309,6 @@ __device__ __forceinline__ void eval3_row(const R& rows, int r,
   }
 }
 
-// cost, slope and curvature of the row terms at three step sizes
-template <class R>
-__device__ void eval3(const R& rows, const float* a, float* c, float* g,
-                      float* hh) {
-  for (int t = 0; t < 3; ++t) c[t] = g[t] = hh[t] = 0.0f;
-  for (int r = 0; r < rows.nrow; ++r) {
-    if constexpr (R::ELL) {
-      if (rows.kind(r) == ROW_ELL) {
-        if (rows.off(r) == 0) ell_eval3(rows, r, a, c, g, hh);
-        continue;
-      }
-    }
-    eval3_row(rows, r, a, c, g, hh);
-  }
-}
-
 // the slope and curvature of row r (not of an elliptic contact) at
 // alpha = 0, added to *p1, *p2
 template <class R>
@@ -365,138 +326,4 @@ __device__ __forceinline__ void p0_row(const R& rows, int r, float* p1,
     *p1 = *p1 + jvD * ja;
     *p2 = *p2 + jv * jvD;
   }
-}
-
-// Newton from the warmstart `ws` (lanes-last (nv, W)) to qacc; qM and qfs
-// (the smooth force) lanes-last.  Returns the iteration count.  The loop
-// and the linesearch exit per world; done worlds are not touched again,
-// and without elliptic contacts the factor is rebuilt only when the
-// world's own mask flipped.
-template <class R>
-__device__ float newton_solve(const R& rows, const float* qM, const float* qfs,
-                              const float* ws, float* qacc, int nv,
-                              int iterations, int ls_iterations, float tol,
-                              float ls_tol, float mi, int W, int w) {
-  const float rescale = 1.0f / (mi * (float)nv);
-  float Ma[MWT_MAX_NV], grad[MWT_MAX_NV], search[MWT_MAX_NV];
-  float mv[MWT_MAX_NV];
-  float niter = 0.0f;
-  for (int i = 0; i < nv; ++i) qacc[i] = LANE(ws, i);
-  rows.jvec_jaref(qacc);
-  for (int r = 0; r < rows.nrow; ++r) rows.jaref(r) = rows.jaref(r) - rows.aref(r);
-  for (int i = 0; i < nv; ++i) {
-    float acc = 0.0f;
-    for (int k = 0; k < nv; ++k) acc = acc + LANE(qM, i * nv + k) * qacc[k];
-    Ma[i] = acc;
-  }
-  update_quad(rows);
-  rows.factor();
-  rows.jtforce(grad);
-  float gg = 0.0f;
-  for (int i = 0; i < nv; ++i) {
-    grad[i] = Ma[i] - LANE(qfs, i) - grad[i];
-    gg = gg + grad[i] * grad[i];
-  }
-  chol_solve_lanes(rows.L(), grad, search, nv, W, w);
-  for (int i = 0; i < nv; ++i) search[i] = -search[i];
-  bool done = rescale * sqrtf(fmaxf(gg, 0.0f)) < tol;
-
-  while (!done) {
-    // -- linesearch along `search`
-    rows.jvec_jv(search);
-    float g1 = 0.0f, g2 = 0.0f, ss = 0.0f;
-    for (int i = 0; i < nv; ++i) {
-      float acc = 0.0f;
-      for (int k = 0; k < nv; ++k) acc = acc + LANE(qM, i * nv + k) * search[k];
-      mv[i] = acc;
-      g1 = g1 + search[i] * (Ma[i] - LANE(qfs, i));
-      g2 = g2 + search[i] * mv[i];
-      ss = ss + search[i] * search[i];
-    }
-    g2 = 0.5f * g2;
-    const float snorm = sqrtf(fmaxf(ss, 0.0f));
-    const float gtol = fmaxf(tol * ls_tol * snorm * mi * (float)nv, 1e-6f);
-    float p1 = 0.0f, p2 = 0.0f;
-    for (int r = 0; r < rows.nrow; ++r) {
-      if constexpr (R::ELL) {
-        if (rows.kind(r) == ROW_ELL) {
-          if (rows.off(r) == 0) ell_hoist(rows, r, &p1, &p2);
-          continue;
-        }
-      }
-      p0_row(rows, r, &p1, &p2);
-    }
-    p1 = p1 + g1;
-    p2 = p2 + 2.0f * g2;
-    auto finish = [&](float* a, Pt* out) {
-      float c[3], g[3], hh[3];
-      eval3(rows, a, c, g, hh);
-      for (int t = 0; t < 3; ++t)
-        out[t] = Pt{c[t] + a[t] * a[t] * g2 + a[t] * g1,
-                    g[t] + 2.0f * a[t] * g2 + g1, hh[t] + 2.0f * g2, a[t]};
-    };
-    const float lo_alpha_in = -sdiv(p1, p2);
-    Pt li[3];
-    {
-      float a[3] = {lo_alpha_in, lo_alpha_in, lo_alpha_in};
-      finish(a, li);
-    }
-    const bool init_conv = fabsf(li[0].g) < gtol && li[0].c < 0.0f;
-    const bool lo_less = li[0].g < p1;
-    const Pt p0{0.0f, p1, p2, 0.0f};
-    Pt lo = lo_less ? li[0] : p0, hi = lo_less ? p0 : li[0];
-    float alpha = 0.0f, improve = 0.0f;
-    bool ls_done = init_conv;
-    for (int it = 0; it < ls_iterations && !ls_done; ++it) {
-      float a[3] = {lo.a - sdiv(lo.g, lo.h), hi.a - sdiv(hi.g, hi.h),
-                    0.5f * (lo.a + hi.a)};
-      Pt e[3];  // lo_next, hi_next, mid
-      finish(a, e);
-      bool swap_lo = swap3(&lo, e[0]);
-      swap_lo = swap3(&lo, e[2]) || swap_lo;
-      swap_lo = swap3(&lo, e[1]) || swap_lo;
-      bool swap_hi = swap3(&hi, e[1]);
-      swap_hi = swap3(&hi, e[2]) || swap_hi;
-      swap_hi = swap3(&hi, e[0]) || swap_hi;
-      ls_done = (!swap_lo && !swap_hi) ||
-                (lo.c < 0.0f && lo.g < 0.0f && lo.g > -gtol) ||
-                (hi.c < 0.0f && hi.g > 0.0f && hi.g < gtol);
-      if (lo.c < 0.0f || hi.c < 0.0f) {
-        const bool lb = lo.c < hi.c;
-        alpha = lb ? lo.a : hi.a;
-        improve = -(lb ? lo.c : hi.c);
-      }
-    }
-    if (init_conv) {
-      alpha = lo_alpha_in;
-      improve = -li[0].c;
-    }
-
-    // -- step, constraint state, gradient
-    for (int i = 0; i < nv; ++i) {
-      qacc[i] = qacc[i] + alpha * search[i];
-      Ma[i] = Ma[i] + alpha * mv[i];
-    }
-    for (int r = 0; r < rows.nrow; ++r)
-      rows.jaref(r) = rows.jaref(r) + alpha * rows.jv(r);
-    // elliptic contacts: H is rebuilt every iteration, its cone blocks
-    // vary with Jaref (:969)
-    if (update_quad(rows) || R::ELL) rows.factor();
-    rows.jtforce(grad);
-    gg = 0.0f;
-    for (int i = 0; i < nv; ++i) {
-      grad[i] = Ma[i] - LANE(qfs, i) - grad[i];
-      gg = gg + grad[i] * grad[i];
-    }
-    chol_solve_lanes(rows.L(), grad, search, nv, W, w);
-    float gm = 0.0f;
-    for (int i = 0; i < nv; ++i) gm = gm + grad[i] * search[i];
-    niter = niter + 1.0f;
-    const float gnorm = rescale * sqrtf(fmaxf(gg, 0.0f));
-    const float model_impr = rescale * 0.5f * gm;
-    done = rescale * improve < tol || gnorm < tol || model_impr < tol ||
-           niter >= (float)iterations;
-    for (int i = 0; i < nv; ++i) search[i] = -search[i];
-  }
-  return niter;
 }

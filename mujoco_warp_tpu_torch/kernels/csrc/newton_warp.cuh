@@ -3,13 +3,13 @@
 // reuse, exact bracketed 3-alpha linesearch and per-world stop, with the
 // lanes sharing each step's work and the world's system in shared memory.
 // Counterpart of mujoco_warp_tpu/pallas/solver.py solve_core (:269), as
-// newton.cuh; the solve kernel (solve.cu) runs it, K4 keeps newton.cuh's
-// thread-per-world form.
+// newton.cuh; the solve kernel (solve.cu) and K4 (k4.cu) run it over the
+// row set of solve_rows.cuh.
 //
 // A row set R supplies the rows as in newton.cuh (D(r), aref(r), fl(r),
 // kind(r), the slots jaref(r), jv(r), quad(r), and for R::ELL the
 // elliptic accessors), so newton.cuh's per-row code (row_force, quad_row,
-// eval3_row, p0_row, ell_update, ell_hoist, ell_eval3) serves both forms.
+// eval3_row, p0_row, ell_update, ell_hoist, ell_eval3) serves it.
 // The warp's steps are R's methods, each called by all 32 lanes and ending
 // in a __syncwarp where lanes read what others wrote:
 //   jaref_init(v)  Jaref = J v - aref over every row (J v = 0 on rows with
@@ -26,9 +26,8 @@
 // Vectors of length nv lie in shared memory, element i with lane i % 32;
 // every sum over the lanes is a butterfly (warp.cuh warp_sums), the same
 // on every lane, so the loop and linesearch decisions are the warp's.
-// Only the order of the sums over rows and dofs differs from newton.cuh:
-// J v, J^T f, H and M v keep its order per element, so each lane's sums
-// round as there.
+// J v, J^T f, H and M v are summed per element on one lane, in row and
+// dof order; the sums over the lanes are those butterflies.
 #pragma once
 
 #include "newton.cuh"

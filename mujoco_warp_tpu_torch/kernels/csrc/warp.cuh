@@ -298,18 +298,27 @@ __device__ __forceinline__ void chol_subst(const float* S, float* v, int n,
 
 // Worlds per block (at most 8) that let an SM hold the most worlds at
 // `per_world` shared bytes each; the largest such count, so that a block
-// loads more neighbouring worlds of a lanes-last row at once.  0 when one
-// world does not fit in a block.
-static int occupancy_worlds(size_t per_world) {
-  int best = 0, best_sm = 0;
+// loads more neighbouring worlds of a lanes-last row at once.  With
+// `balance`, the count that gives the SM's busiest scheduler the most
+// worlds per warp it runs (then the most worlds, then the fewest per
+// block): the SM's four schedulers take a block's warps in turn (warp w
+// on scheduler w % 4), so 3-warp blocks leave one of them idle.  0 when
+// one world does not fit in a block.
+static int occupancy_worlds(size_t per_world, bool balance = false) {
+  int best = 0, best_sm = 0, best_busiest = 1;
   for (int wpb = 1; wpb <= 8; ++wpb) {
     const size_t bytes = wpb * per_world;
     if (bytes > MWT_SMEM_BLOCK) break;
     int blocks = (int)(MWT_SMEM_SM / (bytes + 1024));
     blocks = min(blocks, min(32, 64 / wpb));
-    if (blocks * wpb >= best_sm) {
+    const int sm = blocks * wpb, busiest = blocks * ((wpb + 3) / 4);
+    // sm / busiest against best_sm / best_busiest, in integers
+    const int rate = balance ? sm * best_busiest - best_sm * busiest : 0;
+    if (rate > 0 || (rate == 0 && (balance ? sm > best_sm
+                                           : sm >= best_sm))) {
       best = wpb;
-      best_sm = blocks * wpb;
+      best_sm = sm;
+      best_busiest = busiest;
     }
   }
   return best;

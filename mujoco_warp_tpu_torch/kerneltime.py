@@ -1,10 +1,11 @@
 """Per-launch times of K4 (humanoid) and of the solve kernel (constraints,
-spheres and spheres_elliptic), which share ``csrc/newton.cuh``'s per-row
-code, of ``chol_batched`` and the two Cholesky solves at n 75 on
+spheres and spheres_elliptic), which share the one-warp Newton
+(``csrc/newton_warp.cuh`` over ``csrc/solve_rows.cuh``), of
+``chol_batched`` and the two Cholesky solves at n 75 on
 ``clutter_arm_nosleep`` (beside ``torch.linalg.cholesky`` of the same
 matrices) and of ``chol_solve`` at n 36 on ``spheres``.
 
-  python3 mujoco_warp_tpu_torch/kerneltime.py [--root DIR]
+  python3 mujoco_warp_tpu_torch/kerneltime.py [--root DIR] [--k4-only]
 
 Imports ``mujoco_warp_tpu_torch`` from ``--root`` (by default the checkout
 this file lies in), so that the same script times another commit's
@@ -98,6 +99,8 @@ def main():
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--root', default=os.path.dirname(
       os.path.dirname(os.path.abspath(__file__))))
+  ap.add_argument('--k4-only', action='store_true',
+                  help='time K4 alone (no other inputs are built)')
   args = ap.parse_args()
   root = os.path.abspath(args.root)
   # the package from root, and not this file's directory, whose io.py and
@@ -136,85 +139,93 @@ def main():
   a4 = (m, qM, qLD if not k4_ref.has_rows(m) else None, qfs, ws, qvel, qpos,
         cdof, con)
 
-  # the solve kernel on the constraints scene, fed the plain upstream
-  mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT)
-  nv, nb = mc.nv, mc.nbody
-  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                      parity.general_state(mc, W, 7)]
-  d = io.make_data(mc, W).replace(
-      qpos=qpos, qvel=qvel, ctrl=ctrl,
-      qacc_warmstart=0.1 * torch.as_tensor(
-          np.random.default_rng(8).standard_normal((W, nv)),
-          dtype=torch.float32, device=dev))
-  d = forward.pre(mc, d)
-  qM, qLD, cvel, cdd, bias = kmass.mass_chain_plain(
-      mc, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
-  d = forward.mid(mc, d.replace(
-      qM=world(qM, nv, nv), qLD=world(qLD, nv, nv), cvel=world(cvel, nb, 6),
-      cdof_dot=world(cdd, nv, 6), qfrc_bias=bias.T))
-  asv = (mc, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
-         lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
-         lanes(d.qacc_warmstart))
-
-  # the Cholesky solves at n 75 on the clutter state
-  mcl = io.load_model_npz(io.CLUTTER_SNAPSHOT)
-  nv, nb, Wc = mcl.nv, mcl.nbody, CL_NWORLD
-  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                      parity.clutter_state(mcl, Wc, 7)]
-  d = forward.pre(mcl, io.make_data(mcl, Wc).replace(qpos=qpos, qvel=qvel,
-                                                     ctrl=ctrl))
-  qM = kmass.mass_chain_plain(mcl, lanes(d.cinert, 36 * nb),
-                              lanes(d.cdof, 6 * nv), lanes(d.qvel))[0]
-  qM = world(qM, nv, nv)
-  L = klinalg.chol_batched_plain(qM.contiguous(), kmass.BIG_JITTER)
-  rhs, qacc = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
-               np.random.default_rng(9).standard_normal((2, Wc, nv))]
-
-  qMc = qM.contiguous()
-  A_j = (qMc + kmass.BIG_JITTER * torch.eye(nv, device=dev)).contiguous()
-
-  # the solve kernel on the spheres scenes' seeded contact states
-  def spheres_solve(path, nworld):
-    ms = io.load_model_npz(path)
+  def other_calls():
+    """The other kernels' calls on their seeded inputs, and the
+    profiled kernel of each call that has one."""
+    # the solve kernel on the constraints scene, fed the plain upstream
+    mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT)
+    nv, nb = mc.nv, mc.nbody
     qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                        parity.spheres_state(ms, nworld, 7)]
-    ws = 0.1 * torch.as_tensor(np.random.default_rng(8).standard_normal(
-        (nworld, ms.nv)), dtype=torch.float32, device=dev)
-    return parity.solve_args(ms, io.make_data(ms, nworld).replace(
-        qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=ws))[0]
+                        parity.general_state(mc, W, 7)]
+    d = io.make_data(mc, W).replace(
+        qpos=qpos, qvel=qvel, ctrl=ctrl,
+        qacc_warmstart=0.1 * torch.as_tensor(
+            np.random.default_rng(8).standard_normal((W, nv)),
+            dtype=torch.float32, device=dev))
+    d = forward.pre(mc, d)
+    qM, qLD, cvel, cdd, bias = kmass.mass_chain_plain(
+        mc, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+    d = forward.mid(mc, d.replace(
+        qM=world(qM, nv, nv), qLD=world(qLD, nv, nv), cvel=world(cvel, nb, 6),
+        cdof_dot=world(cdd, nv, 6), qfrc_bias=bias.T))
+    asv = (mc, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
+           lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
+           lanes(d.qacc_warmstart))
 
-  asp = spheres_solve(io.SPHERES_SNAPSHOT, W)
-  ase = spheres_solve(io.SPHERES_ELLIPTIC_SNAPSHOT, CL_NWORLD)
+    # the Cholesky solves at n 75 on the clutter state
+    mcl = io.load_model_npz(io.CLUTTER_SNAPSHOT)
+    nv, nb, Wc = mcl.nv, mcl.nbody, CL_NWORLD
+    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                        parity.clutter_state(mcl, Wc, 7)]
+    d = forward.pre(mcl, io.make_data(mcl, Wc).replace(qpos=qpos, qvel=qvel,
+                                                       ctrl=ctrl))
+    qM = kmass.mass_chain_plain(mcl, lanes(d.cinert, 36 * nb),
+                                lanes(d.cdof, 6 * nv), lanes(d.qvel))[0]
+    qM = world(qM, nv, nv)
+    L = klinalg.chol_batched_plain(qM.contiguous(), kmass.BIG_JITTER)
+    rhs, qacc = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
+                 np.random.default_rng(9).standard_normal((2, Wc, nv))]
 
-  # chol_solve at n 36 on the spheres state, its factor lanes-last
-  msp = io.load_model_npz(io.SPHERES_SNAPSHOT)
-  nvs, nbs = msp.nv, msp.nbody
-  qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                      parity.spheres_state(msp, W, 7)]
-  d = forward.pre(msp, io.make_data(msp, W).replace(qpos=qpos, qvel=qvel,
-                                                    ctrl=ctrl))
-  Ls = kmass.mass_chain_plain(msp, lanes(d.cinert, 36 * nbs),
-                              lanes(d.cdof, 6 * nvs), lanes(d.qvel))[1]
-  Ls = world(Ls, nvs, nvs)
-  rhs_s = torch.as_tensor(np.random.default_rng(10).standard_normal(
-      (W, nvs)), dtype=torch.float32, device=dev)
+    qMc = qM.contiguous()
+    A_j = (qMc + kmass.BIG_JITTER * torch.eye(nv, device=dev)).contiguous()
 
-  calls = {
-      'k4': lambda: kk4.k4(*a4),
-      'solve': lambda: ksolver.solve_tiles(*asv),
-      'solve_spheres': lambda: ksolver.solve_tiles(*asp),
-      'solve_elliptic': lambda: ksolver.solve_tiles(*ase),
-      'chol_batched_n75': lambda: klinalg.chol_batched(mcl, qMc,
-                                                       kmass.BIG_JITTER),
-      'cholesky_n75': lambda: torch.linalg.cholesky(A_j),
-      'chol_solve_n75': lambda: klinalg.chol_solve_batched(mcl, L, rhs),
-      'damped_solve_n75': lambda: klinalg.damped_solve_batched(mcl, qM, qacc),
-      'chol_solve_n36': lambda: klinalg.chol_solve_batched(msp, Ls, rhs_s),
-  }
-  kernels = {'chol_batched_n75': 'chol_batched_kernel',
-             'chol_solve_n75': 'chol_solve_kernel',
-             'damped_solve_n75': 'damped_solve_kernel',
-             'chol_solve_n36': 'chol_solve_kernel'}
+    # the solve kernel on the spheres scenes' seeded contact states
+    def spheres_solve(path, nworld):
+      ms = io.load_model_npz(path)
+      qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                          parity.spheres_state(ms, nworld, 7)]
+      ws = 0.1 * torch.as_tensor(np.random.default_rng(8).standard_normal(
+          (nworld, ms.nv)), dtype=torch.float32, device=dev)
+      return parity.solve_args(ms, io.make_data(ms, nworld).replace(
+          qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=ws))[0]
+
+    asp = spheres_solve(io.SPHERES_SNAPSHOT, W)
+    ase = spheres_solve(io.SPHERES_ELLIPTIC_SNAPSHOT, CL_NWORLD)
+
+    # chol_solve at n 36 on the spheres state, its factor lanes-last
+    msp = io.load_model_npz(io.SPHERES_SNAPSHOT)
+    nvs, nbs = msp.nv, msp.nbody
+    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                        parity.spheres_state(msp, W, 7)]
+    d = forward.pre(msp, io.make_data(msp, W).replace(qpos=qpos, qvel=qvel,
+                                                      ctrl=ctrl))
+    Ls = kmass.mass_chain_plain(msp, lanes(d.cinert, 36 * nbs),
+                                lanes(d.cdof, 6 * nvs), lanes(d.qvel))[1]
+    Ls = world(Ls, nvs, nvs)
+    rhs_s = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (W, nvs)), dtype=torch.float32, device=dev)
+
+    calls = {
+        'solve': lambda: ksolver.solve_tiles(*asv),
+        'solve_spheres': lambda: ksolver.solve_tiles(*asp),
+        'solve_elliptic': lambda: ksolver.solve_tiles(*ase),
+        'chol_batched_n75': lambda: klinalg.chol_batched(mcl, qMc,
+                                                         kmass.BIG_JITTER),
+        'cholesky_n75': lambda: torch.linalg.cholesky(A_j),
+        'chol_solve_n75': lambda: klinalg.chol_solve_batched(mcl, L, rhs),
+        'damped_solve_n75': lambda: klinalg.damped_solve_batched(mcl, qM, qacc),
+        'chol_solve_n36': lambda: klinalg.chol_solve_batched(msp, Ls, rhs_s),
+    }
+    kernels = {'chol_batched_n75': 'chol_batched_kernel',
+               'chol_solve_n75': 'chol_solve_kernel',
+               'damped_solve_n75': 'damped_solve_kernel',
+               'chol_solve_n36': 'chol_solve_kernel'}
+    return calls, kernels
+
+  calls, kernels = {'k4': lambda: kk4.k4(*a4)}, {}
+  if not args.k4_only:
+    more, kernels = other_calls()
+    calls.update(more)
   times = {k: [] for k in calls}
   kernel_ms = {k: [] for k in kernels}
   for _ in range(BLOCKS):
@@ -224,7 +235,7 @@ def main():
       kernel_ms[k].append(profiled_ms(torch, calls[k], CALLS, name))
   print(json.dumps({'root': root, 'package': os.path.dirname(io.__file__),
                     'card': smi.stdout.strip(), 'nworld': W,
-                    'clutter_nworld': Wc, 'calls': CALLS, 'ms': times,
+                    'clutter_nworld': CL_NWORLD, 'calls': CALLS, 'ms': times,
                     'kernel_ms': kernel_ms}), flush=True)
 
 

@@ -96,21 +96,56 @@ FORCE_WHERE_NITER_AGREES = ('elliptic',)
 DROP = {'rest': 0.0, 'contact': 0.28}
 MASS_NAMES = ('qM', 'qLD', 'cvel', 'cdof_dot', 'bias')
 SOLVE_ATOL, SOLVE_RTOL = 1e-5, 1e-4
+# K4's scenes (``k4_case``): the snapshot's name in ``io``, and the qpos
+# row that the 'contact' state lowers into the floor with its drop (the
+# humanoid's root height; eq_joint's slide of the box; implicitfast's
+# free sphere's height)
+K4_SCENES = {'humanoid': ('SNAPSHOT', 2, DROP['contact']),
+             'eq_joint': ('EQ_JOINT_SNAPSHOT', 2, 0.28),
+             'implicitfast': ('IMPLICITFAST_SNAPSHOT', 4, 0.15)}
 
 
-def lane_state(m, W: int, seed: int, drop: float = 0.0):
+def lane_state(m, W: int, seed: int, drop: float = 0.0, drop_row: int = 2):
   """Lanes-last float32 numpy (qpos, qvel, ctrl, warmstart), drawn in
-  that order from ``default_rng(seed)``: qpos0 + 0.01 N with the root
-  lowered by ``drop``, qvel 0.2 N, ctrl 0.3 N, warmstart 0.1 N."""
+  that order from ``default_rng(seed)``: qpos0 + 0.01 N with qpos row
+  ``drop_row`` (the humanoid root's height) lowered by ``drop``, qvel
+  0.2 N, ctrl 0.3 N, warmstart 0.1 N."""
   rng = np.random.default_rng(seed)
   qpos0 = types.host(m.qpos0, np.float32)
   qpos = (qpos0[:, None] + 0.01 * rng.standard_normal((m.nq, W))).astype(
       np.float32)
-  qpos[2] -= drop
+  qpos[drop_row] -= drop
   qvel = (0.2 * rng.standard_normal((m.nv, W))).astype(np.float32)
   ctrl = (0.3 * rng.standard_normal((m.nu, W))).astype(np.float32)
   ws = (0.1 * rng.standard_normal((m.nv, W))).astype(np.float32)
   return qpos, qvel, ctrl, ws
+
+
+def k4_case(scene: str, state: str, W: int, seed: int, device):
+  """K4's arguments for a scene of ``K4_SCENES``, or for
+  'implicitfast_no_rows' (implicitfast with collision off: K4 builds no
+  rows and takes qacc from K1's qLD), at ``lane_state`` ('rest', or
+  'contact' with the scene's body lowered), fed the plain K1 and glue on
+  ``device``.  Returns (model, args of ``k4``)."""
+  from mujoco_warp_tpu_torch import io
+  from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref
+  name, row, drop = K4_SCENES[scene.replace('_no_rows', '')]
+  m = io.load_model_npz(getattr(io, name), device=device)
+  if scene.endswith('_no_rows'):
+    m = m.replace(opt=m.opt.replace(run_collision_detection=False))
+  qpos, qvel, ctrl, ws = [
+      torch.as_tensor(x, device=device) for x in
+      lane_state(m, W, seed, drop if state == 'contact' else 0.0, row)]
+  need_qLD = not k4_ref.has_rows(m)
+  qM, qLD, bias, cdof, dist, cpos, cframe, stcom = k1_ref.k1(
+      m, qpos, qvel, need_qLD=need_qLD)
+  con = None
+  if m.ncand and m.opt.run_collision_detection:
+    make = glue.compact if m.con_compact else glue.identity_con
+    con, _ = make(m, dist, cpos, cframe, stcom)
+  qfs = glue.middle(m, bias, qpos, qvel, ctrl)
+  return m, (m, qM, qLD if need_qLD else None, qfs, ws, qvel, qpos, cdof,
+             con)
 
 
 def general_state(m, W: int, seed: int):

@@ -64,6 +64,46 @@ def test_k4_cuda_matches_plain(cuda, drop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('scene,state', [
+    ('eq_joint', 'rest'), ('eq_joint', 'contact'), ('implicitfast', 'rest'),
+    ('implicitfast', 'contact'), ('implicitfast_no_rows', 'rest')])
+def test_k4_cuda_forms_match_plain(cuda, scene, state):
+  """K4's other forms against the plain version at 1000 worlds: JOINT
+  equality rows (eq_joint), the implicitfast integrator (implicitfast),
+  each at rest and with a body lowered into the floor, and the branch
+  without rows (implicitfast with collision off: qacc from K1's qLD)."""
+  m, args = parity.k4_case(scene, state, 1000, 5, cuda)
+  assert k4_ref.has_rows(m) == (scene != 'implicitfast_no_rows')
+  n = kk4.launches
+  got = kk4.k4(*args)
+  assert kk4.launches == n + 1
+  want = k4_ref.k4(*args)
+  parity.check_k4(got, want, args[5], float(k4_ref.scalars(m)[3]), state)
+  if state == 'contact':
+    con = args[8]
+    assert int((con['dist'] < con['im']).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_k4_world_floats_match_c(cuda):
+  """kernels/k4.py's layout mirror against csrc/k4.cu's own count, on the
+  humanoid, the small scenes and at the gate's nv cap."""
+  from mujoco_warp_tpu_torch.kernels import build
+  lib = build.load()
+  sizes = [(0, 8, 9), (64 * 12, 64, 70), (3, 1, 1)]
+  for path in (io.SNAPSHOT, io.EQ_JOINT_SNAPSHOT, io.IMPLICITFAST_SNAPSHOT):
+    m = io.load_model_npz(path, device='cpu')
+    sizes.append((kk4.nrow(m), m.nv, m.nq))
+  for nrow, nv, nq in sizes:
+    assert lib.mwt_k4_world_floats(nrow, nv, nq) == \
+        kk4.world_floats(nrow, nv, nq), (nrow, nv, nq)
+  info = kk4.kernel_info(io.load_model_npz(device='cpu'))
+  assert info['worlds_per_block'] >= 1 and info['registers'] > 0
+  assert info['shared_bytes_per_block'] == \
+      4 * info['worlds_per_block'] * kk4.world_floats(129, 27, 28)
+
+
+@pytest.mark.cuda
 def test_step_lane_cuda_matches_cpu(cuda):
   """Three fused steps through the kernels against the plain path."""
   m = io.load_model_npz(device=cuda)

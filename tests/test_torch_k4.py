@@ -6,7 +6,9 @@ Inputs are the humanoid's K1 and glue outputs for two seeded states:
 (the same with the root lowered 0.28 m into the floor: 8-9 active
 contacts per world).  ``solver_ref.solve_core`` is held against
 ``psolver.solve_core`` (jnp, no Pallas) on the same rows, and the whole
-plain K4 against ``fused._k4_call(..., interpret=True)`` at W = 128.
+plain K4 against ``fused._k4_call(..., interpret=True)`` at W = 128, also
+on the small gated scenes of ``parity.k4_case`` (joint equality rows,
+implicitfast, no rows).
 
 Tolerances are those of ``mujoco_warp_tpu_torch.parity``: qacc atol 1e-4
 plus rtol 1e-3 of the world's largest |qacc| (the Newton stop is a norm
@@ -22,11 +24,14 @@ meets its tolerance.
 """
 
 import jax.numpy as jnp
+import mujoco
 import pytest
 import torch
 
+from mujoco_warp_tpu import io as jio
 from mujoco_warp_tpu.pallas import fused
 from mujoco_warp_tpu.pallas import solver as psolver
+from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch import parity
 from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref, solver_ref
 from mujoco_warp_tpu_torch.kernels import k4 as kk4
@@ -91,3 +96,28 @@ def test_k4_matches_pallas_interpret():
   h = float(k4_ref.scalars(m)[3])
   parity.check_k4(got, want, x['qvel'], h, 'contact')
 
+
+@pytest.mark.parametrize('scene,state', [
+    ('eq_joint', 'contact'), ('implicitfast', 'contact'),
+    ('implicitfast_no_rows', 'rest')])
+def test_k4_forms_match_pallas_interpret(scene, state):
+  """K4's other forms, plain, against the JAX K4 at W = 128: JOINT
+  equality rows and contacts (eq_joint, its box lowered into the floor),
+  the implicitfast factor with contacts (implicitfast, its sphere
+  lowered), and no rows (implicitfast with collision off: qacc from K1's
+  qLD), on the port's inputs of ``parity.k4_case``."""
+  m, args = parity.k4_case(scene, state, 128, 6, 'cpu')
+  xml = tio.EQ_JOINT_XML if scene == 'eq_joint' else tio.IMPLICITFAST_XML
+  mj = jio.put_model(mujoco.MjModel.from_xml_path(xml))
+  if scene.endswith('_no_rows'):
+    mj = mj.replace(opt=mj.opt.replace(run_collision_detection=False))
+  got = kk4.k4(*args)
+  _, qM, qLD, qfs, ws, qvel, qpos, cdof, con = args
+  j = lambda x: None if x is None else jnp.asarray(x.numpy())
+  con_j = None if con is None else {k: j(v) for k, v in con.items()}
+  sc = tuple(jnp.asarray(v.numpy()).reshape(1, 1) for v in k4_ref.scalars(m))
+  want = fused._k4_call(mj, k4_ref.damped(m), j(qM), j(qLD), j(qfs), j(ws),
+                        j(qvel), j(qpos), j(cdof), con_j, sc, interpret=True)
+  parity.check_k4(got, want, qvel, float(k4_ref.scalars(m)[3]), state)
+  if con is not None:
+    assert int((con['dist'] < con['im']).sum()) > 0
