@@ -5,17 +5,20 @@
 Phases, one line each or more, any failure exits non-zero:
  1. device: needs CUDA; prints the card's name and power limit.
  2. build: compiles kernels/csrc with nvcc for sm_90a, one nvcc per source;
-    prints ptxas's registers per kernel, and for K4 (on the humanoid), the
-    solve kernel (on each scene's sizes) and chol_batched (at n 75) the
-    registers per thread, worlds per block and shared bytes per block
-    they launch with.
+    prints ptxas's registers per kernel, and for K1 and K4 (on the
+    humanoid), the mass chain (on the constraints, spheres and clutter
+    sizes), the solve kernel (on each scene's sizes) and chol_batched (at
+    n 75) the registers per thread, worlds per block and shared bytes per
+    block they launch with.
  3. kernels against their plain PyTorch versions on the card at 1024
     worlds: K1 and K4 on the snapshot humanoid for a seeded state at rest
     (qpos0 + 0.01 N, qvel 0.2 N) and the same state lowered into the floor
-    (contacts active); K4 also on the small gated scenes eq_joint (JOINT
-    equality rows) and implicitfast (the implicitfast integrator), each
-    at rest and with a body lowered into the floor, and on implicitfast
-    with collision off (no rows: qacc from K1's qLD); the mass chain, the
+    (contacts active), K1 with and without the factor; K1 and K4 also on
+    the small gated scenes eq_joint (JOINT equality rows) and implicitfast
+    (the implicitfast integrator), each at rest and with a body lowered
+    into the floor, K1 with and without the factor and with collision off,
+    and K4 on implicitfast with collision off (no rows: qacc from K1's
+    qLD); the mass chain, the
     two Cholesky solves and the Newton solve on the snapshot constraints
     scene for its seeded state (qpos0 + 0.1 N, quaternions renormalised,
     qvel 0.2 N), each kernel fed the plain version's upstream outputs; the
@@ -57,12 +60,15 @@ Phases, one line each or more, any failure exits non-zero:
     rollout's last state, timed beside its plain version, its bound and
     its wrapper's transposes (no one PyTorch call computes a Newton
     solve); on spheres also chol_solve at n 36 (qacc_smooth), against its
-    plain version in both layouts and timed beside torch.cholesky_solve.
+    plain version in both layouts and timed beside torch.cholesky_solve,
+    and the small-tree mass chain at nv 36 (mass_chain_n36), against its
+    plain version and timed beside it.
  8. elliptic cones: the same on the snapshot spheres_elliptic (nefc 129)
     at 4096 worlds, through the solve kernel's elliptic form.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
- form, chol_batched on qM and on the Newton H, chol_solve and damped_solve
- at n 75 in both layouts) against their plain versions at 1024 worlds of
+ form, whose qM is world-major, chol_batched on qM and on the Newton H,
+ chol_solve and damped_solve at n 75 in both layouts) against their plain
+ versions at 1024 worlds of
  the seeded contact-rich clutter state (parity.clutter_state), and the
  solve kernel in both its contact forms against its plain version at
  1024 worlds of the seeded spheres state of each cone
@@ -77,10 +83,10 @@ wrapper call (CUDA events over 20 calls) stands in ('ms_source'
 time, which the host's work bounds for the short kernels.
 The tolerances are those of mujoco_warp_tpu_torch.parity.  The last three
 lines are the kernel JSON (every kernel with its launches on its main
-path, error, times and its bound on this card; for the one-warp kernels
-also the registers, worlds per block and shared bytes per block they
-launch with), the nvidia-smi line (name and power limit) and the device
-JSON.
+path, error, times and its bound on this card; for K1, K4, the mass
+chain, the solve kernel and chol_batched also the registers, worlds per
+block and shared bytes per block they launch with), the nvidia-smi line
+(name and power limit) and the device JSON.
 """
 
 import json
@@ -254,9 +260,17 @@ def main():
   mse, w_se = scene('spheres_elliptic')
   h = float(k4_ref.scalars(m)[3])
   # the one-warp-per-world kernels' launch shapes at the scenes' sizes
-  shapes = {'k4': kk4.kernel_info(m)}
+  shapes = {'k4': kk4.kernel_info(m), 'k1': kk1.kernel_info(m)}
   say(f'[kernels] k4 on humanoid (nrow {kk4.nrow(m)}, nv {m.nv}): '
       + json.dumps(shapes['k4']))
+  say(f'[kernels] k1 on humanoid (nv {m.nv}, nbody {m.nbody}, ncand '
+      f'{m.ncand}, no factor): ' + json.dumps(shapes['k1']))
+  for key, label, model in (('mass_chain', 'constraints', mc),
+                            ('mass_chain_n36', 'spheres', msp),
+                            ('mass_chain_big', 'clutter_arm_nosleep', mcl)):
+    shapes[key] = kmass.kernel_info(model)
+    say(f'[kernels] mass chain on {label} (nv {model.nv}, nbody '
+        f'{model.nbody}): ' + json.dumps(shapes[key]))
   for key, label, model in (('solve', 'constraints', mc),
                             ('solve_spheres', 'spheres', msp),
                             ('solve_elliptic', 'spheres_elliptic', mse)):
@@ -267,7 +281,7 @@ def main():
   say(f'[kernels] chol_batched at n {mcl.nv}: '
       + json.dumps(shapes['chol_batched']))
   err = {k: 0.0 for k in build.KERNELS + (
-      'mass_chain_big', 'chol_solve_n36', 'chol_solve_n75',
+      'mass_chain_big', 'mass_chain_n36', 'chol_solve_n36', 'chol_solve_n75',
       'damped_solve_n75', 'solve_spheres', 'solve_elliptic')}
 
   def counters():
@@ -355,6 +369,24 @@ def main():
     qpos, qvel, ctrl, ws = [torch.as_tensor(x, device=dev) for x in
                             parity.lane_state(m, NCMP, 7, drop)]
     compare(f'{state} W={NCMP}', qpos, qvel, ctrl, ws, state, True)
+
+  # K1's other forms: without the factor, the small gated scenes, collision
+  # off
+  for scene, state in (('humanoid', 'rest'), ('humanoid', 'contact'),
+                       ('eq_joint', 'rest'), ('eq_joint', 'contact'),
+                       ('implicitfast', 'rest'), ('implicitfast', 'contact'),
+                       ('implicitfast_no_rows', 'rest')):
+    mk, qpos, qvel, _, _ = parity.k1_case(scene, state, NCMP, 7, dev)
+    for need in ((False,) if scene == 'humanoid' else (True, False)):
+      try:
+        e1, rel1 = parity.check_k1(kk1.k1(mk, qpos, qvel, need_qLD=need),
+                                   k1_ref.k1(mk, qpos, qvel, need_qLD=need))
+      except AssertionError as e:
+        fail(f'{scene} {state} W={NCMP} K1 (need_qLD {need}): {e}')
+      err['k1'] = max(err['k1'], e1)
+      say(f'[compare] {scene} {state} W={NCMP}: K1 (need_qLD {need}, '
+          f'collision {kk1.run_col(mk)}) max abs err {e1:.3e}, worst '
+          f'relative {rel1:.2e} (tol {parity.K1_TOL})')
 
   # K4's other forms: JOINT equality rows, implicitfast, no rows
   for scene, state in (('eq_joint', 'rest'), ('eq_joint', 'contact'),
@@ -465,8 +497,8 @@ def main():
       e_mc, rel_mc = parity.check_rel([got[i] for i in keep],
                                       [want[i] for i in keep],
                                       ('qM', 'cvel', 'cdof_dot', 'bias'))
-      qM, _, cvel, cdd, bias = want
-      qM_w = world(qM, nvl, nvl).contiguous()
+      # the large tree's qM is world-major
+      qM_w, _, cvel, cdd, bias = want
       acb = (mcl, qM_w, kmass.BIG_JITTER)
       L = klinalg.chol_batched_plain(qM_w, kmass.BIG_JITTER)
       e_cb = parity.check_world_scale(
@@ -492,13 +524,14 @@ def main():
           lanes(klinalg.chol_batched_plain(H, 1e-15), nvl * nvl),
           'Newton H factor', *SB)
       d = osolver.solve(mcl, d.replace(qacc_smooth=x.T))
-      # the main path's layouts: qM a world() view of the mass chain's
-      # lanes-last output, qacc world-major
-      ads = (mcl, world(qM, nvl, nvl), d.qacc)
+      # the main path's layouts: qM world-major as the mass chain writes
+      # it, qacc world-major
+      ads = (mcl, qM_w, d.qacc)
       dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
       e_ds = check_layouts(
           klinalg.damped_solve_batched, *ads,
-          klinalg.damped_solve_plain(qM, lanes(d.qacc), dmp), 'qacc (damped)')
+          klinalg.damped_solve_plain(lanes(qM_w, nvl * nvl), lanes(d.qacc),
+                                     dmp), 'qacc (damped)')
     except AssertionError as e:
       fail(f'{label}: {e}')
     err['mass_chain_big'] = max(err['mass_chain_big'], e_mc)
@@ -766,10 +799,10 @@ def main():
   dw = forward.pre(mcl, d)
   out_mc = kmass.mass_chain_lanes(*am)
   transpose_ms.update({
+      # qM leaves the kernel world-major
       'mass_chain_big': time_ms(lambda: (
           lanes(dw.cinert, 36 * nbl), lanes(dw.cdof, 6 * nvl),
-          lanes(dw.qvel), world(out_mc[0], nvl, nvl),
-          world(out_mc[2], nbl, 6), world(out_mc[3], nvl, 6),
+          lanes(dw.qvel), world(out_mc[2], nbl, 6), world(out_mc[3], nvl, 6),
           out_mc[4].T.contiguous()), 20),
       # these kernels read (and chol_batched writes) in place
       'chol_batched': 0.0, 'chol_solve_n75': 0.0, 'damped_solve_n75': 0.0,
@@ -863,6 +896,30 @@ def main():
         f"{library_ms[k36]:.4f} ms, bound {bounds[k36][0]:.4f} ms "
         f"({bounds[k36][1]}), max abs err {err[k36]:.3e} (both layouts), "
         f"wrapper transposes 0.0000 ms")
+    # the small-tree mass chain at nv 36 (with its factor) on the same
+    # last state
+    k36, nbs = 'mass_chain_n36', model.nbody
+    kernel_launches[k36] = launches['mass_chain']
+    am = (model, lanes(dw.cinert, 36 * nbs), lanes(dw.cdof, 6 * nvs),
+          lanes(dw.qvel))
+    try:
+      err[k36], rel = parity.check_rel(kmass.mass_chain_lanes(*am),
+                                       kmass.mass_chain_plain(*am),
+                                       parity.MASS_NAMES)
+    except AssertionError as e:
+      fail(f'{key} rollout W={nworld} mass chain: {e}')
+    time_kernel(k36, lambda: kmass.mass_chain_lanes(*am), 'mass_chain_kernel')
+    call_ms[k36] = time_ms(lambda: kmass.mass_chain_lanes(*am), 20)
+    plain_ms[k36] = time_ms(lambda: kmass.mass_chain_plain(*am), 3)
+    library_ms[k36] = None  # no one PyTorch call computes the chain
+    bounds[k36] = bound(
+        nworld * F32 * (36 * nbs + 7 * nvs + 2 * nvs * nvs + 6 * nbs +
+                        7 * nvs), nworld * mass_chain_flops(model, True))
+    say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
+        f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
+        f"none, bound {bounds[k36][0]:.4f} ms ({bounds[k36][1]}), max abs "
+        f"err {err[k36]:.3e}, worst relative {rel:.2e} (tol "
+        f"{parity.K1_TOL})")
 
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -870,6 +927,8 @@ def main():
       'k4': ('k4.cu', 'mujoco_warp_tpu/pallas/fused.py:1247'),
       'mass_chain': ('mass_chain.cu', 'mujoco_warp_tpu/pallas/smooth.py:211'),
       'mass_chain_big': ('mass_chain.cu',
+                         'mujoco_warp_tpu/pallas/smooth.py:211'),
+      'mass_chain_n36': ('mass_chain.cu',
                          'mujoco_warp_tpu/pallas/smooth.py:211'),
       'solve': ('solve.cu', 'mujoco_warp_tpu/pallas/solver.py:1041'),
       'chol_batched': ('linalg.cu', 'mujoco_warp_tpu/pallas/linalg.py:65'),

@@ -103,8 +103,14 @@ def reason(m: types.Model):
         return 'collider'
     if m.ncand and not set(int(x) for x in m.con_dim) <= {1, 3, 4, 6}:
       return 'condim'
-  # K4 holds a world's rows, M and factor in one block's shared memory
+  # K1 holds a world's frames, contacts and mass chain, K4 its rows, M
+  # and factor, in one block's shared memory
+  from mujoco_warp_tpu_torch.kernels import k1 as kk1
   from mujoco_warp_tpu_torch.kernels import k4 as kk4
+  if not kk1.fits(m):
+    return (f'size (K1 world: nv {m.nv}, nbody {m.nbody}, ngeom {m.ngeom}, '
+            f'ncand {m.ncand}, {kk1.world_bytes(m)} shared bytes, more than '
+            f'a block holds)')
   if not kk4.fits(m):
     return (f'size (K4 world: nrow {kk4.nrow(m)}, nv {m.nv}, '
             f'{kk4.world_bytes(m)} shared bytes, more than a block holds)')

@@ -49,6 +49,35 @@ def ptr(t) -> ctypes.c_void_p:
   return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
+def tree_levels(m) -> dict:
+  """The bodies but the world's, level by level (``topo``), and each
+  level's first index in it (``level_adr``, nlevel + 1 entries)."""
+  levels = [[int(b) for b in lvl] for lvl in m.tree.body_levels]
+  return dict(topo=[b for lvl in levels for b in lvl],
+              level_adr=np.cumsum([0] + [len(lvl) for lvl in levels]))
+
+
+def bit_rows(mask) -> np.ndarray:
+  """A boolean (n, m) table as n rows of ceil(m / 32) 32-bit words, bit j
+  of row i in word j // 32 (int32 for ``device_tables``)."""
+  mask = np.asarray(mask, bool)
+  n, m = mask.shape
+  padded = np.zeros((n, 32 * ((m + 31) // 32)), bool)
+  padded[:, :m] = mask
+  words = np.packbits(padded.reshape(n, -1, 32), axis=-1,
+                      bitorder='little').view('<u4')[..., 0]
+  return words.astype(np.uint32).view(np.int32)
+
+
+def chain_bits(m) -> dict:
+  """The mass chain's bit tables (``csrc/mass_chain.cuh``
+  ``MassChainTables``): the ancestor relation, either direction of it,
+  and the dofs feeding each cdof_dot."""
+  anc = m.tree.ancestor_mask
+  return dict(anc_bits=bit_rows(anc), rel_bits=bit_rows(anc | anc.T),
+              cdofdot_bits=bit_rows(m.tree.cdofdot_mask))
+
+
 def device_tables(arrays: dict, device) -> dict:
   """numpy tables -> device tensors (int32 or float32), never empty."""
   out = {}

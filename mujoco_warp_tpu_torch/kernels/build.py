@@ -30,16 +30,17 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 
 # the kernels of the library: each has mwt_<name>_launch(params, stream)
-# and mwt_<name>_params_size(); some size their scratch with
-# mwt_<name>_scratch_rows(<ints>)
+# and mwt_<name>_params_size()
 KERNELS = ('k1', 'k4', 'mass_chain', 'solve', 'chol_batched', 'chol_solve',
            'damped_solve')
-SCRATCH_ARGS = {'k1': 4, 'mass_chain': 2}
 # other entry points: name -> argument types (each returns an int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 EXTRA = {'mwt_solve_world_floats': [_I, _I, _I],
          'mwt_solve_info': [_P, _P], 'mwt_chol_batched_info': [_I, _P],
-         'mwt_k4_world_floats': [_I, _I, _I], 'mwt_k4_info': [_P, _P]}
+         'mwt_k4_world_floats': [_I, _I, _I], 'mwt_k4_info': [_P, _P],
+         'mwt_k1_world_floats': [_I] * 7, 'mwt_k1_info': [_P, _P],
+         'mwt_mass_chain_world_floats': [_I, _I, _I],
+         'mwt_mass_chain_info': [_P, _P]}
 
 
 class BuildInfo:
@@ -125,10 +126,6 @@ def load() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     getattr(lib, f'mwt_{k}_params_size').restype = ctypes.c_int
-  for k, nargs in SCRATCH_ARGS.items():
-    fn = getattr(lib, f'mwt_{k}_scratch_rows')
-    fn.argtypes = [ctypes.c_int] * nargs
-    fn.restype = ctypes.c_int
   for name, args in EXTRA.items():
     fn = getattr(lib, name)
     fn.argtypes = args

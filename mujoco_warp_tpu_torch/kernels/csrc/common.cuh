@@ -1,9 +1,11 @@
 // Shared device helpers of the kernels (k1.cu, k4.cu, mass_chain.cu,
 // solve.cu, linalg.cu).
 //
-// Layout: every per-world array is lanes-last, (rows, W) float32, and
-// thread w owns column w, so row r of world w is base[r * W + w] and a
-// warp's 32 loads of one row are one coalesced 128-byte transaction.
+// Layout: every per-world array in device memory is lanes-last, (rows,
+// W) float32, row r of world w at base[r * W + w] (the large-tree mass
+// chain's qM and the linalg.cu operands may be world-major instead); the
+// kernels copy a block's worlds into shared memory (warp.cuh) and give
+// each world one warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,10 +17,11 @@
 
 // nv cap of the fused gate (mujoco_warp_tpu_torch/fused/__init__.py,
 // checked by the wrappers): the shapes of the factor and substitutions
-// the one-warp Newton (K4 and the solve kernel) instantiates
+// the one-warp Newton (K4 and the solve kernel) and the mass chain's
+// factor (mass_chain.cuh) instantiate
 #define MWT_MAX_NV 64
 
-// row r of the calling world's column
+// row r of world w of a lanes-last array of W columns
 #define LANE(ptr, r) (ptr)[(size_t)(r) * W + w]
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -89,27 +92,4 @@ __device__ __forceinline__ void matTvec3(const float* R, const float* c,
                                          float* out) {
   for (int r = 0; r < 3; ++r)
     out[r] = R[r] * c[0] + R[3 + r] * c[1] + R[6 + r] * c[2];
-}
-
-// Cholesky of the lower triangle of A (n x n lanes-last at row stride n)
-// into Lf, in place allowed.  Same operation order as the right-looking
-// rank-1 form of pallas/solver.py _chol_tile: entry (i, k) is reduced by
-// L[i, m] L[k, m] for m = 0, 1, ... in turn; pivots rsqrt(max(A_jj, 1e-15)).
-__device__ __forceinline__ void chol_lanes(const float* A, float* Lf, int n,
-                                           int W, int w) {
-  for (int j = 0; j < n; ++j) {
-    float d = LANE(A, j * n + j);
-    for (int m = 0; m < j; ++m) {
-      float l = LANE(Lf, j * n + m);
-      d = d - l * l;
-    }
-    float piv = rsqrtf(fmaxf(d, MWT_MINVAL));
-    LANE(Lf, j * n + j) = d * piv;
-    for (int i = j + 1; i < n; ++i) {
-      float t = LANE(A, i * n + j);
-      for (int m = 0; m < j; ++m) t = t - LANE(Lf, i * n + m) * LANE(Lf, j * n + m);
-      LANE(Lf, i * n + j) = t * piv;
-    }
-    for (int i = 0; i < j; ++i) LANE(Lf, i * n + j) = 0.0f;
-  }
 }

@@ -1,5 +1,6 @@
 // Building blocks of the kernels that give each world one warp and hold
-// the world's matrices in shared memory (linalg.cu, solve.cu): the block's
+// the world's matrices in shared memory (every kernel of the library:
+// k1.cu, k4.cu, mass_chain.cu, linalg.cu, solve.cu): the block's
 // asynchronous loads and its stores, warp reductions and list compaction,
 // the Cholesky factor and its two substitutions, and the launch that
 // sizes the block from the shared bytes one world needs.
@@ -118,6 +119,41 @@ struct AtPacked {
     return (r * (r + 1) >> 1) + c;
   }
 };
+
+// Block-wide copy of rows [0, rows) of the block's nw worlds from shared
+// memory (row r of local world l at src[l * wfloats + r]) to a lanes-last
+// operand of W columns, the world as the fastest thread index, so that
+// consecutive threads write consecutive worlds of one row: thread t takes
+// world t % nw and rows t / nw, t / nw + step, ... (step the block's
+// threads over nw; the few threads past step nw idle).
+__device__ __forceinline__ void store_block(float* dst, int W, int w0, int nw,
+                                           int rows, const float* src,
+                                           int wfloats) {
+  const int step = blockDim.x / nw, r0 = threadIdx.x / nw;
+  if (r0 >= step) return;
+  const int l = threadIdx.x - r0 * nw;
+  const float* s = src + l * wfloats;
+  float* d = dst + w0 + l;
+  for (int r = r0; r < rows; r += step) d[(size_t)r * W] = s[r];
+}
+
+// store_block of an n x n matrix held at row stride ld as n n rows; with
+// ``lower``, its lower triangle and zeros above the diagonal
+__device__ __forceinline__ void store_block_matrix(float* dst, int W, int w0,
+                                                   int nw, int n,
+                                                   const float* src, int ld,
+                                                   int wfloats, bool lower) {
+  const int step = blockDim.x / nw, r0 = threadIdx.x / nw;
+  if (r0 >= step) return;
+  const int l = threadIdx.x - r0 * nw;
+  const float* s = src + l * wfloats;
+  float* d = dst + w0 + l;
+  int i = r0 / n, j = r0 - i * n;  // (row, column) of element e
+  for (int e = r0; e < n * n; e += step) {
+    d[(size_t)e * W] = (!lower || j <= i) ? s[i * ld + j] : 0.0f;
+    for (j += step; j >= n; j -= n) ++i;
+  }
+}
 
 // Wait for this thread's load_block copies, then for the block's.
 __device__ __forceinline__ void copies_done() {
@@ -322,6 +358,15 @@ static int occupancy_worlds(size_t per_world, bool balance = false) {
     }
   }
   return best;
+}
+
+// Worlds per block for a kernel that stores lanes-last rows block-wide: 8
+// where 8 worlds fit in a block, so that each block writes (and loads)
+// whole 32-byte sectors of every row, else occupancy_worlds.  On an H100
+// the mass chain and K1 ran 3-19% faster at 8 per block than at the 5-7
+// that fill an SM with the most worlds (kerneltime.py in turns).
+static int sector_worlds(size_t per_world) {
+  return 8 * per_world <= MWT_SMEM_BLOCK ? 8 : occupancy_worlds(per_world);
 }
 
 // Launch `kernel` over W worlds, `wpb` per block at `per_world` shared

@@ -4,9 +4,14 @@ the RNE bias of the general step.
 CPU tensors run the plain version (``fused/k1_ref.py`` ``mass_chain``);
 CUDA tensors launch ``csrc/mass_chain.cu``, which replaces
 ``mujoco_warp_tpu/pallas/smooth.py`` ``_make_kernel`` (:211, called by
-``mass_chain`` :286) in both its forms.  A large tree (``big_tree``: nv >
-48 or nbody > 32) skips the factor in the kernel; qLD then comes from the
-``chol_batched`` kernel with jitter 1e-12 (``pallas/smooth.py:296-304``).
+``mass_chain`` :286) in both its forms, one warp per world with the
+world's chain in shared memory (``world_floats`` counts its floats;
+``fits`` says whether one world fits in a block, and
+``ops/forward.unsupported`` refuses a model whose world does not).  A
+large tree (``big_tree``: nv > 48 or nbody > 32) skips the factor in the
+kernel and writes qM world-major; qLD then comes from the ``chol_batched``
+kernel with jitter 1e-12 (``pallas/smooth.py:296-304``), which reads that
+qM in place.
 """
 
 from __future__ import annotations
@@ -18,9 +23,10 @@ import torch
 
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused import k1_ref
-from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
-    device_tables, lanes, ptr, world
+from mujoco_warp_tpu_torch.kernels import TableCache, build, chain_bits, \
+    check, device_tables, lanes, ptr, tree_levels, world
 from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+from mujoco_warp_tpu_torch.kernels import solver
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
@@ -31,17 +37,39 @@ MAX_NV, MAX_NBODY = 48, 32
 # the jitter of the large-tree factor (pallas/smooth.py:303)
 BIG_JITTER = 1e-12
 
-_TABLE_PTRS = ('topo', 'body_parent', 'body_dofadr', 'body_dofnum',
-               'dof_bodyid', 'ancestor', 'cdofdot', 'armature', 'gravity')
+_TABLE_PTRS = ('topo', 'level_adr', 'body_parent', 'body_dofadr',
+               'body_dofnum', 'dof_bodyid', 'anc_bits', 'rel_bits',
+               'cdofdot_bits', 'armature', 'gravity')
 MassChainParams = build.params_struct(
-    'MassChainParams', ints=('W', 'nb', 'nv', 'no_gravity'),
-    ptrs=('cinert', 'cdof', 'qvel', 'qM', 'qLD', 'cvel', 'cdof_dot', 'bias',
-          'scr') + _TABLE_PTRS)
+    'MassChainParams', ints=('W', 'nb', 'nv', 'nlevel', 'no_gravity', 'small'),
+    ptrs=('cinert', 'cdof', 'qvel', 'qM', 'qLD', 'cvel', 'cdof_dot', 'bias')
+    + _TABLE_PTRS)
 
 
 def big_tree(m: types.Model) -> bool:
   """The large-tree form: no factor in the mass chain."""
   return m.nv > MAX_NV or m.nbody > MAX_NBODY
+
+
+def world_floats(nbody: int, nv: int, small: bool) -> int:
+  """Shared floats of one world of the kernel (``csrc/mass_chain.cu``
+  ``MassChainLayout``): cinert, cdof, qvel, crb, f, cvel, cdof_dot and
+  bias, and for the small tree qM, then its factor in the same floats, at
+  row stride nv | 1; rounded up to an odd count."""
+  n = 78 * nbody + 20 * nv
+  if small:
+    n += nv * (nv | 1)
+  return n | 1
+
+
+def world_bytes(m: types.Model) -> int:
+  """Shared bytes of one world of ``m``."""
+  return 4 * world_floats(m.nbody, m.nv, not big_tree(m))
+
+
+def fits(m: types.Model) -> bool:
+  """Does one world of ``m`` fit in the shared memory of a block?"""
+  return world_bytes(m) <= solver.SMEM_BLOCK
 
 
 def ancm_table(m: types.Model) -> np.ndarray:
@@ -59,11 +87,9 @@ def tables(m: types.Model) -> dict:
   """Model tables the kernel walks, as numpy."""
   h = lambda x: np.asarray(types.host(x), np.float32)
   return dict(
-      topo=[int(b) for lvl in m.tree.body_levels for b in lvl],
+      **tree_levels(m),
       body_parent=m.body_parentid, body_dofadr=m.body_dofadr,
-      body_dofnum=m.body_dofnum, dof_bodyid=m.dof_bodyid,
-      ancestor=m.tree.ancestor_mask.astype(np.int32),
-      cdofdot=m.tree.cdofdot_mask.astype(np.int32),
+      body_dofnum=m.body_dofnum, dof_bodyid=m.dof_bodyid, **chain_bits(m),
       armature=h(m.dof_armature), gravity=h(m.opt.gravity))
 
 
@@ -71,22 +97,25 @@ _TABLES = TableCache(lambda m, dev: device_tables(tables(m), dev))
 
 
 def mass_chain_plain(m: types.Model, cinert, cdof, qvel):
-  """The plain version of ``mass_chain_lanes`` (``fused/k1_ref.py``)."""
+  """The plain version of ``mass_chain_lanes`` (``fused/k1_ref.py``), its
+  outputs in the same layouts."""
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
   qM, Lf, cvel, cdd, bias = k1_ref.mass_chain(
       m, list(cinert.reshape(nb, 36, W)), list(cdof.reshape(nv, 6, W)),
       qvel, m.dof_armature, m.opt.gravity,
       ancm=ancm_table(m) if big_tree(m) else None)
-  return (qM.reshape(nv * nv, W),
+  qM = qM.reshape(nv * nv, W)
+  return (world(qM, nv, nv).contiguous() if big_tree(m) else qM,
           None if Lf is None else Lf.reshape(nv * nv, W), torch.cat(cvel),
           torch.cat(cdd), bias)
 
 
 def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
   """The mass chain on lanes-last tensors: cinert (36 nbody, W), cdof
-  (6 nv, W), qvel (nv, W).  Returns qM, qLD (nv nv, W; None for a large
-  tree), cvel (6 nbody, W), cdof_dot (6 nv, W) and bias (nv, W)."""
+  (6 nv, W), qvel (nv, W).  Returns qM (nv nv, W; for a large tree
+  world-major (W, nv, nv)), qLD (nv nv, W; None for a large tree), cvel
+  (6 nbody, W), cdof_dot (6 nv, W) and bias (nv, W)."""
   global launches
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
@@ -99,20 +128,29 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
   check(cinert, (36 * nb, W), 'cinert', dev)
   check(cdof, (6 * nv, W), 'cdof', dev)
   check(qvel, (nv, W), 'qvel', dev)
+  small = not big_tree(m)
+  floats = world_floats(nb, nv, small)
+  if 4 * floats > solver.SMEM_BLOCK:
+    raise ValueError(f'mass chain: one world (nv {nv}, nbody {nb}) takes '
+                     f'{4 * floats} shared bytes, more than a block\'s '
+                     f'{solver.SMEM_BLOCK}')
   lib = build.load()
-  if lib.mwt_mass_chain_params_size() != ctypes.sizeof(MassChainParams):
-    raise RuntimeError('MassChainParams layout differs between C and Python')
+  if lib.mwt_mass_chain_params_size() != ctypes.sizeof(MassChainParams) or \
+      lib.mwt_mass_chain_world_floats(nb, nv, int(small)) != floats:
+    raise RuntimeError('MassChainParams or the shared layout differs '
+                       'between C and Python')
   tab = _TABLES.get(m, dev)
   new = lambda rows: torch.empty((rows, W), dtype=torch.float32, device=dev)
-  qM, cvel, cdd, bias = new(nv * nv), new(6 * nb), new(6 * nv), new(nv)
-  qLD = None if big_tree(m) else new(nv * nv)
-  scr = new(lib.mwt_mass_chain_scratch_rows(nb, nv))
+  cvel, cdd, bias = new(6 * nb), new(6 * nv), new(nv)
+  qM = new(nv * nv) if small else torch.empty(
+      (W, nv, nv), dtype=torch.float32, device=dev)
+  qLD = new(nv * nv) if small else None
   p = MassChainParams(
-      W=W, nb=nb, nv=nv,
+      W=W, nb=nb, nv=nv, nlevel=len(m.tree.body_levels),
       no_gravity=int(bool(m.opt.disableflags & types.DisableBit.GRAVITY)),
-      cinert=ptr(cinert), cdof=ptr(cdof), qvel=ptr(qvel), qM=ptr(qM),
-      qLD=ptr(qLD), cvel=ptr(cvel), cdof_dot=ptr(cdd), bias=ptr(bias),
-      scr=ptr(scr), **{k: ptr(tab[k]) for k in _TABLE_PTRS})
+      small=int(small), cinert=ptr(cinert), cdof=ptr(cdof), qvel=ptr(qvel),
+      qM=ptr(qM), qLD=ptr(qLD), cvel=ptr(cvel), cdof_dot=ptr(cdd),
+      bias=ptr(bias), **{k: ptr(tab[k]) for k in _TABLE_PTRS})
   stream = torch.cuda.current_stream(dev).cuda_stream
   rc = lib.mwt_mass_chain_launch(ctypes.byref(p), ctypes.c_void_p(stream))
   if rc != 0:
@@ -128,11 +166,22 @@ def mass_chain(m: types.Model, d: types.Data) -> types.Data:
   nb, nv = m.nbody, m.nv
   qM, qLD, cvel, cdd, bias = mass_chain_lanes(
       m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
-  qM = world(qM, nv, nv)
-  if qLD is None:
-    qLD = klinalg.chol_batched(m, qM.contiguous(), jitter=BIG_JITTER)
+  if qLD is None:  # qM world-major, read in place
+    qLD = klinalg.chol_batched(m, qM, jitter=BIG_JITTER)
   else:
-    qLD = world(qLD, nv, nv)
+    qM, qLD = world(qM, nv, nv), world(qLD, nv, nv)
   return d.replace(qM=qM, qLD=qLD,
                    cvel=world(cvel, nb, 6), cdof_dot=world(cdd, nv, 6),
                    qfrc_bias=bias.T)
+
+
+def kernel_info(m: types.Model) -> dict:
+  """The kernel of ``m``'s form on the card: registers per thread, worlds
+  (warps) per block and shared bytes per block at ``m``'s sizes."""
+  p = MassChainParams(nb=m.nbody, nv=m.nv, small=int(not big_tree(m)))
+  out = (ctypes.c_int * 3)()
+  rc = build.load().mwt_mass_chain_info(ctypes.byref(p), out)
+  if rc != 0:
+    raise RuntimeError(f'mass chain kernel attributes: cudaError {rc}')
+  return {'registers': out[0], 'worlds_per_block': out[1],
+          'shared_bytes_per_block': out[2]}

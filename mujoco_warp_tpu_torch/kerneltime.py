@@ -1,28 +1,34 @@
-"""Per-launch times of K4 (humanoid) and of the solve kernel (constraints,
-spheres and spheres_elliptic), which share the one-warp Newton
+"""Per-launch times of K1 and K4 (humanoid), of the mass chain in its
+three forms (constraints nv 13 and spheres nv 36 with the factor,
+clutter_arm_nosleep nv 75 without), of the solve kernel (constraints,
+spheres and spheres_elliptic), which shares the one-warp Newton with K4
 (``csrc/newton_warp.cuh`` over ``csrc/solve_rows.cuh``), of
 ``chol_batched`` and the two Cholesky solves at n 75 on
 ``clutter_arm_nosleep`` (beside ``torch.linalg.cholesky`` of the same
 matrices) and of ``chol_solve`` at n 36 on ``spheres``.
 
-  python3 mujoco_warp_tpu_torch/kerneltime.py [--root DIR] [--k4-only]
+  python3 mujoco_warp_tpu_torch/kerneltime.py [--root DIR] [--only GROUPS]
 
 Imports ``mujoco_warp_tpu_torch`` from ``--root`` (by default the checkout
 this file lies in), so that the same script times another commit's
 kernels: unpack that commit with ``git archive`` into a directory and
-alternate the two roots, one process each, on one card.  Each kernel gets
-the seeded state of ``parity`` at NWORLD worlds (K4: the humanoid
-lowered into the floor, ``parity.DROP['contact']``; the solve:
+alternate the two roots, one process each, on one card.  ``--only``
+takes a comma list of the groups to time (``k4``, ``k1``,
+``mass_chain``, ``solve``, ``linalg``; by default all), and builds the
+inputs of those alone, for design variants.  Each kernel gets
+the seeded state of ``parity`` at NWORLD worlds (K1 and K4: the humanoid
+lowered into the floor, ``parity.DROP['contact']``, K1 without the
+factor as the fused step calls it; the mass chain and the solve:
 ``parity.general_state`` on constraints, ``parity.spheres_state`` on the
-spheres scenes at their
-registered widths, 8192 and 4096 worlds), its upstream inputs from the
-plain versions,
+spheres scenes at their registered widths, 8192 and 4096 worlds, and
+``parity.clutter_state`` at CL_NWORLD worlds), its upstream inputs from
+the plain versions,
 and is timed with CUDA events over CALLS back-to-back launches, BLOCKS
-times.  Both kernels run far longer than their wrappers' host
+times.  K4 and the solve kernel run far longer than their wrappers' host
 work, so the card stays busy and the time per call is the kernel's device
 time.  ``chol_solve`` and ``damped_solve`` get ``parity.clutter_state``
-at CL_NWORLD worlds through the plain mass chain (qM a ``world()`` view
-of its lanes-last output, as on the main path), the factor of qM from
+at CL_NWORLD worlds through the plain mass chain (qM world-major, as on
+the main path), the factor of qM from
 the plain ``chol_batched`` (world-major) and seeded right-hand sides,
 and are called through ``chol_solve_batched`` and
 ``damped_solve_batched``; ``chol_batched`` factors that qM (world-major)
@@ -30,11 +36,11 @@ with the mass factor's jitter, beside ``torch.linalg.cholesky`` of qM +
 jitter I; ``chol_solve`` at n 36 gets the factor of
 ``parity.spheres_state`` at NWORLD worlds from the plain mass chain (a
 ``world()`` view of its lanes-last qLD, as on the main path) and a
-seeded right-hand side.  For these four, CUDA events time each call's
-whole device work (with any copies the wrapper makes) and
-``torch.profiler`` the kernel's own launches (``kernel_ms``): the n 36
-kernel is shorter than its wrapper's host work, so only the profiler
-sees its time.  Prints one JSON line: the root
+seeded right-hand side.  For these four, K1 and the mass chain, CUDA
+events time each call's whole device work (with any copies the wrapper
+makes) and ``torch.profiler`` the kernel's own launches (``kernel_ms``):
+the short kernels run shorter than their wrappers' host work, so only
+the profiler sees their time.  Prints one JSON line: the root
 and the package directory imported from it, the card (nvidia-smi name
 and power limit) and each kernel's ms per launch in every block.
 """
@@ -95,13 +101,20 @@ def profiled_ms(torch, fn, calls, kernel):
   return (sum(durs) / 1e3 / len(durs) if durs else None), len(durs)
 
 
+GROUPS = ('k4', 'k1', 'mass_chain', 'solve', 'linalg')
+
+
 def main():
   ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   ap.add_argument('--root', default=os.path.dirname(
       os.path.dirname(os.path.abspath(__file__))))
-  ap.add_argument('--k4-only', action='store_true',
-                  help='time K4 alone (no other inputs are built)')
+  ap.add_argument('--only', default=','.join(GROUPS),
+                  help='comma list of the groups to time: ' +
+                  ', '.join(GROUPS))
   args = ap.parse_args()
+  only = args.only.split(',')
+  if not set(only) <= set(GROUPS):
+    sys.exit(f'kerneltime: --only takes {GROUPS}, not {only}')
   root = os.path.abspath(args.root)
   # the package from root, and not this file's directory, whose io.py and
   # types.py would stand in for the standard library's
@@ -114,6 +127,7 @@ def main():
   from mujoco_warp_tpu_torch import io, parity
   from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref
   from mujoco_warp_tpu_torch.kernels import build, lanes, world
+  from mujoco_warp_tpu_torch.kernels import k1 as kk1
   from mujoco_warp_tpu_torch.kernels import k4 as kk4
   from mujoco_warp_tpu_torch.kernels import linalg as klinalg
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
@@ -127,34 +141,60 @@ def main():
                        text=True, timeout=60)
   build.load()
   dev, W = torch.device('cuda'), NWORLD
+  f32 = dict(dtype=torch.float32, device=dev)
 
-  # K4 on the humanoid in contact, fed the plain K1 and glue
-  m = io.load_model_npz()
-  qpos, qvel, ctrl, ws = [torch.as_tensor(x, device=dev) for x in
-                          parity.lane_state(m, W, 7, parity.DROP['contact'])]
-  qM, qLD, bias, cdof, dist, cpos, cframe, stcom = k1_ref.k1(
-      m, qpos, qvel, need_qLD=True)
-  con, _ = glue.compact(m, dist, cpos, cframe, stcom)
-  qfs = glue.middle(m, bias, qpos, qvel, ctrl)
-  a4 = (m, qM, qLD if not k4_ref.has_rows(m) else None, qfs, ws, qvel, qpos,
-        cdof, con)
-
-  def other_calls():
-    """The other kernels' calls on their seeded inputs, and the
-    profiled kernel of each call that has one."""
-    # the solve kernel on the constraints scene, fed the plain upstream
-    mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT)
-    nv, nb = mc.nv, mc.nbody
+  def pre(path, statefn, nworld, warm=False):
+    """A scene's model and its seeded state through the position stages
+    (world-major Data), with a seeded warmstart when asked."""
+    ms = io.load_model_npz(path)
     qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                        parity.general_state(mc, W, 7)]
-    d = io.make_data(mc, W).replace(
-        qpos=qpos, qvel=qvel, ctrl=ctrl,
-        qacc_warmstart=0.1 * torch.as_tensor(
-            np.random.default_rng(8).standard_normal((W, nv)),
-            dtype=torch.float32, device=dev))
-    d = forward.pre(mc, d)
-    qM, qLD, cvel, cdd, bias = kmass.mass_chain_plain(
-        mc, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+                        statefn(ms, nworld, 7)]
+    d = io.make_data(ms, nworld).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+    if warm:
+      d = d.replace(qacc_warmstart=0.1 * torch.as_tensor(
+          np.random.default_rng(8).standard_normal((nworld, ms.nv)), **f32))
+    return ms, forward.pre(ms, d)
+
+  def chain_args(ms, d):
+    return (ms, lanes(d.cinert, 36 * ms.nbody), lanes(d.cdof, 6 * ms.nv),
+            lanes(d.qvel))
+
+  def world_major(qM, nv):
+    """The large-tree qM world-major (a lanes-last parent's transposed)."""
+    return qM.contiguous() if qM.dim() == 3 else \
+        world(qM, nv, nv).contiguous()
+
+  calls, kernels = {}, {}
+  if {'k4', 'k1'} & set(only):
+    # K1 and K4 on the humanoid in contact, K4 fed the plain K1 and glue
+    m = io.load_model_npz()
+    qpos, qvel, ctrl, ws = [torch.as_tensor(x, device=dev) for x in
+                            parity.lane_state(m, W, 7, parity.DROP['contact'])]
+    if 'k4' in only:
+      qM, qLD, bias, cdof, dist, cpos, cframe, stcom = k1_ref.k1(
+          m, qpos, qvel, need_qLD=True)
+      con, _ = glue.compact(m, dist, cpos, cframe, stcom)
+      qfs = glue.middle(m, bias, qpos, qvel, ctrl)
+      a4 = (m, qM, qLD if not k4_ref.has_rows(m) else None, qfs, ws, qvel,
+            qpos, cdof, con)
+      calls['k4'] = lambda: kk4.k4(*a4)
+    if 'k1' in only:
+      calls['k1'] = lambda: kk1.k1(m, qpos, qvel, need_qLD=False)
+      kernels['k1'] = 'k1_kernel'
+  if 'mass_chain' in only:
+    for key, path, statefn, nworld in (
+        ('mass_chain_n13', io.CONSTRAINTS_SNAPSHOT, parity.general_state, W),
+        ('mass_chain_n36', io.SPHERES_SNAPSHOT, parity.spheres_state, W),
+        ('mass_chain_n75', io.CLUTTER_SNAPSHOT, parity.clutter_state,
+         CL_NWORLD)):
+      am = chain_args(*pre(path, statefn, nworld))
+      calls[key] = (lambda am: lambda: kmass.mass_chain_lanes(*am))(am)
+      kernels[key] = 'mass_chain_kernel'
+  if 'solve' in only:
+    # the solve kernel on the constraints scene, fed the plain upstream
+    mc, d = pre(io.CONSTRAINTS_SNAPSHOT, parity.general_state, W, warm=True)
+    nv, nb = mc.nv, mc.nbody
+    qM, qLD, cvel, cdd, bias = kmass.mass_chain_plain(*chain_args(mc, d))
     d = forward.mid(mc, d.replace(
         qM=world(qM, nv, nv), qLD=world(qLD, nv, nv), cvel=world(cvel, nb, 6),
         cdof_dot=world(cdd, nv, 6), qfrc_bias=bias.T))
@@ -162,70 +202,52 @@ def main():
            lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
            lanes(d.qacc_warmstart))
 
-    # the Cholesky solves at n 75 on the clutter state
-    mcl = io.load_model_npz(io.CLUTTER_SNAPSHOT)
-    nv, nb, Wc = mcl.nv, mcl.nbody, CL_NWORLD
-    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                        parity.clutter_state(mcl, Wc, 7)]
-    d = forward.pre(mcl, io.make_data(mcl, Wc).replace(qpos=qpos, qvel=qvel,
-                                                       ctrl=ctrl))
-    qM = kmass.mass_chain_plain(mcl, lanes(d.cinert, 36 * nb),
-                                lanes(d.cdof, 6 * nv), lanes(d.qvel))[0]
-    qM = world(qM, nv, nv)
-    L = klinalg.chol_batched_plain(qM.contiguous(), kmass.BIG_JITTER)
-    rhs, qacc = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in
-                 np.random.default_rng(9).standard_normal((2, Wc, nv))]
-
-    qMc = qM.contiguous()
-    A_j = (qMc + kmass.BIG_JITTER * torch.eye(nv, device=dev)).contiguous()
-
     # the solve kernel on the spheres scenes' seeded contact states
     def spheres_solve(path, nworld):
       ms = io.load_model_npz(path)
       qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
                           parity.spheres_state(ms, nworld, 7)]
       ws = 0.1 * torch.as_tensor(np.random.default_rng(8).standard_normal(
-          (nworld, ms.nv)), dtype=torch.float32, device=dev)
+          (nworld, ms.nv)), **f32)
       return parity.solve_args(ms, io.make_data(ms, nworld).replace(
           qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=ws))[0]
 
     asp = spheres_solve(io.SPHERES_SNAPSHOT, W)
     ase = spheres_solve(io.SPHERES_ELLIPTIC_SNAPSHOT, CL_NWORLD)
-
-    # chol_solve at n 36 on the spheres state, its factor lanes-last
-    msp = io.load_model_npz(io.SPHERES_SNAPSHOT)
-    nvs, nbs = msp.nv, msp.nbody
-    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
-                        parity.spheres_state(msp, W, 7)]
-    d = forward.pre(msp, io.make_data(msp, W).replace(qpos=qpos, qvel=qvel,
-                                                      ctrl=ctrl))
-    Ls = kmass.mass_chain_plain(msp, lanes(d.cinert, 36 * nbs),
-                                lanes(d.cdof, 6 * nvs), lanes(d.qvel))[1]
-    Ls = world(Ls, nvs, nvs)
-    rhs_s = torch.as_tensor(np.random.default_rng(10).standard_normal(
-        (W, nvs)), dtype=torch.float32, device=dev)
-
-    calls = {
+    calls.update({
         'solve': lambda: ksolver.solve_tiles(*asv),
         'solve_spheres': lambda: ksolver.solve_tiles(*asp),
         'solve_elliptic': lambda: ksolver.solve_tiles(*ase),
-        'chol_batched_n75': lambda: klinalg.chol_batched(mcl, qMc,
+    })
+  if 'linalg' in only:
+    # the Cholesky kernels at n 75 on the clutter state
+    mcl, d = pre(io.CLUTTER_SNAPSHOT, parity.clutter_state, CL_NWORLD)
+    nv = mcl.nv
+    qM = world_major(kmass.mass_chain_plain(*chain_args(mcl, d))[0], nv)
+    L = klinalg.chol_batched_plain(qM, kmass.BIG_JITTER)
+    rhs, qacc = [torch.as_tensor(x, **f32) for x in
+                 np.random.default_rng(9).standard_normal((2, CL_NWORLD, nv))]
+    A_j = (qM + kmass.BIG_JITTER * torch.eye(nv, device=dev)).contiguous()
+    # chol_solve at n 36 on the spheres state, its factor lanes-last
+    msp, d = pre(io.SPHERES_SNAPSHOT, parity.spheres_state, W)
+    nvs = msp.nv
+    Ls = world(kmass.mass_chain_plain(*chain_args(msp, d))[1], nvs, nvs)
+    rhs_s = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (W, nvs)), **f32)
+    calls.update({
+        'chol_batched_n75': lambda: klinalg.chol_batched(mcl, qM,
                                                          kmass.BIG_JITTER),
         'cholesky_n75': lambda: torch.linalg.cholesky(A_j),
         'chol_solve_n75': lambda: klinalg.chol_solve_batched(mcl, L, rhs),
-        'damped_solve_n75': lambda: klinalg.damped_solve_batched(mcl, qM, qacc),
+        'damped_solve_n75': lambda: klinalg.damped_solve_batched(mcl, qM,
+                                                                 qacc),
         'chol_solve_n36': lambda: klinalg.chol_solve_batched(msp, Ls, rhs_s),
-    }
-    kernels = {'chol_batched_n75': 'chol_batched_kernel',
-               'chol_solve_n75': 'chol_solve_kernel',
-               'damped_solve_n75': 'damped_solve_kernel',
-               'chol_solve_n36': 'chol_solve_kernel'}
-    return calls, kernels
+    })
+    kernels.update({'chol_batched_n75': 'chol_batched_kernel',
+                    'chol_solve_n75': 'chol_solve_kernel',
+                    'damped_solve_n75': 'damped_solve_kernel',
+                    'chol_solve_n36': 'chol_solve_kernel'})
 
-  calls, kernels = {'k4': lambda: kk4.k4(*a4)}, {}
-  if not args.k4_only:
-    more, kernels = other_calls()
-    calls.update(more)
   times = {k: [] for k in calls}
   kernel_ms = {k: [] for k in kernels}
   for _ in range(BLOCKS):

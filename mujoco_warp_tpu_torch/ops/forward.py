@@ -94,6 +94,9 @@ def unsupported(m: types.Model):
     return 'gravcomp'
   if m.nv > klinalg.MAX_N:
     return f'nv {m.nv} above the Cholesky kernels\' cap {klinalg.MAX_N}'
+  if not kmass.fits(m):
+    return (f'size (mass-chain world: nv {m.nv}, nbody {m.nbody}, '
+            f'{kmass.world_bytes(m)} shared bytes, more than a block holds)')
   return None
 
 

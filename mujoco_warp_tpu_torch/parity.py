@@ -121,21 +121,30 @@ def lane_state(m, W: int, seed: int, drop: float = 0.0, drop_row: int = 2):
   return qpos, qvel, ctrl, ws
 
 
+def k1_case(scene: str, state: str, W: int, seed: int, device):
+  """A model and its lanes-last state tensors for a scene of
+  ``K4_SCENES``, or with '_no_rows' appended, its collision off, at
+  ``lane_state`` ('rest', or 'contact' with the scene's body lowered) on
+  ``device``: K1's input.  Returns (model, qpos, qvel, ctrl,
+  warmstart)."""
+  from mujoco_warp_tpu_torch import io
+  name, row, drop = K4_SCENES[scene.replace('_no_rows', '')]
+  m = io.load_model_npz(getattr(io, name), device=device)
+  if scene.endswith('_no_rows'):
+    m = m.replace(opt=m.opt.replace(run_collision_detection=False))
+  return (m,) + tuple(
+      torch.as_tensor(x, device=device) for x in
+      lane_state(m, W, seed, drop if state == 'contact' else 0.0, row))
+
+
 def k4_case(scene: str, state: str, W: int, seed: int, device):
   """K4's arguments for a scene of ``K4_SCENES``, or for
   'implicitfast_no_rows' (implicitfast with collision off: K4 builds no
   rows and takes qacc from K1's qLD), at ``lane_state`` ('rest', or
   'contact' with the scene's body lowered), fed the plain K1 and glue on
   ``device``.  Returns (model, args of ``k4``)."""
-  from mujoco_warp_tpu_torch import io
   from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref
-  name, row, drop = K4_SCENES[scene.replace('_no_rows', '')]
-  m = io.load_model_npz(getattr(io, name), device=device)
-  if scene.endswith('_no_rows'):
-    m = m.replace(opt=m.opt.replace(run_collision_detection=False))
-  qpos, qvel, ctrl, ws = [
-      torch.as_tensor(x, device=device) for x in
-      lane_state(m, W, seed, drop if state == 'contact' else 0.0, row)]
+  m, qpos, qvel, ctrl, ws = k1_case(scene, state, W, seed, device)
   need_qLD = not k4_ref.has_rows(m)
   qM, qLD, bias, cdof, dist, cpos, cframe, stcom = k1_ref.k1(
       m, qpos, qvel, need_qLD=need_qLD)

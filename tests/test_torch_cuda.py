@@ -46,6 +46,123 @@ def test_k1_cuda_matches_plain(cuda, drop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('need_qLD', [True, False])
+@pytest.mark.parametrize('scene,state', [
+    ('humanoid', 'rest'), ('humanoid', 'contact'), ('eq_joint', 'rest'),
+    ('eq_joint', 'contact'), ('implicitfast', 'rest'),
+    ('implicitfast', 'contact'), ('implicitfast_no_rows', 'rest')])
+def test_k1_cuda_forms_match_plain(cuda, scene, state, need_qLD):
+  """K1 against the plain version at 1000 worlds on the humanoid and the
+  small gated scenes, at rest and with a body lowered into the floor,
+  with and without the factor, and with collision off (no geom frames or
+  narrowphase); where the factor is asked for, it equals the plain
+  factor of the kernel's own qM to the last bit (the same pivots and
+  differences in the same order)."""
+  from mujoco_warp_tpu_torch.fused.solver_ref import chol_tile
+  m, qpos, qvel, _, _ = parity.k1_case(scene, state, 1000, 5, cuda)
+  n = kk1.launches
+  got = kk1.k1(m, qpos, qvel, need_qLD=need_qLD)
+  assert kk1.launches == n + 1
+  want = k1_ref.k1(m, qpos, qvel, need_qLD=need_qLD)
+  parity.check_k1(got, want)
+  assert (got[4] is None) == (scene == 'implicitfast_no_rows')
+  if need_qLD:
+    nv = m.nv
+    L = chol_tile(got[0].reshape(nv, nv, -1), nv).reshape(nv * nv, -1)
+    assert torch.equal(got[1], L), float((got[1] - L).abs().max())
+
+
+@pytest.mark.cuda
+def test_k1_world_floats_match_c(cuda):
+  """kernels/k1.py's layout mirror against csrc/k1.cu's own count, on
+  the gated scenes with and without collision and the factor, and at the
+  gate's caps; K1's launch shape on the humanoid."""
+  from mujoco_warp_tpu_torch.kernels import build
+  lib = build.load()
+  sizes = [(70, 64, 32, 64, 500, 512), (1, 1, 2, 1, 0, 0),
+           (7, 6, 2, 1, 4902, 1)]
+  for path in (io.SNAPSHOT, io.EQ_JOINT_SNAPSHOT, io.IMPLICITFAST_SNAPSHOT):
+    m = io.load_model_npz(path, device='cpu')
+    sizes += [(m.nq, m.nv, m.nbody, m.njnt, m.ngeom, m.ncand),
+              (m.nq, m.nv, m.nbody, m.njnt, 0, 0)]
+  for size in sizes:
+    for factor in (0, 1):
+      assert lib.mwt_k1_world_floats(*size, factor) == \
+          kk1.world_floats(*size, bool(factor)), (size, factor)
+  m = io.load_model_npz(device='cpu')
+  info = kk1.kernel_info(m)
+  assert info['worlds_per_block'] >= 1 and info['registers'] > 0
+  assert info['shared_bytes_per_block'] == \
+      info['worlds_per_block'] * kk1.world_bytes(m, need_qLD=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['constraints', 'spheres',
+                                   'clutter_arm_nosleep'])
+def test_mass_chain_cuda_forms_match_plain(cuda, scene):
+  """The mass chain at nv 13 and 36 (small tree, its factor in the
+  kernel) and 75 (large tree: no factor, qM world-major) against the
+  plain version at 1000 worlds of each scene's seeded state, in the same
+  layouts; the small tree's factor equals the plain factor of the
+  kernel's own qM to the last bit, and qM is symmetric to the last bit.
+  (qM and bias are held at ``check_rel``: the plain version sums each
+  6-term dot with ``torch.sum``, in another order than the kernel.)"""
+  from mujoco_warp_tpu_torch.fused.solver_ref import chol_tile
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.ops import forward
+  path, statefn = {
+      'constraints': (io.CONSTRAINTS_SNAPSHOT, parity.general_state),
+      'spheres': (io.SPHERES_SNAPSHOT, parity.spheres_state),
+      'clutter_arm_nosleep': (io.CLUTTER_SNAPSHOT, parity.clutter_state),
+  }[scene]
+  m = io.load_model_npz(path, device=cuda)
+  W, nv, nb = 1000, m.nv, m.nbody
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=cuda)
+                      for x in statefn(m, W, 3)]
+  d = forward.pre(m, io.make_data(m, W, device=cuda).replace(
+      qpos=qpos, qvel=qvel, ctrl=ctrl))
+  args = (m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+  n = kmass.launches
+  got = kmass.mass_chain_lanes(*args)
+  assert kmass.launches == n + 1
+  want = kmass.mass_chain_plain(*args)
+  small = not kmass.big_tree(m)
+  assert small == (scene != 'clutter_arm_nosleep')
+  for a, b in zip(got, want):
+    assert (a is None) == (b is None) and (a is None or a.shape == b.shape)
+  keep = [i for i in range(5) if want[i] is not None]
+  parity.check_rel([got[i] for i in keep], [want[i] for i in keep],
+                   [parity.MASS_NAMES[i] for i in keep])
+  qM = got[0].reshape(nv, nv, W) if small else got[0].permute(1, 2, 0)
+  assert torch.equal(qM, qM.transpose(0, 1))
+  if small:
+    L = chol_tile(qM, nv).reshape(nv * nv, W)
+    assert torch.equal(got[1], L), float((got[1] - L).abs().max())
+
+
+@pytest.mark.cuda
+def test_mass_chain_world_floats_match_c(cuda):
+  """kernels/mass_chain.py's layout mirror against csrc/mass_chain.cu's
+  own count, on every committed general scene and a few sizes; the
+  kernel's launch shape on each general scene."""
+  from mujoco_warp_tpu_torch.kernels import build
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  lib = build.load()
+  sizes = [(2, 1), (7, 13), (7, 36), (16, 75), (32, 48), (762, 1)]
+  for nb, nv in sizes:
+    for small in (0, 1):
+      assert lib.mwt_mass_chain_world_floats(nb, nv, small) == \
+          kmass.world_floats(nb, nv, bool(small)), (nb, nv, small)
+  for path in (io.CONSTRAINTS_SNAPSHOT, io.SPHERES_SNAPSHOT,
+               io.CLUTTER_SNAPSHOT):
+    m = io.load_model_npz(path, device='cpu')
+    info = kmass.kernel_info(m)
+    assert info['worlds_per_block'] >= 1 and info['registers'] > 0
+    assert info['shared_bytes_per_block'] == \
+        info['worlds_per_block'] * kmass.world_bytes(m)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('drop', [0.0, 0.28])
 def test_k4_cuda_matches_plain(cuda, drop):
   m = io.load_model_npz(device=cuda)
@@ -285,11 +402,11 @@ def test_cholesky_solves_cuda_read_in_place(cuda, n, kind, monkeypatch):
 
 @pytest.mark.cuda
 def test_large_tree_kernels_cuda_match_plain(cuda):
-  """The large-tree mass chain (no factor), chol_batched for qLD, and
-  chol_solve and damped_solve at n 75 against their plain versions."""
+  """The large-tree mass chain (no factor, qM world-major), chol_batched
+  for qLD, and chol_solve and damped_solve at n 75 against their plain
+  versions."""
   from mujoco_warp_tpu_torch.kernels import linalg as klinalg
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
-  from mujoco_warp_tpu_torch.kernels import world
   m, d = clutter_inputs(cuda)
   nv, nb = m.nv, m.nbody
   args = (m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
@@ -298,7 +415,8 @@ def test_large_tree_kernels_cuda_match_plain(cuda):
   keep = (0, 2, 3, 4)
   parity.check_rel([got[i] for i in keep], [want[i] for i in keep],
                    ('qM', 'cvel', 'cdof_dot', 'bias'))
-  qM = world(want[0], nv, nv).contiguous()
+  qM = want[0]
+  assert got[0].shape == qM.shape == (1000, nv, nv)
   L = klinalg.chol_batched_plain(qM, kmass.BIG_JITTER)
   parity.check_world_scale(
       lanes(klinalg.chol_batched(m, qM, kmass.BIG_JITTER), nv * nv),
@@ -311,8 +429,8 @@ def test_large_tree_kernels_cuda_match_plain(cuda):
                            parity.SOLVE_ATOL, parity.SOLVE_RTOL)
   dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
   parity.check_world_scale(
-      klinalg.damped_solve_batched(m, world(want[0], nv, nv), b.T).T,
-      klinalg.damped_solve_plain(want[0], b, dmp), 'damped_solve',
+      klinalg.damped_solve_batched(m, qM, b.T).T,
+      klinalg.damped_solve_plain(lanes(qM, nv * nv), b, dmp), 'damped_solve',
       parity.SOLVE_ATOL, parity.SOLVE_RTOL)
 
 
