@@ -65,6 +65,29 @@ Phases, one line each or more, any failure exits non-zero:
     plain version and timed beside it.
  8. elliptic cones: the same on the snapshot spheres_elliptic (nefc 129)
     at 4096 worlds, through the solve kernel's elliptic form.
+ 9. dm_control on the fused step: benchmarks.run on the snapshot walker,
+    cheetah, hopper and humanoid_dmc (its contacts compacted into
+    {1: 16, 3: 32} slots) at 8192 worlds, DMC_NSTEP steps after 10
+    warmup; the K1 and K4 counts must equal the steps run (the general
+    kernels' stay 0), no world may overflow, every world stays finite.
+    K1 and K4 against their plain versions on each rollout's last state
+    (k1_walker, k4_walker and k1_cheetah, k4_cheetah timed there), and
+    at 1024 worlds of the seeded contact state (parity.k1_case: the root
+    lowered by parity.DMC_DROP) on hopper (k1_hopper, k4_hopper) and
+    humanoid_dmc (k1_dmc, k4_dmc), timed there.
+10. sensors on the general step: benchmarks.run(general=True), the public
+    ops.forward.step, on humanoid_dmc at 8192 worlds, DMC_GEN_NSTEP steps
+    after 10 warmup, and on hopper, HOP_GEN_NSTEP steps.  Exact counts:
+    the mass chain, chol_solve, the solve kernel and damped_solve once
+    per step; chol_batched, K1 and K4 never, and no trip of the torch
+    Newton.  No overflow; qpos and every float of sensordata finite;
+    prints the mean live contacts and the mean of each sensor type.  On
+    each scene's last state, the four kernels against their plain
+    versions at the rollout's width (as phase 3b; mass_chain_dmc,
+    chol_solve_dmc, solve_dmc, damped_solve_dmc and the _hopper four),
+    each timed; then one step of NSENSOR_CMP worlds of that state on the
+    card and on the CPU through the plain versions, sensordata held by
+    parity.check_sensors.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -86,7 +109,8 @@ lines are the kernel JSON (every kernel with its launches on its main
 path, error, times and its bound on this card; for K1, K4, the mass
 chain, the solve kernel and chol_batched also the registers, worlds per
 block and shared bytes per block they launch with), the nvidia-smi line
-(name and power limit) and the device JSON.
+(name and power limit) and the device JSON.  '[phase N] at T s' lines
+give the seconds since the start at each phase.
 """
 
 import json
@@ -104,6 +128,12 @@ CL_NSTEP = 150
 # the spheres scenes' bodies fall onto the floor within ~140 steps
 SP_NSTEP = 150
 SPHERES_MIN_CONTACTS = 10.0
+# the dm_control scenes: fused rollouts, the general step with sensors on
+# humanoid_dmc and hopper, and the worlds of the card-against-CPU step
+DMC_NSTEP = 200
+DMC_GEN_NSTEP = 150
+HOP_GEN_NSTEP = 100
+NSENSOR_CMP = 256
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -211,6 +241,7 @@ def newton_ell_flops(nrow, nv, niter):
 
 
 def main():
+  T0 = time.perf_counter()
   # ---- 1. device
   if not torch.cuda.is_available():
     print('FAIL: no CUDA device', flush=True)
@@ -238,6 +269,7 @@ def main():
   from mujoco_warp_tpu_torch.ops import solver as osolver
 
   # ---- 2. build
+  say(f'[phase 2] at {time.perf_counter() - T0:.1f} s')
   t0 = time.perf_counter()
   build.load()
   say(f'[build] {build.BuildInfo.path} in {time.perf_counter() - t0:.1f} s '
@@ -258,7 +290,6 @@ def main():
   mcl, w_cl = scene('clutter_arm_nosleep')
   msp, w_sp = scene('spheres')
   mse, w_se = scene('spheres_elliptic')
-  h = float(k4_ref.scalars(m)[3])
   # the one-warp-per-world kernels' launch shapes at the scenes' sizes
   shapes = {'k4': kk4.kernel_info(m), 'k1': kk1.kernel_info(m)}
   say(f'[kernels] k4 on humanoid (nrow {kk4.nrow(m)}, nv {m.nv}): '
@@ -282,7 +313,11 @@ def main():
       + json.dumps(shapes['chol_batched']))
   err = {k: 0.0 for k in build.KERNELS + (
       'mass_chain_big', 'mass_chain_n36', 'chol_solve_n36', 'chol_solve_n75',
-      'damped_solve_n75', 'solve_spheres', 'solve_elliptic')}
+      'damped_solve_n75', 'solve_spheres', 'solve_elliptic') + tuple(
+          k + sfx for sfx in ('_walker', '_cheetah', '_hopper', '_dmc')
+          for k in ('k1', 'k4')) + tuple(
+          k + sfx for sfx in ('_hopper', '_dmc')
+          for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'))}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -333,27 +368,33 @@ def main():
         f'{name} ({k})', *SB) for k in ('world-major', 'lanes-last'))
 
   # ---- 3a. the fused kernels against their plain versions
-  def compare(label, qpos, qvel, ctrl, ws, state, need_qLD):
-    """K1 and K4 against their plain versions on one state; K4 gets the
-    plain K1's outputs on both sides.  Returns those and K4's args."""
-    got1 = kk1.k1(m, qpos, qvel, need_qLD=need_qLD)
-    want1 = k1_ref.k1(m, qpos, qvel, need_qLD=need_qLD)
+  say(f'[phase 3a] at {time.perf_counter() - T0:.1f} s')
+  def compare(label, qpos, qvel, ctrl, ws, state, need_qLD, model=m,
+              suffix=''):
+    """K1 and K4 against their plain versions on one lanes-last state of
+    ``model``; K4 gets the plain K1's outputs on both sides; the errors go
+    to err['k1' + suffix] and err['k4' + suffix].  Returns those outputs,
+    K4's args and the plain K4's mean Newton count."""
+    got1 = kk1.k1(model, qpos, qvel, need_qLD=need_qLD)
+    want1 = k1_ref.k1(model, qpos, qvel, need_qLD=need_qLD)
     try:
       e1, rel1 = parity.check_k1(got1, want1)
     except AssertionError as e:
       fail(f'{label}: {e}')
     qM, qLD, bias, cdof, dist, cpos, cframe, stcom = want1
-    con, _ = glue.compact(m, dist, cpos, cframe, stcom)
-    qfs = glue.middle(m, bias, qpos, qvel, ctrl)
-    args = (m, qM, qLD if not k4_ref.has_rows(m) else None, qfs, ws, qvel,
-            qpos, cdof, con)
+    make = glue.compact if model.con_compact else glue.identity_con
+    con, _ = make(model, dist, cpos, cframe, stcom)
+    qfs = glue.middle(model, bias, qpos, qvel, ctrl)
+    args = (model, qM, qLD if not k4_ref.has_rows(model) else None, qfs, ws,
+            qvel, qpos, cdof, con)
     got4, want4 = kk4.k4(*args), k4_ref.k4(*args)
     try:
-      r4 = parity.check_k4(got4, want4, qvel, h, state)
+      r4 = parity.check_k4(got4, want4, qvel,
+                           float(k4_ref.scalars(model)[3]), state)
     except AssertionError as e:
       fail(f'{label} K4: {e}')
-    err['k1'] = max(err['k1'], e1)
-    err['k4'] = max(err['k4'], r4['qacc_max_abs_err'])
+    err['k1' + suffix] = max(err['k1' + suffix], e1)
+    err['k4' + suffix] = max(err['k4' + suffix], r4['qacc_max_abs_err'])
     act = int((con['dist'] < con['im']).sum())
     say(f'[compare] {label}: K1 max abs err {e1:.3e}, worst relative '
         f'{rel1:.2e} (tol {parity.K1_TOL}); K4 qacc max abs err '
@@ -409,50 +450,53 @@ def main():
         f'niter mean {r4["niter_mean"]:.3f}; active contacts {act}')
 
   # ---- 3b. the general step's kernels against their plain versions
+  say(f'[phase 3b] at {time.perf_counter() - T0:.1f} s')
   nv, nb = mc.nv, mc.nbody
 
-  def general_compare(label, d):
+  def general_compare(label, d, model=mc, suffix='', state='constraints'):
     """The four kernels against their plain versions on world-major state
-    d (qpos, qvel, ctrl, qacc_warmstart); each kernel gets the plain
-    version's upstream outputs.  Returns each kernel's arguments and the
-    plain solve's mean Newton count."""
-    d = forward.pre(mc, d)
-    args = {'mass_chain': (mc, lanes(d.cinert, 36 * nb),
+    d (qpos, qvel, ctrl, qacc_warmstart) of small-tree ``model``; each
+    kernel gets the plain version's upstream outputs; the errors go to
+    err[kernel + suffix].  Returns each kernel's arguments and the plain
+    solve's mean Newton count."""
+    nv, nb = model.nv, model.nbody
+    d = forward.pre(model, d)
+    args = {'mass_chain': (model, lanes(d.cinert, 36 * nb),
                            lanes(d.cdof, 6 * nv), lanes(d.qvel))}
     got, want = (kmass.mass_chain_lanes(*args['mass_chain']),
                  kmass.mass_chain_plain(*args['mass_chain']))
     try:
       e_mc, rel_mc = parity.check_rel(got, want, parity.MASS_NAMES)
       qM, qLD, cvel, cdd, bias = want
-      d = forward.mid(mc, d.replace(
+      d = forward.mid(model, d.replace(
           qM=world(qM, nv, nv), qLD=world(qLD, nv, nv),
           cvel=world(cvel, nb, 6), cdof_dot=world(cdd, nv, 6),
           qfrc_bias=bias.T))
       # the main path's layouts: qLD a world() view, qfrc_smooth as the
       # forces leave it
-      args['chol_solve'] = (mc, d.qLD, d.qfrc_smooth)
+      args['chol_solve'] = (model, d.qLD, d.qfrc_smooth)
       want = klinalg.chol_solve_plain(qLD, lanes(d.qfrc_smooth))
       e_cs = check_layouts(klinalg.chol_solve_batched, *args['chol_solve'],
                            want, 'qacc_smooth')
       d = d.replace(qacc_smooth=want.T)
-      args['solve'] = (mc, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
-                       lanes(d.efc_frictionloss), lanes(d.qM),
-                       lanes(d.qfrc_smooth), lanes(d.qacc_warmstart))
+      args['solve'] = (model, lanes(d.efc_J), lanes(d.efc_D),
+                       lanes(d.efc_aref), lanes(d.efc_frictionloss),
+                       lanes(d.qM), lanes(d.qfrc_smooth),
+                       lanes(d.qacc_warmstart))
       got, want = (ksolver.solve_tiles(*args['solve']),
                    solver_ref.solve_tiles(*args['solve']))
-      rs = parity.check_solve(got, want)
-      args['damped_solve'] = (mc, d.qM, want[0].T)
-      dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
+      rs = parity.check_solve(got, want, state, args['solve'][1:3])
+      args['damped_solve'] = (model, d.qM, want[0].T)
+      dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
       e_ds = check_layouts(klinalg.damped_solve_batched,
                            *args['damped_solve'],
                            klinalg.damped_solve_plain(qM, want[0], dmp),
                            'qacc (damped)')
     except AssertionError as e:
       fail(f'{label}: {e}')
-    err['mass_chain'] = max(err['mass_chain'], e_mc)
-    err['chol_solve'] = max(err['chol_solve'], e_cs)
-    err['solve'] = max(err['solve'], rs['qacc_max_abs_err'])
-    err['damped_solve'] = max(err['damped_solve'], e_ds)
+    for k, e in (('mass_chain', e_mc), ('chol_solve', e_cs),
+                 ('solve', rs['qacc_max_abs_err']), ('damped_solve', e_ds)):
+      err[k + suffix] = max(err[k + suffix], e)
     say(f'[compare] {label}: mass chain max abs err {e_mc:.3e}, worst '
         f'relative {rel_mc:.2e} (tol {parity.K1_TOL}); chol_solve max abs '
         f'err {e_cs:.3e}, damped_solve {e_ds:.3e} (both layouts; atol '
@@ -460,12 +504,16 @@ def main():
         f'solve qacc max abs '
         f'err {rs["qacc_max_abs_err"]:.3e}, efc_force '
         f'{rs["force_max_abs_err"]:.3e} (atol {parity.QACC_ATOL} + rtol '
-        f'{parity.QACC_RTOL} of world scale); niter equal in '
+        f'{parity.QACC_RTOL} of world scale'
+        + (f'; + each row\'s D |J dqacc|: past the bar without it by '
+           f'{rs["force_past_bar"]:.3e}'
+           if state in parity.FORCE_THROUGH_QACC else '')
+        + f'); niter equal in '
         f'{rs["niter_share"]:.4f} of worlds (bar '
-        f'{parity.NITER_SHARE["constraints"]}), max diff '
+        f'{parity.NITER_SHARE[state]}), max diff '
         f'{rs["niter_max_diff"]} (bar {parity.NITER_MAX_DIFF}); niter mean '
         f'{rs["niter_mean"]:.3f}; active rows '
-        f'{int(d.efc_active.sum())} of {mc.nefc * d.qpos.shape[0]}')
+        f'{int(d.efc_active.sum())} of {model.nefc * d.qpos.shape[0]}')
     return args, rs['niter_mean']
 
   qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
@@ -478,6 +526,7 @@ def main():
   general_compare(f'constraints W={NCMP}', d0)
 
   # ---- 3c. the large-tree kernels against their plain versions
+  say(f'[phase 3c] at {time.perf_counter() - T0:.1f} s')
   nvl, nbl = mcl.nv, mcl.nbody
 
   def clutter_compare(label, d):
@@ -555,6 +604,7 @@ def main():
       qpos=qpos, qvel=qvel, ctrl=ctrl))
 
   # ---- 3d. the solve kernel on contact rows, pyramidal and elliptic
+  say(f'[phase 3d] at {time.perf_counter() - T0:.1f} s')
   def spheres_compare(label, model, key, d, every_zone=False):
     """The solve kernel against its plain version on world-major state d
     of a spheres scene, fed the plain upstream outputs; prints the zone
@@ -596,12 +646,14 @@ def main():
                 dtype=torch.float32, device=dev)), every_zone=True)
 
   # ---- 4. the fused main path
-  def main_path(model, nstep, expect, nworld):
-    """benchmarks.run from zeroed counters; ``expect(steps, trips)`` gives
+  say(f'[phase 4] at {time.perf_counter() - T0:.1f} s')
+  def main_path(model, nstep, expect, nworld, general=False):
+    """benchmarks.run from zeroed counters (``general``: the general step
+    for a model inside the fused gate); ``expect(steps, trips)`` gives
     each kernel's launch count that must be seen (0 when absent)."""
     zero_counters()
     res = benchmarks.run(model, nworld=nworld, nstep=nstep,
-                         warmup_steps=WARMUP)
+                         warmup_steps=WARMUP, general=general)
     launches = counters()
     steps = nstep + WARMUP
     want = {k: 0 for k in launches}
@@ -640,6 +692,51 @@ def main():
     ms[key], source, seen = kernel_ms(fn, kern)
     ms_src[key] = (source, seen)
 
+  def general_timing(args, niter, suffix=''):
+    """Times the four general kernels on ``general_compare``'s ``args``
+    (their own device time, the wrapper call, the plain version and the
+    one PyTorch call where there is one) and computes their bounds, under
+    the keys kernel + suffix; ``niter`` is the solve's mean Newton
+    count."""
+    am, acs, asv, ads = (args['mass_chain'], args['chol_solve'],
+                         args['solve'], args['damped_solve'])
+    model = am[0]
+    nv, nb, nefc, W = model.nv, model.nbody, model.nefc, am[3].shape[-1]
+    dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+    ys = yardsticks(acs, ads, dmp)
+    live_rows = float((asv[2] > 0).sum()) / W
+    for k, fn, plain, plain_reps, lib, bnd in (
+        ('mass_chain', lambda: kmass.mass_chain_lanes(*am),
+         lambda: kmass.mass_chain_plain(*am), 3, None, bound(
+             W * F32 * (36 * nb + 7 * nv + 2 * nv * nv + 6 * nb + 7 * nv),
+             W * mass_chain_flops(model, True))),
+        ('chol_solve', lambda: klinalg.chol_solve_batched(*acs),
+         ys['chol_solve_plain'], 3, ys['chol_solve_library'],
+         bound(W * chol_solve_bytes(nv), W * 2 * nv * nv)),
+        # no one PyTorch call computes a Newton solve; its work is that of
+        # this state's live rows
+        ('solve', lambda: ksolver.solve_tiles(*asv),
+         lambda: solver_ref.solve_tiles(*asv), 1, None, bound(
+             W * F32 * (nefc * nv + 3 * nefc + nv * nv + 2 * nv + 2 * nv +
+                        nefc + 1), W * newton_flops(live_rows, nv, niter))),
+        ('damped_solve', lambda: klinalg.damped_solve_batched(*ads),
+         ys['damped_solve_plain'], 3, ys['damped_solve_library'],
+         bound(W * F32 * (nv * nv + 2 * nv) + F32 * nv,
+               W * (chol_flops(nv) + 4 * nv * nv + nv)))):
+      key = k + suffix
+      time_kernel(key, fn, f'{k}_kernel')
+      call_ms[key] = time_ms(fn, 20)
+      plain_ms[key] = time_ms(plain, plain_reps)
+      # one PyTorch call of the same function, timed here only
+      library_ms[key] = None if lib is None else time_ms(lib, 20)
+      bounds[key] = bnd
+      say(f"[timing] {key} W={W} per launch: cuda {ms[key]:.4f} ms (call "
+          f"{call_ms[key]:.4f}), plain {plain_ms[key]:.3f} ms, library "
+          f"{'none' if lib is None else f'{library_ms[key]:.4f} ms'}, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}"
+          + (f'; {live_rows:.2f} live rows per world' if k == 'solve'
+             else '') + ')')
+
   for k, fn in calls.items():
     time_kernel(k, fn, f'{k}_kernel')
   call_ms = {k: time_ms(fn, 20) for k, fn in calls.items()}
@@ -672,6 +769,7 @@ def main():
       f"{glue_ms:.3f} ms; step {1e3 * w_h / res['steps_per_sec']:.3f} ms")
 
   # ---- 5. the general main path
+  say(f'[phase 5] at {time.perf_counter() - T0:.1f} s')
   res, st, launches = main_path(
       mc, GEN_NSTEP, lambda n, _: {k: n for k in (
           'mass_chain', 'solve', 'chol_solve', 'damped_solve')}, w_c)
@@ -681,31 +779,8 @@ def main():
                  qacc_warmstart=st.qacc_warmstart, eq_active=st.eq_active,
                  qfrc_applied=st.qfrc_applied, xfrc_applied=st.xfrc_applied)
   args, niter3 = general_compare(f'constraints rollout W={w_c}', d)
-  am, acs, asv, ads = (args['mass_chain'], args['chol_solve'],
-                       args['solve'], args['damped_solve'])
-  dmp = torch.as_tensor(klinalg.damping_terms(mc), device=dev)
-  calls = {
-      'mass_chain': lambda: kmass.mass_chain_lanes(*am),
-      'chol_solve': lambda: klinalg.chol_solve_batched(*acs),
-      'solve': lambda: ksolver.solve_tiles(*asv),
-      'damped_solve': lambda: klinalg.damped_solve_batched(*ads),
-  }
-  for k, fn in calls.items():
-    time_kernel(k, fn, f'{k}_kernel')
-  call_ms.update({k: time_ms(fn, 20) for k, fn in calls.items()})
-  ys = yardsticks(acs, ads, dmp)
-  plain_ms.update({
-      'mass_chain': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
-      'chol_solve': time_ms(ys['chol_solve_plain'], 3),
-      'solve': time_ms(lambda: solver_ref.solve_tiles(*asv), 3),
-      'damped_solve': time_ms(ys['damped_solve_plain'], 3),
-  })
-  # one PyTorch call of the same function, timed here only
-  library_ms.update({
-      'mass_chain': None, 'solve': None,
-      'chol_solve': time_ms(ys['chol_solve_library'], 20),
-      'damped_solve': time_ms(ys['damped_solve_library'], 20),
-  })
+  general_timing(args, niter3)
+  am, asv = args['mass_chain'], args['solve']
   # the wrappers' world-major <-> lanes-last transposes, alone
   dw = forward.mid(mc, kmass.mass_chain(mc, forward.pre(mc, d)))
   out_mc = kmass.mass_chain_lanes(*am)
@@ -723,30 +798,12 @@ def main():
               x.T.contiguous() for x in asv[6:8]], 20),
       'damped_solve': 0.0,
   }
-  nefc, W = mc.nefc, w_c
-  bounds.update({
-      'mass_chain': bound(
-          W * F32 * (36 * nb + 7 * nv + 2 * nv * nv + 6 * nb + 7 * nv),
-          W * mass_chain_flops(mc, True)),
-      'chol_solve': bound(W * chol_solve_bytes(nv), W * 2 * nv * nv),
-      'solve': bound(
-          W * F32 * (nefc * nv + 3 * nefc + nv * nv + 2 * nv + 2 * nv +
-                     nefc + 1),
-          W * newton_flops(nefc, nv, niter3)),
-      'damped_solve': bound(W * F32 * (nv * nv + 2 * nv) + F32 * nv,
-                            W * (chol_flops(nv) + 4 * nv * nv + nv)),
-  })
-  for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'):
-    lib = library_ms[k]
-    say(f"[timing] {k} W={w_c} per launch: cuda {ms[k]:.4f} ms (call "
-        f"{call_ms[k]:.4f}), plain "
-        f"{plain_ms[k]:.3f} ms, library "
-        f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
-        f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
-        f"{transpose_ms[k]:.4f} ms")
+  say('[timing] wrapper transposes per call: ' + ', '.join(
+      f'{k} {t:.4f} ms' for k, t in transpose_ms.items()))
   say(f"[timing] general step {1e3 * w_c / res['steps_per_sec']:.3f} ms")
 
   # ---- 6. the large-tree contact path
+  say(f'[phase 6] at {time.perf_counter() - T0:.1f} s')
   res, st, launches = main_path(
       mcl, CL_NSTEP, lambda n, trips: {
           'mass_chain': n, 'damped_solve': n, 'chol_batched': 2 * n + trips,
@@ -828,6 +885,7 @@ def main():
       'ms')
 
   # ---- 7-8. contacts through the solve kernel, pyramidal and elliptic
+  say(f'[phase 7-8] at {time.perf_counter() - T0:.1f} s')
   for key, model, nworld, kern in (
       ('solve_spheres', msp, w_sp, 'solve_kernel'),
       ('solve_elliptic', mse, w_se, 'solve_ell_kernel')):
@@ -921,6 +979,126 @@ def main():
         f"err {err[k36]:.3e}, worst relative {rel:.2e} (tol "
         f"{parity.K1_TOL})")
 
+  # ---- 9. dm_control on the fused step
+  say(f'[phase 9] at {time.perf_counter() - T0:.1f} s')
+  dmc = {name: io.load_model_npz(benchmarks.SCENES[name][0])
+         for name in io.DMC_NCONMAX}
+  suffix = {'walker': '_walker', 'cheetah': '_cheetah', 'hopper': '_hopper',
+            'humanoid_dmc': '_dmc'}
+
+  def fused_timing(sfx, model, a1, need, a4, niter):
+    """Times K1 (on a1 = model, qpos, qvel) and K4 (on a4) per launch
+    beside their plain versions and computes their bounds, under the keys
+    'k1' + sfx and 'k4' + sfx; ``niter`` is the plain K4's mean Newton
+    count."""
+    k1k, k4k = 'k1' + sfx, 'k4' + sfx
+    W = a1[1].shape[-1]
+    shapes[k1k], shapes[k4k] = kk1.kernel_info(model), kk4.kernel_info(model)
+    time_kernel(k1k, lambda: kk1.k1(*a1, need_qLD=need), 'k1_kernel')
+    time_kernel(k4k, lambda: kk4.k4(*a4), 'k4_kernel')
+    plain_ms[k1k] = time_ms(lambda: k1_ref.k1(*a1, need_qLD=need), 3)
+    plain_ms[k4k] = time_ms(lambda: k4_ref.k4(*a4), 3)
+    library_ms[k1k] = library_ms[k4k] = None
+    nv_, nq_, nb_, nc_ = model.nv, model.nq, model.nbody, model.ncand
+    nrow_ = kk4.con_rows(model) + len(k4_ref.eq_joint_tables(model)) + \
+        len(k4_ref.limit_tables(model))
+    bounds[k1k] = bound(
+        W * F32 * (nq_ + nv_ + nv_ * nv_ + nv_ + 6 * nv_ + 13 * nc_ +
+                   3 * nb_),
+        W * (mass_chain_flops(model, need) + 400 * nb_ + 100 * nc_))
+    bounds[k4k] = bound(
+        W * F32 * (nv_ * nv_ + 3 * nv_ + nq_ + 6 * nv_ +
+                   model.ncon * (33 + 2 * nv_) + nq_ + 3 * nv_ + 1),
+        W * (40 * model.ncon * nv_ + newton_flops(nrow_, nv_, niter)))
+    for k in (k1k, k4k):
+      say(f"[timing] {k} W={W} per launch: cuda {ms[k]:.4f} ms, plain "
+          f"{plain_ms[k]:.3f} ms, bound {bounds[k][0]:.4f} ms "
+          f"({bounds[k][1]}); " + json.dumps(shapes[k]))
+
+  for name, model in dmc.items():
+    res, st, launches = main_path(
+        model, DMC_NSTEP, lambda n, _: {'k1': n, 'k4': n}, w_h)
+    say(f'[main path] {name} (fused; nv {model.nv}, ncand {model.ncand}, '
+        f'{model.ncon} slots, nrow {kk4.nrow(model)}): step '
+        f"{1e3 * w_h / res['steps_per_sec']:.3f} ms")
+    sfx = suffix[name]
+    kernel_launches['k1' + sfx] = launches['k1']
+    kernel_launches['k4' + sfx] = launches['k4']
+    # K1 and K4 on the rollout's last state, at the main path's width
+    need = not k4_ref.has_rows(model)
+    _, a4, niter = compare(f'{name} rollout W={w_h}', st.qpos, st.qvel,
+                           st.ctrl, st.warmstart, 'contact', need, model,
+                           sfx)
+    if name in ('walker', 'cheetah'):
+      fused_timing(sfx, model, (model, st.qpos, st.qvel), need, a4, niter)
+
+  # hopper (the smallest tree) and humanoid_dmc (48 slots) also at the
+  # seeded contact state, each timed there
+  for name in ('hopper', 'humanoid_dmc'):
+    model, qpos, qvel, ctrl, ws = parity.k1_case(name, 'contact', NCMP, 7,
+                                                 dev)
+    need = not k4_ref.has_rows(model)
+    _, a4, niter = compare(f'{name} contact W={NCMP}', qpos, qvel, ctrl, ws,
+                           'contact', need, model, suffix[name])
+    fused_timing(suffix[name], model, (model, qpos, qvel), need, a4, niter)
+
+  # ---- 10. sensors on the general step
+  say(f'[phase 10] at {time.perf_counter() - T0:.1f} s')
+  general4 = ('mass_chain', 'chol_solve', 'solve', 'damped_solve')
+  for name, nstep in (('humanoid_dmc', DMC_GEN_NSTEP),
+                      ('hopper', HOP_GEN_NSTEP)):
+    # the general step on a dm_control scene: exact counts, sensordata
+    # finite; prints the live contacts and each sensor type's mean
+    model, sfx = dmc[name], suffix[name]
+    res, st, launches = main_path(
+        model, nstep, lambda n, _: {k: n for k in general4}, w_h,
+        general=True)
+    if osolver.trips:
+      fail(f'{name}: {osolver.trips} trips of the torch Newton')
+    sd = st.sensordata
+    if sd is None or tuple(sd.shape) != (w_h, model.nsensordata) or \
+        not bool(torch.isfinite(sd).all()):
+      fail(f'{name}: sensordata missing, misshapen or not finite')
+    means = {t: round(float(sd[:, torch.as_tensor(c, device=dev)].mean()),
+                      6)
+             for cols in parity.sensor_stages(model).values()
+             for t, c in cols.items()}
+    say(f'[main path] {name} (general): mean live contacts per world '
+        f'{float(st.ncon_active.float().mean()):.3f}; sensordata '
+        f'{model.nsensordata} floats finite in {w_h} worlds; mean by type '
+        + json.dumps(means) + f"; step {1e3 * w_h / res['steps_per_sec']:.3f}"
+        ' ms')
+    # the four kernels on the last state, at the main path's width
+    d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
+    args, niter = general_compare(f'{name} rollout W={w_h}', d, model, sfx,
+                                  'dmc')
+    for k in general4:
+      kernel_launches[k + sfx] = launches[k]
+    general_timing(args, niter, sfx)
+    shapes['mass_chain' + sfx] = kmass.kernel_info(model)
+    shapes['solve' + sfx] = ksolver.kernel_info(model)
+    # one step of the last state on the card and on the CPU (plain
+    # versions)
+    mcpu = io.load_model_npz(benchmarks.SCENES[name][0], device='cpu')
+    sub = {k: getattr(st, k)[:NSENSOR_CMP] for k in benchmarks.CARRY}
+    on_card = forward.step(model, types.Data(**sub))
+    on_cpu = forward.step(mcpu, types.Data(**{k: v.cpu() for k, v in
+                                              sub.items()}))
+    try:
+      rsen = parity.check_sensors(mcpu, on_card.sensordata.cpu(),
+                                  on_cpu.sensordata,
+                                  on_card.solver_niter.cpu(),
+                                  on_cpu.solver_niter)
+    except AssertionError as e:
+      fail(f'{name} sensordata, card against CPU: {e}')
+    say(f'[compare] {name} one step W={NSENSOR_CMP}, card against the '
+        f'CPU\'s plain versions: sensordata max abs err by stage '
+        + json.dumps(rsen['max_abs_err']) + f' (pos and vel within atol '
+        f'{parity.SENSOR_ATOL} + rtol {parity.SENSOR_RTOL}; acc within atol '
+        f'{parity.QACC_ATOL} + rtol {parity.QACC_RTOL} of world scale where '
+        f'Newton counts agree); niter equal in {rsen["niter_share"]:.4f}')
+
+  say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
       'k1': ('k1.cu', 'mujoco_warp_tpu/pallas/fused.py:986'),
@@ -942,6 +1120,11 @@ def main():
       'solve_elliptic': ('solve.cu',
                          'mujoco_warp_tpu/pallas/solver.py:1041'),
   }
+  for sfx in ('_walker', '_cheetah', '_hopper', '_dmc'):
+    replaces['k1' + sfx], replaces['k4' + sfx] = replaces['k1'], replaces['k4']
+  for sfx in ('_hopper', '_dmc'):
+    for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'):
+      replaces[k + sfx] = replaces[k]
   print(json.dumps({'kernels': [
       {'name': k, 'route': 'cuda', 'source': src + f, 'replaces': r,
        'launches': kernel_launches[k], 'max_abs_err': err[k], 'ms': ms[k],

@@ -1,12 +1,17 @@
-"""Humanoid batched-step throughput of the port on one CUDA device.
+"""Batched-step throughput of the port on one CUDA device.
 
 Twin of the repository's ``bench.py``: the same humanoid (loaded from the
 committed snapshot, so neither ``mujoco`` nor ``dm_control`` is needed),
-8192 worlds x 1000 steps by default (``BENCH_NWORLD``, ``BENCH_NSTEP``),
-one JSON line on stdout and the metrics on stderr; exit 1 when any world
-overflowed a contact buffer, since degraded physics is not a result::
+or another scene of ``benchmarks.SCENES`` (``BENCH_SCENE``: walker,
+cheetah, hopper, humanoid_dmc, constraints, ...), at the scene's
+registered width x 1000 steps by default (``BENCH_NWORLD``,
+``BENCH_NSTEP``), one JSON line on stdout (``vs_baseline`` against
+MJWarp's humanoid for the humanoid, null for the other scenes) and the
+metrics on stderr; exit 1 when any world overflowed a contact buffer,
+since degraded physics is not a result::
 
   python -m mujoco_warp_tpu_torch.bench
+  BENCH_SCENE=hopper python -m mujoco_warp_tpu_torch.bench
 """
 
 import json
@@ -16,16 +21,20 @@ import sys
 from mujoco_warp_tpu_torch import benchmarks, io
 
 # reference MJWarp humanoid, 8192 worlds, on an unspecified NVIDIA GPU
-# (MJWarp benchmarks/README.md)
-BASELINE_STEPS_PER_SEC = 2_729_192.0
+# (MJWarp benchmarks/README.md): the humanoid's yardstick only; the other
+# scenes have none, and print vs_baseline null
+BASELINE_STEPS_PER_SEC = {'humanoid': 2_729_192.0}
 
 
 def main():
-  nworld = int(os.environ.get('BENCH_NWORLD', 8192))
+  scene = os.environ.get('BENCH_SCENE', 'humanoid')
+  path, width = benchmarks.SCENES[scene]
+  nworld = int(os.environ.get('BENCH_NWORLD', width))
   nstep = int(os.environ.get('BENCH_NSTEP', 1000))
-  m = io.load_model_npz()
+  m = io.load_model_npz(path)
   metrics = benchmarks.run(m, nworld=nworld, nstep=nstep, device='cuda')
   metrics.pop('state')
+  base = BASELINE_STEPS_PER_SEC.get(scene)
   if metrics['overflow_worlds'] > 0:
     print(json.dumps({'error': 'contact overflow in '
                       f"{metrics['overflow_worlds']} worlds: steps_per_sec "
@@ -33,10 +42,11 @@ def main():
           file=sys.stderr)
     sys.exit(1)
   print(json.dumps({
-      'metric': 'humanoid_steps_per_sec',
+      'metric': f'{scene}_steps_per_sec',
       'value': metrics['steps_per_sec'],
       'unit': 'steps/s',
-      'vs_baseline': metrics['steps_per_sec'] / BASELINE_STEPS_PER_SEC,
+      'vs_baseline': (None if base is None else
+                      metrics['steps_per_sec'] / base),
   }))
   print(json.dumps(metrics), file=sys.stderr)
 

@@ -17,8 +17,10 @@ step, 8192 worlds), ``constraints`` (general step, 8192 worlds),
 chain and the torch Newton; the JAX registry runs it at 4096 worlds), and
 ``spheres`` (8192 worlds) and ``spheres_elliptic`` (4096 worlds): the
 general step with collision and its contacts, pyramidal and elliptic,
-through the solve kernel.  ``SCENES`` names each with its snapshot and
-registered width.
+through the solve kernel; dm_control's walker, cheetah, hopper and
+humanoid (``humanoid_dmc``) with their sensors, which the fused gate
+admits as the JAX gate does (8192 worlds each).  ``SCENES`` names each
+with its snapshot and registered width.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ SCENES = {
     'clutter_arm_nosleep': (io.CLUTTER_SNAPSHOT, 4096),
     'spheres': (io.SPHERES_SNAPSHOT, 8192),
     'spheres_elliptic': (io.SPHERES_ELLIPTIC_SNAPSHOT, 4096),
+    # dm_control scenes with their sensors, cameras and lights (fused
+    # step; humanoid_dmc's contacts compacted into {1: 16, 3: 32} slots)
+    **{name: (io.DMC_SNAPSHOTS[name], 8192) for name in io.DMC_NCONMAX},
 }
 
 
@@ -121,7 +126,8 @@ CARRY = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
 
 
 def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
-            sort_every: int = 4, replay: Optional[dict] = None):
+            sort_every: int = 4, replay: Optional[dict] = None,
+            general: bool = False):
   """The benchmark's rollout: sets the worlds up, then returns an endless
   generator of states, one per step: lane states (``fused.FusedState``)
   on the fused path, world-major ``types.Data`` on the general path.
@@ -131,10 +137,12 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
 
   ``replay``: {'ctrl': (T, nu) array, 'qpos': (nq,), 'qvel': (nv,)} —
   worlds start from the recorded state exactly and the OU noise runs
-  around the replayed ctrl.
+  around the replayed ctrl.  ``general``: the general step even for a
+  model inside the fused gate (it computes sensordata, the fused step
+  does not).
   """
   device = io.resolve_device(device)
-  use_fused = fused.supported(m)
+  use_fused = fused.supported(m) and not general
   if not use_fused:
     why = forward.unsupported(m)
     if why is not None:
@@ -191,12 +199,12 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
 
 def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
         warmup_steps: int = 10, device=None, sort_every: int = 4,
-        replay: Optional[dict] = None) -> dict:
+        replay: Optional[dict] = None, general: bool = False) -> dict:
   """Steps/s of the rollout (``rollout``) on ``device``.  Returns the
   metrics dict with the keys of ``mujoco_warp_tpu.benchmarks.run``, plus
   the last state under 'state'."""
   device = io.resolve_device(device)
-  steps_of = rollout(m, nworld, seed, device, sort_every, replay)
+  steps_of = rollout(m, nworld, seed, device, sort_every, replay, general)
   t0 = time.perf_counter()
   st = next(steps_of)
   _sync(device)

@@ -1,7 +1,8 @@
 """Where the card's time goes in the benchmark rollout.
 
   python -m mujoco_warp_tpu_torch.devprofile \
-      [--scene constraints|clutter_arm_nosleep|spheres|spheres_elliptic]
+      [--scene constraints|clutter_arm_nosleep|spheres|spheres_elliptic|
+               walker|cheetah|hopper|humanoid_dmc] [--general]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
 (the humanoid, by default, 8192 worlds x 300, then rests its feet on the
@@ -11,9 +12,11 @@ large-tree mass chain and the torch Newton, by then past its first
 contacts; ``spheres`` at 8192 and ``spheres_elliptic`` at 4096 worlds,
 150 steps, the general step with collision and contacts through the
 solve kernel, pyramidal and elliptic, by then with every body on the
-floor), traces a few more with ``torch.profiler`` (CPU and CUDA
+floor; the dm_control scenes at 8192 worlds x 200, fused, or with
+``--general`` on the general step with their sensors), traces a few more with ``torch.profiler`` (CPU and CUDA
 activities; 40 steps, 4 for the clutter scene, whose step launches tens
-of thousands of kernels, 10 for the spheres scenes) and prints one JSON
+of thousands of kernels, 10 for the spheres scenes and for the general
+step of a dm_control scene) and prints one JSON
 line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
@@ -55,7 +58,10 @@ _KERNELS = {'k1': 'k1_kernel', 'k4': 'k4_kernel',
 # are benchmarks.SCENES'
 WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            'clutter_arm_nosleep': (80, 4), 'spheres': (150, 10),
-           'spheres_elliptic': (150, 10)}
+           'spheres_elliptic': (150, 10),
+           **{k: (200, 40) for k in io.DMC_NCONMAX}}
+# the general step's window, for --general
+GENERAL_WINDOW = (200, 10)
 # other kernels listed by name
 TOP = 8
 
@@ -126,13 +132,13 @@ def summarize(events: list, nsteps: int) -> dict:
   }
 
 
-def profile(scene: str = 'humanoid') -> dict:
+def profile(scene: str = 'humanoid', general: bool = False) -> dict:
   if not torch.cuda.is_available():
     raise RuntimeError('devprofile needs a CUDA device')
   path, nworld = benchmarks.SCENES[scene]
-  skip, steps = WINDOWS[scene]
+  skip, steps = GENERAL_WINDOW if general else WINDOWS[scene]
   m = io.load_model_npz(path)
-  steps_of = benchmarks.rollout(m, nworld, device='cuda')
+  steps_of = benchmarks.rollout(m, nworld, device='cuda', general=general)
   for _ in range(skip):
     next(steps_of)
   torch.cuda.synchronize()
@@ -143,16 +149,20 @@ def profile(scene: str = 'humanoid') -> dict:
       for _ in range(steps):
         next(steps_of)
       torch.cuda.synchronize()
-  trace = os.path.join(build.BUILD_DIR, f'rollout_trace_{scene}.json')
+  name = scene + ('_general' if general else '')
+  trace = os.path.join(build.BUILD_DIR, f'rollout_trace_{name}.json')
   os.makedirs(os.path.dirname(trace), exist_ok=True)
   prof.export_chrome_trace(trace)
   with open(trace) as f:
     events = json.load(f)['traceEvents']
-  return {'scene': scene, 'nworld': nworld, 'skip': skip, 'trace': trace,
-          **summarize(events, steps)}
+  return {'scene': scene, 'general': general, 'nworld': nworld,
+          'skip': skip, 'trace': trace, **summarize(events, steps)}
 
 
 if __name__ == '__main__':
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--scene', choices=sorted(WINDOWS), default='humanoid')
-  print(json.dumps(profile(p.parse_args().scene)))
+  p.add_argument('--general', action='store_true',
+                 help='the general step, also for a fused-gate scene')
+  args = p.parse_args()
+  print(json.dumps(profile(args.scene, args.general)))

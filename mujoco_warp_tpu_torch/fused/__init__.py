@@ -1,11 +1,12 @@
-"""The fused lanes-last humanoid step: K1 -> glue -> K4.
+"""The fused lanes-last step: K1 -> glue -> K4.
 
 Counterpart of the host side of ``mujoco_warp_tpu/pallas/fused.py``:
 ``supported_features`` (:236), ``FusedState`` (:1565), ``to_lane``,
 ``from_lane``, ``sort_worlds`` (:1611), ``step_lane`` (:1630) and
 ``step`` (:1680).  K1 and K4 go through ``kernels.k1`` and ``kernels.k4``:
 the hand-written CUDA kernels for CUDA tensors, their plain versions for
-CPU tensors.  The glue stays torch ops.
+CPU tensors.  The glue stays torch ops.  The step evaluates no sensor:
+``step`` leaves ``sensordata`` as it found it, as the JAX ``step`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,29 @@ _COLLIDERS = {
     (_GT.SPHERE, _GT.SPHERE), (_GT.SPHERE, _GT.CAPSULE),
     (_GT.SPHERE, _GT.BOX), (_GT.CAPSULE, _GT.CAPSULE), (_GT.CAPSULE, _GT.BOX),
 }
+
+
+# the sensor types the JAX gate admits (fused.py:69-77).  The fused step
+# evaluates none of them and writes no sensordata, as the JAX rollout
+# (step_lane :1630, step :1680); the general step computes them
+_ST = types.SensorType
+SENSOR_TYPES = frozenset(int(t) for t in (
+    _ST.TOUCH, _ST.ACCELEROMETER, _ST.VELOCIMETER, _ST.GYRO, _ST.FORCE,
+    _ST.TORQUE, _ST.MAGNETOMETER, _ST.JOINTPOS, _ST.JOINTVEL, _ST.FRAMEPOS,
+    _ST.FRAMEQUAT, _ST.FRAMEXAXIS, _ST.FRAMEYAXIS, _ST.FRAMEZAXIS,
+    _ST.FRAMELINVEL, _ST.FRAMEANGVEL, _ST.FRAMELINACC, _ST.FRAMEANGACC,
+    _ST.SUBTREECOM, _ST.SUBTREELINVEL, _ST.SUBTREEANGMOM, _ST.CLOCK))
+
+
+def _sensors_ok(m: types.Model) -> bool:
+  """The JAX gate's sensor test (``fused.py:80``): every type in
+  ``SENSOR_TYPES`` and no camera operand."""
+  if not m.nsensor:
+    return True
+  if not set(int(t) for t in m.sensor_type) <= SENSOR_TYPES:
+    return False
+  ot = np.concatenate([m.sensor_objtype, m.sensor_reftype])
+  return not np.any(ot == int(types.ObjType.CAMERA))
 
 
 def reason(m: types.Model):
@@ -65,10 +89,8 @@ def reason(m: types.Model):
       for j in (int(m.eq_obj1id[eqid]), int(m.eq_obj2id[eqid])):
         if j >= 0 and int(m.jnt_type[j]) not in (_JT.HINGE, _JT.SLIDE):
           return 'joint equality on a multi-dof joint'
-  if m.nsensor:
-    # the JAX fused rollout evaluates some sensors in its glue; sensors
-    # belong to the general path here and are not ported yet
-    return 'sensors'
+  if not _sensors_ok(m):
+    return 'sensor type or camera operand'
   if m.nf:
     return 'friction loss'
   if not set(int(t) for t in m.jnt_type) <= {int(_JT.FREE), int(_JT.HINGE),

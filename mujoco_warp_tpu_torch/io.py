@@ -52,6 +52,14 @@ EQ_JOINT_XML = os.path.join(_ASSETS, 'eq_joint.xml')
 EQ_JOINT_SNAPSHOT = os.path.join(_ASSETS, 'eq_joint.npz')
 IMPLICITFAST_XML = os.path.join(_ASSETS, 'implicitfast.xml')
 IMPLICITFAST_SNAPSHOT = os.path.join(_ASSETS, 'implicitfast.npz')
+# dm_control's walker, cheetah, hopper and humanoid with their sensors,
+# cameras and lights: the registered benchmarks of those names (the
+# humanoid as humanoid_dmc), each with its contact budget (None: lossless
+# slots)
+DMC_NCONMAX = {'walker': None, 'cheetah': None, 'hopper': None,
+               'humanoid_dmc': {1: 16, 3: 32}}
+DMC_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                 for name in DMC_NCONMAX}
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
@@ -470,7 +478,8 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'nbody': mjm.nbody, 'njnt': mjm.njnt, 'ngeom': mjm.ngeom,
       'nsite': mjm.nsite, 'ncam': mjm.ncam, 'nlight': mjm.nlight,
       'nmocap': mjm.nmocap, 'neq': mjm.neq, 'ntendon': mjm.ntendon,
-      'nsensor': mjm.nsensor, 'nhistory': mjm.nhistory,
+      'nsensor': mjm.nsensor, 'nsensordata': mjm.nsensordata,
+      'nhistory': mjm.nhistory,
       'nflex': mjm.nflex, 'ne': ne, 'nf': nf, 'nl': nl, 'nefc': nefc,
       'ncon': ncon, 'ncand': ncand, 'con_classes': con_classes,
       'con_compact': con_compact,
@@ -478,6 +487,7 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'opt.timestep': o.timestep, 'opt.impratio': o.impratio,
       'opt.tolerance': max(float(o.tolerance), 1e-6),
       'opt.ls_tolerance': o.ls_tolerance, 'opt.gravity': o.gravity,
+      'opt.magnetic': o.magnetic,
       'opt.density': o.density, 'opt.viscosity': o.viscosity,
       'opt.integrator': int(o.integrator), 'opt.cone': int(o.cone),
       'opt.solver': int(o.solver), 'opt.iterations': int(o.iterations),
@@ -490,6 +500,7 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'con_pair': con_pair, 'pair_groups': groups,
       'cand_friction': friction, 'cand_solref': solref,
       'cand_solimp': solimp, 'cand_includemargin': imargin,
+      'cam_mat0': np.asarray(mjm.cam_mat0).reshape(-1, 3, 3),
   }
   for name in ('ancestor_mask', 'subtree_mask', 'body_dof_mask',
                'dof_subtree_mask', 'cdofdot_mask', 'body_levels'):
@@ -532,6 +543,7 @@ def make_data(m: types.Model, nworld: int, device=None) -> types.Data:
       act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
       xfrc_applied=z(m.nbody, 6), eq_active=eq0[None].repeat(nworld, 1),
       qacc_warmstart=z(m.nv), qacc=z(m.nv),
+      energy=z(2), sensordata=z(m.nsensordata),
       solver_niter=torch.zeros(nworld, dtype=torch.int32, device=dev),
       overflow=torch.zeros(nworld, dtype=torch.int32, device=dev))
 
@@ -628,6 +640,29 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
   return m
 
 
+def load_dmc(name: str):
+  """A dm_control suite scene of ``DMC_NCONMAX`` as a ``mujoco.MjModel``
+  with its sensors, cameras and lights, from the XML in the installed
+  ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
+  import importlib.util
+
+  import mujoco
+  suite = os.path.join(os.path.dirname(
+      importlib.util.find_spec('dm_control').origin), 'suite')
+  xml = 'humanoid' if name == 'humanoid_dmc' else name
+  return mujoco.MjModel.from_xml_path(os.path.join(suite, f'{xml}.xml'))
+
+
+def make_dmc_snapshot(name: str, path: Optional[str] = None) -> types.Model:
+  """The dm_control scene ``name`` at its contact budget, written to
+  ``path`` (by default its committed snapshot)."""
+  path = DMC_SNAPSHOTS[name] if path is None else path
+  m = put_model(load_dmc(name), nconmax=DMC_NCONMAX[name], device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
 def make_xml_snapshot(xml: str, path: str) -> types.Model:
   """The scene of the MJCF file ``xml`` (default contact slots), written
   to ``path``."""
@@ -644,7 +679,9 @@ def main(argv: Optional[list] = None):
                  help='regenerate assets/humanoid_bench.npz, '
                  'assets/constraints.npz, assets/clutter_arm_nosleep.npz, '
                  'assets/spheres.npz, assets/spheres_elliptic.npz, '
-                 'assets/eq_joint.npz and assets/implicitfast.npz')
+                 'assets/eq_joint.npz, assets/implicitfast.npz and the '
+                 'dm_control scenes assets/walker.npz, cheetah.npz, '
+                 'hopper.npz and humanoid_dmc.npz')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
@@ -658,7 +695,9 @@ def main(argv: Optional[list] = None):
                      (EQ_JOINT_SNAPSHOT,
                       lambda p: make_xml_snapshot(EQ_JOINT_XML, p)),
                      (IMPLICITFAST_SNAPSHOT,
-                      lambda p: make_xml_snapshot(IMPLICITFAST_XML, p))):
+                      lambda p: make_xml_snapshot(IMPLICITFAST_XML, p))) + \
+      tuple((DMC_SNAPSHOTS[name], lambda p, n=name: make_dmc_snapshot(n, p))
+            for name in DMC_NCONMAX):
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')

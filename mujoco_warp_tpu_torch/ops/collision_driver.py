@@ -2,12 +2,14 @@
 world-major.
 
 Counterpart of ``mujoco_warp_tpu/ops/collision_driver.py``:
-``group_ncon`` (:317), ``_narrowphase_candidates`` (:516) and the branch
-of ``collision`` without contact compaction (:559-599).  Every candidate
-pair runs its collider every step; a slot is live iff its dist is below
-the pair's includemargin.  The compacted branch (:601-640) and the
-broadphase-pruned one (:650) belong to later slices
-(``ops/forward.py`` ``unsupported`` refuses ``con_compact``).
+``group_ncon`` (:317), ``_pack_nearest`` (:417),
+``_narrowphase_candidates`` (:516) and ``collision`` (:545), without and
+with contact compaction (:559-640).  Every candidate pair runs its
+collider every step; a candidate is live iff its dist is below the pair's
+includemargin.  Under compaction each condim class keeps its ``cap``
+deepest live candidates in its slots.  The broadphase-pruned branch
+(``_collision_pruned`` :650, ``bp_groups``) belongs to a later slice; the
+port's models have no pruned group.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.ops import collision_convex, collision_primitive, \
     math
 from mujoco_warp_tpu_torch.ops.util import ix
+
+# the dist of an empty compacted slot (collision_driver.py _BIG)
+BIG = 1e10
 
 
 def group_ncon(t1, t2) -> int:
@@ -63,9 +68,9 @@ def collision(m: types.Model, d: types.Data) -> types.Data:
   count of live slots per world (``collision_driver.py:545``)."""
   if m.ncon == 0 or (m.opt.disableflags & types.DisableBit.CONTACT):
     return d
-  if m.con_compact:
-    raise NotImplementedError('contact compaction on the general step')
   dist, pos, frame = _narrowphase_candidates(m, d)
+  if m.con_compact:
+    return _compact(m, d, dist, pos, frame)
   W, dev = dist.shape[0], dist.device
   per_world = lambda x: x[None].expand((W,) + tuple(x.shape))
   im = m.cand_includemargin
@@ -81,3 +86,48 @@ def collision(m: types.Model, d: types.Data) -> types.Data:
       cand=per_world(ix(np.arange(m.ncon), dev).int()))
   ncon_active = torch.sum((dist < im).int(), dim=1, dtype=torch.int32)
   return d.replace(contact=contact, ncon_active=ncon_active)
+
+
+def _compact(m: types.Model, d: types.Data, dist, pos, frame):
+  """Per condim class, the ``cap`` live candidates of smallest dist in
+  the class's slots, deepest first (``collision_driver.py:601-640``,
+  ``torch.topk`` for ``lax.top_k``).  An empty slot has dist 1e10,
+  includemargin 0 and cand -1; geom1/geom2 and the mixed parameters follow
+  the selected candidate.  The CONTACT overflow bit marks a world where
+  a class had more live candidates than slots."""
+  W, dev = dist.shape[0], dist.device
+  im = m.cand_includemargin
+  sels, valids = [], []
+  ncon_active = torch.zeros(W, dtype=torch.int32, device=dev)
+  over = torch.zeros(W, dtype=torch.bool, device=dev)
+  for _, cap, ci, _ in m.con_classes:
+    ci_t = ix(ci, dev)
+    dc = dist[:, ci_t]
+    act = dc < im[ci_t]
+    key = torch.where(act, dc, torch.full((), BIG, dtype=dc.dtype,
+                                           device=dev))
+    order = torch.topk(-key, cap, dim=1, sorted=True).indices
+    sels.append(ci_t[order])
+    valids.append(torch.gather(act, 1, order))
+    nact = act.sum(1, dtype=torch.int32)
+    ncon_active = ncon_active + torch.clamp(nact, max=cap)
+    over = over | (nact > cap)
+  sel = torch.cat(sels, 1)  # (W, ncon) candidate ids
+  valid = torch.cat(valids, 1)
+  w = torch.arange(W, device=dev)[:, None]
+  cp = ix(m.con_pair, dev)[sel]
+  contact = types.Contact(
+      dist=torch.where(valid, dist[w, sel],
+                       torch.full((), BIG, dtype=dist.dtype, device=dev)),
+      pos=pos[w, sel], frame=frame[w, sel],
+      includemargin=im[sel] * valid.to(dist.dtype),
+      friction=m.cand_friction[sel], solref=m.cand_solref[sel],
+      solreffriction=torch.zeros_like(m.cand_solref)[sel],
+      solimp=m.cand_solimp[sel],
+      geom1=ix(m.pair_geom1, dev)[cp].int(),
+      geom2=ix(m.pair_geom2, dev)[cp].int(),
+      cand=torch.where(valid, sel, -1).int())
+  overflow = d.overflow | torch.where(
+      over, int(types.OverflowType.CONTACT), 0).to(torch.int32)
+  return d.replace(contact=contact, ncon_active=ncon_active,
+                   overflow=overflow)

@@ -6,10 +6,12 @@ Counterpart of ``mujoco_warp_tpu/ops/constraint.py``: ``_kbi`` (:32),
 ``_jac_dot`` (:118), the row writer (:142-206), ``_equality_connect``
 (:208), ``_equality_weld`` (:262), ``_equality_joint`` (:383),
 ``_friction`` (:594), ``_limit`` (:619), ``_contact`` (:777, frictionless,
-pyramidal and elliptic rows) and ``make_constraint`` (:919).  Every
-potential row exists every step; inactive rows are zeroed.  The Jacobian
-is dense (W, nefc, nv).  Compact contact rows and tendon and flex rows are
-not ported yet.
+pyramidal and elliptic rows; under contact compaction each world's
+slots take their bodies from its own ``contact.geom1/geom2``) and
+``make_constraint`` (:919).  Every potential row exists every step;
+inactive rows are zeroed.  The Jacobian is dense (W, nefc, nv).  The
+chain form of the contact rows (``_contact_compact`` :703, for
+``efc_compact`` models) and tendon and flex rows are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.ops import math
+from mujoco_warp_tpu_torch.ops import math, smooth
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
 _JT = types.JointType
@@ -364,7 +366,8 @@ def _limit(m, d, rows):
 
 
 def _contact(m, d, rows):
-  """Contact rows over the static slots (``constraint.py:777``): the
+  """Contact rows over the contact slots (``constraint.py:777``), each
+  slot's bodies from its world's ``contact.geom1/geom2``: the
   frame-projected Jacobian of the two bodies without the (k, nv, 3) point
   Jacobians; frictionless rows n, pyramidal rows n +- mu_i d_i (condim 3,
   4 and 6: 4, 6 and 10 rows), elliptic rows [n, t1, t2, r1, r2, r3][:dim]
@@ -375,26 +378,28 @@ def _contact(m, d, rows):
   impratio_inv = 1.0 / torch.clamp(m.opt.impratio, min=MJ_MINVAL)
   ang, lin = d.cdof[..., :3], d.cdof[..., 3:]  # (W, nv, 3)
   dims = np.asarray(m.con_dim)
-  cand_geom1 = m.pair_geom1[m.con_pair]
-  cand_geom2 = m.pair_geom2[m.con_pair]
+  # each world's slots hold its own geom pairs (under compaction)
+  cb1, cb2 = smooth.contact_bodies(m, d)
+  wid = torch.arange(W, device=dev)[:, None]
+  bdm = fmask(m.tree.body_dof_mask, d.qpos)
+  roots = ix(m.body_rootid, dev)
+  iw0 = m.body_invweight0[:, 0]
   for dim in np.unique(dims):
     dim = int(dim)
     idx = np.nonzero(dims == dim)[0]
     k, ti = len(idx), ix(idx, dev)
-    body1 = m.geom_bodyid[cand_geom1[idx]]
-    body2 = m.geom_bodyid[cand_geom2[idx]]
+    body1, body2 = cb1[:, ti], cb2[:, ti]  # (W, k)
     pos, frame = con.pos[:, ti], con.frame[:, ti]  # (W, k, 3), (W, k, 3, 3)
     dist, margin = con.dist[:, ti], con.includemargin[:, ti]
     cpos = dist - margin
     active = dist < margin
-    invweight = (m.body_invweight0[ix(body1, dev), 0] +
-                 m.body_invweight0[ix(body2, dev), 0])
+    invweight = iw0[body1] + iw0[body2]
     Fl = torch.einsum('wkij,wvj->wkiv', frame, lin)
     Fa = torch.einsum('wkij,wvj->wkiv', frame, ang)
 
     def proj(body):
-      mask = fmask(m.tree.body_dof_mask[body], d.qpos)[None, :, None, :]
-      off = pos - d.subtree_com[:, ix(m.body_rootid[body], dev)]
+      mask = bdm[body][:, :, None, :]
+      off = pos - d.subtree_com[wid, roots[body]]
       w = math.cross(off[:, :, None, :], frame)  # off x each frame row
       return ((Fl + torch.einsum('wkij,wvj->wkiv', w, ang)) * mask,
               Fa * mask)
@@ -409,7 +414,7 @@ def _contact(m, d, rows):
     if dim == 1:
       nrow = 1
       Jrows = Jp[:, :, :1]
-      iw = invweight[:, None]
+      iw = invweight[..., None]
     elif is_elliptic:
       nrow = dim
       parts = [Jp[:, :, 0], Jp[:, :, 1], Jp[:, :, 2], Jr[:, :, 0],

@@ -4,12 +4,14 @@ Counterpart of ``mujoco_warp_tpu/ops/forward.py``: ``fwd_actuation``
 (:333), ``fwd_smooth_force`` (:479), ``_next_position`` (:497),
 ``_advance`` (:523), ``euler`` (:540), ``_step_batched`` (:696) and
 ``step`` (:649) for batched Data.  The stage order of ``_step_batched`` is
-kept: the position stages (``pre``), the mass chain (kernel; a large
-tree's factor from the ``chol_batched`` kernel), collision, the
-constraint rows, passive and actuator forces (``mid``), qacc_smooth
-(Cholesky-solve kernel), the Newton solve (the solve kernel, or for a
-large system the torch Newton of ``ops/solver.py`` around the
-``chol_batched`` and ``chol_solve`` kernels), the damped Euler solve
+kept: the position stages with the camera, light and site frames
+(``pre``), the mass chain (kernel; a large tree's factor from the
+``chol_batched`` kernel), collision (with contact compaction), the
+constraint rows, the position sensors, passive forces, the velocity
+sensors and actuator forces (``mid``), qacc_smooth (Cholesky-solve
+kernel), the Newton solve (the solve kernel, or for a large system the
+torch Newton of ``ops/solver.py`` around the ``chol_batched`` and
+``chol_solve`` kernels), the acceleration sensors, the damped Euler solve
 (kernel) and ``_advance``.  On CUDA tensors the kernels launch; on CPU
 tensors their plain versions run.
 
@@ -31,7 +33,7 @@ from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
 from mujoco_warp_tpu_torch.ops import collision_driver, constraint, math, \
-    passive, smooth, support
+    passive, sensor, smooth, support
 from mujoco_warp_tpu_torch.ops import solver as osolver
 from mujoco_warp_tpu_torch.ops.util import bmask, ix
 
@@ -55,15 +57,15 @@ def large_system(m: types.Model) -> bool:
 def unsupported(m: types.Model):
   """Why the general step cannot run ``m`` yet, or None."""
   o = m.opt
-  if m.ncand and o.run_collision_detection:
-    if m.con_compact:
-      return f'contact compaction (ncand {m.ncand}, ncon {m.ncon})'
-  for n, what in ((m.ntendon, 'tendons'), (m.nsensor, 'sensors'),
-                  (m.nflex, 'flex'), (m.nmocap, 'mocap'),
-                  (m.na, 'actuator activation'), (m.nhistory, 'history'),
-                  (m.ncam + m.nlight, 'cameras and lights')):
+  for n, what in ((m.ntendon, 'tendons'), (m.nflex, 'flex'),
+                  (m.nmocap, 'mocap'), (m.na, 'actuator activation'),
+                  (m.nhistory, 'history')):
     if n:
       return what
+  later = sensor.deferred(m)
+  if later:
+    return 'sensor types ' + ', '.join(f'{t} (waits for {why})'
+                                      for t, why in later)
   if o.enableflags & types.EnableBit.SLEEP:
     return 'sleep'
   if o.solver != types.SolverType.NEWTON:
@@ -216,7 +218,8 @@ def stage(name: str):
 
 def mid(m: types.Model, d: types.Data) -> types.Data:
   """The stages after the mass chain: collision, constraint rows,
-  transmission, passive and actuator forces, qfrc_smooth
+  transmission, the position sensors and energy, passive forces, the
+  velocity sensors and energy, actuator forces, qfrc_smooth
   (``_step_batched`` mid)."""
   if m.opt.run_collision_detection:
     with stage('collision'):
@@ -225,10 +228,16 @@ def mid(m: types.Model, d: types.Data) -> types.Data:
     d = constraint.make_constraint(m, d)
   with stage('forces'):
     d = smooth.transmission(m, d)
+  with stage('sensors'):
+    d = sensor.energy_pos(m, sensor.sensor_pos(m, d))
+  with stage('forces'):
     if m.nu:
       d = d.replace(actuator_velocity=torch.einsum(
           'wuv,wv->wu', d.actuator_moment, d.qvel))
     d = passive.passive(m, d)
+  with stage('sensors'):
+    d = sensor.energy_vel(m, sensor.sensor_vel(m, d))
+  with stage('forces'):
     d = fwd_actuation(m, d)
     return fwd_smooth_force(m, d)
 
@@ -248,6 +257,9 @@ def _step_batched(m: types.Model, d: types.Data) -> types.Data:
                                                          d.qfrc_smooth))
   with stage('solve'):
     d = solve(m, d)
+  # the accelerometer reads the undamped qacc
+  with stage('sensors'):
+    d = sensor.sensor_acc(m, d)
   with stage('euler'):
     return euler(m, d)
 

@@ -1,8 +1,11 @@
 """Smooth dynamics stages of the general step, world-major.
 
-Counterpart of ``mujoco_warp_tpu/ops/smooth.py``: ``kinematics`` (:36),
-``com_pos`` (:131), ``camlight`` (:189), ``transmission`` (:857) and
-``factor_m`` / ``solve_m`` / ``mul_m`` (:301-330).  The mass chain (crb,
+Counterpart of ``mujoco_warp_tpu/ops/smooth.py``: ``kinematics`` (:36,
+site frames included), ``com_pos`` (:131), ``camlight`` (:189, all five
+camera and light modes), ``rne_postconstraint`` (:406) with
+``_contact_forces_local`` / ``_contact_forces`` (:466, :507),
+``transmission`` (:857) and ``factor_m`` / ``solve_m`` / ``mul_m``
+(:301-330).  The mass chain (crb,
 qM, its factor, com_vel and RNE) runs as one kernel
 (``kernels/mass_chain.py``).  ``factor_m`` and ``solve_m`` use the plain
 lane Cholesky of the kernels (``fused/solver_ref.py``), which floors the
@@ -17,7 +20,7 @@ import torch
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused import solver_ref
 from mujoco_warp_tpu_torch.ops import math
-from mujoco_warp_tpu_torch.ops.util import fmask, ix
+from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
 _JT = types.JointType
 
@@ -93,9 +96,15 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
   gb = ix(m.geom_bodyid[:m.ngeom], dev)
   geom_xpos = xpos[:, gb] + math.rot_vec_quat(m.geom_pos, xquat[:, gb])
   geom_xmat = math.quat_to_mat(math.mul_quat(xquat[:, gb], m.geom_quat))
+  site_xpos, site_xmat = d.site_xpos, d.site_xmat
+  if m.nsite:
+    sb = ix(m.site_bodyid, dev)
+    site_xpos = xpos[:, sb] + math.rot_vec_quat(m.site_pos, xquat[:, sb])
+    site_xmat = math.quat_to_mat(math.mul_quat(xquat[:, sb], m.site_quat))
   return d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
                    ximat=ximat, xanchor=xanchor, xaxis=xaxis,
-                   geom_xpos=geom_xpos, geom_xmat=geom_xmat)
+                   geom_xpos=geom_xpos, geom_xmat=geom_xmat,
+                   site_xpos=site_xpos, site_xmat=site_xmat)
 
 
 def com_pos(m: types.Model, d: types.Data) -> types.Data:
@@ -146,11 +155,160 @@ def com_pos(m: types.Model, d: types.Data) -> types.Data:
   return d.replace(subtree_com=subtree_com, cinert=cinert, cdof=cdof)
 
 
+def _camlight_frames(d, mode, bodyid, targetid, pos, rot, poscom0, pos0,
+                     rot0, is_cam):
+  """World frames of a camera (``rot`` a quaternion, ``rot0`` its mat0)
+  or light (``rot`` its dir, ``rot0`` its dir0) batch in the five modes:
+  0 fixed to the body, 1 track (world orientation, offset from the body),
+  2 trackcom (offset from the subtree CoM), 3 targetbody and 4
+  targetbodycom (aimed at a body or its subtree CoM)."""
+  dev = d.qpos.device
+  b = ix(bodyid, dev)
+  xquat = d.xquat[:, b]
+  xpos = d.xpos[:, b] + math.rot_vec_quat(pos, xquat)
+  if is_cam:
+    xrot = math.quat_to_mat(math.mul_quat(xquat, rot))
+  else:
+    xrot = math.rot_vec_quat(rot, xquat)
+  track, trackcom = mode == 1, mode == 2
+  if np.any(track | trackcom):
+    tp = d.xpos[:, b] + pos0
+    tc = d.subtree_com[:, b] + poscom0
+    xpos = torch.where(bmask(track, dev)[:, None], tp,
+                       torch.where(bmask(trackcom, dev)[:, None], tc, xpos))
+    sel = bmask(track | trackcom, dev)
+    xrot = torch.where(sel[:, None, None] if is_cam else sel[:, None], rot0,
+                       xrot)
+  target = (mode == 3) | (mode == 4)
+  if np.any(target):
+    tid = ix(np.maximum(targetid, 0), dev)
+    tpos = torch.where(bmask(mode == 4, dev)[:, None], d.subtree_com[:, tid],
+                       d.xpos[:, tid])
+    sel = bmask(target, dev)
+    if is_cam:  # -z toward the target, x level with the world's z
+      z = xpos - tpos
+      z = z / torch.clamp(math.norm(z, keepdim=True), min=1e-12)
+      x = math.cross(fmask([0.0, 0.0, 1.0], z).expand(z.shape), z)
+      xn = math.norm(x, keepdim=True)
+      x = torch.where(xn > 1e-9, x / torch.clamp(xn, min=1e-12),
+                      fmask([1.0, 0.0, 0.0], z).expand(z.shape))
+      tmat = torch.stack([x, math.cross(z, x), z], dim=-1)
+      xrot = torch.where(sel[:, None, None], tmat, xrot)
+    else:
+      dirv = tpos - xpos
+      dirv = dirv / torch.clamp(math.norm(dirv, keepdim=True), min=1e-12)
+      xrot = torch.where(sel[:, None], dirv, xrot)
+  return xpos, xrot
+
+
 def camlight(m: types.Model, d: types.Data) -> types.Data:
-  """Camera and light frames (``smooth.py:189``): none in this slice."""
-  if m.ncam or m.nlight:
-    raise NotImplementedError('cameras and lights are not ported yet')
-  return d
+  """Camera and light frames (``smooth.py:189``)."""
+  out = {}
+  if m.ncam:
+    out['cam_xpos'], out['cam_xmat'] = _camlight_frames(
+        d, m.cam_mode, m.cam_bodyid, m.cam_targetbodyid, m.cam_pos,
+        m.cam_quat, m.cam_poscom0, m.cam_pos0, m.cam_mat0, True)
+  if m.nlight:
+    out['light_xpos'], out['light_xdir'] = _camlight_frames(
+        d, m.light_mode, m.light_bodyid, m.light_targetbodyid, m.light_pos,
+        m.light_dir, m.light_poscom0, m.light_pos0, m.light_dir0, False)
+  return d.replace(**out) if out else d
+
+
+def _per_world(x, idx):
+  """x (W, n, ...) gathered at per-world indices idx (W, k)."""
+  w = torch.arange(x.shape[0], device=x.device)[:, None]
+  return x[w, idx]
+
+
+def contact_bodies(m: types.Model, d: types.Data):
+  """The bodies of each contact slot's two geoms, (W, ncon) each: per
+  world under compaction, the candidate table's otherwise."""
+  gb = ix(m.geom_bodyid, d.qpos.device)
+  con = d.contact
+  return gb[con.geom1.long()], gb[con.geom2.long()]
+
+
+def contact_forces_local(m: types.Model, d: types.Data) -> torch.Tensor:
+  """Contact-frame wrenches [fn, ft1, ft2, tn, tt1, tt2] per slot, (W,
+  ncon, 6) (``smooth.py:466``): from the efc_force rows at each slot's
+  ``con_efc_address``; pyramidal forces summed into the normal and
+  mu_i (f+ - f-) along each direction."""
+  con, f = d.contact, d.efc_force
+  W, dev = f.shape[0], f.device
+  out = torch.zeros((W, m.ncon, 6), dtype=f.dtype, device=dev)
+  is_elliptic = m.opt.cone == types.ConeType.ELLIPTIC
+  dims = np.asarray(m.con_dim)
+  for dim in np.unique(dims):
+    dim = int(dim)
+    idx = np.nonzero(dims == dim)[0]
+    adr = m.con_efc_address[idx]
+    nrow = 1 if dim == 1 else dim if is_elliptic else 2 * (dim - 1)
+    rows = f[:, ix(adr[:, None] + np.arange(nrow), dev)]  # (W, k, nrow)
+    ti = ix(idx, dev)
+    if dim == 1 or is_elliptic:
+      out[:, ti, :nrow] = rows
+    else:
+      fric = con.friction[:, ti]
+      comps = [rows.sum(-1)] + [fric[..., i] * (rows[..., 2 * i] -
+                                                rows[..., 2 * i + 1])
+                                for i in range(dim - 1)]
+      out[:, ti, :dim] = torch.stack(comps, -1)
+  return out
+
+
+def contact_forces(m: types.Model, d: types.Data) -> torch.Tensor:
+  """World-frame contact wrenches (torque, force) at each contact point,
+  (W, ncon, 6) (``smooth.py:507``)."""
+  local = contact_forces_local(m, d)
+  frame = d.contact.frame  # rows: normal, t1, t2
+  f_w = torch.einsum('wnij,wni->wnj', frame, local[..., :3])
+  t_w = torch.einsum('wnij,wni->wnj', frame, local[..., 3:])
+  return torch.cat([t_w, f_w], -1)
+
+
+def rne_postconstraint(m: types.Model, d: types.Data) -> types.Data:
+  """cacc, cfrc_ext and cfrc_int after the solve (``smooth.py:406``):
+  applied wrenches plus contact forces (as the JAX package, without the
+  connect and weld reactions), the com-frame accelerations from qacc, and
+  each subtree's net force, over the static tree masks."""
+  dev, dt = d.qpos.device, d.qpos.dtype
+  W, nb = d.qpos.shape[0], m.nbody
+  root = ix(m.body_rootid, dev)
+  force, torque = d.xfrc_applied[..., :3], d.xfrc_applied[..., 3:]
+  offset = d.xipos - d.subtree_com[:, root]
+  cfrc_ext = torch.cat([torque + math.cross(offset, force), force], -1)
+  if m.ncon and d.contact is not None and \
+      not (m.opt.disableflags & types.DisableBit.CONTACT):
+    con = d.contact
+    forces = contact_forces(m, d)
+    b1, b2 = contact_bodies(m, d)
+    active = (con.dist < con.includemargin)[..., None]
+    # the wrench acts on body2 (J = jac2 - jac1) and against body1, each
+    # translated to its com-rooted frame
+    for bodies, sign in ((b2, 1.0), (b1, -1.0)):
+      off = con.pos - _per_world(d.subtree_com, root[bodies])
+      ang = forces[..., :3] + math.cross(off, forces[..., 3:])
+      w = sign * torch.where(active, torch.cat([ang, forces[..., 3:]], -1),
+                             torch.zeros((), dtype=dt, device=dev))
+      cfrc_ext = cfrc_ext + torch.zeros((W, nb, 6), dtype=dt,
+                                        device=dev).scatter_add_(
+          1, bodies[..., None].expand(W, m.ncon, 6), w)
+  g = torch.zeros(6, dtype=dt, device=dev)
+  if not (m.opt.disableflags & types.DisableBit.GRAVITY):
+    g = torch.cat([g[:3], -m.opt.gravity.to(dt)])
+  bd = fmask(m.tree.body_dof_mask, d.qpos)  # (nbody, nv)
+  cacc = g + torch.einsum('bv,wvi->wbi', bd,
+                          d.cdof_dot * d.qvel[..., None] +
+                          d.cdof * d.qacc[..., None])
+  cacc[:, 0] = 0.0
+  iv = torch.einsum('wbij,wbj->wbi', d.cinert, d.cvel)
+  ia = torch.einsum('wbij,wbj->wbi', d.cinert, cacc)
+  cfrc_body = ia + math.motion_cross_force(d.cvel, iv)
+  sub = fmask(m.tree.subtree_mask, d.qpos)
+  cfrc_int = torch.einsum('sb,wbi->wsi', sub, cfrc_body - cfrc_ext)
+  cfrc_int[:, 0] = 0.0
+  return d.replace(cacc=cacc, cfrc_int=cfrc_int, cfrc_ext=cfrc_ext)
 
 
 def transmission(m: types.Model, d: types.Data) -> types.Data:

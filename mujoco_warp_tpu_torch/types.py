@@ -147,6 +147,66 @@ class ConstraintType(enum.IntEnum):
   CONTACT_ELLIPTIC = 7
 
 
+class ObjType(enum.IntEnum):
+  UNKNOWN = 0
+  BODY = 1
+  XBODY = 2
+  JOINT = 3
+  GEOM = 5
+  SITE = 6
+  CAMERA = 7
+
+
+class SensorType(enum.IntEnum):
+  TOUCH = 0
+  ACCELEROMETER = 1
+  VELOCIMETER = 2
+  GYRO = 3
+  FORCE = 4
+  TORQUE = 5
+  MAGNETOMETER = 6
+  RANGEFINDER = 7
+  CAMPROJECTION = 8
+  JOINTPOS = 9
+  JOINTVEL = 10
+  TENDONPOS = 11
+  TENDONVEL = 12
+  ACTUATORPOS = 13
+  ACTUATORVEL = 14
+  ACTUATORFRC = 15
+  JOINTACTFRC = 16
+  TENDONACTFRC = 17
+  BALLQUAT = 18
+  BALLANGVEL = 19
+  JOINTLIMITPOS = 20
+  JOINTLIMITVEL = 21
+  JOINTLIMITFRC = 22
+  TENDONLIMITPOS = 23
+  TENDONLIMITVEL = 24
+  TENDONLIMITFRC = 25
+  FRAMEPOS = 26
+  FRAMEQUAT = 27
+  FRAMEXAXIS = 28
+  FRAMEYAXIS = 29
+  FRAMEZAXIS = 30
+  FRAMELINVEL = 31
+  FRAMEANGVEL = 32
+  FRAMELINACC = 33
+  FRAMEANGACC = 34
+  SUBTREECOM = 35
+  SUBTREELINVEL = 36
+  SUBTREEANGMOM = 37
+  INSIDESITE = 38
+  GEOMDIST = 39
+  GEOMNORMAL = 40
+  GEOMFROMTO = 41
+  CONTACT = 42
+  E_POTENTIAL = 43
+  E_KINETIC = 44
+  CLOCK = 45
+  TACTILE = 46
+
+
 class OverflowType(enum.IntFlag):
   """Per-world overflow bits: a fixed-capacity buffer saturated."""
 
@@ -198,6 +258,7 @@ class Option(_Replace):
   tolerance: torch.Tensor = array()
   ls_tolerance: torch.Tensor = array()
   gravity: torch.Tensor = array()
+  magnetic: torch.Tensor = array()
   density: torch.Tensor = array()
   viscosity: torch.Tensor = array()
   integrator: int = scalar(int(IntegratorType.EULER))
@@ -271,6 +332,7 @@ class Model(_Replace):
   neq: int = scalar()
   ntendon: int = scalar()
   nsensor: int = scalar()
+  nsensordata: int = scalar()
   nhistory: int = scalar()
   nflex: int = scalar()
   ne: int = scalar()
@@ -337,6 +399,45 @@ class Model(_Replace):
   geom_pos: torch.Tensor = array()
   geom_quat: torch.Tensor = array()
   geom_margin: torch.Tensor = array()
+
+  site_bodyid: np.ndarray = static()
+  site_type: np.ndarray = static()
+  site_pos: torch.Tensor = array()
+  site_quat: torch.Tensor = array()
+  site_size: torch.Tensor = array()
+
+  # cameras and lights (mjtCamLight modes: 0 fixed, 1 track, 2 trackcom,
+  # 3 targetbody, 4 targetbodycom)
+  cam_mode: np.ndarray = static()
+  cam_bodyid: np.ndarray = static()
+  cam_targetbodyid: np.ndarray = static()
+  cam_resolution: np.ndarray = static()
+  cam_pos: torch.Tensor = array()
+  cam_quat: torch.Tensor = array()
+  cam_poscom0: torch.Tensor = array()
+  cam_pos0: torch.Tensor = array()
+  cam_mat0: torch.Tensor = array()  # (ncam, 3, 3)
+  cam_fovy: torch.Tensor = array()
+  cam_intrinsic: torch.Tensor = array()
+  cam_sensorsize: torch.Tensor = array()
+  light_mode: np.ndarray = static()
+  light_bodyid: np.ndarray = static()
+  light_targetbodyid: np.ndarray = static()
+  light_pos: torch.Tensor = array()
+  light_dir: torch.Tensor = array()
+  light_poscom0: torch.Tensor = array()
+  light_pos0: torch.Tensor = array()
+  light_dir0: torch.Tensor = array()
+
+  sensor_type: np.ndarray = static()
+  sensor_datatype: np.ndarray = static()
+  sensor_objtype: np.ndarray = static()
+  sensor_objid: np.ndarray = static()
+  sensor_reftype: np.ndarray = static()
+  sensor_refid: np.ndarray = static()
+  sensor_dim: np.ndarray = static()
+  sensor_adr: np.ndarray = static()
+  sensor_cutoff: torch.Tensor = array()
 
   eq_type: np.ndarray = static()
   eq_objtype: np.ndarray = static()
@@ -420,6 +521,12 @@ class Data:
   xaxis: torch.Tensor = None  # (W, njnt, 3)
   geom_xpos: torch.Tensor = None  # (W, ngeom, 3)
   geom_xmat: torch.Tensor = None  # (W, ngeom, 3, 3)
+  site_xpos: torch.Tensor = None  # (W, nsite, 3)
+  site_xmat: torch.Tensor = None  # (W, nsite, 3, 3)
+  cam_xpos: torch.Tensor = None  # (W, ncam, 3)
+  cam_xmat: torch.Tensor = None  # (W, ncam, 3, 3)
+  light_xpos: torch.Tensor = None  # (W, nlight, 3)
+  light_xdir: torch.Tensor = None  # (W, nlight, 3)
   subtree_com: torch.Tensor = None  # (W, nbody, 3)
   cinert: torch.Tensor = None  # (W, nbody, 6, 6)
   cdof: torch.Tensor = None  # (W, nv, 6)
@@ -437,6 +544,8 @@ class Data:
   qfrc_gravcomp: torch.Tensor = None  # (W, nv)
   qfrc_fluid: torch.Tensor = None  # (W, nv)
   qfrc_passive: torch.Tensor = None  # (W, nv)
+  subtree_linvel: torch.Tensor = None  # (W, nbody, 3)
+  subtree_angmom: torch.Tensor = None  # (W, nbody, 3)
   # forces and accelerations
   actuator_force: torch.Tensor = None  # (W, nu)
   qfrc_actuator: torch.Tensor = None  # (W, nv)
@@ -445,6 +554,11 @@ class Data:
   qfrc_constraint: torch.Tensor = None  # (W, nv)
   qacc: torch.Tensor = None  # (W, nv)
   qacc_warmstart: torch.Tensor = None  # (W, nv)
+  # after the solve (rne_postconstraint): com-frame body accelerations,
+  # the force each body takes from its parent, external wrenches
+  cacc: torch.Tensor = None  # (W, nbody, 6)
+  cfrc_int: torch.Tensor = None  # (W, nbody, 6)
+  cfrc_ext: torch.Tensor = None  # (W, nbody, 6)
   # constraint rows
   efc_J: torch.Tensor = None  # (W, nefc, nv)
   efc_pos: torch.Tensor = None  # (W, nefc)
@@ -459,6 +573,8 @@ class Data:
   ncon_active: torch.Tensor = None  # (W,) int32 live contact slots
   solver_niter: torch.Tensor = None  # (W,) int32
   overflow: torch.Tensor = None  # (W,) int32 OverflowType bits
+  energy: torch.Tensor = None  # (W, 2) potential, kinetic
+  sensordata: torch.Tensor = None  # (W, nsensordata)
 
   def replace(self, **kw):
     return dataclasses.replace(self, **kw)

@@ -50,10 +50,12 @@ def test_k1_cuda_matches_plain(cuda, drop):
 @pytest.mark.parametrize('scene,state', [
     ('humanoid', 'rest'), ('humanoid', 'contact'), ('eq_joint', 'rest'),
     ('eq_joint', 'contact'), ('implicitfast', 'rest'),
-    ('implicitfast', 'contact'), ('implicitfast_no_rows', 'rest')])
+    ('implicitfast', 'contact'), ('implicitfast_no_rows', 'rest'),
+    ('hopper', 'contact'), ('humanoid_dmc', 'contact')])
 def test_k1_cuda_forms_match_plain(cuda, scene, state, need_qLD):
-  """K1 against the plain version at 1000 worlds on the humanoid and the
-  small gated scenes, at rest and with a body lowered into the floor,
+  """K1 against the plain version at 1000 worlds on the humanoid, the
+  small gated scenes and dm_control's hopper and humanoid (48 compacted
+  slots), at rest and with a body lowered into the floor,
   with and without the factor, and with collision off (no geom frames or
   narrowphase); where the factor is asked for, it equals the plain
   factor of the kernel's own qM to the last bit (the same pivots and
@@ -183,12 +185,15 @@ def test_k4_cuda_matches_plain(cuda, drop):
 @pytest.mark.cuda
 @pytest.mark.parametrize('scene,state', [
     ('eq_joint', 'rest'), ('eq_joint', 'contact'), ('implicitfast', 'rest'),
-    ('implicitfast', 'contact'), ('implicitfast_no_rows', 'rest')])
+    ('implicitfast', 'contact'), ('implicitfast_no_rows', 'rest'),
+    ('hopper', 'contact'), ('humanoid_dmc', 'contact')])
 def test_k4_cuda_forms_match_plain(cuda, scene, state):
   """K4's other forms against the plain version at 1000 worlds: JOINT
   equality rows (eq_joint), the implicitfast integrator (implicitfast),
-  each at rest and with a body lowered into the floor, and the branch
-  without rows (implicitfast with collision off: qacc from K1's qLD)."""
+  each at rest and with a body lowered into the floor, the branch
+  without rows (implicitfast with collision off: qacc from K1's qLD), and
+  dm_control's hopper (nrow 88, nv 7) and humanoid (nrow 165, its largest
+  world) in contact."""
   m, args = parity.k4_case(scene, state, 1000, 5, cuda)
   assert k4_ref.has_rows(m) == (scene != 'implicitfast_no_rows')
   n = kk4.launches
@@ -208,7 +213,8 @@ def test_k4_world_floats_match_c(cuda):
   from mujoco_warp_tpu_torch.kernels import build
   lib = build.load()
   sizes = [(0, 8, 9), (64 * 12, 64, 70), (3, 1, 1)]
-  for path in (io.SNAPSHOT, io.EQ_JOINT_SNAPSHOT, io.IMPLICITFAST_SNAPSHOT):
+  for path in (io.SNAPSHOT, io.EQ_JOINT_SNAPSHOT, io.IMPLICITFAST_SNAPSHOT,
+               io.DMC_SNAPSHOTS['hopper'], io.DMC_SNAPSHOTS['humanoid_dmc']):
     m = io.load_model_npz(path, device='cpu')
     sizes.append((kk4.nrow(m), m.nv, m.nq))
   for nrow, nv, nq in sizes:
@@ -312,6 +318,28 @@ def test_general_step_cuda_matches_cpu(cuda):
                              atol=2e-4, rtol=1e-3)
   np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                              atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['humanoid_dmc', 'hopper'])
+def test_sensor_step_cuda_matches_cpu(cuda, scene):
+  """One general step of dm_control's humanoid (34 sensors, contacts
+  compacted) and hopper (lossless slots) in contact through the kernels
+  against the plain path: sensordata by ``parity.check_sensors``."""
+  from mujoco_warp_tpu_torch.ops import forward
+  path = io.DMC_SNAPSHOTS[scene]
+  mh = io.load_model_npz(path, device='cpu')
+  mc = io.load_model_npz(path, device=cuda)
+  qpos, qvel, ctrl = parity.dmc_state(mh, scene, 256, 5)
+  dh = io.make_data(mh, 256, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl))
+  dc = io.make_data(mc, 256, device=cuda).replace(
+      qpos=dh.qpos.to(cuda), qvel=dh.qvel.to(cuda), ctrl=dh.ctrl.to(cuda))
+  dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+  parity.check_sensors(mh, dc.sensordata.cpu(), dh.sensordata,
+                       dc.solver_niter.cpu(), dh.solver_niter)
+  assert int(dc.ncon_active.sum()) > 0
 
 
 def clutter_inputs(cuda, W=1000, seed=3):

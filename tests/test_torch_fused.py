@@ -8,6 +8,7 @@ sum and scatter here).  ``run_steps`` serves the whole-step tests
 atol 2e-4 rtol 1e-3, qvel atol 5e-3 rtol 5e-3.
 """
 
+import jax
 import jax.numpy as jnp
 import mujoco
 import numpy as np
@@ -105,26 +106,31 @@ def test_sort_worlds_matches_jax():
 
 
 def run_steps(mjm, nconmax, nstep, seed, qpos_noise=0.01, qvel_noise=0.2,
-              ctrl_noise=0.0):
-  """nstep port steps and nstep JAX interpret steps from one state."""
+              ctrl_noise=0.0, nworld=W_STEP, jit=False):
+  """nstep port steps and nstep JAX interpret steps from one state
+  (``jit``: the JAX step traced once, not per step)."""
   mj, m = jio.put_model(mjm, nconmax=nconmax), tio.put_model(mjm, nconmax, device='cpu')
   assert tfused.supported_features(m)
+  W = nworld
   rng = np.random.default_rng(seed)
   qpos = (m.qpos0.numpy()[None] + qpos_noise * rng.standard_normal(
-      (W_STEP, m.nq))).astype(np.float32)
-  qvel = (qvel_noise * rng.standard_normal((W_STEP, m.nv))).astype(
+      (W, m.nq))).astype(np.float32)
+  qvel = (qvel_noise * rng.standard_normal((W, m.nv))).astype(
       np.float32)
-  ctrl = (ctrl_noise * rng.standard_normal((W_STEP, m.nu))).astype(
+  ctrl = (ctrl_noise * rng.standard_normal((W, m.nu))).astype(
       np.float32)
-  d = tio.make_data(m, W_STEP, device='cpu')
+  d = tio.make_data(m, W, device='cpu')
   d = d.replace(qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
                 ctrl=torch.as_tensor(ctrl))
   st = tfused.to_lane(m, d)
   for _ in range(nstep):
     st = tfused.step_lane(m, st)
-  dj = jio.make_data(mj, nworld=W_STEP).replace(
+  dj = jio.make_data(mj, nworld=W).replace(
       qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel), ctrl=jnp.asarray(ctrl))
   sj = jfused.to_lane(mj, dj)
+  step = lambda s: jfused.step_lane(mj, s, interpret=True)
+  if jit:
+    step = jax.jit(step)
   for _ in range(nstep):
-    sj = jfused.step_lane(mj, sj, interpret=True)
+    sj = step(sj)
   return st, sj

@@ -54,12 +54,15 @@ def test_constraints_snapshot_matches_fresh_put_model(tmp_path):
 
 def test_gate_raises_outside_the_slice():
   """spheres.xml is outside the fused gate; the general step runs its
-  contacts in lossless slots, but not compacted into a smaller budget,
-  and not elliptic cones of a system beyond the solve kernel's size
-  (clutter_arm's, for the torch Newton)."""
+  contacts in lossless slots and compacted into a smaller budget, but not
+  with the CG solver, and not elliptic cones of a system beyond the
+  solve kernel's size (clutter_arm's, for the torch Newton)."""
   mjm = mujoco.MjModel.from_xml_path(os.path.join(_MODELS, 'spheres.xml'))
-  with pytest.raises(NotImplementedError, match='compaction'):
-    tio.put_model(mjm, nconmax=4, device='cpu')
+  m = tio.put_model(mjm, nconmax=4, device='cpu')
+  assert m.con_compact and forward.unsupported(m) is None
+  mjm.opt.solver = 1  # CG
+  with pytest.raises(NotImplementedError, match='CG'):
+    tio.put_model(mjm, device='cpu')
   mjm = tio.load_clutter()
   mjm.opt.cone = 1
   with pytest.raises(NotImplementedError, match='elliptic cones'):
