@@ -88,6 +88,30 @@ Phases, one line each or more, any failure exits non-zero:
     each timed; then one step of NSENSOR_CMP worlds of that state on the
     card and on the CPU through the plain versions, sensordata held by
     parity.check_sensors.
+11. sleep, islands, CG and implicitfast: (a) benchmarks.run on the
+    snapshot clutter_arm (sleep on) at 4096 worlds from its settled state
+    (assets/clutter_arm_settled.npz), CA_NSTEP steps; exact counts as
+    phase 6; prints the share of trees asleep at the start and the end,
+    the mean nisland, the steps on which the island labeler ran, the
+    packed steps and the host reads per step; its four kernels held
+    against their plain versions on the last state and timed (*_ca).
+    That start runs only the wake checks and the rows masked where trees
+    sleep, so (a') runs clutter_arm again at 4096 worlds from the settled
+    state woken at random (parity.woken_state: counters near ready),
+    CA_WOKEN_NSTEP steps, exact counts; the island labeler must run and
+    trees must fall asleep.  (b) the step that packs the awake worlds:
+    the settled clutter.xml state at SKIP_NWORLD worlds, SKIP_NWAKE
+    pushed awake, SKIP_NSTEP steps of forward.step, each packed, held
+    against _step_batched (tree_asleep equal, qpos within 1e-6); the
+    same at SKIP_WIDE (4096 worlds); each path warmed up by a step and
+    timed in the order pack, full, full, pack; one step against the
+    CPU's plain step.  (c) benchmarks.run on spheres_cg at 8192 worlds,
+    CG_NSTEP steps: the mass chain once per step, chol_solve twice plus
+    once per CG trip, nothing else; prints the trips and capped worlds;
+    chol_solve and the mass chain at n 36 held and timed (*_cg).  (d)
+    humanoid_implicitfast on the fused step at 8192 worlds, IF_NSTEP
+    steps: K1 and K4 once per step, held on the last state and timed
+    (*_implicitfast).
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -134,6 +158,17 @@ DMC_NSTEP = 200
 DMC_GEN_NSTEP = 150
 HOP_GEN_NSTEP = 100
 NSENSOR_CMP = 256
+# phase 11: clutter_arm with sleep (from its settled state); the skip
+# step's worlds and steps; spheres_cg's steps, as many as fit in about 60 s
+# (2.6 s per step on an H100 80GB HBM3 at 700 W); humanoid_implicitfast
+CA_NSTEP = 60
+# clutter_arm again from a woken start (trees near ready fall asleep)
+CA_WOKEN_NSTEP = 10
+SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP = 256, 20, 20
+# the skip step at clutter_arm's registered width: worlds, woken, steps
+SKIP_WIDE = (4096, 200, 5)
+CG_NSTEP = 20
+IF_NSTEP = 200
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -267,6 +302,7 @@ def main():
   from mujoco_warp_tpu_torch.kernels import solver as ksolver
   from mujoco_warp_tpu_torch.ops import forward
   from mujoco_warp_tpu_torch.ops import solver as osolver
+  from mujoco_warp_tpu_torch.ops import util as outil
 
   # ---- 2. build
   say(f'[phase 2] at {time.perf_counter() - T0:.1f} s')
@@ -317,7 +353,11 @@ def main():
           k + sfx for sfx in ('_walker', '_cheetah', '_hopper', '_dmc')
           for k in ('k1', 'k4')) + tuple(
           k + sfx for sfx in ('_hopper', '_dmc')
-          for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'))}
+          for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve')) +
+      tuple(k + '_ca' for k in ('mass_chain_big', 'chol_batched',
+                                'chol_solve_n75', 'damped_solve_n75')) +
+      ('chol_solve_n36_cg', 'mass_chain_n36_cg', 'k1_implicitfast',
+       'k4_implicitfast')}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -326,7 +366,9 @@ def main():
 
   def zero_counters():
     kk1.launches = kk4.launches = kmass.launches = ksolver.launches = 0
-    osolver.trips = 0
+    osolver.trips = forward.island_runs = forward.packed_steps = 0
+    for k in outil.host_reads:
+      outil.host_reads[k] = 0
     for k in klinalg.launches:
       klinalg.launches[k] = 0
 
@@ -529,12 +571,13 @@ def main():
   say(f'[phase 3c] at {time.perf_counter() - T0:.1f} s')
   nvl, nbl = mcl.nv, mcl.nbody
 
-  def clutter_compare(label, d):
+  def clutter_compare(label, d, mcl=mcl, sfx=''):
     """The big-tree mass chain, chol_batched (on qM and on the Newton H),
     chol_solve and damped_solve at n 75 against their plain versions on
-    world-major clutter state d (qpos, qvel, ctrl, qacc_warmstart); each
-    kernel gets the plain version's upstream outputs.  Returns each
-    kernel's arguments."""
+    world-major clutter state d (qpos, qvel, ctrl, qacc_warmstart; with
+    sleep on, also its sleep state) of ``mcl``; each kernel gets the plain
+    version's upstream outputs; the errors go to err[kernel + sfx].
+    Returns each kernel's arguments."""
     d = forward.pre(mcl, d)
     am = (mcl, lanes(d.cinert, 36 * nbl), lanes(d.cdof, 6 * nvl),
           lanes(d.qvel))
@@ -565,7 +608,7 @@ def main():
       J = d.efc_J
       jaref = torch.matmul(J, d.qacc_warmstart[..., None])[..., 0] - \
           d.efc_aref
-      Dq = d.efc_D * (jaref < 0).float()
+      Dq = d.efc_D * (jaref < 0).float()  # masked rows: D = 0
       H = (qM_w + torch.matmul(J.transpose(1, 2) * Dq[:, None, :], J)
            ).contiguous()
       e_h = parity.check_world_scale(
@@ -583,10 +626,9 @@ def main():
                                      dmp), 'qacc (damped)')
     except AssertionError as e:
       fail(f'{label}: {e}')
-    err['mass_chain_big'] = max(err['mass_chain_big'], e_mc)
-    err['chol_batched'] = max(err['chol_batched'], e_cb, e_h)
-    err['chol_solve_n75'] = max(err['chol_solve_n75'], e_cs)
-    err['damped_solve_n75'] = max(err['damped_solve_n75'], e_ds)
+    for k, e in (('mass_chain_big', e_mc), ('chol_batched', max(e_cb, e_h)),
+                 ('chol_solve_n75', e_cs), ('damped_solve_n75', e_ds)):
+      err[k + sfx] = max(err[k + sfx], e)
     live = int((d.contact.dist < d.contact.includemargin).sum())
     say(f'[compare] {label}: large-tree mass chain max abs err {e_mc:.3e}, '
         f'worst relative {rel_mc:.2e} (tol {parity.K1_TOL}); chol_batched '
@@ -647,13 +689,16 @@ def main():
 
   # ---- 4. the fused main path
   say(f'[phase 4] at {time.perf_counter() - T0:.1f} s')
-  def main_path(model, nstep, expect, nworld, general=False):
+  def main_path(model, nstep, expect, nworld, general=False,
+                init_state=None):
     """benchmarks.run from zeroed counters (``general``: the general step
-    for a model inside the fused gate); ``expect(steps, trips)`` gives
-    each kernel's launch count that must be seen (0 when absent)."""
+    for a model inside the fused gate; ``init_state``: the worlds start
+    there); ``expect(steps, trips)`` gives each kernel's launch count that
+    must be seen (0 when absent)."""
     zero_counters()
     res = benchmarks.run(model, nworld=nworld, nstep=nstep,
-                         warmup_steps=WARMUP, general=general)
+                         warmup_steps=WARMUP, general=general,
+                         init_state=init_state)
     launches = counters()
     steps = nstep + WARMUP
     want = {k: 0 for k in launches}
@@ -818,74 +863,135 @@ def main():
                   ('chol_solve', 'chol_solve_n75'),
                   ('damped_solve', 'damped_solve_n75')):
     kernel_launches[name] = launches[k]
-  d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
-  args = clutter_compare(f'clutter rollout W={w_cl}', d)
-  am, acb, acs, ads = (args['mass_chain_big'], args['chol_batched'],
-                       args['chol_solve_n75'], args['damped_solve_n75'])
-  dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
-  calls = {
-      'mass_chain_big': ('mass_chain_kernel',
-                         lambda: kmass.mass_chain_lanes(*am)),
-      'chol_batched': ('chol_batched_kernel',
-                       lambda: klinalg.chol_batched(*acb)),
-      'chol_solve_n75': ('chol_solve_kernel',
-                         lambda: klinalg.chol_solve_batched(*acs)),
-      'damped_solve_n75': ('damped_solve_kernel',
-                           lambda: klinalg.damped_solve_batched(*ads)),
-  }
-  for k, (kern, fn) in calls.items():
-    time_kernel(k, fn, kern)
-  call_ms.update({k: time_ms(fn, 20) for k, (_, fn) in calls.items()})
-  ys = yardsticks(acs, ads, dmp)
-  plain_ms.update({
-      'mass_chain_big': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
-      'chol_batched': time_ms(lambda: klinalg.chol_batched_plain(
-          acb[1], acb[2]), 3),
-      'chol_solve_n75': time_ms(ys['chol_solve_plain'], 3),
-      'damped_solve_n75': time_ms(ys['damped_solve_plain'], 3),
-  })
-  # one PyTorch call of the same function, timed here only
-  eye = torch.eye(nvl, device=dev)
-  A_j = (acb[1] + acb[2] * eye).contiguous()
-  library_ms.update({
-      'mass_chain_big': None,
-      'chol_batched': time_ms(lambda: torch.linalg.cholesky(A_j), 20),
-      'chol_solve_n75': time_ms(ys['chol_solve_library'], 20),
-      'damped_solve_n75': time_ms(ys['damped_solve_library'], 20),
-  })
-  dw = forward.pre(mcl, d)
-  out_mc = kmass.mass_chain_lanes(*am)
-  transpose_ms.update({
-      # qM leaves the kernel world-major
-      'mass_chain_big': time_ms(lambda: (
-          lanes(dw.cinert, 36 * nbl), lanes(dw.cdof, 6 * nvl),
-          lanes(dw.qvel), world(out_mc[2], nbl, 6), world(out_mc[3], nvl, 6),
-          out_mc[4].T.contiguous()), 20),
-      # these kernels read (and chol_batched writes) in place
-      'chol_batched': 0.0, 'chol_solve_n75': 0.0, 'damped_solve_n75': 0.0,
-  })
-  W = w_cl
-  bounds.update({
-      'mass_chain_big': bound(
-          W * F32 * (36 * nbl + 7 * nvl + nvl * nvl + 6 * nbl + 7 * nvl),
-          W * mass_chain_flops(mcl, False)),
-      'chol_batched': bound(W * F32 * 2 * nvl * nvl, W * chol_flops(nvl)),
-      'chol_solve_n75': bound(W * chol_solve_bytes(nvl), W * 2 * nvl * nvl),
-      'damped_solve_n75': bound(W * F32 * (nvl * nvl + 2 * nvl) + F32 * nvl,
-                                W * (chol_flops(nvl) + 4 * nvl * nvl + nvl)),
-  })
-  for k in calls:
-    lib = library_ms[k]
-    say(f"[timing] {k} W={w_cl} per launch: cuda {ms[k]:.4f} ms (call "
-        f"{call_ms[k]:.4f}), plain {plain_ms[k]:.3f} ms, library "
-        f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
-        f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
-        f"{transpose_ms[k]:.4f} ms")
+  d = types.carried(st)
+
+  def clutter_timing(label, d, model, W, sfx=''):
+    """``clutter_compare`` on the last state d of ``model``'s rollout at W
+    worlds, then its four kernels timed beside their plain versions and
+    the one PyTorch call of the same function, with their bounds, under
+    the keys kernel + sfx."""
+    args = clutter_compare(label, d, model, sfx)
+    am, acb, acs, ads = (args['mass_chain_big'], args['chol_batched'],
+                         args['chol_solve_n75'], args['damped_solve_n75'])
+    dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+    calls = {
+        'mass_chain_big': ('mass_chain_kernel',
+                           lambda: kmass.mass_chain_lanes(*am)),
+        'chol_batched': ('chol_batched_kernel',
+                         lambda: klinalg.chol_batched(*acb)),
+        'chol_solve_n75': ('chol_solve_kernel',
+                           lambda: klinalg.chol_solve_batched(*acs)),
+        'damped_solve_n75': ('damped_solve_kernel',
+                             lambda: klinalg.damped_solve_batched(*ads)),
+    }
+    for k, (kern, fn) in calls.items():
+      time_kernel(k + sfx, fn, kern)
+      call_ms[k + sfx] = time_ms(fn, 20)
+    ys = yardsticks(acs, ads, dmp)
+    plain_ms.update({k + sfx: v for k, v in {
+        'mass_chain_big': time_ms(lambda: kmass.mass_chain_plain(*am), 3),
+        'chol_batched': time_ms(lambda: klinalg.chol_batched_plain(
+            acb[1], acb[2]), 3),
+        'chol_solve_n75': time_ms(ys['chol_solve_plain'], 3),
+        'damped_solve_n75': time_ms(ys['damped_solve_plain'], 3),
+    }.items()})
+    # one PyTorch call of the same function, timed here only
+    eye = torch.eye(nvl, device=dev)
+    A_j = (acb[1] + acb[2] * eye).contiguous()
+    library_ms.update({k + sfx: v for k, v in {
+        'mass_chain_big': None,
+        'chol_batched': time_ms(lambda: torch.linalg.cholesky(A_j), 20),
+        'chol_solve_n75': time_ms(ys['chol_solve_library'], 20),
+        'damped_solve_n75': time_ms(ys['damped_solve_library'], 20),
+    }.items()})
+    dw = forward.pre(model, d)
+    out_mc = kmass.mass_chain_lanes(*am)
+    transpose_ms.update({k + sfx: v for k, v in {
+        # qM leaves the kernel world-major
+        'mass_chain_big': time_ms(lambda: (
+            lanes(dw.cinert, 36 * nbl), lanes(dw.cdof, 6 * nvl),
+            lanes(dw.qvel), world(out_mc[2], nbl, 6),
+            world(out_mc[3], nvl, 6), out_mc[4].T.contiguous()), 20),
+        # these kernels read (and chol_batched writes) in place
+        'chol_batched': 0.0, 'chol_solve_n75': 0.0, 'damped_solve_n75': 0.0,
+    }.items()})
+    bounds.update({k + sfx: v for k, v in {
+        'mass_chain_big': bound(
+            W * F32 * (36 * nbl + 7 * nvl + nvl * nvl + 6 * nbl + 7 * nvl),
+            W * mass_chain_flops(model, False)),
+        'chol_batched': bound(W * F32 * 2 * nvl * nvl, W * chol_flops(nvl)),
+        'chol_solve_n75': bound(W * chol_solve_bytes(nvl),
+                                W * 2 * nvl * nvl),
+        'damped_solve_n75': bound(
+            W * F32 * (nvl * nvl + 2 * nvl) + F32 * nvl,
+            W * (chol_flops(nvl) + 4 * nvl * nvl + nvl)),
+    }.items()})
+    for k in (k + sfx for k in calls):
+      lib = library_ms[k]
+      say(f"[timing] {k} W={W} per launch: cuda {ms[k]:.4f} ms (call "
+          f"{call_ms[k]:.4f}), plain {plain_ms[k]:.3f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+          f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), wrapper transposes "
+          f"{transpose_ms[k]:.4f} ms")
+
+  clutter_timing(f'clutter rollout W={w_cl}', d, mcl, w_cl)
   say(f"[timing] clutter step {1e3 * w_cl / res['steps_per_sec']:.3f} "
       'ms')
 
   # ---- 7-8. contacts through the solve kernel, pyramidal and elliptic
   say(f'[phase 7-8] at {time.perf_counter() - T0:.1f} s')
+  def small_tree_kernels(key, model, dw, launches, nworld, sfx=''):
+    """chol_solve at n 36 (qacc_smooth, in the main path's layouts) and the
+    small-tree mass chain (with its factor) against their plain versions
+    on the spheres scene ``model``'s last rollout state dw, and timed,
+    under 'chol_solve_n36' + sfx and 'mass_chain_n36' + sfx."""
+    k36, nvs = 'chol_solve_n36' + sfx, model.nv
+    kernel_launches[k36] = launches['chol_solve']
+    acs = (model, dw.qLD, dw.qfrc_smooth)
+    ys = yardsticks(acs)
+    try:
+      err[k36] = check_layouts(klinalg.chol_solve_batched, *acs,
+                               ys['chol_solve_plain'](), 'qacc_smooth n 36')
+    except AssertionError as e:
+      fail(f'{key} rollout W={nworld}: {e}')
+    time_kernel(k36, lambda: klinalg.chol_solve_batched(*acs),
+                'chol_solve_kernel')
+    call_ms[k36] = time_ms(lambda: klinalg.chol_solve_batched(*acs), 20)
+    plain_ms[k36] = time_ms(ys['chol_solve_plain'], 3)
+    library_ms[k36] = time_ms(ys['chol_solve_library'], 20)
+    transpose_ms[k36] = 0.0  # the kernel reads its operands in place
+    bounds[k36] = bound(nworld * chol_solve_bytes(nvs),
+                        nworld * 2 * nvs * nvs)
+    say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
+        f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
+        f"{library_ms[k36]:.4f} ms, bound {bounds[k36][0]:.4f} ms "
+        f"({bounds[k36][1]}), max abs err {err[k36]:.3e} (both layouts), "
+        f"wrapper transposes 0.0000 ms")
+    # the small-tree mass chain at nv 36 (with its factor) on the same
+    # last state
+    k36, nbs = 'mass_chain_n36' + sfx, model.nbody
+    kernel_launches[k36] = launches['mass_chain']
+    am = (model, lanes(dw.cinert, 36 * nbs), lanes(dw.cdof, 6 * nvs),
+          lanes(dw.qvel))
+    try:
+      err[k36], rel = parity.check_rel(kmass.mass_chain_lanes(*am),
+                                       kmass.mass_chain_plain(*am),
+                                       parity.MASS_NAMES)
+    except AssertionError as e:
+      fail(f'{key} rollout W={nworld} mass chain: {e}')
+    time_kernel(k36, lambda: kmass.mass_chain_lanes(*am), 'mass_chain_kernel')
+    call_ms[k36] = time_ms(lambda: kmass.mass_chain_lanes(*am), 20)
+    plain_ms[k36] = time_ms(lambda: kmass.mass_chain_plain(*am), 3)
+    library_ms[k36] = None  # no one PyTorch call computes the chain
+    bounds[k36] = bound(
+        nworld * F32 * (36 * nbs + 7 * nvs + 2 * nvs * nvs + 6 * nbs +
+                        7 * nvs), nworld * mass_chain_flops(model, True))
+    say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
+        f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
+        f"none, bound {bounds[k36][0]:.4f} ms ({bounds[k36][1]}), max abs "
+        f"err {err[k36]:.3e}, worst relative {rel:.2e} (tol "
+        f"{parity.K1_TOL})")
+
   for key, model, nworld, kern in (
       ('solve_spheres', msp, w_sp, 'solve_kernel'),
       ('solve_elliptic', mse, w_se, 'solve_ell_kernel')):
@@ -900,7 +1006,7 @@ def main():
            f'{SPHERES_MIN_CONTACTS} at the end')
     say(f'[main path] {key}: mean live contacts per world {ncon:.2f}')
     kernel_launches[key] = launches['solve']
-    d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
+    d = types.carried(st)
     asv, dw, niter = spheres_compare(f'{key} rollout W={nworld}', model, key,
                                      d)
     time_kernel(key, lambda: ksolver.solve_tiles(*asv), kern)
@@ -928,57 +1034,11 @@ def main():
         f"{live_rows:.2f} live rows per world, niter mean {niter:.3f}), "
         f"wrapper transposes {transpose_ms[key]:.4f} ms; step "
         f"{1e3 * nworld / res['steps_per_sec']:.3f} ms")
-    if key != 'solve_spheres':
-      continue
-    # chol_solve at n 36 (qacc_smooth) on the same last state, in the
-    # main path's layouts
-    k36, nvs = 'chol_solve_n36', model.nv
-    kernel_launches[k36] = launches['chol_solve']
-    acs = (model, dw.qLD, dw.qfrc_smooth)
-    ys = yardsticks(acs)
-    try:
-      err[k36] = check_layouts(klinalg.chol_solve_batched, *acs,
-                               ys['chol_solve_plain'](), 'qacc_smooth n 36')
-    except AssertionError as e:
-      fail(f'{key} rollout W={nworld}: {e}')
-    time_kernel(k36, lambda: klinalg.chol_solve_batched(*acs),
-                'chol_solve_kernel')
-    call_ms[k36] = time_ms(lambda: klinalg.chol_solve_batched(*acs), 20)
-    plain_ms[k36] = time_ms(ys['chol_solve_plain'], 3)
-    library_ms[k36] = time_ms(ys['chol_solve_library'], 20)
-    transpose_ms[k36] = 0.0  # the kernel reads its operands in place
-    bounds[k36] = bound(nworld * chol_solve_bytes(nvs),
-                        nworld * 2 * nvs * nvs)
-    say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
-        f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
-        f"{library_ms[k36]:.4f} ms, bound {bounds[k36][0]:.4f} ms "
-        f"({bounds[k36][1]}), max abs err {err[k36]:.3e} (both layouts), "
-        f"wrapper transposes 0.0000 ms")
-    # the small-tree mass chain at nv 36 (with its factor) on the same
-    # last state
-    k36, nbs = 'mass_chain_n36', model.nbody
-    kernel_launches[k36] = launches['mass_chain']
-    am = (model, lanes(dw.cinert, 36 * nbs), lanes(dw.cdof, 6 * nvs),
-          lanes(dw.qvel))
-    try:
-      err[k36], rel = parity.check_rel(kmass.mass_chain_lanes(*am),
-                                       kmass.mass_chain_plain(*am),
-                                       parity.MASS_NAMES)
-    except AssertionError as e:
-      fail(f'{key} rollout W={nworld} mass chain: {e}')
-    time_kernel(k36, lambda: kmass.mass_chain_lanes(*am), 'mass_chain_kernel')
-    call_ms[k36] = time_ms(lambda: kmass.mass_chain_lanes(*am), 20)
-    plain_ms[k36] = time_ms(lambda: kmass.mass_chain_plain(*am), 3)
-    library_ms[k36] = None  # no one PyTorch call computes the chain
-    bounds[k36] = bound(
-        nworld * F32 * (36 * nbs + 7 * nvs + 2 * nvs * nvs + 6 * nbs +
-                        7 * nvs), nworld * mass_chain_flops(model, True))
-    say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
-        f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
-        f"none, bound {bounds[k36][0]:.4f} ms ({bounds[k36][1]}), max abs "
-        f"err {err[k36]:.3e}, worst relative {rel:.2e} (tol "
-        f"{parity.K1_TOL})")
+    if key == 'solve_spheres':
+      small_tree_kernels(key, model, dw, launches, nworld)
 
+  # ---- 9. dm_control on the fused step
+  say(f'[phase 9] at {time.perf_counter() - T0:.1f} s')
   # ---- 9. dm_control on the fused step
   say(f'[phase 9] at {time.perf_counter() - T0:.1f} s')
   dmc = {name: io.load_model_npz(benchmarks.SCENES[name][0])
@@ -1069,7 +1129,7 @@ def main():
         + json.dumps(means) + f"; step {1e3 * w_h / res['steps_per_sec']:.3f}"
         ' ms')
     # the four kernels on the last state, at the main path's width
-    d = types.Data(**{k: getattr(st, k) for k in benchmarks.CARRY})
+    d = types.carried(st)
     args, niter = general_compare(f'{name} rollout W={w_h}', d, model, sfx,
                                   'dmc')
     for k in general4:
@@ -1080,7 +1140,7 @@ def main():
     # one step of the last state on the card and on the CPU (plain
     # versions)
     mcpu = io.load_model_npz(benchmarks.SCENES[name][0], device='cpu')
-    sub = {k: getattr(st, k)[:NSENSOR_CMP] for k in benchmarks.CARRY}
+    sub = {k: getattr(st, k)[:NSENSOR_CMP] for k in types.CARRY}
     on_card = forward.step(model, types.Data(**sub))
     on_cpu = forward.step(mcpu, types.Data(**{k: v.cpu() for k, v in
                                               sub.items()}))
@@ -1097,6 +1157,170 @@ def main():
         f'{parity.SENSOR_ATOL} + rtol {parity.SENSOR_RTOL}; acc within atol '
         f'{parity.QACC_ATOL} + rtol {parity.QACC_RTOL} of world scale where '
         f'Newton counts agree); niter equal in {rsen["niter_share"]:.4f}')
+
+  # ---- 11. sleep and islands, the skip step, CG, implicitfast
+  say(f'[phase 11] at {time.perf_counter() - T0:.1f} s')
+  t11 = time.perf_counter()
+  # (a) clutter_arm with sleep, from its settled state: the torch Newton
+  # over rows masked where trees sleep
+  mca, w_ca = benchmarks.load_scene('clutter_arm')
+  init = benchmarks.start_state('clutter_arm')
+  res, st, launches = main_path(
+      mca, CA_NSTEP, lambda n, trips: {
+          'mass_chain': n, 'damped_solve': n, 'chol_batched': 2 * n + trips,
+          'chol_solve': 2 * n + trips}, w_ca, init_state=init)
+  steps = CA_NSTEP + WARMUP
+  reads = {k: round(v / steps, 3) for k, v in outil.host_reads.items()}
+  may = torch.as_tensor(np.asarray(mca.tree_sleep_policy) != 1, device=dev)
+  say(f"[main path] clutter_arm (sleep): trees asleep "
+      f"{float((init['tree_asleep'] >= 0).mean()):.4f} at the start (of "
+      f"those that may sleep {float((init['tree_asleep'][:, 1:] >= 0).mean()):.4f}), "
+      f"{float((st.tree_asleep >= 0).float().mean()):.4f} at the end (of "
+      f"those that may {float((st.tree_asleep[:, may] >= 0).float().mean()):.4f}); "
+      f"mean nisland {float(st.nisland.float().mean()):.3f}; the island "
+      f"labeler ran on {forward.island_runs} of {steps} steps; packed steps "
+      f"{forward.packed_steps}; host reads per step {json.dumps(reads)}; "
+      f"Newton trips per step {osolver.trips / steps:.3f}; mean live "
+      f"contacts per world {float(st.ncon_active.float().mean()):.2f}; step "
+      f"{1e3 * w_ca / res['steps_per_sec']:.3f} ms")
+  for k, name in (('mass_chain', 'mass_chain_big'),
+                  ('chol_batched', 'chol_batched'),
+                  ('chol_solve', 'chol_solve_n75'),
+                  ('damped_solve', 'damped_solve_n75')):
+    kernel_launches[name + '_ca'] = launches[k]
+  d = types.carried(st)
+  clutter_timing(f'clutter_arm rollout W={w_ca}', d, mca, w_ca, '_ca')
+  for k in ('mass_chain_big', 'chol_batched'):
+    shapes[k + '_ca'] = shapes[k]
+
+  # (a') clutter_arm at its width from a woken start: the settled start
+  # above runs only the wake checks and rows masked where trees sleep;
+  # here trees near ready fall asleep and the island labeler runs
+  def tile(st, W):
+    return {k: np.concatenate([v] * -(-W // len(v)))[:W]
+            for k, v in st.items()}
+
+  woke = parity.woken_state(mca, tile(init, w_ca), np.random.default_rng(4))
+  res, st, launches = main_path(
+      mca, CA_WOKEN_NSTEP, lambda n, trips: {
+          'mass_chain': n, 'damped_solve': n, 'chol_batched': 2 * n + trips,
+          'chol_solve': 2 * n + trips}, w_ca, init_state=woke)
+  steps = CA_WOKEN_NSTEP + WARMUP
+  a0, a1 = woke['tree_asleep'], st.tree_asleep.cpu().numpy()
+  fell = int(((a0 < 0) & (a1 >= 0)).sum())
+  if forward.island_runs == 0 or fell == 0:
+    fail(f'clutter_arm from the woken start: the island labeler ran on '
+         f'{forward.island_runs} steps, {fell} trees fell asleep')
+  reads = {k: round(v / steps, 3) for k, v in outil.host_reads.items()}
+  say(f"[main path] clutter_arm (sleep) from a woken start: "
+      f"{int((a0 < 0).sum())} trees awake at the start of {a0.size}, "
+      f"{int((a1 < 0).sum())} at the end; {fell} trees fell asleep; mean "
+      f"nisland {float(st.nisland.float().mean()):.3f}; the island labeler "
+      f"ran on {forward.island_runs} of {steps} steps; packed steps "
+      f"{forward.packed_steps}; host reads per step {json.dumps(reads)}; "
+      f"Newton trips per step {osolver.trips / steps:.3f}; step "
+      f"{1e3 * w_ca / res['steps_per_sec']:.3f} ms")
+
+  # (b) the step that packs the awake worlds: the settled clutter.xml
+  # state, some worlds pushed awake; against the full step, each path
+  # warmed up by one step, then timed in the order pack, full, full, pack
+  def skip_against_full(W, nwake, nstep):
+    """nstep steps of the skip step and of the full step from
+    parity.pushed_clutter(W, nwake), held against each other and timed;
+    returns (model, start state)."""
+    mcs, d0 = parity.pushed_clutter(W, nwake)
+    forward.step(mcs, d0), forward._step_batched(mcs, d0)
+
+    def run(fn):
+      d = d0
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      for _ in range(nstep):
+        d = fn(mcs, d)
+      torch.cuda.synchronize()
+      return d, 1e3 * (time.perf_counter() - t0) / nstep
+
+    n0 = forward.packed_steps
+    da, ta1 = run(forward.step)
+    packed = forward.packed_steps - n0
+    db, tb1 = run(forward._step_batched)
+    _, tb2 = run(forward._step_batched)
+    _, ta2 = run(forward.step)
+    if packed != nstep:
+      fail(f'the skip step at {W} worlds packed {packed} of {nstep} steps')
+    dq = float((da.qpos - db.qpos).abs().max())
+    dt_ = float((da.time - db.time).abs().max())
+    if not torch.equal(da.tree_asleep, db.tree_asleep) or dq >= 1e-6 or \
+        dt_ >= 1e-5:
+      fail(f'skip step at {W} worlds against the full step: tree_asleep '
+           f'equal {torch.equal(da.tree_asleep, db.tree_asleep)}, qpos {dq}, '
+           f'time {dt_}')
+    say(f'[main path] skip step: {W} worlds of the settled clutter state, '
+        f'{nwake} pushed awake: packed {packed} of {nstep} steps into '
+        f'{W // 4} slots, {int(torch.any(da.tree_asleep < 0, dim=1).sum())} '
+        f'worlds awake at the end; against the full step tree_asleep equal, '
+        f'qpos max abs err {dq:.3e} (bar 1e-6), time {dt_:.3e} (bar 1e-5); '
+        f'ms per step after a warm-up step, run in the order pack, full, '
+        f'full, pack: packed {ta1:.3f} / {ta2:.3f}, full {tb1:.3f} / '
+        f'{tb2:.3f}')
+    return mcs, d0
+
+  mcs, d0 = skip_against_full(SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP)
+  skip_against_full(*SKIP_WIDE)
+  # one card step against the CPU's plain step, from the woken state
+  mch = io.load_model_npz(io.CLUTTER_SLEEP_SNAPSHOT, device='cpu')
+  on_card = forward.step(mcs, d0)
+  on_cpu = forward.step(mch, types.map_worlds(d0, lambda x: x.cpu(),
+                                              SKIP_NWORLD))
+  off = (on_card.tree_asleep.cpu() != on_cpu.tree_asleep)
+  e_q = float((on_card.qpos.cpu() - on_cpu.qpos).abs().max())
+  try:
+    if bool(off.any()):
+      raise AssertionError(f'tree_asleep differs in {int(off.sum())} trees')
+    parity.check_world_scale(on_card.qpos.cpu().T, on_cpu.qpos.T, 'qpos',
+                             parity.QPOS_ATOL, parity.QPOS_RTOL)
+  except AssertionError as e:
+    fail(f'skip step, card against the CPU: {e}')
+  say(f'[compare] skip step at {SKIP_NWORLD} worlds, one card step against '
+      f'the CPU plain step: tree_asleep equal, qpos max abs err {e_q:.3e} '
+      f'(atol {parity.QPOS_ATOL} + rtol {parity.QPOS_RTOL} of world scale)')
+
+  # (c) spheres_cg: the CG solver
+  mcg, w_cg = benchmarks.load_scene('spheres_cg')
+  ncg = CG_NSTEP
+  res, st, launches = main_path(
+      mcg, ncg, lambda n, trips: {'mass_chain': n,
+                                  'chol_solve': 2 * n + trips}, w_cg)
+  steps = ncg + WARMUP
+  reads = {k: round(v / steps, 3) for k, v in outil.host_reads.items()}
+  say(f"[main path] spheres_cg: {ncg} steps (+{WARMUP} warmup) in "
+      f"{res['run_time']:.1f} s; CG trips per world-step "
+      f"{res['solver_niter_mean']:.3f} (last step), worlds at the cap "
+      f"{res['solver_cap_worlds']}, trips per step "
+      f"{osolver.trips / steps:.3f}; host reads per step {json.dumps(reads)}"
+      f"; mean live contacts per world "
+      f"{float(st.ncon_active.float().mean()):.2f}; step "
+      f"{1e3 * w_cg / res['steps_per_sec']:.3f} ms")
+  d = types.carried(st)
+  dw = forward.mid(mcg, kmass.mass_chain(mcg, forward.pre(mcg, d)))
+  small_tree_kernels('spheres_cg', mcg, dw, launches, w_cg, '_cg')
+  shapes['mass_chain_n36_cg'] = shapes['mass_chain_n36']
+
+  # (d) humanoid_implicitfast, fused: K4's implicitfast form at 8192
+  mif, w_if = benchmarks.load_scene('humanoid_implicitfast')
+  res, st, launches = main_path(mif, IF_NSTEP,
+                                lambda n, _: {'k1': n, 'k4': n}, w_if)
+  kernel_launches['k1_implicitfast'] = launches['k1']
+  kernel_launches['k4_implicitfast'] = launches['k4']
+  need = not k4_ref.has_rows(mif)
+  _, a4, niter = compare(f'humanoid_implicitfast rollout W={w_if}', st.qpos,
+                         st.qvel, st.ctrl, st.warmstart, 'contact', need,
+                         mif, '_implicitfast')
+  fused_timing('_implicitfast', mif, (mif, st.qpos, st.qvel), need, a4,
+               niter)
+  say(f"[main path] humanoid_implicitfast: step "
+      f"{1e3 * w_if / res['steps_per_sec']:.3f} ms; phase 11 took "
+      f"{time.perf_counter() - t11:.1f} s")
 
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
@@ -1125,6 +1349,13 @@ def main():
   for sfx in ('_hopper', '_dmc'):
     for k in ('mass_chain', 'chol_solve', 'solve', 'damped_solve'):
       replaces[k + sfx] = replaces[k]
+  for k in ('mass_chain_big', 'chol_batched', 'chol_solve_n75',
+            'damped_solve_n75'):
+    replaces[k + '_ca'] = replaces[k]
+  for k in ('chol_solve_n36', 'mass_chain_n36'):
+    replaces[k + '_cg'] = replaces[k]
+  for k in ('k1', 'k4'):
+    replaces[k + '_implicitfast'] = replaces[k]
   print(json.dumps({'kernels': [
       {'name': k, 'route': 'cuda', 'source': src + f, 'replaces': r,
        'launches': kernel_launches[k], 'max_abs_err': err[k], 'ms': ms[k],

@@ -18,7 +18,7 @@ import json
 import os
 import sys
 
-from mujoco_warp_tpu_torch import benchmarks, io
+from mujoco_warp_tpu_torch import benchmarks
 
 # reference MJWarp humanoid, 8192 worlds, on an unspecified NVIDIA GPU
 # (MJWarp benchmarks/README.md): the humanoid's yardstick only; the other
@@ -28,11 +28,11 @@ BASELINE_STEPS_PER_SEC = {'humanoid': 2_729_192.0}
 
 def main():
   scene = os.environ.get('BENCH_SCENE', 'humanoid')
-  path, width = benchmarks.SCENES[scene]
+  m, width = benchmarks.load_scene(scene)
   nworld = int(os.environ.get('BENCH_NWORLD', width))
   nstep = int(os.environ.get('BENCH_NSTEP', 1000))
-  m = io.load_model_npz(path)
-  metrics = benchmarks.run(m, nworld=nworld, nstep=nstep, device='cuda')
+  metrics = benchmarks.run(m, nworld=nworld, nstep=nstep, device='cuda',
+                           init_state=benchmarks.start_state(scene))
   metrics.pop('state')
   base = BASELINE_STEPS_PER_SEC.get(scene)
   if metrics['overflow_worlds'] > 0:

@@ -5,11 +5,14 @@ Counterpart of ``mujoco_warp_tpu/benchmarks.py`` ``build`` (:83) and
 (:188-271): the fused lanes-last step when the model is inside the fused
 gate (``fused.supported``), the general stage-split step
 (``ops/forward.py`` ``step``) otherwise.  Worlds start at qpos0 plus
-noise; every ``sort_every`` steps worlds are sorted by their last Newton
-count with a stable argsort (the OU noise rides the same permutation), OU
-noise drives ctrl every step, and steps/s is timed after a warmup.  A
-number counts only when no world overflowed a contact or constraint
-buffer.  Tensors go to the CUDA device unless ``device='cpu'``.
+noise, or from a given state; every ``sort_every`` steps worlds are
+sorted by their last Newton count with a stable argsort (the OU noise
+rides the same permutation) on the fused path, and on the general path
+only where the solve kernel runs (``forward.solve_kernel_runs``, as the
+JAX harness sorts only where ``psolver.supported``, :250-259); OU noise
+drives ctrl every step, and steps/s is timed after a warmup.  A number
+counts only when no world overflowed a contact or constraint buffer.
+Tensors go to the CUDA device unless ``device='cpu'``.
 
 The scenes are the committed snapshots of ``io``: the humanoid (fused
 step, 8192 worlds), ``constraints`` (general step, 8192 worlds),
@@ -19,8 +22,14 @@ chain and the torch Newton; the JAX registry runs it at 4096 worlds), and
 general step with collision and its contacts, pyramidal and elliptic,
 through the solve kernel; dm_control's walker, cheetah, hopper and
 humanoid (``humanoid_dmc``) with their sensors, which the fused gate
-admits as the JAX gate does (8192 worlds each).  ``SCENES`` names each
-with its snapshot and registered width.
+admits as the JAX gate does (8192 worlds each); ``clutter_arm`` (4096
+worlds; the general step with tree sleeping and constraint islands),
+``spheres_cg`` (8192; the CG solver) and ``humanoid_implicitfast``
+(8192; the humanoid snapshot with ``opt.integrator=implicitfast``, the
+registry's stand-in for an implicitfast robot, on the fused step).
+``SCENES`` names each with its snapshot and registered width,
+``OVERRIDES`` the options set on a snapshot, and ``load_scene`` loads
+one.
 """
 
 from __future__ import annotations
@@ -50,29 +59,57 @@ SCENES = {
     # dm_control scenes with their sensors, cameras and lights (fused
     # step; humanoid_dmc's contacts compacted into {1: 16, 3: 32} slots)
     **{name: (io.DMC_SNAPSHOTS[name], 8192) for name in io.DMC_NCONMAX},
+    'clutter_arm': (io.CLUTTER_ARM_SNAPSHOT, 4096),
+    'spheres_cg': (io.SPHERES_CG_SNAPSHOT, 8192),
+    'humanoid_implicitfast': (io.SNAPSHOT, 8192),
+}
+# scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
+OVERRIDES = {
+    'humanoid_implicitfast': {
+        'integrator': int(types.IntegratorType.IMPLICITFAST)},
 }
 
 
+# scene: the committed state its chip runs start from (``io.load_state``;
+# clutter_arm's clutter asleep, as its first hundred steps leave it)
+START = {'clutter_arm': io.CLUTTER_ARM_SETTLED}
+
+
+def start_state(name: str):
+  """The state a scene's runs start from (``START``), or None: worlds at
+  qpos0 plus noise."""
+  return io.load_state(START[name]) if name in START else None
+
+
+def load_scene(name: str, device=None):
+  """(model, registered width) of a scene of ``SCENES``."""
+  path, nworld = SCENES[name]
+  m = io.load_model_npz(path, device=device)
+  if name in OVERRIDES:
+    m = m.replace(opt=m.opt.replace(**OVERRIDES[name]))
+  return m, nworld
+
+
 def build(m: types.Model, nworld: int, seed: int = 0, device=None,
-          init_qpos=None, init_qvel=None,
-          qpos_noise: float = 0.01) -> types.Data:
-  """A batch of worlds at qpos0 (or ``init_qpos``) plus Gaussian qpos
-  noise, drawn with numpy from ``seed``."""
+          init_state: Optional[dict] = None) -> types.Data:
+  """A batch of worlds at qpos0 plus Gaussian qpos noise of std 0.01,
+  drawn with numpy from ``seed``; or, given ``init_state`` ({'qpos',
+  'qvel', 'tree_asleep', ...} arrays of n worlds, as ``io.load_state``
+  gives them), those worlds repeated to ``nworld``, without noise."""
   device = io.resolve_device(device)
   d = io.make_data(m, nworld, device=device)
+  if init_state is not None:
+    kw = {}
+    for k, v in init_state.items():
+      v = np.asarray(v)
+      reps = -(-nworld // v.shape[0])
+      kw[k] = torch.as_tensor(np.tile(v, (reps,) + (1,) * (v.ndim - 1))[
+          :nworld], device=device)
+    return d.replace(**kw)
   rng = np.random.default_rng(seed)
   qpos = d.qpos.cpu().numpy()
-  if init_qpos is not None:
-    qpos = np.broadcast_to(np.asarray(init_qpos, np.float32),
-                           qpos.shape).copy()
-  if qpos_noise:
-    qpos = qpos + qpos_noise * rng.standard_normal(qpos.shape).astype(
-        np.float32)
-  d = d.replace(qpos=torch.as_tensor(qpos, device=device))
-  if init_qvel is not None:
-    qvel = np.broadcast_to(np.asarray(init_qvel, np.float32), d.qvel.shape)
-    d = d.replace(qvel=torch.as_tensor(qvel.copy(), device=device))
-  return d
+  qpos = qpos + 0.01 * rng.standard_normal(qpos.shape).astype(np.float32)
+  return d.replace(qpos=torch.as_tensor(qpos, device=device))
 
 
 def ou_noise(m: types.Model, replay: bool, device=None, lanes: bool = True):
@@ -118,28 +155,31 @@ def _sync(device):
     torch.cuda.synchronize(device)
 
 
-# the state the general step carries from one step to the next; the rest
-# of Data is recomputed every step
-CARRY = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
-         'xfrc_applied', 'eq_active', 'qacc_warmstart', 'qacc',
-         'solver_niter', 'overflow')
+def sorts(m: types.Model, use_fused: bool) -> bool:
+  """Does the rollout sort worlds by Newton count?  On the fused path,
+  and on the general path where the solve kernel runs (worlds of a block
+  wait for its slowest); the torch solver is one loop over every world,
+  where order buys nothing (``mujoco_warp_tpu/benchmarks.py:250-251``)."""
+  return use_fused or forward.solve_kernel_runs(m)
 
 
 def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
             sort_every: int = 4, replay: Optional[dict] = None,
-            general: bool = False):
+            general: bool = False, init_state: Optional[dict] = None):
   """The benchmark's rollout: sets the worlds up, then returns an endless
   generator of states, one per step: lane states (``fused.FusedState``)
   on the fused path, world-major ``types.Data`` on the general path.
   Every ``sort_every`` steps worlds are sorted by their last Newton count
-  (the OU noise rides the same permutation), then the OU noise sets ctrl
-  and the step runs.
+  where ``sorts`` says so (the OU noise rides the same permutation, and
+  on the general path every per-world field of Data), then the OU noise
+  sets ctrl and the step runs.
 
   ``replay``: {'ctrl': (T, nu) array, 'qpos': (nq,), 'qvel': (nv,)} —
   worlds start from the recorded state exactly and the OU noise runs
   around the replayed ctrl.  ``general``: the general step even for a
   model inside the fused gate (it computes sensordata, the fused step
-  does not).
+  does not).  ``init_state``: worlds start from this state, tiled
+  (``build``); with ``replay``, which sets the start, it raises.
   """
   device = io.resolve_device(device)
   use_fused = fused.supported(m) and not general
@@ -149,14 +189,17 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
       raise NotImplementedError(
           f'model outside the fused gate ({fused.reason(m)}) and the '
           f'general step ({why})')
-  kw = dict(qpos_noise=0.01)
   traj = None
   if replay is not None:
-    kw = dict(init_qpos=replay['qpos'], init_qvel=replay['qvel'],
-              qpos_noise=0.0)
+    if init_state is not None:
+      raise ValueError('replay sets the start state: pass no init_state')
+    init_state = {'qpos': np.asarray(replay['qpos'], np.float32)[None],
+                  'qvel': np.asarray(replay['qvel'], np.float32)[None]}
     traj = torch.as_tensor(np.asarray(replay['ctrl'], np.float32),
                            device=device)
-  d = build(m, nworld, seed, device=device, **kw)
+  d = build(m, nworld, seed, device=device, init_state=init_state)
+  if not sorts(m, use_fused):
+    sort_every = 0
   ou = ou_noise(m, replay is not None, device, lanes=use_fused)
   gen = torch.Generator(device=device)
   gen.manual_seed(seed)
@@ -181,7 +224,7 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
     while True:
       if sort_every > 0 and i % sort_every == 0:
         perm = torch.argsort(d.solver_niter, stable=True)
-        d = types.Data(**{k: getattr(d, k)[perm] for k in CARRY})
+        d = types.map_worlds(d, lambda x: x[perm], nworld)
         noise = noise[perm]
       if m.nu:
         noise, ctrl = ou(noise, gen,
@@ -199,12 +242,15 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
 
 def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
         warmup_steps: int = 10, device=None, sort_every: int = 4,
-        replay: Optional[dict] = None, general: bool = False) -> dict:
-  """Steps/s of the rollout (``rollout``) on ``device``.  Returns the
-  metrics dict with the keys of ``mujoco_warp_tpu.benchmarks.run``, plus
-  the last state under 'state'."""
+        replay: Optional[dict] = None, general: bool = False,
+        init_state: Optional[dict] = None) -> dict:
+  """Steps/s of the rollout (``rollout``) on ``device``, from
+  ``init_state`` where given.  Returns the metrics dict with the keys of
+  ``mujoco_warp_tpu.benchmarks.run``, plus the last state under
+  'state'."""
   device = io.resolve_device(device)
-  steps_of = rollout(m, nworld, seed, device, sort_every, replay, general)
+  steps_of = rollout(m, nworld, seed, device, sort_every, replay, general,
+                     init_state)
   t0 = time.perf_counter()
   st = next(steps_of)
   _sync(device)

@@ -2,7 +2,9 @@
 
   python -m mujoco_warp_tpu_torch.devprofile \
       [--scene constraints|clutter_arm_nosleep|spheres|spheres_elliptic|
-               walker|cheetah|hopper|humanoid_dmc] [--general]
+               walker|cheetah|hopper|humanoid_dmc|clutter_arm|spheres_cg|
+               humanoid_implicitfast] [--general]
+  python -m mujoco_warp_tpu_torch.devprofile --skip [--worlds 256]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
 (the humanoid, by default, 8192 worlds x 300, then rests its feet on the
@@ -13,11 +15,14 @@ contacts; ``spheres`` at 8192 and ``spheres_elliptic`` at 4096 worlds,
 150 steps, the general step with collision and contacts through the
 solve kernel, pyramidal and elliptic, by then with every body on the
 floor; the dm_control scenes at 8192 worlds x 200, fused, or with
-``--general`` on the general step with their sensors), traces a few more with ``torch.profiler`` (CPU and CUDA
-activities; 40 steps, 4 for the clutter scene, whose step launches tens
-of thousands of kernels, 10 for the spheres scenes and for the general
-step of a dm_control scene) and prints one JSON
-line:
+``--general`` on the general step with their sensors; ``clutter_arm``,
+4096 x 20 from its settled state (``benchmarks.START``), the general
+step with sleep and islands; ``spheres_cg``, 8192 x 20, the CG solver;
+``humanoid_implicitfast``, 8192 x 300, fused), traces a few more with
+``torch.profiler`` (CPU and CUDA activities; 40 steps, 4 for the clutter
+scenes, whose step launches tens of thousands of kernels, 3 for
+spheres_cg, 10 for the spheres scenes and for the general step of a
+dm_control scene) and prints one JSON line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
   that closes after a device synchronize);
@@ -31,6 +36,13 @@ line:
 - ``stage_host_ms_per_step``: the host time of each stage of the general
   step (its ``stage:<name>`` annotations, ``ops/forward.py``; empty on
   the fused path).
+
+With ``--skip``, the same for the skip step instead: ``forward.step`` on
+``parity.pushed_clutter`` (the settled clutter.xml state, 256 worlds by
+default, 5 in 64 pushed awake: 20 of 256), which packs the awake
+worlds, and the full step ``forward._step_batched`` from the same state,
+each warmed up by one step and traced for ``SKIP_STEPS``; one JSON line
+with both summaries.
 
 The profiler itself slows the host, so the idle share it reads is an upper
 bound.  The chrome trace is kept under ``build/mujoco_warp_tpu_torch/``.
@@ -59,9 +71,13 @@ _KERNELS = {'k1': 'k1_kernel', 'k4': 'k4_kernel',
 WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            'clutter_arm_nosleep': (80, 4), 'spheres': (150, 10),
            'spheres_elliptic': (150, 10),
-           **{k: (200, 40) for k in io.DMC_NCONMAX}}
+           **{k: (200, 40) for k in io.DMC_NCONMAX},
+           'clutter_arm': (20, 4), 'spheres_cg': (20, 3),
+           'humanoid_implicitfast': (300, 40)}
 # the general step's window, for --general
 GENERAL_WINDOW = (200, 10)
+# steps traced of each path with --skip
+SKIP_STEPS = 4
 # other kernels listed by name
 TOP = 8
 
@@ -132,31 +148,58 @@ def summarize(events: list, nsteps: int) -> dict:
   }
 
 
-def profile(scene: str = 'humanoid', general: bool = False) -> dict:
-  if not torch.cuda.is_available():
-    raise RuntimeError('devprofile needs a CUDA device')
-  path, nworld = benchmarks.SCENES[scene]
-  skip, steps = GENERAL_WINDOW if general else WINDOWS[scene]
-  m = io.load_model_npz(path)
-  steps_of = benchmarks.rollout(m, nworld, device='cuda', general=general)
-  for _ in range(skip):
-    next(steps_of)
+def _traced(step, steps: int, name: str) -> dict:
+  """``step()`` called ``steps`` times under the profiler: the trace's
+  path and its summary."""
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
           torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
     with torch.profiler.record_function('rollout'):
       for _ in range(steps):
-        next(steps_of)
+        step()
       torch.cuda.synchronize()
-  name = scene + ('_general' if general else '')
   trace = os.path.join(build.BUILD_DIR, f'rollout_trace_{name}.json')
   os.makedirs(os.path.dirname(trace), exist_ok=True)
   prof.export_chrome_trace(trace)
   with open(trace) as f:
     events = json.load(f)['traceEvents']
+  return {'trace': trace, **summarize(events, steps)}
+
+
+def profile(scene: str = 'humanoid', general: bool = False) -> dict:
+  if not torch.cuda.is_available():
+    raise RuntimeError('devprofile needs a CUDA device')
+  m, nworld = benchmarks.load_scene(scene)
+  skip, steps = GENERAL_WINDOW if general else WINDOWS[scene]
+  steps_of = benchmarks.rollout(m, nworld, device='cuda', general=general,
+                                init_state=benchmarks.start_state(scene))
+  for _ in range(skip):
+    next(steps_of)
+  name = scene + ('_general' if general else '')
   return {'scene': scene, 'general': general, 'nworld': nworld,
-          'skip': skip, 'trace': trace, **summarize(events, steps)}
+          'skip': skip, **_traced(lambda: next(steps_of), steps, name)}
+
+
+def profile_skip(nworld: int = 256) -> dict:
+  """The skip step and the full step from the same pushed clutter state
+  (see the module doc)."""
+  from mujoco_warp_tpu_torch import parity
+  from mujoco_warp_tpu_torch.ops import forward
+  if not torch.cuda.is_available():
+    raise RuntimeError('devprofile needs a CUDA device')
+  nwake = nworld * 5 // 64
+  m, d0 = parity.pushed_clutter(nworld, nwake)
+  out = {'nworld': nworld, 'nwake': nwake}
+  for name, fn in (('packed', forward.step), ('full', forward._step_batched)):
+    state = [fn(m, d0)]
+    n0 = forward.packed_steps
+
+    def one():
+      state[0] = fn(m, state[0])
+    out[name] = _traced(one, SKIP_STEPS, f'skip_{name}_{nworld}')
+    out[name]['packed_steps'] = forward.packed_steps - n0
+  return out
 
 
 if __name__ == '__main__':
@@ -164,5 +207,10 @@ if __name__ == '__main__':
   p.add_argument('--scene', choices=sorted(WINDOWS), default='humanoid')
   p.add_argument('--general', action='store_true',
                  help='the general step, also for a fused-gate scene')
+  p.add_argument('--skip', action='store_true',
+                 help='the skip step against the full step instead')
+  p.add_argument('--worlds', type=int, default=256,
+                 help='worlds of --skip')
   args = p.parse_args()
-  print(json.dumps(profile(args.scene, args.general)))
+  print(json.dumps(profile_skip(args.worlds) if args.skip else
+                   profile(args.scene, args.general)))

@@ -39,12 +39,25 @@ CONSTRAINTS_XML = os.path.join(_MODELS, 'constraints.xml')
 # (the registered benchmark clutter_arm_nosleep, lossless contact slots)
 CLUTTER_SNAPSHOT = os.path.join(_ASSETS, 'clutter_arm_nosleep.npz')
 CLUTTER_XML = os.path.join(_MODELS, 'clutter_arm.xml')
+# the sleeping scene: clutter_arm.xml as it is (sleep on), lossless slots
+# (the registered benchmark clutter_arm), and its settled state
+CLUTTER_ARM_SNAPSHOT = os.path.join(_ASSETS, 'clutter_arm.npz')
+CLUTTER_ARM_SETTLED = os.path.join(_ASSETS, 'clutter_arm_settled.npz')
+# clutter.xml (12 free bodies, sleep on) with its contacts compacted into
+# {1: 24, 3: 48} slots, as the JAX tests/test_sleep_skip.py builds it, and
+# its settled state: the sleep-skip step's scene
+CLUTTER_SLEEP_XML = os.path.join(_MODELS, 'clutter.xml')
+CLUTTER_SLEEP_NCONMAX = {1: 24, 3: 48}
+CLUTTER_SLEEP_SNAPSHOT = os.path.join(_ASSETS, 'clutter.npz')
+CLUTTER_SETTLED = os.path.join(_ASSETS, 'clutter_settled.npz')
 # the contact zoo spheres.xml (condim 3/4/6 pairs of planes, spheres,
 # capsules and boxes) in both cones: the registered benchmarks spheres
 # (pyramidal) and spheres_elliptic (opt.cone=elliptic), lossless slots
 SPHERES_XML = os.path.join(_MODELS, 'spheres.xml')
 SPHERES_SNAPSHOT = os.path.join(_ASSETS, 'spheres.npz')
 SPHERES_ELLIPTIC_SNAPSHOT = os.path.join(_ASSETS, 'spheres_elliptic.npz')
+# spheres.xml with opt.solver=cg (the registered benchmark spheres_cg)
+SPHERES_CG_SNAPSHOT = os.path.join(_ASSETS, 'spheres_cg.npz')
 # the fused step's small gated scenes: JOINT equality rows (a coupled
 # polynomial and a constant target) and the implicitfast integrator with
 # joint damping; K4's forms beside the humanoid's damped Euler
@@ -479,7 +492,7 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'nsite': mjm.nsite, 'ncam': mjm.ncam, 'nlight': mjm.nlight,
       'nmocap': mjm.nmocap, 'neq': mjm.neq, 'ntendon': mjm.ntendon,
       'nsensor': mjm.nsensor, 'nsensordata': mjm.nsensordata,
-      'nhistory': mjm.nhistory,
+      'nhistory': mjm.nhistory, 'ntree': mjm.ntree,
       'nflex': mjm.nflex, 'ne': ne, 'nf': nf, 'nl': nl, 'nefc': nefc,
       'ncon': ncon, 'ncand': ncand, 'con_classes': con_classes,
       'con_compact': con_compact,
@@ -489,6 +502,7 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'opt.ls_tolerance': o.ls_tolerance, 'opt.gravity': o.gravity,
       'opt.magnetic': o.magnetic,
       'opt.density': o.density, 'opt.viscosity': o.viscosity,
+      'opt.sleep_tolerance': o.sleep_tolerance,
       'opt.integrator': int(o.integrator), 'opt.cone': int(o.cone),
       'opt.solver': int(o.solver), 'opt.iterations': int(o.iterations),
       'opt.ls_iterations': int(o.ls_iterations),
@@ -531,10 +545,13 @@ def check_supported(m: types.Model):
 
 
 def make_data(m: types.Model, nworld: int, device=None) -> types.Data:
-  """A batch of worlds at qpos0 and rest (``io.py:1076`` ``make_data``)."""
+  """A batch of worlds at qpos0 and rest (``io.py:1076`` ``make_data``):
+  every tree awake (``K_AWAKE``, ``io.py:1198-1202``), no island."""
   dev = resolve_device(device)
   f32 = dict(dtype=torch.float32, device=dev)
   z = lambda *shape: torch.zeros((nworld,) + shape, **f32)
+  i32 = lambda fill, *shape: torch.full((nworld,) + shape, fill,
+                                        dtype=torch.int32, device=dev)
   qpos = m.qpos0.to(**f32)
   eq0 = torch.as_tensor(np.asarray(m.eq_active0, bool).reshape(-1),
                         device=dev)
@@ -544,8 +561,10 @@ def make_data(m: types.Model, nworld: int, device=None) -> types.Data:
       xfrc_applied=z(m.nbody, 6), eq_active=eq0[None].repeat(nworld, 1),
       qacc_warmstart=z(m.nv), qacc=z(m.nv),
       energy=z(2), sensordata=z(m.nsensordata),
-      solver_niter=torch.zeros(nworld, dtype=torch.int32, device=dev),
-      overflow=torch.zeros(nworld, dtype=torch.int32, device=dev))
+      solver_niter=i32(0), overflow=i32(0),
+      tree_asleep=i32(types.K_AWAKE, m.ntree), nisland=i32(0),
+      tree_island=i32(-1, m.ntree), dof_island=i32(-1, m.nv),
+      efc_island=i32(-1, m.nefc))
 
 
 def load_humanoid_benchmark():
@@ -616,6 +635,81 @@ def make_clutter_snapshot(path: str = CLUTTER_SNAPSHOT) -> types.Model:
   return m
 
 
+def make_clutter_arm_snapshot(path: str = CLUTTER_ARM_SNAPSHOT
+                              ) -> types.Model:
+  """The ``clutter_arm`` scene (sleep on) with lossless contact slots,
+  written to ``path``."""
+  import mujoco
+  m = put_model(mujoco.MjModel.from_xml_path(CLUTTER_XML), nconmax=None,
+                device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
+def make_clutter_sleep_snapshot(path: str = CLUTTER_SLEEP_SNAPSHOT
+                                ) -> types.Model:
+  """``clutter.xml`` (sleep on) with its contacts compacted into
+  ``CLUTTER_SLEEP_NCONMAX`` slots, written to ``path``."""
+  import mujoco
+  m = put_model(mujoco.MjModel.from_xml_path(CLUTTER_SLEEP_XML),
+                nconmax=CLUTTER_SLEEP_NCONMAX, device='cpu')
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  save_model_npz(path, m)
+  return m
+
+
+# the fields of a saved state (``save_state``); a rollout starts from them
+STATE_FIELDS = ('qpos', 'qvel', 'qacc_warmstart', 'tree_asleep', 'nisland',
+                'tree_island', 'dof_island', 'efc_island')
+
+
+def save_state(path: str, d: types.Data, **meta):
+  """The per-world fields ``STATE_FIELDS`` of ``d`` (and ``meta``, numbers
+  that describe how it was made) as an npz file."""
+  np.savez_compressed(path, **{k: getattr(d, k).cpu().numpy()
+                               for k in STATE_FIELDS},
+                      **{'meta.' + k: np.asarray(v) for k, v in meta.items()})
+
+
+def load_state(path: str) -> dict:
+  """A state of ``save_state``: field -> numpy array (n worlds)."""
+  with np.load(path) as z:
+    return {k: z[k] for k in z.files if not k.startswith('meta.')}
+
+
+# how ``make_settled_state`` makes the committed settled states
+SETTLE_NWORLD = 64
+SETTLE_SEED = 0
+SETTLE_MAX_STEPS = 2000
+SETTLE_ASLEEP_SHARE = 0.95
+
+
+def make_settled_state(model_path: str, path: str) -> types.Data:
+  """A settled state of the sleeping scene at ``model_path``, written to
+  ``path``: ``SETTLE_NWORLD`` worlds at qpos0 plus uniform noise of 1 mm
+  (``SETTLE_SEED``), stepped with zero ctrl by the general step's plain
+  versions on the CPU until ``SETTLE_ASLEEP_SHARE`` of the trees that may
+  sleep are asleep (the steps taken go into the file).  Raises, and
+  writes nothing, if that share is not reached in ``SETTLE_MAX_STEPS``."""
+  from mujoco_warp_tpu_torch.ops import forward
+  m = load_model_npz(model_path, device='cpu')
+  d = make_data(m, SETTLE_NWORLD, device='cpu')
+  rng = np.random.default_rng(SETTLE_SEED)
+  noise = rng.uniform(-1e-3, 1e-3, tuple(d.qpos.shape)).astype(np.float32)
+  d = d.replace(qpos=d.qpos + torch.as_tensor(noise))
+  may = torch.as_tensor(np.asarray(m.tree_sleep_policy) != 1)
+  for steps in range(1, SETTLE_MAX_STEPS + 1):
+    d = forward.step(m, d)
+    share = float((d.tree_asleep[:, may] >= 0).float().mean())
+    if steps % 10 == 0 and share >= SETTLE_ASLEEP_SHARE:
+      save_state(path, d, steps=steps, seed=SETTLE_SEED)
+      return d
+  raise RuntimeError(
+      f'{model_path}: {share:.3f} of the trees that may sleep are asleep '
+      f'after {SETTLE_MAX_STEPS} steps, short of {SETTLE_ASLEEP_SHARE}')
+
+
 def load_spheres(cone: int = types.ConeType.PYRAMIDAL):
   """``spheres.xml`` as a ``mujoco.MjModel`` with ``opt.cone`` set to
   ``cone``, as the JAX ``benchmarks.build`` sets it before ``put_model``
@@ -627,14 +721,20 @@ def load_spheres(cone: int = types.ConeType.PYRAMIDAL):
 
 
 def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
-                          path: Optional[str] = None) -> types.Model:
-  """The ``spheres`` (pyramidal) or ``spheres_elliptic`` scene with
-  lossless contact slots (``nconmax=None``), written to ``path`` (by
-  default its committed snapshot)."""
+                          path: Optional[str] = None,
+                          solver: int = types.SolverType.NEWTON
+                          ) -> types.Model:
+  """The ``spheres`` (pyramidal), ``spheres_elliptic`` or (with the CG
+  ``solver``) ``spheres_cg`` scene with lossless contact slots
+  (``nconmax=None``), written to ``path`` (by default its committed
+  snapshot)."""
   if path is None:
     path = SPHERES_ELLIPTIC_SNAPSHOT if cone == types.ConeType.ELLIPTIC \
+        else SPHERES_CG_SNAPSHOT if solver == types.SolverType.CG \
         else SPHERES_SNAPSHOT
-  m = put_model(load_spheres(cone), nconmax=None, device='cpu')
+  mjm = load_spheres(cone)
+  mjm.opt.solver = int(solver)
+  m = put_model(mjm, nconmax=None, device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
   save_model_npz(path, m)
   return m
@@ -679,9 +779,15 @@ def main(argv: Optional[list] = None):
                  help='regenerate assets/humanoid_bench.npz, '
                  'assets/constraints.npz, assets/clutter_arm_nosleep.npz, '
                  'assets/spheres.npz, assets/spheres_elliptic.npz, '
-                 'assets/eq_joint.npz, assets/implicitfast.npz and the '
+                 'assets/eq_joint.npz, assets/implicitfast.npz, the '
                  'dm_control scenes assets/walker.npz, cheetah.npz, '
-                 'hopper.npz and humanoid_dmc.npz')
+                 'hopper.npz and humanoid_dmc.npz, assets/clutter_arm.npz, '
+                 'assets/spheres_cg.npz and assets/clutter.npz, and (with '
+                 '--settle) the settled states assets/clutter_arm_settled.npz'
+                 ' and assets/clutter_settled.npz')
+  p.add_argument('--settle', action='store_true',
+                 help='also remake the settled states (the plain general '
+                 'step on the CPU, minutes)')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
@@ -697,10 +803,20 @@ def main(argv: Optional[list] = None):
                      (IMPLICITFAST_SNAPSHOT,
                       lambda p: make_xml_snapshot(IMPLICITFAST_XML, p))) + \
       tuple((DMC_SNAPSHOTS[name], lambda p, n=name: make_dmc_snapshot(n, p))
-            for name in DMC_NCONMAX):
+            for name in DMC_NCONMAX) + (
+          (CLUTTER_ARM_SNAPSHOT, make_clutter_arm_snapshot),
+          (SPHERES_CG_SNAPSHOT, lambda p: make_spheres_snapshot(
+              types.ConeType.PYRAMIDAL, p, types.SolverType.CG)),
+          (CLUTTER_SLEEP_SNAPSHOT, make_clutter_sleep_snapshot)):
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')
+  if args.settle:
+    for model_path, path in ((CLUTTER_ARM_SNAPSHOT, CLUTTER_ARM_SETTLED),
+                             (CLUTTER_SLEEP_SNAPSHOT, CLUTTER_SETTLED)):
+      d = make_settled_state(model_path, path)
+      print(f'wrote {path}: {d.qpos.shape[0]} worlds, trees asleep '
+            f'{float((d.tree_asleep >= 0).float().mean()):.3f}')
 
 
 if __name__ == '__main__':

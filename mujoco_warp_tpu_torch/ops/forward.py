@@ -3,23 +3,26 @@
 Counterpart of ``mujoco_warp_tpu/ops/forward.py``: ``fwd_actuation``
 (:333), ``fwd_smooth_force`` (:479), ``_next_position`` (:497),
 ``_advance`` (:523), ``euler`` (:540), ``_step_batched`` (:696) and
-``step`` (:649) for batched Data.  The stage order of ``_step_batched`` is
-kept: the position stages with the camera, light and site frames
+``step`` (:649), ``_island_lazy`` (:679) and ``_step_sleep_skip`` (:814)
+for batched Data.  The stage order of ``_step_batched`` is kept: the wake
+pass, the position stages with the camera, light and site frames
 (``pre``), the mass chain (kernel; a large tree's factor from the
-``chol_batched`` kernel), collision (with contact compaction), the
-constraint rows, the position sensors, passive forces, the velocity
-sensors and actuator forces (``mid``), qacc_smooth (Cholesky-solve
-kernel), the Newton solve (the solve kernel, or for a large system the
-torch Newton of ``ops/solver.py`` around the ``chol_batched`` and
-``chol_solve`` kernels), the acceleration sensors, the damped Euler solve
-(kernel) and ``_advance``.  On CUDA tensors the kernels launch; on CPU
-tensors their plain versions run.
+``chol_batched`` kernel), collision (with contact compaction) and the
+collision wake, the constraint rows, the equality wake and the masking of
+sleeping rows, the position sensors, passive forces, the velocity sensors
+and actuator forces (``mid``), the lazy island labeler, qacc_smooth
+(Cholesky-solve kernel), the solve (the Newton solve kernel; for a large
+system or the CG solver the torch solver of ``ops/solver.py`` around the
+``chol_batched`` and ``chol_solve`` kernels), qacc zeroed on sleeping
+dofs, the acceleration sensors, the damped Euler solve (kernel),
+``_advance`` and the sleep pass.  On CUDA tensors the kernels launch; on
+CPU tensors their plain versions run.
 
 ``unsupported`` is this slice's gate: the models the general step runs
 are those it returns None for.  Contact rows go through either solver,
 pyramidal or frictionless in both; elliptic cones only through the solve
-kernel (nefc x nv up to 12,000), since the torch Newton has no cone
-Hessian yet.
+kernel (Newton, nefc x nv up to 12,000), since the torch solver has no
+cone Hessian yet.
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ from mujoco_warp_tpu_torch.fused import k4_ref
 from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
-from mujoco_warp_tpu_torch.ops import collision_driver, constraint, math, \
-    passive, sensor, smooth, support
+from mujoco_warp_tpu_torch.ops import collision_driver, constraint, island, \
+    math, passive, sensor, smooth, support
+from mujoco_warp_tpu_torch.ops import sleep as osleep
 from mujoco_warp_tpu_torch.ops import solver as osolver
-from mujoco_warp_tpu_torch.ops.util import bmask, ix
+from mujoco_warp_tpu_torch.ops.util import bmask, host_item, ix
 
 _JT = types.JointType
 _GT = types.GainType
@@ -45,6 +49,11 @@ _BT = types.BiasType
 # jnp Newton (pallas/solver.py _use_big :65), ops/solver.py here
 MAX_NEFC_NV = 12_000
 
+# steps so far on which the island labeler ran, and steps that packed the
+# awake worlds (``_step_sleep_skip``)
+island_runs = 0
+packed_steps = 0
+
 
 def large_system(m: types.Model) -> bool:
   """Does ``m`` take the torch Newton of ``ops/solver.py``?  Beyond
@@ -52,6 +61,14 @@ def large_system(m: types.Model) -> bool:
   kernel's shared memory (as the JAX package bounds its kernel's VMEM,
   ``pallas/solver.py`` ``supported`` :128)."""
   return m.nefc * m.nv > MAX_NEFC_NV or not ksolver.fits(m)
+
+
+def solve_kernel_runs(m: types.Model) -> bool:
+  """Does the solve kernel run ``m``'s solve (``pallas/solver.py``
+  ``supported`` :110)?  Newton only, with rows, within its size."""
+  return (m.opt.solver == types.SolverType.NEWTON and m.nefc > 0 and
+          not (m.opt.disableflags & types.DisableBit.CONSTRAINT) and
+          not large_system(m))
 
 
 def unsupported(m: types.Model):
@@ -66,15 +83,14 @@ def unsupported(m: types.Model):
   if later:
     return 'sensor types ' + ', '.join(f'{t} (waits for {why})'
                                       for t, why in later)
-  if o.enableflags & types.EnableBit.SLEEP:
-    return 'sleep'
-  if o.solver != types.SolverType.NEWTON:
-    return 'solver (CG)'
+  if o.solver not in (types.SolverType.NEWTON, types.SolverType.CG):
+    return 'solver (PGS)'
   if o.integrator != types.IntegratorType.EULER:
     return 'integrator (RK4, implicit)'
-  if o.cone != types.ConeType.PYRAMIDAL and large_system(m):
-    return (f'elliptic cones in the torch Newton (nefc {m.nefc} x nv {m.nv} '
-            f'beyond the solve kernel)')
+  if o.cone != types.ConeType.PYRAMIDAL and (
+      large_system(m) or o.solver == types.SolverType.CG):
+    return (f'elliptic cones in the torch solver (nefc {m.nefc} x nv {m.nv} '
+            f'beyond the solve kernel, or CG)')
   if m.nu:
     if not np.all(m.actuator_trntype == types.TrnType.JOINT):
       return 'actuator transmission'
@@ -189,18 +205,19 @@ def euler(m: types.Model, d: types.Data) -> types.Data:
 
 def solve(m: types.Model, d: types.Data) -> types.Data:
   """qacc from qacc_smooth and the constraint rows (``ops/solver.py``
-  ``solve_batched`` :704): the Newton kernel, the torch Newton for a
-  system beyond nefc * nv 12,000 (``pallas/solver.py`` ``supported``
-  :120), or qacc_smooth when the model has no rows."""
+  ``solve_batched`` :704): the Newton kernel, the torch solver for a
+  Newton system beyond nefc * nv 12,000 and for CG at every size
+  (``pallas/solver.py`` ``supported`` :110-120), or qacc_smooth when the
+  model has no rows."""
   if m.nefc == 0 or (m.opt.disableflags & types.DisableBit.CONSTRAINT):
     W = d.qpos.shape[0]
     return d.replace(
         qacc=d.qacc_smooth, qacc_warmstart=d.qacc_smooth,
         qfrc_constraint=torch.zeros_like(d.qvel),
         solver_niter=torch.zeros(W, dtype=torch.int32, device=d.qpos.device))
-  if large_system(m):
-    return osolver.solve(m, d)
-  return ksolver.solve_batched(m, d)
+  if solve_kernel_runs(m):
+    return ksolver.solve_batched(m, d)
+  return osolver.solve(m, d)
 
 
 def pre(m: types.Model, d: types.Data) -> types.Data:
@@ -221,11 +238,18 @@ def mid(m: types.Model, d: types.Data) -> types.Data:
   transmission, the position sensors and energy, passive forces, the
   velocity sensors and energy, actuator forces, qfrc_smooth
   (``_step_batched`` mid)."""
+  sleeping = osleep.enabled(m)
   if m.opt.run_collision_detection:
     with stage('collision'):
       d = collision_driver.collision(m, d)
+    if sleeping:
+      with stage('sleep'):
+        d = osleep.wake_collision(m, d)
   with stage('rows'):
     d = constraint.make_constraint(m, d)
+  if sleeping:
+    with stage('sleep'):
+      d = osleep.mask_sleeping(m, osleep.wake_equality(m, d))
   with stage('forces'):
     d = smooth.transmission(m, d)
   with stage('sensors'):
@@ -242,8 +266,27 @@ def mid(m: types.Model, d: types.Data) -> types.Data:
     return fwd_smooth_force(m, d)
 
 
-def _step_batched(m: types.Model, d: types.Data) -> types.Data:
+def _island_lazy(m: types.Model, d: types.Data) -> types.Data:
+  """The island labeler, on steps where some world has a sleep candidate
+  (``forward.py:679``): islands feed only ``sleep``'s island test, which
+  can change an outcome only for an awake tree whose counter reaches
+  ready this step; a sleeping tree's stale labels are exact (see
+  ``sleep.sleep_candidate``).  One host read of a device bool decides."""
+  global island_runs
+  if host_item(osleep.sleep_candidate(m, d).any(), 'island'):
+    island_runs += 1
+    with stage('island'):
+      return island.island(m, d)
+  return d
+
+
+def _step_batched(m: types.Model, d: types.Data,
+                  run_wake: bool = True) -> types.Data:
   """One stage-split step of batched Data (``forward.py:696``)."""
+  sleeping = osleep.enabled(m)
+  if run_wake and sleeping:
+    with stage('sleep'):
+      d = osleep.wake(m, d)
   with stage('pre'):
     d = pre(m, d)
   # crb, qM, qLD, com_vel, cdof_dot and rne in one kernel (a large tree's
@@ -251,24 +294,69 @@ def _step_batched(m: types.Model, d: types.Data) -> types.Data:
   with stage('mass_chain'):
     d = kmass.mass_chain(m, d)
   d = mid(m, d)
+  if sleeping:
+    d = _island_lazy(m, d)
   # qacc_smooth through the mass factor
   with stage('qacc_smooth'):
     d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
                                                          d.qfrc_smooth))
   with stage('solve'):
     d = solve(m, d)
+  if sleeping:
+    with stage('sleep'):
+      d = d.replace(qacc=torch.where(osleep.dof_awake_mask(m, d), d.qacc,
+                                     0.0))
   # the accelerometer reads the undamped qacc
   with stage('sensors'):
     d = sensor.sensor_acc(m, d)
   with stage('euler'):
-    return euler(m, d)
+    d = euler(m, d)
+  if sleeping:
+    with stage('sleep'):
+      d = osleep.sleep(m, d)
+  return d
+
+
+def _step_sleep_skip(m: types.Model, d: types.Data) -> types.Data:
+  """A step that skips the fully asleep worlds (``forward.py:814``): after
+  the wake pass, the worlds with an awake tree are packed into ``W // 4``
+  slots (awake worlds first, in world order, by a stable sort; the rest of
+  the pack is asleep worlds whose result is dropped) and only the pack
+  steps; every world's clock advances.  The pack gathers only the state
+  the step carries (``types.CARRY``: the step recomputes the rest) and
+  scatters every field the step computed back to its awake worlds.  A
+  fully asleep world has no wake source but a user force, which the wake
+  pass reads.  With more than ``W // 4`` worlds awake the whole batch
+  steps.  One host read of the awake count decides."""
+  global packed_steps
+  W = d.qpos.shape[0]
+  cap = W // 4
+  with stage('sleep'):
+    d = osleep.wake(m, d)
+    awake_w = torch.any(d.tree_asleep < 0, dim=1)
+  nawake = host_item(awake_w.sum(), 'pack')
+  if nawake > cap:
+    d2 = _step_batched(m, d, run_wake=False)
+  else:
+    packed_steps += 1
+    with stage('sleep'):
+      ids = torch.argsort((~awake_w).to(torch.int8), stable=True)[:cap]
+      sub = types.carried(d, lambda x: x[ids])
+    sub = _step_batched(m, sub, run_wake=False)
+    with stage('sleep'):
+      d2 = types.scatter_worlds(d, sub, ids[:nawake], W)
+  return d2.replace(time=d.time + m.opt.timestep)
 
 
 def step(m: types.Model, d: types.Data) -> types.Data:
-  """One physics step of batched Data (``forward.py:649``)."""
+  """One physics step of batched Data (``forward.py:649``): with sleep on
+  and at least 256 worlds, the step that skips asleep worlds
+  (``forward.py:674-675``)."""
   if d.qpos.dim() != 2:
     raise ValueError('the general step takes batched (W, nq) Data')
   why = unsupported(m)
   if why is not None:
     raise NotImplementedError(f'general step: {why} is not ported yet')
+  if osleep.enabled(m) and d.qpos.shape[0] >= 256:
+    return _step_sleep_skip(m, d)
   return _step_batched(m, d)

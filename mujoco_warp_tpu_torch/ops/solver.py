@@ -1,16 +1,21 @@
-"""The Newton solve of large constraint systems, world-major.
+"""The Newton and CG solves of the general step, world-major.
 
 Counterpart of ``mujoco_warp_tpu/ops/solver.py`` for pyramidal and
 frictionless contact, limit, equality and friction-loss rows:
 ``_static_tables`` (:71), ``_update_constraint`` (:116), ``_eval_delta``
 (:222), ``_eval_p0`` (:373), ``_in_bracket`` (:420), ``_linesearch``
-(:425), ``_gradient`` (:682, dense H) and ``solve`` (:720).  The JAX
-package runs it under ``vmap`` once nefc * nv exceeds 12,000
-(``pallas/solver.py`` ``_use_big``); here every world is a row of one
-batch.  H = qM + J^T diag(D quad) J and the J products are batched matrix
-products; H^-1 grad goes through the ``chol_batched`` kernel (jitter
-1e-15) and the ``chol_solve`` kernel, as ``_make_chol_solve`` (:534)
-swaps in the Pallas pair.
+(:425), ``_gradient`` (:682) and ``solve`` (:720).  The JAX package runs
+it under ``vmap`` for a Newton system beyond nefc * nv 12,000
+(``pallas/solver.py`` ``_use_big``) and for the CG solver at every size
+(its Pallas solve is Newton-only, :110-112); here every world is a row of
+one batch.  Newton: H = qM + J^T diag(D quad) J and the J products are
+batched matrix products; H^-1 grad goes through the ``chol_batched``
+kernel (jitter 1e-15) and the ``chol_solve`` kernel, as
+``_make_chol_solve`` (:534) swaps in the Pallas pair.  CG: M^-1 grad
+through the ``chol_solve`` kernel on the mass factor qLD
+(``smooth.solve_m``, :699-700), the search direction -M^-1 grad plus the
+Polak-Ribiere beta (at least 0) times the last one (:761-766), and no
+model-improvement stop.
 
 The loops keep the semantics of a ``while_loop`` under ``vmap``: each trip
 computes every world, a world whose loop is done keeps its carry, and the
@@ -30,13 +35,13 @@ import torch
 
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.kernels import linalg as klinalg
-from mujoco_warp_tpu_torch.ops.util import fmask
+from mujoco_warp_tpu_torch.ops.util import fmask, host_item
 
 _CT = types.ConstraintType
 _MINVAL = 1e-15
 _SATISFIED, _QUADRATIC, _LINEARNEG, _LINEARPOS = 0, 1, 2, 3
 
-# Newton trips (iterations of the batched loop) of every solve so far
+# Newton or CG trips (iterations of the batched loop) of every solve so far
 trips = 0
 
 
@@ -215,7 +220,7 @@ def _linesearch(m, d, st, Ma, Jaref, search, live):
   ls_done = torch.zeros_like(lo_less)
   while it < m.opt.ls_iterations:
     run = ~ls_done
-    if not bool((run & live).any()):
+    if not host_item((run & live).any(), 'solver'):
       break
     lo_next_alpha = lo_alpha - _safe_div(lo[:, 1], lo[:, 2])
     hi_next_alpha = hi_alpha - _safe_div(hi[:, 1], hi[:, 2])
@@ -268,10 +273,13 @@ def _linesearch(m, d, st, Ma, Jaref, search, live):
 
 
 def _gradient(m, d, Ma, force, state):
-  """grad and H^-1 grad with the dense Newton H (``solver.py:682``)."""
+  """grad and its preconditioned form (``solver.py:682``): H^-1 grad with
+  the dense Newton H, or M^-1 grad for CG."""
   J = d.efc_J
   qfrc_constraint = _mv(J.transpose(1, 2), force)
   grad = Ma - d.qfrc_smooth - qfrc_constraint
+  if m.opt.solver == types.SolverType.CG:
+    return grad, klinalg.chol_solve_batched(m, d.qLD, grad), qfrc_constraint
   Dq = d.efc_D * (state == _QUADRATIC).to(d.efc_D.dtype)
   # qM may be a transposed view of the mass chain's lanes-last output
   H = (d.qM + torch.matmul(J.transpose(1, 2) * Dq[:, None, :], J)
@@ -280,13 +288,24 @@ def _gradient(m, d, Ma, force, state):
   return grad, klinalg.chol_solve_batched(m, L, grad), qfrc_constraint
 
 
+def _dot(a, b):
+  return torch.sum(a * b, dim=-1)
+
+
+def _polak_ribiere(grad, Mgrad, prev_grad, prev_Mgrad):
+  """CG's beta, at least 0 (``solver.py:761-763``)."""
+  return torch.clamp(_dot(grad, Mgrad - prev_Mgrad) / torch.clamp(
+      _dot(prev_grad, prev_Mgrad), min=_MINVAL), min=0.0)
+
+
 def solve(m: types.Model, d: types.Data) -> types.Data:
-  """Constrained qacc by Newton's method (``solver.py:720``) for batched
-  Data after the rows and qacc_smooth."""
+  """Constrained qacc by Newton's method or CG (``solver.py:720``) for
+  batched Data after the rows and qacc_smooth."""
   global trips
   W, dt = d.qpos.shape[0], d.qpos.dtype
-  if m.opt.solver != types.SolverType.NEWTON:
-    raise NotImplementedError('the CG solver is not ported yet')
+  cg = m.opt.solver == types.SolverType.CG
+  if not cg and m.opt.solver != types.SolverType.NEWTON:
+    raise NotImplementedError('the PGS solver is not ported')
   st = _static_tables(m, d.qpos)
   if m.opt.disableflags & types.DisableBit.WARMSTART:
     qacc = d.qacc_smooth
@@ -297,6 +316,7 @@ def solve(m: types.Model, d: types.Data) -> types.Data:
   force, state = _update_constraint(d, st, Jaref)
   grad, Mgrad, _ = _gradient(m, d, Ma, force, state)
   search = -Mgrad
+  prev_grad, prev_Mgrad = grad, Mgrad
   tol = m.opt.tolerance
   rescale = 1.0 / (m.stat.meaninertia * float(m.nv))
   improvement = torch.full((W,), float('inf'), dtype=dt, device=d.qpos.device)
@@ -304,7 +324,7 @@ def solve(m: types.Model, d: types.Data) -> types.Data:
   done = torch.zeros(W, dtype=torch.bool, device=d.qpos.device)
   conv = torch.zeros_like(done)
 
-  while not bool(done.all()):
+  while not host_item(done.all(), 'solver'):
     trips += 1
     live = ~done
     alpha, impr_ls, jv, mv = _linesearch(m, d, st, Ma, Jaref, search, live)
@@ -313,8 +333,13 @@ def solve(m: types.Model, d: types.Data) -> types.Data:
     Jaref_n = Jaref + alpha[:, None] * jv
     force_n, state_n = _update_constraint(d, st, Jaref_n)
     grad_n, Mgrad_n, _ = _gradient(m, d, Ma_n, force_n, state_n)
-    search_n = -Mgrad_n
-    model_improvement = rescale * 0.5 * torch.sum(grad_n * Mgrad_n, dim=-1)
+    if cg:
+      beta = _polak_ribiere(grad_n, Mgrad_n, prev_grad, prev_Mgrad)
+      search_n = -Mgrad_n + beta[:, None] * search
+      model_improvement = torch.full_like(beta, float('inf'))
+    else:
+      search_n = -Mgrad_n
+      model_improvement = rescale * 0.5 * _dot(grad_n, Mgrad_n)
     niter_n = niter + 1
     grad_norm = rescale * torch.sqrt(torch.clamp(
         torch.sum(grad_n * grad_n, dim=-1), min=0.0))
@@ -326,6 +351,8 @@ def solve(m: types.Model, d: types.Data) -> types.Data:
         keep(Jaref_n, Jaref)
     force, state = keep(force_n, force), keep(state_n, state)
     search = keep(search_n, search)
+    prev_grad, prev_Mgrad = keep(grad_n, prev_grad), keep(Mgrad_n,
+                                                          prev_Mgrad)
     improvement = keep(impr, improvement)
     niter = keep(niter_n, niter)
     conv = conv | (live & converged)

@@ -44,3 +44,16 @@ def fmask(arr, like: torch.Tensor) -> torch.Tensor:
     t = torch.as_tensor(a.astype(np.float64), device=like.device).to(like.dtype)
     _IDX[key] = t
   return t
+
+
+# host reads of a device value by the general step, by what asked: the
+# torch solver's loop tests ('solver'), the lazy island labeler's
+# candidate test ('island') and the sleep pack's fit test ('pack')
+host_reads = {'solver': 0, 'island': 0, 'pack': 0}
+
+
+def host_item(x: torch.Tensor, what: str):
+  """``x.item()`` of a device scalar, counted in ``host_reads[what]``: the
+  host waits for the device there."""
+  host_reads[what] += 1
+  return x.item()

@@ -217,6 +217,10 @@ class OverflowType(enum.IntFlag):
 
 NREF = 2
 NIMP = 5
+# sleeping (``types.py:293-296``): the quiescent steps before a tree may
+# sleep, and the tree_asleep value of a fully awake tree
+MJ_MINAWAKE = 10
+K_AWAKE = -(1 + MJ_MINAWAKE)
 
 
 def _tensor(kind):
@@ -261,6 +265,7 @@ class Option(_Replace):
   magnetic: torch.Tensor = array()
   density: torch.Tensor = array()
   viscosity: torch.Tensor = array()
+  sleep_tolerance: torch.Tensor = array()  # velocity threshold of sleep
   integrator: int = scalar(int(IntegratorType.EULER))
   cone: int = scalar(int(ConeType.PYRAMIDAL))
   solver: int = scalar(int(SolverType.NEWTON))
@@ -334,6 +339,7 @@ class Model(_Replace):
   nsensor: int = scalar()
   nsensordata: int = scalar()
   nhistory: int = scalar()
+  ntree: int = scalar()
   nflex: int = scalar()
   ne: int = scalar()
   nf: int = scalar()
@@ -368,6 +374,8 @@ class Model(_Replace):
   body_inertia: torch.Tensor = array()
   body_invweight0: torch.Tensor = array()
   body_gravcomp: torch.Tensor = array()
+  body_treeid: np.ndarray = static()
+  tree_sleep_policy: np.ndarray = static()
 
   jnt_type: np.ndarray = static()
   jnt_qposadr: np.ndarray = static()
@@ -386,6 +394,8 @@ class Model(_Replace):
 
   dof_bodyid: np.ndarray = static()
   dof_jntid: np.ndarray = static()
+  dof_treeid: np.ndarray = static()
+  dof_length: torch.Tensor = array()
   dof_solref: torch.Tensor = array()
   dof_solimp: torch.Tensor = array()
   dof_frictionloss: torch.Tensor = array()
@@ -572,12 +582,80 @@ class Data:
   contact: Contact = None
   ncon_active: torch.Tensor = None  # (W,) int32 live contact slots
   solver_niter: torch.Tensor = None  # (W,) int32
+  # sleeping (``types.py:924-932``): < 0 awake, a counter from K_AWAKE up
+  # to -1 (ready) while the tree stays quiescent; >= 0 asleep, the
+  # smallest tree id of the group it fell asleep with (waking one member
+  # wakes every tree with its label)
+  tree_asleep: torch.Tensor = None  # (W, ntree) int32
+  # constraint islands (``types.py:935-938``): -1 unconstrained
+  nisland: torch.Tensor = None  # (W,) int32
+  tree_island: torch.Tensor = None  # (W, ntree) int32
+  dof_island: torch.Tensor = None  # (W, nv) int32
+  efc_island: torch.Tensor = None  # (W, nefc) int32
   overflow: torch.Tensor = None  # (W,) int32 OverflowType bits
   energy: torch.Tensor = None  # (W, 2) potential, kinetic
   sensordata: torch.Tensor = None  # (W, nsensordata)
 
   def replace(self, **kw):
     return dataclasses.replace(self, **kw)
+
+
+def _per_world(x, W: int) -> bool:
+  return isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == W
+
+
+# the state the general step carries from one step to the next; it
+# recomputes the rest of Data every step
+CARRY = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
+         'xfrc_applied', 'eq_active', 'qacc_warmstart', 'qacc',
+         'solver_niter', 'overflow', 'tree_asleep', 'nisland', 'tree_island',
+         'dof_island', 'efc_island')
+
+
+def carried(d: Data, fn=lambda x: x) -> Data:
+  """A Data of ``d``'s ``CARRY`` fields, with ``fn`` applied to each."""
+  return Data(**{k: fn(getattr(d, k)) for k in CARRY
+                 if getattr(d, k) is not None})
+
+
+def map_worlds(d: Data, fn, W: int) -> Data:
+  """``d`` with ``fn`` applied to every per-world tensor (every field,
+  of ``d`` and of its ``contact``, whose leading dimension is ``W``)."""
+  def one(obj):
+    kw = {}
+    for f in dataclasses.fields(obj):
+      x = getattr(obj, f.name)
+      if isinstance(x, Contact):
+        kw[f.name] = one(x)
+      elif _per_world(x, W):
+        kw[f.name] = fn(x)
+    return obj.replace(**kw)
+  return one(d)
+
+
+def scatter_worlds(d: Data, sub: Data, ids: torch.Tensor, W: int) -> Data:
+  """``d`` with world ``ids[k]`` set to ``sub``'s world k for each k <
+  len(ids) (``ids`` distinct; ``sub`` may hold more worlds), field by
+  field: every per-world tensor of ``sub``.  A field ``d`` lacks starts
+  at zeros."""
+  n, Ws = ids.shape[0], sub.qpos.shape[0]
+
+  def put(x, xs):
+    if x is None:
+      x = xs.new_zeros((W,) + tuple(xs.shape[1:]))
+    return x.index_copy(0, ids, xs[:n])
+
+  def one(obj, objs):
+    kw = {}
+    for f in dataclasses.fields(objs):
+      xs = getattr(objs, f.name)
+      x = None if obj is None else getattr(obj, f.name)
+      if isinstance(xs, Contact):
+        kw[f.name] = one(x, xs)
+      elif _per_world(xs, Ws):
+        kw[f.name] = put(x, xs)
+    return (objs if obj is None else obj).replace(**kw)
+  return one(d, sub)
 
 
 _HOST = {}

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from mujoco_warp_tpu_torch import benchmarks, io
+from tests.torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ from mujoco_warp_tpu.ops import smooth as jsmooth
 from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch import parity
 from mujoco_warp_tpu_torch.ops import forward
+from tests.torch_threads import few_threads  # noqa: F401
 
 CAMLIGHT_XML = os.path.join(os.path.dirname(tio.__file__), 'assets',
                             'camlight.xml')

@@ -23,6 +23,7 @@ from mujoco_warp_tpu.ops import collision_driver as jcd
 from mujoco_warp_tpu.ops import smooth as jsmooth
 from mujoco_warp_tpu_torch.ops import collision_driver, forward
 from tests.test_torch_clutter_io import states
+from tests.torch_threads import few_threads  # noqa: F401
 
 ATOL = {'box-box': 1e-4}
 _GT = {0: 'plane', 2: 'sphere', 3: 'capsule', 6: 'box'}

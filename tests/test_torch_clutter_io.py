@@ -22,6 +22,7 @@ from mujoco_warp_tpu_torch import fused, parity
 from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch.ops import forward
 from tests.test_torch_io import assert_models_equal, jax_model_numpy
+from tests.torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -33,6 +33,7 @@ from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import forward, smooth
 from tests.test_torch_clutter_io import states
 from tests.test_torch_linalg import LAYOUTS, layout
+from tests.torch_threads import few_threads  # noqa: F401
 
 W = 128
 

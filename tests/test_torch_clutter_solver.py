@@ -34,6 +34,7 @@ from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import collision_driver, constraint, forward
 from mujoco_warp_tpu_torch.ops import solver as osolver
 from tests.test_torch_clutter_io import states
+from tests.torch_threads import few_threads  # noqa: F401
 
 W = 32
 ROWS = ('efc_J', 'efc_D', 'efc_aref', 'efc_pos', 'efc_margin')

@@ -20,6 +20,7 @@ from mujoco_warp_tpu.ops import collision_driver as jcd  # noqa: E402
 from mujoco_warp_tpu_torch import io as tio  # noqa: E402
 from mujoco_warp_tpu_torch import parity  # noqa: E402
 from mujoco_warp_tpu_torch.ops import collision_driver, forward  # noqa: E402
+from tests.torch_threads import few_threads  # noqa: F401
 
 W = 32
 

@@ -18,6 +18,7 @@ from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import constraint, forward
 from tests.test_torch_smooth import states
+from tests.torch_threads import few_threads  # noqa: F401
 
 RTOL = 1e-4
 

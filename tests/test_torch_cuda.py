@@ -578,3 +578,102 @@ def test_spheres_step_cuda_matches_cpu(cuda, scene):
     np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                                atol=5e-3, rtol=5e-3)
     assert int(dc.overflow.max()) == 0
+
+
+def tiled_state(m, path, W, device):
+  """A committed settled state (``io.load_state``) tiled to W worlds."""
+  from mujoco_warp_tpu_torch import benchmarks
+  return benchmarks.build(m, W, device=device, init_state=io.load_state(path))
+
+
+@pytest.mark.cuda
+def test_sleep_step_cuda_matches_cpu(cuda):
+  """clutter_arm with sleep on, from its settled state with half the
+  clutter trees woken (counters near ready, velocities around the
+  tolerance): three steps through the kernels against the plain path,
+  each from the plain path's state of the step before.  tree_asleep
+  equal but in trees at the quiescence threshold (within 1e-4 tol), which
+  stay few."""
+  from mujoco_warp_tpu_torch import types
+  from mujoco_warp_tpu_torch.ops import forward
+  mh = io.load_model_npz(io.CLUTTER_ARM_SNAPSHOT, device='cpu')
+  mc = io.load_model_npz(io.CLUTTER_ARM_SNAPSHOT, device=cuda)
+  dh = tiled_state(mh, io.CLUTTER_ARM_SETTLED, 128, 'cpu')
+  st = parity.woken_state(mh, {k: getattr(dh, k).numpy() for k in (
+      'tree_asleep', 'qvel')}, np.random.default_rng(4))
+  dh = dh.replace(**{k: torch.as_tensor(v) for k, v in st.items()})
+  tol = float(types.host(mh.opt.sleep_tolerance))
+  length = types.host(mh.dof_length, np.float32)
+  keys = ('time', 'qpos', 'qvel', 'ctrl', 'qacc_warmstart', 'tree_asleep',
+          'nisland', 'tree_island', 'dof_island', 'efc_island')
+  for _ in range(3):
+    dc = io.make_data(mc, 128, device=cuda).replace(**{
+        k: getattr(dh, k).to(cuda) for k in keys})
+    dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+    off = (dc.tree_asleep.cpu() != dh.tree_asleep).numpy()
+    v = np.abs(length * np.maximum(np.abs(dh.qvel.numpy()),
+                                   np.abs(dc.qvel.cpu().numpy())))
+    speed = np.stack([v[:, mh.dof_treeid == t].max(axis=1)
+                      for t in range(mh.ntree)], axis=1)
+    near = np.abs(speed - tol) <= 1e-4 * tol
+    assert not (off & ~near).any() and int(near.sum()) <= 16
+    np.testing.assert_allclose(dc.qpos.cpu().numpy(), dh.qpos.numpy(),
+                               atol=2e-4, rtol=1e-3)
+    keep = ~off[:, mh.dof_treeid]
+    np.testing.assert_allclose(dc.qvel.cpu().numpy()[keep],
+                               dh.qvel.numpy()[keep], atol=5e-3, rtol=5e-3)
+    assert int(dc.overflow.max()) == 0
+
+
+@pytest.mark.cuda
+def test_sleep_skip_cuda_matches_full_step(cuda):
+  """The settled clutter.xml state at 256 worlds with 20 woken: the step
+  that packs the awake worlds (``forward.step``) against the full step
+  on the card, 20 steps: tree_asleep equal, qpos within 1e-6."""
+  from mujoco_warp_tpu_torch.ops import forward, util
+  m, d0 = parity.pushed_clutter(256, 20, cuda)
+  da = db = d0
+  for _ in range(20):
+    da, db = forward.step(m, da), forward._step_batched(m, db)
+  idle = ~torch.any(d0.qfrc_applied != 0, dim=1)
+  assert bool((da.qacc_smooth[idle] == 0).all())  # the packed branch ran
+  assert torch.equal(da.tree_asleep, db.tree_asleep)
+  assert float((da.qpos - db.qpos).abs().max()) < 1e-6
+  assert float((da.time - db.time).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cg_solve_cuda_matches_cpu(cuda):
+  """The CG solve through the chol_solve kernel against the plain path
+  on the seeded spheres_cg state (1000 worlds), at the 'cg' bar."""
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.ops import forward
+  from mujoco_warp_tpu_torch.ops import solver as osolver
+  out = {}
+  for dev in ('cpu', cuda):
+    m = io.load_model_npz(io.SPHERES_CG_SNAPSHOT, device=dev)
+    qpos, qvel, ctrl = [torch.as_tensor(x, device=dev) for x in
+                        parity.spheres_state(m, 1000, 5)]
+    d = forward.pre(m, io.make_data(m, 1000, device=dev).replace(
+        qpos=qpos, qvel=qvel, ctrl=ctrl))
+    from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+    d = forward.mid(m, kmass.mass_chain(m, d))
+    d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
+                                                         d.qfrc_smooth))
+    if dev == 'cpu':
+      dh = d
+    n = klinalg.launches['chol_solve']
+    trips = osolver.trips
+    out[str(dev)] = osolver.solve(m, d if dev == 'cpu' else d.replace(**{
+        k: getattr(dh, k).to(cuda) for k in (
+            'efc_J', 'efc_D', 'efc_aref', 'efc_frictionloss', 'qM', 'qLD',
+            'qfrc_smooth', 'qacc_smooth', 'qacc_warmstart')}))
+    if dev != 'cpu':
+      assert klinalg.launches['chol_solve'] - n == 1 + osolver.trips - trips
+  got, want = out['cuda'], out['cpu']
+  t = lambda x: x.T.cpu()
+  parity.check_solve([t(got.qacc), t(got.efc_force), t(got.qfrc_constraint),
+                      got.solver_niter.cpu()],
+                     [t(want.qacc), t(want.efc_force),
+                      t(want.qfrc_constraint), want.solver_niter], 'cg',
+                     (lanes(dh.efc_J), lanes(dh.efc_D)))

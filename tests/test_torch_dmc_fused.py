@@ -13,6 +13,7 @@ pytest.importorskip('dm_control')
 from mujoco_warp_tpu_torch import io as tio  # noqa: E402
 from tests.oracle import assert_close  # noqa: E402
 from tests.test_torch_fused import run_steps  # noqa: E402
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize('scene', sorted(tio.DMC_NCONMAX))

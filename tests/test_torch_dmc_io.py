@@ -20,6 +20,7 @@ from mujoco_warp_tpu_torch import fused  # noqa: E402
 from mujoco_warp_tpu_torch import io as tio  # noqa: E402
 from mujoco_warp_tpu_torch.ops import forward  # noqa: E402
 from tests.test_torch_io import assert_models_equal, jax_model_numpy  # noqa: E402
+from tests.torch_threads import few_threads  # noqa: F401
 
 SIZES = {'walker': (9, 14, 14, 62), 'cheetah': (9, 35, 35, 146),
          'hopper': (7, 21, 21, 88), 'humanoid_dmc': (27, 177, 48, 165)}

@@ -23,6 +23,7 @@ from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch.fused import glue, k1_ref
 from tests.test_fused import _BOX46
 from tests.test_torch_k1 import lane_state
+from tests.torch_threads import few_threads  # noqa: F401
 
 W_STEP = 128  # the Pallas interpreter runs whole 128-world tiles
 

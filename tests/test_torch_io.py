@@ -19,6 +19,7 @@ from mujoco_warp_tpu import io as jio
 from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch import types as ttypes
 from tests.test_fused import _BOX46
+from tests.torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,7 @@ from mujoco_warp_tpu_torch import benchmarks
 from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch.ops import forward
 from tests.test_torch_io import assert_models_equal, jax_model_numpy
+from tests.torch_threads import few_threads  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _MODELS = os.path.join(_REPO, 'mujoco_warp_tpu', 'models')
@@ -54,14 +55,17 @@ def test_constraints_snapshot_matches_fresh_put_model(tmp_path):
 
 def test_gate_raises_outside_the_slice():
   """spheres.xml is outside the fused gate; the general step runs its
-  contacts in lossless slots and compacted into a smaller budget, but not
-  with the CG solver, and not elliptic cones of a system beyond the
-  solve kernel's size (clutter_arm's, for the torch Newton)."""
+  contacts in lossless slots and compacted into a smaller budget, and
+  with the CG solver, but not elliptic cones in the torch solver (CG's,
+  or a system beyond the solve kernel's size: clutter_arm's, for the
+  torch Newton)."""
   mjm = mujoco.MjModel.from_xml_path(os.path.join(_MODELS, 'spheres.xml'))
   m = tio.put_model(mjm, nconmax=4, device='cpu')
   assert m.con_compact and forward.unsupported(m) is None
-  mjm.opt.solver = 1  # CG
-  with pytest.raises(NotImplementedError, match='CG'):
+  mjm.opt.solver = 1  # CG: ported, through the torch solver
+  assert forward.unsupported(tio.put_model(mjm, device='cpu')) is None
+  mjm.opt.cone = 1  # elliptic cones in the torch solver: not yet
+  with pytest.raises(NotImplementedError, match='elliptic cones'):
     tio.put_model(mjm, device='cpu')
   mjm = tio.load_clutter()
   mjm.opt.cone = 1

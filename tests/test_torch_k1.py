@@ -26,6 +26,7 @@ from mujoco_warp_tpu_torch import parity
 from mujoco_warp_tpu_torch.fused import k1_ref
 from mujoco_warp_tpu_torch.kernels import k1 as kk1
 from tests.test_fused import _BOX46
+from tests.torch_threads import few_threads  # noqa: F401
 
 KIN_ATOL = 1e-5
 MASS_RTOL = 1e-4

@@ -17,6 +17,7 @@ from mujoco_warp_tpu_torch.kernels import k1 as kk1
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
 from mujoco_warp_tpu_torch.ops import forward
+from tests.torch_threads import few_threads  # noqa: F401
 
 # a free sphere over a plane carrying 4900 small geoms that collide with
 # nothing: inside every other bound of the fused gate (ncand 1), its K1

@@ -36,6 +36,7 @@ from mujoco_warp_tpu_torch import parity
 from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref, solver_ref
 from mujoco_warp_tpu_torch.kernels import k4 as kk4
 from tests.test_torch_k1 import models
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def k4_inputs(m, W, seed, state='contact'):

@@ -14,6 +14,7 @@ from mujoco_warp_tpu_torch.kernels import k4 as kk4
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
 from mujoco_warp_tpu_torch.ops import forward
 from tests.test_fused import _EQJOINT, _IMPLICITFAST
+from tests.torch_threads import few_threads  # noqa: F401
 
 # ten free capsules and a four-joint limited arm over a plane, condim 6:
 # nv 64 and nbody 12 inside the gate, 77 contact slots of 10 rows each

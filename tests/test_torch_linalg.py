@@ -29,6 +29,7 @@ from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import forward
 from tests.test_torch_smooth import states
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

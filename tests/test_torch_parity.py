@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from mujoco_warp_tpu_torch import parity
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def solve_pair():

@@ -29,6 +29,7 @@ from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch import parity, types
 from mujoco_warp_tpu_torch.ops import forward
 from tests.oracle import assert_close
+from tests.torch_threads import few_threads  # noqa: F401
 
 SENSORS_XML = os.path.join(os.path.dirname(tio.__file__), 'assets',
                            'sensors_general.xml')

@@ -11,6 +11,7 @@ import pytest
 from mujoco_warp_tpu_torch import io
 from tests.test_fused import _EQJOINT, _IMPLICITFAST
 from tests.test_torch_io import assert_models_equal
+from tests.torch_threads import few_threads  # noqa: F401
 
 SCENES = {'eq_joint': (_EQJOINT, io.EQ_JOINT_XML, io.EQ_JOINT_SNAPSHOT),
           'implicitfast': (_IMPLICITFAST, io.IMPLICITFAST_XML,

@@ -21,6 +21,7 @@ from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch import parity
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import smooth
+from tests.torch_threads import few_threads  # noqa: F401
 
 ATOL = 1e-5
 RTOL = 1e-4

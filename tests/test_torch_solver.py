@@ -26,6 +26,7 @@ from mujoco_warp_tpu_torch import parity, types
 from mujoco_warp_tpu_torch.fused import solver_ref
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
 from tests.oracle import assert_close
+from tests.torch_threads import few_threads  # noqa: F401
 
 _FIELDS = ('efc_J', 'efc_D', 'efc_aref', 'efc_frictionloss', 'qM',
            'qfrc_smooth', 'qacc_smooth', 'qacc_warmstart')

@@ -23,6 +23,7 @@ from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch.fused import solver_ref
 from mujoco_warp_tpu_torch.ops import forward
 from tests.test_torch_io import assert_models_equal, jax_model_numpy
+from tests.torch_threads import few_threads  # noqa: F401
 
 CONES = {'spheres': types.ConeType.PYRAMIDAL,
          'spheres_elliptic': types.ConeType.ELLIPTIC}

@@ -31,6 +31,7 @@ from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.ops import forward
 from tests.test_torch_spheres_io import CONES, states
+from tests.torch_threads import few_threads  # noqa: F401
 
 RTOL = 1e-4
 W = 16

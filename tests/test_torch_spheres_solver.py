@@ -42,6 +42,7 @@ from mujoco_warp_tpu_torch.kernels import lanes
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
 from tests.oracle import assert_close
 from tests.test_torch_spheres_io import CONES, models, states
+from tests.torch_threads import few_threads  # noqa: F401
 
 # worlds of 128 whose qacc the float64 solve may arbitrate, per cone
 MAX_ARBITRATED = {types.ConeType.PYRAMIDAL: 0, types.ConeType.ELLIPTIC: 1}

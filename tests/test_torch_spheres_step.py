@@ -27,6 +27,7 @@ from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch.ops import forward
 from tests.oracle import assert_close
 from tests.test_torch_spheres_io import CONES, states
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize('scene', sorted(CONES))

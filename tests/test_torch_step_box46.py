@@ -9,6 +9,7 @@ import numpy as np
 from tests.oracle import assert_close
 from tests.test_fused import _BOX46
 from tests.test_torch_fused import run_steps
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def test_step_lane_box46_matches_jax():

@@ -17,6 +17,7 @@ from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch.ops import forward
 from tests.oracle import assert_close
 from tests.test_torch_clutter_io import states
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def test_three_clutter_steps_match_jax():

@@ -15,6 +15,7 @@ from mujoco_warp_tpu.ops import forward as jfwd
 from mujoco_warp_tpu_torch.ops import forward
 from tests.oracle import assert_close
 from tests.test_torch_smooth import states
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def test_three_steps_match_jax():

@@ -9,6 +9,7 @@ from mujoco_warp_tpu import benchmarks
 from mujoco_warp_tpu_torch import io as tio
 from tests.oracle import assert_close
 from tests.test_torch_fused import run_steps
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 def test_step_lane_humanoid_matches_jax():

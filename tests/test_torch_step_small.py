@@ -11,6 +11,7 @@ import pytest
 from tests.oracle import assert_close
 from tests.test_fused import _EQJOINT, _IMPLICITFAST
 from tests.test_torch_fused import run_steps
+from tests.torch_threads import few_threads  # noqa: F401
 
 
 @pytest.mark.parametrize('xml,seed,qpos_noise,ctrl_noise', [
