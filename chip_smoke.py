@@ -112,6 +112,23 @@ Phases, one line each or more, any failure exits non-zero:
     humanoid_implicitfast on the fused step at 8192 worlds, IF_NSTEP
     steps: K1 and K4 once per step, held on the last state and timed
     (*_implicitfast).
+12. tendons on the general step: benchmarks.run at 8192 worlds, TEN_NSTEP
+    steps after 10 warmup, on ball_in_cup and point_mass (dm_control),
+    sensors2 (mujoco_warp_tpu/models/sensors2.xml), tendon_wrap and
+    tendon_mix (the port's assets).  Exact counts per step: the mass
+    chain and chol_solve once; the solve kernel once where there are rows
+    (ball_in_cup, point_mass, tendon_mix); damped_solve once where there
+    is dof damping; on tendon_mix (tendon armature) the mass chain in its
+    large-tree form and chol_batched once; K1, K4 and the torch Newton
+    never.  No overflow; qpos, ten_length and sensordata finite; prints
+    the share of worlds with an active tendon limit row (ball_in_cup
+    fails without one: its string goes taut) and the wrapped share of
+    each group of wrap geoms (tendon_wrap, tendon_mix).  On each scene's
+    last state, its kernels against their plain versions at the
+    rollout's width, timed (*_bic, *_pm, *_s2, *_twrap, *_tmix); one step
+    of NSENSOR_CMP worlds on the card and on the CPU: ten_J within
+    TEN_J_ATOL + TEN_J_RTOL, qpos at parity's bar, sensordata by
+    parity.check_sensors.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -169,6 +186,23 @@ SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP = 256, 20, 20
 SKIP_WIDE = (4096, 200, 5)
 CG_NSTEP = 20
 IF_NSTEP = 200
+# phase 12: the tendon scenes, steps after the warmup
+TEN_NSTEP = 100
+TEN_SFX = {'ball_in_cup': '_bic', 'point_mass': '_pm', 'sensors2': '_s2',
+           'tendon_wrap': '_twrap', 'tendon_mix': '_tmix'}
+# the kernels each tendon scene's step launches, each once per step: the
+# mass chain and chol_solve always; the solve kernel where there are rows;
+# damped_solve where there is dof damping; chol_batched after the
+# large-tree mass chain where a tendon has armature (tendon_mix)
+TEN_KERNELS = {
+    'ball_in_cup': ('mass_chain', 'chol_solve', 'solve', 'damped_solve'),
+    'point_mass': ('mass_chain', 'chol_solve', 'solve', 'damped_solve'),
+    'sensors2': ('mass_chain', 'chol_solve'),
+    'tendon_wrap': ('mass_chain', 'chol_solve', 'damped_solve'),
+    'tendon_mix': ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
+                   'damped_solve')}
+# ten_J of one card step against the CPU's: atol + rtol of each entry
+TEN_J_ATOL, TEN_J_RTOL = 1e-4, 1e-4
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -301,6 +335,7 @@ def main():
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
   from mujoco_warp_tpu_torch.kernels import solver as ksolver
   from mujoco_warp_tpu_torch.ops import forward
+  from mujoco_warp_tpu_torch.ops import smooth as osmooth
   from mujoco_warp_tpu_torch.ops import solver as osolver
   from mujoco_warp_tpu_torch.ops import util as outil
 
@@ -357,7 +392,10 @@ def main():
       tuple(k + '_ca' for k in ('mass_chain_big', 'chol_batched',
                                 'chol_solve_n75', 'damped_solve_n75')) +
       ('chol_solve_n36_cg', 'mass_chain_n36_cg', 'k1_implicitfast',
-       'k4_implicitfast')}
+       'k4_implicitfast') + tuple(
+          k + sfx for sfx in TEN_SFX.values()
+          for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
+                    'damped_solve'))}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -1322,6 +1360,225 @@ def main():
       f"{1e3 * w_if / res['steps_per_sec']:.3f} ms; phase 11 took "
       f"{time.perf_counter() - t11:.1f} s")
 
+  # ---- 12. tendons on the general step
+  say(f'[phase 12] at {time.perf_counter() - T0:.1f} s')
+  t12 = time.perf_counter()
+
+  def tendon_compare(label, d, model, name):
+    """The kernels of ``model``'s step against their plain versions on
+    world-major state d (carried fields), each fed the plain version's
+    upstream outputs, in the main path's layouts; errors to err[kernel +
+    sfx].  Returns each kernel's arguments and the plain solve's mean
+    Newton count (0 without rows)."""
+    nv, nb = model.nv, model.nbody
+    kerns, sfx = TEN_KERNELS[name], TEN_SFX[name]
+    d = forward.pre(model, d)
+    am = (model, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv),
+          lanes(d.qvel))
+    got, want = kmass.mass_chain_lanes(*am), kmass.mass_chain_plain(*am)
+    args, errs, niter = {'mass_chain': am}, {}, 0.0
+    try:
+      keep = [i for i in range(5) if want[i] is not None]
+      if [i for i in range(5) if got[i] is not None] != keep:
+        fail(f'{label}: the mass chain kernel and its plain version '
+             'return different outputs')
+      errs['mass_chain'], rel = parity.check_rel(
+          [got[i] for i in keep], [want[i] for i in keep],
+          [parity.MASS_NAMES[i] for i in keep])
+      qM, qLD, cvel, cdd, bias = want
+      if qLD is None:  # the large-tree form: armature, then chol_batched
+        qM = osmooth.tendon_armature(model, d.replace(qM=qM)).qM
+        args['chol_batched'] = (model, qM, kmass.BIG_JITTER)
+        L = klinalg.chol_batched_plain(qM, kmass.BIG_JITTER)
+        errs['chol_batched'] = parity.check_world_scale(
+            lanes(klinalg.chol_batched(*args['chol_batched']), nv * nv),
+            lanes(L, nv * nv), 'qLD', *SB)
+      else:
+        qM, L = world(qM, nv, nv), world(qLD, nv, nv)
+      d = osmooth.tendon_bias(model, d.replace(
+          qM=qM, qLD=L, cvel=world(cvel, nb, 6), cdof_dot=world(cdd, nv, 6),
+          qfrc_bias=bias.T))
+      d = forward.mid(model, d)
+      args['chol_solve'] = (model, d.qLD, d.qfrc_smooth)
+      x = klinalg.chol_solve_plain(lanes(d.qLD, nv * nv),
+                                   lanes(d.qfrc_smooth))
+      errs['chol_solve'] = check_layouts(klinalg.chol_solve_batched,
+                                         *args['chol_solve'], x,
+                                         'qacc_smooth')
+      qacc = x
+      if 'solve' in kerns:
+        d = d.replace(qacc_smooth=x.T)
+        args['solve'] = (model, lanes(d.efc_J), lanes(d.efc_D),
+                         lanes(d.efc_aref), lanes(d.efc_frictionloss),
+                         lanes(d.qM), lanes(d.qfrc_smooth),
+                         lanes(d.qacc_warmstart))
+        gs, ws = (ksolver.solve_tiles(*args['solve']),
+                  solver_ref.solve_tiles(*args['solve']))
+        rs = parity.check_solve(gs, ws, 'dmc', args['solve'][1:3])
+        errs['solve'], niter, qacc = (rs['qacc_max_abs_err'],
+                                      rs['niter_mean'], ws[0])
+      if 'damped_solve' in kerns:
+        args['damped_solve'] = (model, d.qM, qacc.T)
+        dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+        errs['damped_solve'] = check_layouts(
+            klinalg.damped_solve_batched, *args['damped_solve'],
+            klinalg.damped_solve_plain(lanes(d.qM, nv * nv), qacc, dmp),
+            'qacc (damped)')
+    except AssertionError as e:
+      fail(f'{label}: {e}')
+    for k, e in errs.items():
+      err[k + sfx] = max(err[k + sfx], e)
+    say(f'[compare] {label}: ' + ', '.join(
+        f'{k} max abs err {e:.3e}' for k, e in errs.items())
+        + f'; mass chain worst relative {rel:.2e} (tol {parity.K1_TOL}); '
+        f'chol_batched, chol_solve and damped_solve within atol '
+        f'{parity.SOLVE_ATOL} + rtol {parity.SOLVE_RTOL} of world scale '
+        f'(the solves in both layouts); the solve at parity\'s \'dmc\' '
+        f'bar; plain Newton niter mean {niter:.3f}')
+    return args, niter
+
+  def tendon_timing(args, niter, sfx):
+    """Times each kernel in ``args`` (``tendon_compare``'s) per launch
+    beside its plain version and the one PyTorch call of the same
+    function where there is one, with its bound, under kernel + sfx."""
+    model = args['mass_chain'][0]
+    nv, nb, nefc = model.nv, model.nbody, model.nefc
+    W = args['mass_chain'][3].shape[-1]
+    factor = kmass.factor_in_kernel(model)
+    am = args['mass_chain']
+    rows = {'mass_chain': (
+        'mass_chain_kernel', lambda: kmass.mass_chain_lanes(*am),
+        lambda: kmass.mass_chain_plain(*am), None, bound(
+            W * F32 * (36 * nb + 7 * nv + (2 if factor else 1) * nv * nv +
+                       6 * nb + 7 * nv), W * mass_chain_flops(model, factor)))}
+    if 'chol_batched' in args:
+      acb = args['chol_batched']
+      A_j = (acb[1] + acb[2] * torch.eye(nv, device=dev)).contiguous()
+      rows['chol_batched'] = (
+          'chol_batched_kernel', lambda: klinalg.chol_batched(*acb),
+          lambda: klinalg.chol_batched_plain(acb[1], acb[2]),
+          lambda: torch.linalg.cholesky(A_j),
+          bound(W * F32 * 2 * nv * nv, W * chol_flops(nv)))
+    ys = yardsticks(args['chol_solve'], args.get('damped_solve'),
+                    torch.as_tensor(klinalg.damping_terms(model),
+                                    device=dev))
+    acs = args['chol_solve']
+    rows['chol_solve'] = (
+        'chol_solve_kernel', lambda: klinalg.chol_solve_batched(*acs),
+        ys['chol_solve_plain'], ys['chol_solve_library'],
+        bound(W * chol_solve_bytes(nv), W * 2 * nv * nv))
+    live_rows = 0.0
+    if 'solve' in args:
+      asv = args['solve']
+      live_rows = float((asv[2] > 0).sum()) / W
+      # no one PyTorch call computes a Newton solve; its work is that of
+      # this state's live rows
+      rows['solve'] = (
+          'solve_kernel', lambda: ksolver.solve_tiles(*asv),
+          lambda: solver_ref.solve_tiles(*asv), None, bound(
+              W * F32 * (nefc * nv + 3 * nefc + nv * nv + 2 * nv + 2 * nv +
+                         nefc + 1), W * newton_flops(live_rows, nv, niter)))
+    if 'damped_solve' in args:
+      ads = args['damped_solve']
+      rows['damped_solve'] = (
+          'damped_solve_kernel', lambda: klinalg.damped_solve_batched(*ads),
+          ys['damped_solve_plain'], ys['damped_solve_library'],
+          bound(W * F32 * (nv * nv + 2 * nv) + F32 * nv,
+                W * (chol_flops(nv) + 4 * nv * nv + nv)))
+    for k, (kern, fn, plain, lib, bnd) in rows.items():
+      key = k + sfx
+      time_kernel(key, fn, kern)
+      call_ms[key] = time_ms(fn, 20)
+      plain_ms[key] = time_ms(plain, 1 if k == 'solve' else 3)
+      # one PyTorch call of the same function, timed here only
+      library_ms[key] = None if lib is None else time_ms(lib, 20)
+      bounds[key] = bnd
+      say(f"[timing] {key} W={W} per launch: cuda {ms[key]:.4f} ms (call "
+          f"{call_ms[key]:.4f}), plain {plain_ms[key]:.3f} ms, library "
+          f"{'none' if lib is None else f'{library_ms[key]:.4f} ms'}, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}"
+          + (f'; {live_rows:.2f} live rows per world, niter mean '
+             f'{niter:.3f}' if k == 'solve' else '') + ')')
+    shapes['mass_chain' + sfx] = kmass.kernel_info(model)
+    if 'solve' in args:
+      shapes['solve' + sfx] = ksolver.kernel_info(model)
+    if 'chol_batched' in args:
+      shapes['chol_batched' + sfx] = klinalg.chol_batched_info(nv)
+
+  for name, sfx in TEN_SFX.items():
+    mt, w_t = benchmarks.load_scene(name)
+    kerns = TEN_KERNELS[name]
+    res, st, launches = main_path(
+        mt, TEN_NSTEP, lambda n, _: {k: n for k in kerns}, w_t)
+    if osolver.trips:
+      fail(f'{name}: {osolver.trips} trips of the torch Newton')
+    if not bool(torch.isfinite(st.ten_length).all()):
+      fail(f'{name}: ten_length not finite')
+    if mt.nsensordata and not bool(torch.isfinite(st.sensordata).all()):
+      fail(f'{name}: sensordata not finite')
+    extra = ''
+    if len(mt.efc.lim_ten_id):
+      lim = st.efc_active[:, torch.as_tensor(mt.efc.lim_ten_adr,
+                                             device=dev).long()]
+      share = float(lim.any(1).float().mean())
+      extra += f'; worlds with an active tendon limit row {share:.4f}'
+      if name == 'ball_in_cup' and share == 0.0:
+        fail('ball_in_cup: no world\'s string limit is active')
+    wraps = osmooth.tendon_wraps(mt, st)
+    if wraps:
+      extra += '; wrapped share of the segments over ' + ', '.join(
+          f"{'spheres' if sph else 'cylinders'} (sidesite {side}) "
+          f'{float(w.float().mean()):.4f}' for (sph, side), w in
+          wraps.items())
+    if mt.nsensordata:
+      means = {t: round(float(st.sensordata[:, torch.as_tensor(
+          c, device=dev)].mean()), 6)
+               for cols in parity.sensor_stages(mt).values()
+               for t, c in cols.items()}
+      extra += '; sensordata mean by type ' + json.dumps(means)
+    say(f"[main path] {name} (nv {mt.nv}, ntendon {mt.ntendon}, nefc "
+        f"{mt.nefc}): step {1e3 * w_t / res['steps_per_sec']:.3f} ms; "
+        f"qpos, ten_length and sensordata finite{extra}")
+    for k in kerns:
+      kernel_launches[k + sfx] = launches[k]
+    args, niter = tendon_compare(f'{name} rollout W={w_t}',
+                                 types.carried(st), mt, name)
+    tendon_timing(args, niter, sfx)
+    # one step of the last state on the card and on the CPU (plain
+    # versions)
+    mcpu = io.load_model_npz(benchmarks.SCENES[name][0], device='cpu')
+    sub = {k: getattr(st, k)[:NSENSOR_CMP] for k in types.CARRY}
+    on_card = forward.step(mt, types.Data(**sub))
+    on_cpu = forward.step(mcpu, types.Data(**{k: v.cpu() for k, v in
+                                              sub.items()}))
+    try:
+      tj, tjc = on_card.ten_J.cpu(), on_cpu.ten_J
+      e_tj = float((tj - tjc).abs().max())
+      excess = float(((tj - tjc).abs() - (TEN_J_ATOL + TEN_J_RTOL *
+                                          tjc.abs())).max())
+      if excess > 0.0:
+        raise AssertionError(f'ten_J exceeds its bar by {excess}')
+      parity.check_world_scale(on_card.qpos.cpu().T, on_cpu.qpos.T, 'qpos',
+                               parity.QPOS_ATOL, parity.QPOS_RTOL)
+      rsen = None
+      if mt.nsensordata:
+        rsen = parity.check_sensors(mcpu, on_card.sensordata.cpu(),
+                                    on_cpu.sensordata,
+                                    on_card.solver_niter.cpu(),
+                                    on_cpu.solver_niter)
+    except AssertionError as e:
+      fail(f'{name}, one step card against CPU: {e}')
+    say(f'[compare] {name} one step W={NSENSOR_CMP}, card against the '
+        f'CPU\'s plain versions: ten_J max abs err {e_tj:.3e} (atol '
+        f'{TEN_J_ATOL} + rtol {TEN_J_RTOL}), qpos within atol '
+        f'{parity.QPOS_ATOL} + rtol {parity.QPOS_RTOL} of world scale'
+        + ('' if rsen is None else '; sensordata max abs err by stage '
+           + json.dumps(rsen['max_abs_err']) + f' (pos and vel within atol '
+           f'{parity.SENSOR_ATOL} + rtol {parity.SENSOR_RTOL}; acc within '
+           f'atol {parity.QACC_ATOL} + rtol {parity.QACC_RTOL} of world '
+           f'scale where Newton counts agree)'))
+  say(f'[main path] phase 12 took {time.perf_counter() - t12:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -1356,6 +1613,11 @@ def main():
     replaces[k + '_cg'] = replaces[k]
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
+  for sfx in TEN_SFX.values():
+    for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
+              'damped_solve'):
+      if k + sfx in kernel_launches:
+        replaces[k + sfx] = replaces[k]
   print(json.dumps({'kernels': [
       {'name': k, 'route': 'cuda', 'source': src + f, 'replaces': r,
        'launches': kernel_launches[k], 'max_abs_err': err[k], 'ms': ms[k],

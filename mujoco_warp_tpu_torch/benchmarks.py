@@ -26,7 +26,11 @@ admits as the JAX gate does (8192 worlds each); ``clutter_arm`` (4096
 worlds; the general step with tree sleeping and constraint islands),
 ``spheres_cg`` (8192; the CG solver) and ``humanoid_implicitfast``
 (8192; the humanoid snapshot with ``opt.integrator=implicitfast``, the
-registry's stand-in for an implicitfast robot, on the fused step).
+registry's stand-in for an implicitfast robot, on the fused step), and
+the tendon scenes (8192 worlds each, general step): dm_control's
+``ball_in_cup`` and ``point_mass``, ``sensors2`` (the repo's
+``sensors2.xml``), ``tendon_wrap`` (spatial tendons over a sphere and a
+cylinder) and ``tendon_mix`` (every ported tendon feature).
 ``SCENES`` names each with its snapshot and registered width,
 ``OVERRIDES`` the options set on a snapshot, and ``load_scene`` loads
 one.
@@ -62,6 +66,9 @@ SCENES = {
     'clutter_arm': (io.CLUTTER_ARM_SNAPSHOT, 4096),
     'spheres_cg': (io.SPHERES_CG_SNAPSHOT, 8192),
     'humanoid_implicitfast': (io.SNAPSHOT, 8192),
+    # the tendon scenes (general step): dm_control's ball_in_cup and
+    # point_mass, sensors2.xml, tendon_wrap and tendon_mix
+    **{name: (io.TENDON_SNAPSHOTS[name], 8192) for name in io.TENDON_SNAPSHOTS},
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {

@@ -73,6 +73,16 @@ DMC_NCONMAX = {'walker': None, 'cheetah': None, 'hopper': None,
                'humanoid_dmc': {1: 16, 3: 32}}
 DMC_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
                  for name in DMC_NCONMAX}
+# the tendon scenes: dm_control's ball_in_cup and point_mass (lossless
+# slots), the repo's sensors2.xml, and the port's tendon_wrap.xml (the
+# spatial-tendon scene of tests/test_tendon.py) and tendon_mix.xml (every
+# tendon feature the general step ports)
+TENDON_DMC = ('ball_in_cup', 'point_mass')
+TENDON_XML = {'sensors2': os.path.join(_MODELS, 'sensors2.xml'),
+              'tendon_wrap': os.path.join(_ASSETS, 'tendon_wrap.xml'),
+              'tendon_mix': os.path.join(_ASSETS, 'tendon_mix.xml')}
+TENDON_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                    for name in TENDON_DMC + tuple(TENDON_XML)}
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
@@ -741,9 +751,9 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
 
 
 def load_dmc(name: str):
-  """A dm_control suite scene of ``DMC_NCONMAX`` as a ``mujoco.MjModel``
-  with its sensors, cameras and lights, from the XML in the installed
-  ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
+  """A dm_control suite scene of ``DMC_NCONMAX`` or ``TENDON_DMC`` as a
+  ``mujoco.MjModel`` with its sensors, cameras and lights, from the XML in
+  the installed ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
   import importlib.util
 
   import mujoco
@@ -754,10 +764,14 @@ def load_dmc(name: str):
 
 
 def make_dmc_snapshot(name: str, path: Optional[str] = None) -> types.Model:
-  """The dm_control scene ``name`` at its contact budget, written to
-  ``path`` (by default its committed snapshot)."""
-  path = DMC_SNAPSHOTS[name] if path is None else path
-  m = put_model(load_dmc(name), nconmax=DMC_NCONMAX[name], device='cpu')
+  """The dm_control scene ``name`` at its contact budget (``DMC_NCONMAX``;
+  the tendon scenes lossless), written to ``path`` (by default its
+  committed snapshot)."""
+  if path is None:
+    path = DMC_SNAPSHOTS[name] if name in DMC_SNAPSHOTS else \
+        TENDON_SNAPSHOTS[name]
+  m = put_model(load_dmc(name), nconmax=DMC_NCONMAX.get(name),
+                device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
   save_model_npz(path, m)
   return m
@@ -773,6 +787,30 @@ def make_xml_snapshot(xml: str, path: str) -> types.Model:
   return m
 
 
+def snapshot_makers() -> tuple:
+  """(committed snapshot path, maker) of every committed scene; each maker
+  takes the path to write."""
+  xml = lambda path: lambda p: make_xml_snapshot(path, p)
+  spheres = lambda cone, solver=types.SolverType.NEWTON: \
+      lambda p: make_spheres_snapshot(cone, p, solver)
+  dmc = lambda name: lambda p: make_dmc_snapshot(name, p)
+  return ((SNAPSHOT, make_snapshot),
+          (CONSTRAINTS_SNAPSHOT, make_constraints_snapshot),
+          (CLUTTER_SNAPSHOT, make_clutter_snapshot),
+          (SPHERES_SNAPSHOT, spheres(types.ConeType.PYRAMIDAL)),
+          (SPHERES_ELLIPTIC_SNAPSHOT, spheres(types.ConeType.ELLIPTIC)),
+          (EQ_JOINT_SNAPSHOT, xml(EQ_JOINT_XML)),
+          (IMPLICITFAST_SNAPSHOT, xml(IMPLICITFAST_XML))) + tuple(
+              (DMC_SNAPSHOTS[name], dmc(name)) for name in DMC_NCONMAX) + (
+          (CLUTTER_ARM_SNAPSHOT, make_clutter_arm_snapshot),
+          (SPHERES_CG_SNAPSHOT, spheres(types.ConeType.PYRAMIDAL,
+                                        types.SolverType.CG)),
+          (CLUTTER_SLEEP_SNAPSHOT, make_clutter_sleep_snapshot)) + tuple(
+              (TENDON_SNAPSHOTS[name], dmc(name)) for name in TENDON_DMC) + \
+      tuple((TENDON_SNAPSHOTS[name], xml(path))
+            for name, path in TENDON_XML.items())
+
+
 def main(argv: Optional[list] = None):
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   p.add_argument('--snapshot', action='store_true',
@@ -782,32 +820,19 @@ def main(argv: Optional[list] = None):
                  'assets/eq_joint.npz, assets/implicitfast.npz, the '
                  'dm_control scenes assets/walker.npz, cheetah.npz, '
                  'hopper.npz and humanoid_dmc.npz, assets/clutter_arm.npz, '
-                 'assets/spheres_cg.npz and assets/clutter.npz, and (with '
-                 '--settle) the settled states assets/clutter_arm_settled.npz'
-                 ' and assets/clutter_settled.npz')
+                 'assets/spheres_cg.npz and assets/clutter.npz, the tendon '
+                 'scenes assets/ball_in_cup.npz, point_mass.npz, '
+                 'sensors2.npz, tendon_wrap.npz and tendon_mix.npz, and '
+                 '(with --settle) the settled states '
+                 'assets/clutter_arm_settled.npz and '
+                 'assets/clutter_settled.npz')
   p.add_argument('--settle', action='store_true',
                  help='also remake the settled states (the plain general '
                  'step on the CPU, minutes)')
   args = p.parse_args(argv)
   if not args.snapshot:
     p.error('nothing to do (pass --snapshot)')
-  for path, make in ((SNAPSHOT, make_snapshot),
-                     (CONSTRAINTS_SNAPSHOT, make_constraints_snapshot),
-                     (CLUTTER_SNAPSHOT, make_clutter_snapshot),
-                     (SPHERES_SNAPSHOT, lambda p: make_spheres_snapshot(
-                         types.ConeType.PYRAMIDAL, p)),
-                     (SPHERES_ELLIPTIC_SNAPSHOT, lambda p: make_spheres_snapshot(
-                         types.ConeType.ELLIPTIC, p)),
-                     (EQ_JOINT_SNAPSHOT,
-                      lambda p: make_xml_snapshot(EQ_JOINT_XML, p)),
-                     (IMPLICITFAST_SNAPSHOT,
-                      lambda p: make_xml_snapshot(IMPLICITFAST_XML, p))) + \
-      tuple((DMC_SNAPSHOTS[name], lambda p, n=name: make_dmc_snapshot(n, p))
-            for name in DMC_NCONMAX) + (
-          (CLUTTER_ARM_SNAPSHOT, make_clutter_arm_snapshot),
-          (SPHERES_CG_SNAPSHOT, lambda p: make_spheres_snapshot(
-              types.ConeType.PYRAMIDAL, p, types.SolverType.CG)),
-          (CLUTTER_SLEEP_SNAPSHOT, make_clutter_sleep_snapshot)):
+  for path, make in snapshot_makers():
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')

@@ -11,7 +11,12 @@ world's chain in shared memory (``world_floats`` counts its floats;
 large tree (``big_tree``: nv > 48 or nbody > 32) skips the factor in the
 kernel and writes qM world-major; qLD then comes from the ``chol_batched``
 kernel with jitter 1e-12 (``pallas/smooth.py:296-304``), which reads that
-qM in place.
+qM in place.  A model with tendon armature takes the same large-tree
+form at any size (``factor_in_kernel``): the armature term
+ten_J^T diag(armature) ten_J (``ops/smooth.py`` ``tendon_armature``) is
+added to that qM before ``chol_batched`` factors it; the JAX package
+declines such a model in its kernel (``pallas/smooth.py:30``) and
+factors the sum in jnp.
 """
 
 from __future__ import annotations
@@ -51,6 +56,13 @@ def big_tree(m: types.Model) -> bool:
   return m.nv > MAX_NV or m.nbody > MAX_NBODY
 
 
+def factor_in_kernel(m: types.Model) -> bool:
+  """Does the kernel factor qM (the small-tree form)?  Not for a large
+  tree, nor where a tendon's armature adds to qM after the chain."""
+  return not big_tree(m) and not (
+      m.ntendon and np.any(types.host(m.tendon_armature) > 0))
+
+
 def world_floats(nbody: int, nv: int, small: bool) -> int:
   """Shared floats of one world of the kernel (``csrc/mass_chain.cu``
   ``MassChainLayout``): cinert, cdof, qvel, crb, f, cvel, cdof_dot and
@@ -64,7 +76,7 @@ def world_floats(nbody: int, nv: int, small: bool) -> int:
 
 def world_bytes(m: types.Model) -> int:
   """Shared bytes of one world of ``m``."""
-  return 4 * world_floats(m.nbody, m.nv, not big_tree(m))
+  return 4 * world_floats(m.nbody, m.nv, factor_in_kernel(m))
 
 
 def fits(m: types.Model) -> bool:
@@ -101,20 +113,22 @@ def mass_chain_plain(m: types.Model, cinert, cdof, qvel):
   outputs in the same layouts."""
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
+  small = factor_in_kernel(m)
   qM, Lf, cvel, cdd, bias = k1_ref.mass_chain(
       m, list(cinert.reshape(nb, 36, W)), list(cdof.reshape(nv, 6, W)),
-      qvel, m.dof_armature, m.opt.gravity,
+      qvel, m.dof_armature, m.opt.gravity, need_L=small,
       ancm=ancm_table(m) if big_tree(m) else None)
   qM = qM.reshape(nv * nv, W)
-  return (world(qM, nv, nv).contiguous() if big_tree(m) else qM,
+  return (qM if small else world(qM, nv, nv).contiguous(),
           None if Lf is None else Lf.reshape(nv * nv, W), torch.cat(cvel),
           torch.cat(cdd), bias)
 
 
 def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
   """The mass chain on lanes-last tensors: cinert (36 nbody, W), cdof
-  (6 nv, W), qvel (nv, W).  Returns qM (nv nv, W; for a large tree
-  world-major (W, nv, nv)), qLD (nv nv, W; None for a large tree), cvel
+  (6 nv, W), qvel (nv, W).  Returns qM (nv nv, W; in the large-tree
+  form world-major (W, nv, nv)), qLD (nv nv, W; None in the large-tree
+  form), cvel
   (6 nbody, W), cdof_dot (6 nv, W) and bias (nv, W)."""
   global launches
   nb, nv = m.nbody, m.nv
@@ -128,7 +142,7 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
   check(cinert, (36 * nb, W), 'cinert', dev)
   check(cdof, (6 * nv, W), 'cdof', dev)
   check(qvel, (nv, W), 'qvel', dev)
-  small = not big_tree(m)
+  small = factor_in_kernel(m)
   floats = world_floats(nb, nv, small)
   if 4 * floats > solver.SMEM_BLOCK:
     raise ValueError(f'mass chain: one world (nv {nv}, nbody {nb}) takes '
@@ -162,11 +176,14 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
 def mass_chain(m: types.Model, d: types.Data) -> types.Data:
   """The batched mass chain on world-major Data after the position stages
   (``pallas/smooth.py`` ``mass_chain`` :246): qM, qLD, cvel, cdof_dot and
-  qfrc_bias; a large tree's qLD from the ``chol_batched`` kernel."""
+  qfrc_bias; in the large-tree form qLD from the ``chol_batched`` kernel,
+  after the tendon armature term where the model has one."""
   nb, nv = m.nbody, m.nv
   qM, qLD, cvel, cdd, bias = mass_chain_lanes(
       m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
   if qLD is None:  # qM world-major, read in place
+    from mujoco_warp_tpu_torch.ops import smooth
+    qM = smooth.tendon_armature(m, d.replace(qM=qM)).qM
     qLD = klinalg.chol_batched(m, qM, jitter=BIG_JITTER)
   else:
     qM, qLD = world(qM, nv, nv), world(qLD, nv, nv)
@@ -178,7 +195,7 @@ def mass_chain(m: types.Model, d: types.Data) -> types.Data:
 def kernel_info(m: types.Model) -> dict:
   """The kernel of ``m``'s form on the card: registers per thread, worlds
   (warps) per block and shared bytes per block at ``m``'s sizes."""
-  p = MassChainParams(nb=m.nbody, nv=m.nv, small=int(not big_tree(m)))
+  p = MassChainParams(nb=m.nbody, nv=m.nv, small=int(factor_in_kernel(m)))
   out = (ctypes.c_int * 3)()
   rc = build.load().mwt_mass_chain_info(ctypes.byref(p), out)
   if rc != 0:

@@ -5,13 +5,14 @@ Counterpart of ``mujoco_warp_tpu/ops/constraint.py``: ``_kbi`` (:32),
 ``_row_values`` (:66), ``_jac`` (:76), ``_cdof_dot_jac`` (:102),
 ``_jac_dot`` (:118), the row writer (:142-206), ``_equality_connect``
 (:208), ``_equality_weld`` (:262), ``_equality_joint`` (:383),
-``_friction`` (:594), ``_limit`` (:619), ``_contact`` (:777, frictionless,
+``_equality_tendon`` (:423), ``_friction`` (:594, dof and tendon rows),
+``_limit`` (:619, joint and tendon rows), ``_contact`` (:777, frictionless,
 pyramidal and elliptic rows; under contact compaction each world's
 slots take their bodies from its own ``contact.geom1/geom2``) and
 ``make_constraint`` (:919).  Every potential row exists every step;
 inactive rows are zeroed.  The Jacobian is dense (W, nefc, nv).  The
 chain form of the contact rows (``_contact_compact`` :703, for
-``efc_compact`` models) and tendon and flex rows are not ported yet.
+``efc_compact`` models) and flex rows are not ported yet.
 """
 
 from __future__ import annotations
@@ -305,26 +306,94 @@ def _equality_joint(m, d, rows):
            d.eq_active[:, ti])
 
 
-def _friction(m, d, rows):
-  """Dof friction-loss rows (``constraint.py:594``)."""
-  dofs = m.efc.fri_dof_id
-  if not len(dofs):
+def _equality_tendon(m, d, rows):
+  """Tendon equality rows, the polynomial coupling of two tendons or one
+  tendon held at its qpos0 length plus a constant
+  (``constraint.py:423``)."""
+  ids = m.efc.tendon_id
+  if not len(ids):
     return
+  dev = d.qpos.device
+  ti = ix(ids, dev)
+  data = m.eq_data[ti]
+  t1, t2 = m.eq_obj1id[ids], m.eq_obj2id[ids]
+  has2 = t2 > -1
+  i1, i2 = ix(t1, dev), ix(np.maximum(t2, 0), dev)
+  dif = d.ten_length[:, i2] - m.tendon_length0[i2]
+  rhs = data[:, 0] + dif * (data[:, 1] + dif * (
+      data[:, 2] + dif * (data[:, 3] + dif * data[:, 4])))
+  deriv2 = data[:, 1] + dif * (2.0 * data[:, 2] + dif * (
+      3.0 * data[:, 3] + dif * 4.0 * data[:, 4]))
+  h2 = fmask(has2.astype(np.float32), d.qpos)
+  pos = d.ten_length[:, i1] - m.tendon_length0[i1] - torch.where(
+      bmask(has2, dev), rhs, data[:, 0])
+  J = d.ten_J[:, i1] - (deriv2 * h2)[..., None] * d.ten_J[:, i2]
+  Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
+  invweight = m.tendon_invweight0[i1] + m.tendon_invweight0[i2] * h2
+  D, aref, posv = _row_values(m, pos, pos, invweight, m.eq_solref[ti],
+                              m.eq_solimp[ti], 0.0, Jqvel)
+  rows.set(m.efc.tendon_adr, J, posv, torch.zeros_like(posv), D, aref, None,
+           d.eq_active[:, ti])
+
+
+def _friction(m, d, rows):
+  """Dof and tendon friction-loss rows (``constraint.py:594``).  A
+  tendon row's velocity is ten_J qvel of this step (``forward.mid`` sets
+  ten_velocity before the rows; see there)."""
   dev, dt = d.qpos.device, d.qpos.dtype
-  W, n = d.qpos.shape[0], len(dofs)
-  td = ix(dofs, dev)
-  J = fmask(np.eye(m.nv)[dofs], d.qpos)
-  zero = torch.zeros((n,), dtype=dt, device=dev)
-  D, aref, posv = _row_values(m, zero, zero, m.dof_invweight0[td],
-                              m.dof_solref[td], m.dof_solimp[td], 0.0,
-                              d.qvel[:, td])
-  rows.set(m.efc.fri_dof_adr, J.expand(W, n, m.nv), posv,
-           torch.zeros_like(posv), D, aref, m.dof_frictionloss[td],
-           torch.ones((n,), dtype=torch.bool, device=dev))
+  W = d.qpos.shape[0]
+  dofs = m.efc.fri_dof_id
+  if len(dofs):
+    n = len(dofs)
+    td = ix(dofs, dev)
+    J = fmask(np.eye(m.nv)[dofs], d.qpos)
+    zero = torch.zeros((n,), dtype=dt, device=dev)
+    D, aref, posv = _row_values(m, zero, zero, m.dof_invweight0[td],
+                                m.dof_solref[td], m.dof_solimp[td], 0.0,
+                                d.qvel[:, td])
+    rows.set(m.efc.fri_dof_adr, J.expand(W, n, m.nv), posv,
+             torch.zeros_like(posv), D, aref, m.dof_frictionloss[td],
+             torch.ones((n,), dtype=torch.bool, device=dev))
+  tens = m.efc.fri_ten_id
+  if len(tens):
+    n = len(tens)
+    tt = ix(tens, dev)
+    zero = torch.zeros((n,), dtype=dt, device=dev)
+    D, aref, posv = _row_values(m, zero, zero, m.tendon_invweight0[tt],
+                                m.tendon_solref_fri[tt],
+                                m.tendon_solimp_fri[tt], 0.0,
+                                d.ten_velocity[:, tt])
+    rows.set(m.efc.fri_ten_adr, d.ten_J[:, tt], posv, torch.zeros_like(posv),
+             D, aref, m.tendon_frictionloss[tt],
+             torch.ones((n,), dtype=torch.bool, device=dev))
+
+
+def _limit_tendon(m, d, rows):
+  """Tendon limit rows on the nearer side of each range
+  (``constraint.py:665-681``)."""
+  tids = m.efc.lim_ten_id
+  if not len(tids):
+    return
+  tt = ix(tids, d.qpos.device)
+  margin = m.tendon_margin[tt]
+  trange = m.tendon_range[tt]
+  ln = d.ten_length[:, tt]
+  dist_min = ln - trange[:, 0]
+  dist_max = trange[:, 1] - ln
+  pos = torch.minimum(dist_min, dist_max) - margin
+  Jsign = torch.where(dist_min < dist_max, 1.0, -1.0).to(ln.dtype)
+  J = Jsign[..., None] * d.ten_J[:, tt]
+  Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
+  D, aref, posv = _row_values(m, pos, pos, m.tendon_invweight0[tt],
+                              m.tendon_solref_lim[tt],
+                              m.tendon_solimp_lim[tt], margin, Jqvel)
+  rows.set(m.efc.lim_ten_adr, J, posv, margin, D, aref, None, pos < 0)
 
 
 def _limit(m, d, rows):
-  """Joint limit rows, hinge/slide and ball (``constraint.py:619``)."""
+  """Joint limit rows, hinge/slide and ball (``constraint.py:619``), then
+  the tendon limit rows."""
+  _limit_tendon(m, d, rows)
   jids = m.efc.lim_jnt_id
   if not len(jids):
     return
@@ -466,14 +535,14 @@ def make_constraint(m: types.Model, d: types.Data) -> types.Data:
   rows = _Rows(m, d)
   dsbl = m.opt.disableflags
   if m.nefc and not (dsbl & types.DisableBit.CONSTRAINT):
-    if len(m.efc.tendon_id) or len(m.efc.flex_id) or \
-        len(m.efc.fri_ten_id) or len(m.efc.lim_ten_id):
-      raise NotImplementedError('tendon and flex rows are not ported yet')
+    if len(m.efc.flex_id):
+      raise NotImplementedError('flex rows are not ported yet')
     if m.neq and not (dsbl & types.DisableBit.EQUALITY):
       cdof_dot = _cdof_dot_jac(m, d)
       _equality_connect(m, d, rows, cdof_dot)
       _equality_weld(m, d, rows, cdof_dot)
       _equality_joint(m, d, rows)
+      _equality_tendon(m, d, rows)
     if m.nf and not (dsbl & types.DisableBit.FRICTIONLOSS):
       _friction(m, d, rows)
     if m.nl and not (dsbl & types.DisableBit.LIMIT):

@@ -6,8 +6,10 @@ Counterpart of ``mujoco_warp_tpu/ops/forward.py``: ``fwd_actuation``
 ``step`` (:649), ``_island_lazy`` (:679) and ``_step_sleep_skip`` (:814)
 for batched Data.  The stage order of ``_step_batched`` is kept: the wake
 pass, the position stages with the camera, light and site frames
-(``pre``), the mass chain (kernel; a large tree's factor from the
-``chol_batched`` kernel), collision (with contact compaction) and the
+and the tendons (``pre``), the mass chain (kernel; in the large-tree form,
+for a large tree or tendon armature, the factor from the ``chol_batched``
+kernel after the armature term) and the tendon armature's bias,
+collision (with contact compaction) and the
 collision wake, the constraint rows, the equality wake and the masking of
 sleeping rows, the position sensors, passive forces, the velocity sensors
 and actuator forces (``mid``), the lazy island labeler, qacc_smooth
@@ -39,7 +41,7 @@ from mujoco_warp_tpu_torch.ops import collision_driver, constraint, island, \
     math, passive, sensor, smooth, support
 from mujoco_warp_tpu_torch.ops import sleep as osleep
 from mujoco_warp_tpu_torch.ops import solver as osolver
-from mujoco_warp_tpu_torch.ops.util import bmask, host_item, ix
+from mujoco_warp_tpu_torch.ops.util import bmask, fmask, host_item, ix
 
 _JT = types.JointType
 _GT = types.GainType
@@ -74,9 +76,8 @@ def solve_kernel_runs(m: types.Model) -> bool:
 def unsupported(m: types.Model):
   """Why the general step cannot run ``m`` yet, or None."""
   o = m.opt
-  for n, what in ((m.ntendon, 'tendons'), (m.nflex, 'flex'),
-                  (m.nmocap, 'mocap'), (m.na, 'actuator activation'),
-                  (m.nhistory, 'history')):
+  for n, what in ((m.nflex, 'flex'), (m.nmocap, 'mocap'),
+                  (m.na, 'actuator activation'), (m.nhistory, 'history')):
     if n:
       return what
   later = sensor.deferred(m)
@@ -92,8 +93,9 @@ def unsupported(m: types.Model):
     return (f'elliptic cones in the torch solver (nefc {m.nefc} x nv {m.nv} '
             f'beyond the solve kernel, or CG)')
   if m.nu:
-    if not np.all(m.actuator_trntype == types.TrnType.JOINT):
-      return 'actuator transmission'
+    if not np.all(np.isin(m.actuator_trntype, (types.TrnType.JOINT,
+                                               types.TrnType.TENDON))):
+      return 'actuator transmission (slider-crank, site or body)'
     if not np.all(m.actuator_dyntype == types.DynType.NONE):
       return 'actuator dynamics'
     if not (np.all(np.isin(m.actuator_gaintype, (_GT.FIXED, _GT.AFFINE))) and
@@ -102,8 +104,8 @@ def unsupported(m: types.Model):
   if np.any(m.jnt_actgravcomp) or np.any(m.jnt_actfrclimited):
     return 'actuator gravcomp or force limits'
   if m.neq:
-    if len(m.efc.tendon_id) or len(m.efc.flex_id):
-      return 'tendon or flex equality'
+    if len(m.efc.flex_id):
+      return 'flex equality'
     if np.any(m.eq_objtype == 6):  # mjOBJ_SITE
       return 'site-anchored equality'
   if float(types.host(m.opt.density)) or float(types.host(m.opt.viscosity)):
@@ -152,8 +154,30 @@ def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
     fr = m.actuator_forcerange
     force = torch.where(lim, torch.minimum(torch.maximum(force, fr[:, 0]),
                                            fr[:, 1]), force)
+  if m.ntendon and np.any(m.tendon_actfrclimited):
+    force = _tendon_force_clamp(m, force)
   qfrc = torch.einsum('wuv,wu->wv', d.actuator_moment, force)
   return d.replace(actuator_force=force, qfrc_actuator=qfrc)
+
+
+def _tendon_force_clamp(m: types.Model, force):
+  """Each limited tendon's total actuator force held to its
+  actfrcrange, by scaling the forces of its actuators
+  (``forward.py:427-445``)."""
+  dev = force.device
+  is_ten = m.actuator_trntype == types.TrnType.TENDON
+  tid = np.where(is_ten, m.actuator_trnid[:, 0], 0)
+  # actuator -> tendon, a static (nu, ntendon) one-hot sum
+  S = np.zeros((m.nu, m.ntendon), np.float32)
+  S[np.nonzero(is_ten)[0], tid[is_ten]] = 1.0
+  ten_frc = force @ fmask(S, force)
+  rng = m.tendon_actfrcrange
+  lim = bmask(m.tendon_actfrclimited, dev)
+  safe = torch.where(ten_frc != 0, ten_frc, 1.0)
+  scale_lo = torch.where((ten_frc < rng[:, 0]) & lim, rng[:, 0] / safe, 1.0)
+  scale_hi = torch.where((ten_frc > rng[:, 1]) & lim, rng[:, 1] / safe, 1.0)
+  scale = (scale_lo * scale_hi)[:, ix(tid, dev)]
+  return torch.where(bmask(is_ten, dev), force * scale, force)
 
 
 def fwd_smooth_force(m: types.Model, d: types.Data) -> types.Data:
@@ -221,10 +245,20 @@ def solve(m: types.Model, d: types.Data) -> types.Data:
 
 
 def pre(m: types.Model, d: types.Data) -> types.Data:
-  """The position stages before the mass chain (``_step_batched`` pre)."""
+  """The position stages before the mass chain (``_step_batched`` pre):
+  kinematics, com_pos, camlight and the tendons."""
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
-  return smooth.camlight(m, d)
+  d = smooth.camlight(m, d)
+  return smooth.tendon(m, d)
+
+
+def mass_chain(m: types.Model, d: types.Data) -> types.Data:
+  """The mass chain (kernel; in the large-tree form the tendon armature
+  term and the ``chol_batched`` factor follow), then the tendon
+  armature's bias (``fwd_velocity``'s ``tendon_bias``: qfrc_bias from the
+  chain plus the armature's term)."""
+  return smooth.tendon_bias(m, kmass.mass_chain(m, d))
 
 
 def stage(name: str):
@@ -239,6 +273,13 @@ def mid(m: types.Model, d: types.Data) -> types.Data:
   velocity sensors and energy, actuator forces, qfrc_smooth
   (``_step_batched`` mid)."""
   sleeping = osleep.enabled(m)
+  if m.ntendon:
+    # ten_J qvel (JAX sets it after the rows, :746-748): the tendon
+    # friction rows read it, this step's as in MuJoCo C, where the JAX
+    # rows read the value the Data carries in (``constraint.py:607-616``)
+    with stage('forces'):
+      d = d.replace(ten_velocity=torch.einsum('wtv,wv->wt', d.ten_J,
+                                              d.qvel))
   if m.opt.run_collision_detection:
     with stage('collision'):
       d = collision_driver.collision(m, d)
@@ -292,7 +333,7 @@ def _step_batched(m: types.Model, d: types.Data,
   # crb, qM, qLD, com_vel, cdof_dot and rne in one kernel (a large tree's
   # qLD from the chol_batched kernel)
   with stage('mass_chain'):
-    d = kmass.mass_chain(m, d)
+    d = mass_chain(m, d)
   d = mid(m, d)
   if sleeping:
     d = _island_lazy(m, d)

@@ -1,9 +1,9 @@
-"""Passive forces of the general step, world-major: joint springs and
-dof dampers.
+"""Passive forces of the general step, world-major: joint and tendon
+springs, dof and tendon dampers.
 
 Counterpart of ``mujoco_warp_tpu/ops/passive.py`` ``passive`` (:269) with
-``_spring`` (:21) and the damping term.  Fluid forces and gravity
-compensation are not ported yet and raise.
+``_spring`` (:21), the tendon terms (:286-304) and the damping term.
+Fluid forces and gravity compensation are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -49,8 +49,17 @@ def _spring(m: types.Model, d: types.Data) -> torch.Tensor:
   return qfrc
 
 
+def tendon_stretch(m: types.Model, d: types.Data) -> torch.Tensor:
+  """(W, ntendon): each tendon's length past its spring's deadband
+  [lengthspring lo, hi], 0 inside it (``passive.py:290-293``)."""
+  lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+  L = d.ten_length
+  return torch.where(L > hi, L - hi, torch.where(L < lo, L - lo, 0.0))
+
+
 def passive(m: types.Model, d: types.Data) -> types.Data:
-  """Spring and damper forces (``passive.py:269``)."""
+  """Spring and damper forces (``passive.py:269``), the tendons' springs
+  with their deadband and their dampers among them (:286-304)."""
   dsbl = m.opt.disableflags
   if float(types.host(m.opt.density)) or float(types.host(m.opt.viscosity)):
     raise NotImplementedError('fluid forces are not ported yet')
@@ -61,6 +70,13 @@ def passive(m: types.Model, d: types.Data) -> types.Data:
   qfrc_spring = zero if dsbl & types.DisableBit.SPRING else _spring(m, d)
   qfrc_damper = zero if dsbl & types.DisableBit.DAMPER else \
       -m.dof_damping * d.qvel
+  if m.ntendon:
+    if not dsbl & types.DisableBit.SPRING:
+      qfrc_spring = qfrc_spring + torch.einsum(
+          'wtv,wt->wv', d.ten_J, -m.tendon_stiffness * tendon_stretch(m, d))
+    if not dsbl & types.DisableBit.DAMPER:
+      qfrc_damper = qfrc_damper + torch.einsum(
+          'wtv,wt->wv', d.ten_J, -m.tendon_damping * d.ten_velocity)
   qfrc_passive = qfrc_spring + qfrc_damper + zero + zero
   return d.replace(qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
                    qfrc_gravcomp=zero, qfrc_fluid=zero,

@@ -10,8 +10,9 @@ and written into ``sensordata`` at its static addresses with one indexed
 store.  TOUCH follows the JAX package: the normal forces of the live
 contacts whose either body is the site's body (:771-787).
 
-``DEFERRED`` names the types that wait for their subsystems (tendons,
-rays, geom distances, the contact sensor, tactile meshes);
+The six TENDON* types read the tendon stages (:176, :192, :419, :427,
+:734, :742).  ``DEFERRED`` names the types that wait for their subsystems
+(rays, geom distances, the contact sensor, tactile meshes);
 ``ops/forward.unsupported`` refuses a model that has one.
 """
 
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.ops import math, smooth
+from mujoco_warp_tpu_torch.ops import math, passive, smooth
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
 _ST = types.SensorType
@@ -29,9 +30,6 @@ _OT = types.ObjType
 
 # sensor type -> the subsystem it waits for
 DEFERRED = {
-    int(_ST.TENDONPOS): 'tendons', int(_ST.TENDONVEL): 'tendons',
-    int(_ST.TENDONACTFRC): 'tendons', int(_ST.TENDONLIMITPOS): 'tendons',
-    int(_ST.TENDONLIMITVEL): 'tendons', int(_ST.TENDONLIMITFRC): 'tendons',
     int(_ST.RANGEFINDER): 'rays', int(_ST.GEOMDIST): 'geom distance',
     int(_ST.GEOMNORMAL): 'geom distance',
     int(_ST.GEOMFROMTO): 'geom distance',
@@ -39,17 +37,18 @@ DEFERRED = {
 }
 
 POS_TYPES = (
-    _ST.MAGNETOMETER, _ST.JOINTPOS, _ST.ACTUATORPOS, _ST.BALLQUAT,
-    _ST.JOINTLIMITPOS, _ST.FRAMEPOS, _ST.FRAMEQUAT, _ST.FRAMEXAXIS,
+    _ST.MAGNETOMETER, _ST.JOINTPOS, _ST.TENDONPOS, _ST.ACTUATORPOS,
+    _ST.BALLQUAT, _ST.JOINTLIMITPOS, _ST.TENDONLIMITPOS, _ST.FRAMEPOS, _ST.FRAMEQUAT, _ST.FRAMEXAXIS,
     _ST.FRAMEYAXIS, _ST.FRAMEZAXIS, _ST.SUBTREECOM, _ST.CLOCK,
     _ST.E_POTENTIAL, _ST.E_KINETIC, _ST.CAMPROJECTION, _ST.INSIDESITE)
 VEL_TYPES = (
-    _ST.VELOCIMETER, _ST.GYRO, _ST.JOINTVEL, _ST.ACTUATORVEL,
-    _ST.BALLANGVEL, _ST.JOINTLIMITVEL, _ST.FRAMELINVEL, _ST.FRAMEANGVEL,
-    _ST.SUBTREELINVEL, _ST.SUBTREEANGMOM)
+    _ST.VELOCIMETER, _ST.GYRO, _ST.JOINTVEL, _ST.TENDONVEL, _ST.ACTUATORVEL,
+    _ST.BALLANGVEL, _ST.JOINTLIMITVEL, _ST.TENDONLIMITVEL, _ST.FRAMELINVEL,
+    _ST.FRAMEANGVEL, _ST.SUBTREELINVEL, _ST.SUBTREEANGMOM)
 ACC_TYPES = (
     _ST.TOUCH, _ST.ACCELEROMETER, _ST.FORCE, _ST.TORQUE, _ST.ACTUATORFRC,
-    _ST.JOINTACTFRC, _ST.JOINTLIMITFRC, _ST.FRAMELINACC, _ST.FRAMEANGACC)
+    _ST.JOINTACTFRC, _ST.TENDONACTFRC, _ST.JOINTLIMITFRC,
+    _ST.TENDONLIMITFRC, _ST.FRAMELINACC, _ST.FRAMEANGACC)
 
 
 def deferred(m: types.Model):
@@ -191,14 +190,16 @@ def _point_acc(m, d, point, body):
   return ang, lin
 
 
-def _limit_rows(m, objid) -> np.ndarray:
-  """The limit row of each joint, -1 where the joint has none."""
+def _limit_rows(m, objid, tendon: bool = False) -> np.ndarray:
+  """The limit row of each joint (or tendon), -1 where it has none."""
   lay = m.efc
+  ids, adr = (lay.lim_ten_id, lay.lim_ten_adr) if tendon else \
+      (lay.lim_jnt_id, lay.lim_jnt_adr)
   rows = np.full(len(objid), -1, np.int64)
   for i, o in enumerate(objid):
-    hit = np.nonzero(lay.lim_jnt_id == o)[0]
+    hit = np.nonzero(ids == o)[0]
     if len(hit):
-      rows[i] = lay.lim_jnt_adr[hit[0]]
+      rows[i] = adr[hit[0]]
   return rows
 
 
@@ -307,8 +308,10 @@ def sensor_pos(m: types.Model, d: types.Data) -> types.Data:
     elif t == _ST.BALLQUAT:
       val = math.normalize_quat(d.qpos[:, ix(
           m.jnt_qposadr[objid][:, None] + np.arange(4), dev)])
-    elif t == _ST.JOINTLIMITPOS:
-      rows = _limit_rows(m, objid)
+    elif t == _ST.TENDONPOS:
+      val = d.ten_length[:, ix(objid, dev)]
+    elif t in (_ST.JOINTLIMITPOS, _ST.TENDONLIMITPOS):
+      rows = _limit_rows(m, objid, t == _ST.TENDONLIMITPOS)
       rr = ix(np.maximum(rows, 0), dev)
       val = _limit_value(d, rows, d.efc_pos[:, rr] - d.efc_margin[:, rr])
     elif t == _ST.FRAMEPOS:
@@ -343,13 +346,13 @@ def sensor_pos(m: types.Model, d: types.Data) -> types.Data:
     elif t == _ST.INSIDESITE:
       pos = _obj_pos(m, d, objtype, objid)
       # a massless body with a massive subtree reads its subtree's CoM
-      mass = types.host(m.body_mass)[objid]
-      smass = types.host(m.body_subtreemass)[objid]
-      use_com = (objtype == _OT.BODY) & (objid > 0) & (mass < 1e-15) & \
-          (smass >= 1e-15)
+      body = np.where(objtype == _OT.BODY, objid, 0)
+      mass = types.host(m.body_mass)[body]
+      smass = types.host(m.body_subtreemass)[body]
+      use_com = (body > 0) & (mass < 1e-15) & (smass >= 1e-15)
       if np.any(use_com):
         pos = torch.where(bmask(use_com, dev)[:, None],
-                          d.subtree_com[:, ix(objid, dev)], pos)
+                          d.subtree_com[:, ix(body, dev)], pos)
       refid = m.sensor_refid[ids]
       val = torch.stack([_inside_site(m, d, int(refid[k]), pos[:, k])
                          for k in range(len(ids))], -1)
@@ -407,8 +410,10 @@ def sensor_vel(m: types.Model, d: types.Data) -> types.Data:
       val = d.actuator_velocity[:, ix(objid, dev)]
     elif t == _ST.BALLANGVEL:
       val = d.qvel[:, ix(m.jnt_dofadr[objid][:, None] + np.arange(3), dev)]
-    elif t == _ST.JOINTLIMITVEL:
-      rows = _limit_rows(m, objid)
+    elif t == _ST.TENDONVEL:
+      val = d.ten_velocity[:, ix(objid, dev)]
+    elif t in (_ST.JOINTLIMITVEL, _ST.TENDONLIMITVEL):
+      rows = _limit_rows(m, objid, t == _ST.TENDONLIMITVEL)
       rr = ix(np.maximum(rows, 0), dev)
       val = _limit_value(d, rows, torch.einsum('wrv,wv->wr', d.efc_J[:, rr],
                                                d.qvel))
@@ -475,8 +480,14 @@ def sensor_acc(m: types.Model, d: types.Data) -> types.Data:
       val = d.actuator_force[:, ix(objid, dev)]
     elif t == _ST.JOINTACTFRC:
       val = d.qfrc_actuator[:, ix(m.jnt_dofadr[objid], dev)]
-    elif t == _ST.JOINTLIMITFRC:
-      rows = _limit_rows(m, objid)
+    elif t == _ST.TENDONACTFRC:
+      # the forces of the tendon actuators on each sensor's tendon
+      is_ten = m.actuator_trntype == types.TrnType.TENDON
+      match = is_ten[None, :] & (m.actuator_trnid[None, :, 0] ==
+                                 objid[:, None])
+      val = d.actuator_force @ fmask(match.T.astype(np.float32), sd)
+    elif t in (_ST.JOINTLIMITFRC, _ST.TENDONLIMITFRC):
+      rows = _limit_rows(m, objid, t == _ST.TENDONLIMITFRC)
       val = _limit_value(d, rows, d.efc_force[:, ix(np.maximum(rows, 0),
                                                     dev)])
     elif t == _ST.ACCELEROMETER:
@@ -504,8 +515,8 @@ def sensor_acc(m: types.Model, d: types.Data) -> types.Data:
 
 
 def energy_pos_value(m: types.Model, d: types.Data) -> torch.Tensor:
-  """Potential energy (W,): gravity and joint springs
-  (``sensor.py:822``)."""
+  """Potential energy (W,): gravity, joint springs and tendon springs
+  past their deadband (``sensor.py:822``)."""
   dev, dt = d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
   e = torch.zeros(W, dtype=dt, device=dev)
@@ -534,6 +545,9 @@ def energy_pos_value(m: types.Model, d: types.Data) -> torch.Tensor:
       e = e + 0.5 * torch.sum(k * torch.sum(dp * dp, -1), -1)
       dif = math.quat_sub(q(3, 7), qs(3, 7))
       e = e + 0.5 * torch.sum(k * torch.sum(dif * dif, -1), -1)
+  if m.ntendon:
+    dif = passive.tendon_stretch(m, d)
+    e = e + 0.5 * torch.sum(m.tendon_stiffness * dif * dif, -1)
   return e
 
 

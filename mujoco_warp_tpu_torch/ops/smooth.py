@@ -3,9 +3,11 @@
 Counterpart of ``mujoco_warp_tpu/ops/smooth.py``: ``kinematics`` (:36,
 site frames included), ``com_pos`` (:131), ``camlight`` (:189, all five
 camera and light modes), ``rne_postconstraint`` (:406) with
-``_contact_forces_local`` / ``_contact_forces`` (:466, :507),
-``transmission`` (:857) and ``factor_m`` / ``solve_m`` / ``mul_m``
-(:301-330).  The mass chain (crb,
+``_contact_forces_local`` / ``_contact_forces`` (:466, :507), ``tendon``
+(:760) with the wrap helpers ``_wrap_2d_circle`` (:529),
+``_wrap_2d_inside`` (:603) and ``_wrap_geom`` (:688), ``transmission``
+(:857, joint and tendon), ``tendon_armature`` (:1060), ``tendon_bias``
+(:1099) and ``factor_m`` / ``solve_m`` / ``mul_m`` (:301-330).  The mass chain (crb,
 qM, its factor, com_vel and RNE) runs as one kernel
 (``kernels/mass_chain.py``).  ``factor_m`` and ``solve_m`` use the plain
 lane Cholesky of the kernels (``fused/solver_ref.py``), which floors the
@@ -19,6 +21,7 @@ import torch
 
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused import solver_ref
+from mujoco_warp_tpu_torch.kernels import TableCache
 from mujoco_warp_tpu_torch.ops import math
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
@@ -311,19 +314,479 @@ def rne_postconstraint(m: types.Model, d: types.Data) -> types.Data:
   return d.replace(cacc=cacc, cfrc_int=cfrc_int, cfrc_ext=cfrc_ext)
 
 
+# ------------------------------------------------------------------ tendons
+
+
+def _wrap_2d_circle(e0x, e0y, e1x, e1y, side, radius):
+  """The 2D circle wrap of ``smooth.py:529`` (MuJoCo's ``wrap_circle``)
+  on (W, n) components: the two end points, the side point (a pair of
+  (W, n) components, or None) and the radius (n,).  Returns (wlen, pnt0,
+  pnt1), the points as pairs of components, wlen -1 where the segment does
+  not wrap."""
+  dot2 = lambda ax, ay, bx, by: ax * bx + ay * by
+  sqlen0, sqlen1 = dot2(e0x, e0y, e0x, e0y), dot2(e1x, e1y, e1x, e1y)
+  sqrad = radius * radius
+  no_wrap = (sqlen0 < sqrad) | (sqlen1 < sqrad) | (radius < 1e-15)
+  dx, dy = e1x - e0x, e1y - e0y
+  dd = dot2(dx, dy, dx, dy)
+  no_wrap = no_wrap | (dd < 1e-15)
+  a = torch.clamp(-dot2(dx, dy, e0x, e0y) / torch.clamp(dd, min=1e-15),
+                  0.0, 1.0)
+  tx, ty = a * dx + e0x, a * dy + e0y
+  far = dot2(tx, ty, tx, ty) > sqrad
+  if side is None:
+    no_wrap = no_wrap | far
+  else:
+    no_wrap = no_wrap | (far & (dot2(side[0], side[1], tx, ty) >= 0.0))
+  sqrt0 = torch.sqrt(torch.clamp(sqlen0 - sqrad, min=0.0))
+  sqrt1 = torch.sqrt(torch.clamp(sqlen1 - sqrad, min=0.0))
+  sl0 = torch.clamp(sqlen0, min=1e-15)
+  sl1 = torch.clamp(sqlen1, min=1e-15)
+  sol00 = ((e0x * sqrad + radius * e0y * sqrt0) / sl0,
+           (e0y * sqrad - radius * e0x * sqrt0) / sl0)
+  sol01 = ((e1x * sqrad - radius * e1y * sqrt1) / sl1,
+           (e1y * sqrad + radius * e1x * sqrt1) / sl1)
+  sol10 = ((e0x * sqrad - radius * e0y * sqrt0) / sl0,
+           (e0y * sqrad + radius * e0x * sqrt0) / sl0)
+  sol11 = ((e1x * sqrad + radius * e1y * sqrt1) / sl1,
+           (e1y * sqrad - radius * e1x * sqrt1) / sl1)
+
+  def seg_intersect(p1, p2, p3, p4):
+    d1 = (p4[0] - p3[0]) * (p1[1] - p3[1]) - (p4[1] - p3[1]) * (p1[0] - p3[0])
+    d2 = (p4[0] - p3[0]) * (p2[1] - p3[1]) - (p4[1] - p3[1]) * (p2[0] - p3[0])
+    d3 = (p2[0] - p1[0]) * (p3[1] - p1[1]) - (p2[1] - p1[1]) * (p3[0] - p1[0])
+    d4 = (p2[0] - p1[0]) * (p4[1] - p1[1]) - (p2[1] - p1[1]) * (p4[0] - p1[0])
+    return (d1 * d2 < 0) & (d3 * d4 < 0)
+
+  def unit(x, y):
+    n = torch.clamp(torch.sqrt(x * x + y * y), min=1e-15)
+    return x / n, y / n
+
+  if side is None:
+    t0 = (sol00[0] - sol01[0], sol00[1] - sol01[1])
+    good0 = -dot2(*t0, *t0)
+    t1 = (sol10[0] - sol11[0], sol10[1] - sol11[1])
+    good1 = -dot2(*t1, *t1)
+  else:
+    good0 = dot2(*unit(sol00[0] + sol01[0], sol00[1] + sol01[1]), *side)
+    good1 = dot2(*unit(sol10[0] + sol11[0], sol10[1] + sol11[1]), *side)
+  end0, end1 = (e0x, e0y), (e1x, e1y)
+  good0 = torch.where(seg_intersect(end0, sol00, end1, sol01), -1e4, good0)
+  good1 = torch.where(seg_intersect(end0, sol10, end1, sol11), -1e4, good1)
+  use0 = good0 > good1
+  pnt0 = tuple(torch.where(use0, u, v) for u, v in zip(sol00, sol10))
+  pnt1 = tuple(torch.where(use0, u, v) for u, v in zip(sol01, sol11))
+  no_wrap = no_wrap | seg_intersect(end0, pnt0, end1, pnt1)
+  # the arc's length (MuJoCo's ``length_circle``)
+  p0n, p1n = unit(*pnt0), unit(*pnt1)
+  angle = torch.arccos(torch.clamp(dot2(*p0n, *p1n), -1.0, 1.0))
+  cross = pnt0[1] * pnt1[0] - pnt0[0] * pnt1[1]
+  flip = torch.where(use0, cross < 0.0, cross > 0.0)
+  angle = torch.where(flip, 2.0 * np.pi - angle, angle)
+  return torch.where(no_wrap, -1.0, radius * angle), pnt0, pnt1
+
+
+# the inside wrap's fixed Newton (``smooth.py:603``): iterations, start,
+# tolerance
+_INSIDE_ITER, _INSIDE_Z0, _INSIDE_TOL = 20, 1.0 - 1e-7, 1e-6
+
+
+def _wrap_2d_inside(e0x, e0y, e1x, e1y, radius):
+  """The 2D inside wrap of ``smooth.py:603`` (MuJoCo's ``wrap_inside``):
+  the side point lies inside the circle, and the tendon touches it from
+  within at one point, which solves asin(A z) + asin(B z) - 2 asin(z) + G
+  = 0 by a masked Newton of ``_INSIDE_ITER`` steps.  Returns (wlen, pnt,
+  pnt): wlen 0 where it wraps, -1 where it does not."""
+  eps = 1e-15
+  len0 = torch.sqrt(e0x * e0x + e0y * e0y)
+  len1 = torch.sqrt(e1x * e1x + e1y * e1y)
+  dx, dy = e1x - e0x, e1y - e0y
+  dd = dx * dx + dy * dy
+  no_wrap = ((len0 <= radius) | (len1 <= radius) | (radius < eps) |
+             (len0 < eps) | (len1 < eps))
+  a = -(dx * e0x + dy * e0y) / torch.clamp(dd, min=eps)
+  tx, ty = e0x + a * dx, e0y + a * dy
+  no_wrap = no_wrap | ((dd > eps) & (a > 0.0) & (a < 1.0) &
+                       (torch.sqrt(tx * tx + ty * ty) <= radius))
+  # the point where the iteration fails: the ends' mean on the circle
+  px, py = 0.5 * (e0x + e1x), 0.5 * (e0y + e1y)
+  pn = torch.clamp(torch.sqrt(px * px + py * py), min=eps)
+  pdef = (px / pn * radius, py / pn * radius)
+  A = radius / torch.clamp(len0, min=eps)
+  B = radius / torch.clamp(len1, min=eps)
+  cosG = (len0 * len0 + len1 * len1 - dd) / torch.clamp(2.0 * len0 * len1,
+                                                        min=eps)
+  no_wrap = no_wrap | (cosG < -1.0 + eps)
+  use_default = cosG > 1.0 - eps
+  G = torch.arccos(torch.clamp(cosG, -1.0, 1.0))
+  asin = lambda x: torch.arcsin(torch.clamp(x, -1.0, 1.0))
+  feval = lambda z: asin(A * z) + asin(B * z) - 2.0 * asin(z) + G
+  z = torch.full_like(G, _INSIDE_Z0)
+  f = feval(z)
+  use_default = use_default | (f > 0.0)
+  fail = torch.zeros_like(no_wrap)
+  done = torch.zeros_like(no_wrap)
+  root = lambda x: torch.clamp(torch.sqrt(torch.clamp(x, min=0.0)), min=eps)
+  for _ in range(_INSIDE_ITER):
+    sq_z = z * z
+    df = (A / root(1.0 - sq_z * A * A) + B / root(1.0 - sq_z * B * B) -
+          2.0 / root(1.0 - sq_z))
+    bad = df > -eps
+    z1 = z - f / torch.where(bad, -1.0, df)
+    bad = bad | (z1 > z)
+    conv = torch.abs(f) <= _INSIDE_TOL
+    zn = torch.where(done | conv | bad, z, z1)
+    fn = feval(zn)
+    bad = bad | (fn > _INSIDE_TOL)
+    fail = fail | (bad & ~done & ~conv)
+    done = done | conv | bad
+    z, f = zn, fn
+  use_default = use_default | fail | (torch.abs(f) > _INSIDE_TOL)
+  # rotate from end0 or end1 by the winding's sign
+  cw = e0x * e1y - e0y * e1x > 0.0
+  vx, vy = torch.where(cw, e0x, e1x), torch.where(cw, e0y, e1y)
+  ang = asin(z) - asin(torch.where(cw, A, B) * z)
+  vn = torch.clamp(torch.sqrt(vx * vx + vy * vy), min=eps)
+  vx, vy = vx / vn, vy / vn
+  pnt = (radius * (torch.cos(ang) * vx - torch.sin(ang) * vy),
+         radius * (torch.sin(ang) * vx + torch.cos(ang) * vy))
+  pnt = tuple(torch.where(use_default, u, v) for u, v in zip(pdef, pnt))
+  return torch.where(no_wrap, -1.0, 0.0), pnt, pnt
+
+
+def _wrap_geom(x0, x1, pos, mat, radius, is_sphere: bool, side,
+               side_kind: str):
+  """The 3D wrap of a segment around spheres or cylinders
+  (``smooth.py:688``): x0, x1, pos (W, n, 3), mat (W, n, 3, 3), radius
+  (n,), side (W, n, 3) or None.  ``side_kind`` (``_tendon_plan``): 'none',
+  or where the sidesites lie: 'outside' or 'inside' the geom (each
+  computes only its wrap), 'either' (both, chosen per world).  Returns
+  (wlen (W, n), wpnt0, wpnt1 (W, n, 3)); wlen < 0 where the segment runs
+  straight."""
+  p0 = torch.einsum('wnji,wnj->wni', mat, x0 - pos)
+  p1 = torch.einsum('wnji,wnj->wni', mat, x1 - pos)
+  unit = lambda v: v / torch.clamp(math.norm(v, keepdim=True), min=1e-15)
+  if is_sphere:
+    axis0 = unit(p0)
+    normal = math.cross(p0, p1)
+    nrm = math.norm(normal, keepdim=True)
+    # parallel ends: an axis orthogonal to axis0's largest component
+    k = torch.argmax(torch.abs(axis0), dim=-1, keepdim=True)
+    alt1 = torch.ones_like(axis0).scatter(-1, k, 0.0)
+    altn = unit(math.cross(axis0, alt1))
+    normal = torch.where(nrm < 1e-15, altn,
+                         normal / torch.clamp(nrm, min=1e-15))
+    axis1 = unit(math.cross(normal, axis0))
+  else:
+    axis0 = fmask([1.0, 0.0, 0.0], p0).expand(p0.shape)
+    axis1 = fmask([0.0, 1.0, 0.0], p0).expand(p0.shape)
+  dot = lambda a, b: torch.sum(a * b, -1)
+  end = (dot(p0, axis0), dot(p0, axis1), dot(p1, axis0), dot(p1, axis1))
+  if side_kind == 'none':
+    wlen, pnt0, pnt1 = _wrap_2d_circle(*end, None, radius)
+  elif side_kind == 'inside':  # the inside wrap (MuJoCo util_misc.py:421)
+    wlen, pnt0, pnt1 = _wrap_2d_inside(*end, radius)
+  else:
+    sidep = torch.einsum('wnji,wnj->wni', mat, side - pos)
+    sx, sy = dot(sidep, axis0), dot(sidep, axis1)
+    sn = torch.clamp(torch.sqrt(sx * sx + sy * sy), min=1e-15)
+    wlen, pnt0, pnt1 = _wrap_2d_circle(
+        *end, (sx / sn * radius, sy / sn * radius), radius)
+    if side_kind == 'either':
+      inside = math.norm(sidep) < radius
+      wlen_i, p0_i, p1_i = _wrap_2d_inside(*end, radius)
+      wlen = torch.where(inside, wlen_i, wlen)
+      pnt0 = tuple(torch.where(inside, u, v) for u, v in zip(p0_i, pnt0))
+      pnt1 = tuple(torch.where(inside, u, v) for u, v in zip(p1_i, pnt1))
+  res0 = axis0 * pnt0[0][..., None] + axis1 * pnt0[1][..., None]
+  res1 = axis0 * pnt1[0][..., None] + axis1 * pnt1[1][..., None]
+  if not is_sphere:
+    L0 = torch.sqrt((p0[..., 0] - res0[..., 0]) ** 2 +
+                    (p0[..., 1] - res0[..., 1]) ** 2)
+    L1 = torch.sqrt((p1[..., 0] - res1[..., 0]) ** 2 +
+                    (p1[..., 1] - res1[..., 1]) ** 2)
+    denom = torch.clamp(L0 + wlen + L1, min=1e-15)
+    z0 = p0[..., 2] + (p1[..., 2] - p0[..., 2]) * L0 / denom
+    z1 = p0[..., 2] + (p1[..., 2] - p0[..., 2]) * (L0 + wlen) / denom
+    res0 = torch.stack([res0[..., 0], res0[..., 1], z0], -1)
+    res1 = torch.stack([res1[..., 0], res1[..., 1], z1], -1)
+    height = torch.abs(z1 - z0)
+    wlen = torch.where(wlen >= 0, torch.sqrt(torch.clamp(
+        wlen * wlen + height * height, min=0.0)), wlen)
+  wpnt0 = torch.einsum('wnij,wnj->wni', mat, res0) + pos
+  wpnt1 = torch.einsum('wnij,wnj->wni', mat, res1) + pos
+  return wlen, wpnt0, wpnt1
+
+
+# a sidesite on its geom's body lies at a fixed distance from the geom's
+# centre; nearer its surface than this share of the radius the side is
+# decided per world
+_SIDE_MARGIN = 1e-3
+
+
+def _side_kind(m: types.Model, side: int, geom: int) -> str:
+  """Where a wrap geom's sidesite lies: 'none', 'outside' or 'inside'
+  where the site rides the geom's body (the distance is a constant of the
+  model), else 'either'."""
+  if side < 0:
+    return 'none'
+  if m.site_bodyid[side] != m.geom_bodyid[geom]:
+    return 'either'
+  r = float(types.host(m.geom_size)[geom, 0])
+  dist = float(np.linalg.norm(types.host(m.site_pos)[side] -
+                              types.host(m.geom_pos)[geom]))
+  if abs(dist - r) <= _SIDE_MARGIN * r:
+    return 'either'
+  return 'inside' if dist < r else 'outside'
+
+
+def _tendon_plan(m: types.Model, only=None) -> dict:
+  """The tendons' static structure, walked once per model: the fixed
+  tendons' length and Jacobian as constant (ntendon, nq) and (ntendon,
+  nv) maps, and the spatial tendons' straight site-to-site segments and
+  wrap geoms, each with its tendon and its branch's divisor (after a
+  pulley); the wrap geoms in groups by kind (sphere?, ``_side_kind``).
+  ``only``: the spatial tendons to walk (all by default).  A wrap geom
+  takes the segment from the site before it to the site after it; the
+  sites before that site keep their segments (MuJoCo's semantics; the
+  JAX ``smooth.tendon`` drops them, see ``tendon``)."""
+  WT = types.WrapType
+  prm = types.host(m.wrap_prm)
+  seg = {'a': [], 'b': [], 'ten': [], 'div': []}
+  wraps = {}
+  fixed_q = np.zeros((m.ntendon, m.nq))
+  fixed_J = np.zeros((m.ntendon, m.nv))
+  for t in range(m.ntendon):
+    adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+    if np.all(m.wrap_type[adr:adr + num] == WT.JOINT):
+      # ``smooth.py:774-781``: each joint's coef summed into the length,
+      # set into the Jacobian
+      for w in range(adr, adr + num):
+        j = int(m.wrap_objid[w])
+        fixed_q[t, m.jnt_qposadr[j]] += prm[w]
+        fixed_J[t, m.jnt_dofadr[j]] = prm[w]
+      continue
+    if only is not None and t not in only:
+      continue
+    div, prev, i = 1.0, None, adr
+    while i < adr + num:
+      wt, oid = int(m.wrap_type[i]), int(m.wrap_objid[i])
+      if wt == WT.SITE:
+        if prev is not None:
+          for k, v in zip(('a', 'b', 'ten', 'div'), (prev, oid, t, div)):
+            seg[k].append(v)
+        prev, i = oid, i + 1
+      elif wt == WT.PULLEY:
+        div, prev, i = float(prm[i]), None, i + 1
+      elif wt in (WT.SPHERE, WT.CYLINDER):
+        if prev is None:
+          raise ValueError(f'tendon {t}: a wrap geom needs a site before it')
+        nxt, side = int(m.wrap_objid[i + 1]), int(prm[i])
+        key = (wt == WT.SPHERE, _side_kind(m, side, oid))
+        g = wraps.setdefault(key, {'s0': [], 's1': [], 'geom': [],
+                                   'side': [], 'ten': [], 'div': []})
+        for k, v in zip(g, (prev, nxt, oid, side, t, div)):
+          g[k].append(v)
+        prev, i = nxt, i + 2
+      else:
+        raise NotImplementedError(f'tendon {t}: wrap type {wt}')
+  ar = lambda k, v: np.asarray(v, np.float64 if k == 'div' else np.int64)
+  return {'fixed_q': fixed_q.astype(np.float32),
+          'fixed_J': fixed_J.astype(np.float32),
+          'seg': {k: ar(k, v) for k, v in seg.items()},
+          'wraps': {key: {k: ar(k, v) for k, v in g.items()}
+                    for key, g in sorted(wraps.items())}}
+
+
+_PLANS = TableCache(lambda m, dev: _tendon_plan(m))
+# the spatial tendons with armature, whose J-dot ``tendon_bias`` takes
+_BIAS_PLANS = TableCache(lambda m, dev: _tendon_plan(m, set(
+    np.nonzero(types.host(m.tendon_armature) > 0)[0].tolist())))
+
+
+def _seg_jac(m: types.Model, d: types.Data, pa, ba, pb, bb, dirn):
+  """(W, n, nv): (jacp(pb) - jacp(pa)) dirn for n segments between
+  world points pa, pb (W, n, 3) on the static bodies ba, bb (n,), with
+  the jacp of ``smooth.py:749`` ``_point_jacp``: (lin + ang x (p -
+  subtree_com[root])) masked to the dofs moving the body."""
+  dev = d.qpos.device
+  ang, lin = d.cdof[..., :3], d.cdof[..., 3:]  # (W, nv, 3)
+
+  def proj(p, b):
+    off = p - d.subtree_com[:, ix(m.body_rootid[b], dev)]
+    mask = fmask(m.tree.body_dof_mask[b], d.qpos)  # (n, nv)
+    return (torch.einsum('wvk,wnk->wnv', lin, dirn) +
+            torch.einsum('wvk,wnk->wnv', ang, math.cross(off, dirn))) * mask
+  return proj(pb, bb) - proj(pa, ba)
+
+
+def _segments(m, d, pa, ba, pb, bb):
+  """Length (W, n) and J row (W, n, nv) of straight segments."""
+  s = pb - pa
+  ln = math.norm(s)
+  dirn = s / torch.clamp(ln, min=1e-15)[..., None]
+  return ln, _seg_jac(m, d, pa, ba, pb, bb, dirn)
+
+
+def _wrapped(m: types.Model, d: types.Data, g: dict, key):
+  """One group of wrap geoms (``_tendon_plan``'s key: sphere?, side
+  kind): (wlen (W, n), the lengths (W, n) and J rows (W, n, nv) of their
+  paths, each over its branch's divisor)."""
+  dev = d.qpos.device
+  s0, s1, geom = g['s0'], g['s1'], g['geom']
+  x0, x1 = d.site_xpos[:, ix(s0, dev)], d.site_xpos[:, ix(s1, dev)]
+  b0, b1, gb = m.site_bodyid[s0], m.site_bodyid[s1], m.geom_bodyid[geom]
+  gi = ix(geom, dev)
+  side = d.site_xpos[:, ix(np.maximum(g['side'], 0), dev)]
+  wlen, w0, w1 = _wrap_geom(x0, x1, d.geom_xpos[:, gi], d.geom_xmat[:, gi],
+                            m.geom_size[gi, 0], key[0], side, key[1])
+  wrapped = wlen >= 0
+  l_a, J_a = _segments(m, d, x0, b0, w0, gb)
+  l_b, J_b = _segments(m, d, w1, gb, x1, b1)
+  l_s, J_s = _segments(m, d, x0, b0, x1, b1)
+  div = fmask(g['div'], d.qpos)
+  length = torch.where(wrapped, (l_a + torch.clamp(wlen, min=0.0) + l_b) / div,
+                       l_s / div)
+  J = torch.where(wrapped[..., None], (J_a + J_b) / div[:, None],
+                  J_s / div[:, None])
+  return wlen, length, J
+
+
+def tendon_wraps(m: types.Model, d: types.Data) -> dict:
+  """Does each wrap geom's segment wrap (wlen >= 0)?  A (W, n) bool
+  tensor per group of wrap geoms, keyed (sphere?, side kind) as in
+  ``_tendon_plan``; for diagnostics and tests."""
+  plan = _PLANS.get(m, d.qpos.device)
+  return {key: _wrapped(m, d, g, key)[0] >= 0
+          for key, g in plan['wraps'].items()}
+
+
+def _spatial(m: types.Model, d: types.Data, plan: dict):
+  """The spatial tendons' lengths (W, ntendon) and J (W, ntendon, nv) of
+  ``plan``: each segment and wrap summed into its tendon's row (zero
+  rows for the others)."""
+  dev = d.qpos.device
+  W = d.qpos.shape[0]
+  length = torch.zeros((W, m.ntendon), dtype=d.qpos.dtype, device=dev)
+  J = torch.zeros((W, m.ntendon, m.nv), dtype=d.qpos.dtype, device=dev)
+  seg = plan['seg']
+  if len(seg['ten']):
+    a, b = seg['a'], seg['b']
+    ln, Js = _segments(m, d, d.site_xpos[:, ix(a, dev)], m.site_bodyid[a],
+                       d.site_xpos[:, ix(b, dev)], m.site_bodyid[b])
+    div = fmask(seg['div'], d.qpos)
+    length = length.index_add(1, ix(seg['ten'], dev), ln / div)
+    J = J.index_add(1, ix(seg['ten'], dev), Js / div[:, None])
+  for key, g in plan['wraps'].items():
+    _, ln, Js = _wrapped(m, d, g, key)
+    length = length.index_add(1, ix(g['ten'], dev), ln)
+    J = J.index_add(1, ix(g['ten'], dev), Js)
+  return length, J
+
+
+def tendon(m: types.Model, d: types.Data) -> types.Data:
+  """Tendon lengths and Jacobians, (W, ntendon) and (W, ntendon, nv)
+  (``smooth.py:760``).  Fixed tendons are one product with the model's
+  constant maps; spatial tendons sum their straight segments and their
+  sphere and cylinder wraps (with or without a sidesite, inside it too),
+  each group batched over worlds and segments, each branch over its
+  pulley's divisor.  One departure from the JAX function, which holds
+  MuJoCo's semantics: where a wrap geom follows two or more sites, the
+  JAX function drops the segments before the last of them (its chain is
+  reset without a flush); here they count, as in MuJoCo C."""
+  if not m.ntendon:
+    return d
+  plan = _PLANS.get(m, d.qpos.device)
+  length, J = _spatial(m, d, plan)
+  length = length + d.qpos @ fmask(plan['fixed_q'], d.qpos).T
+  J = J + fmask(plan['fixed_J'], d.qpos)
+  return d.replace(ten_length=length, ten_J=J)
+
+
+def _has_tendon_armature(m: types.Model) -> bool:
+  return bool(m.ntendon) and bool(np.any(types.host(m.tendon_armature) > 0))
+
+
+def tendon_armature(m: types.Model, d: types.Data) -> types.Data:
+  """qM += ten_J^T diag(armature) ten_J (``smooth.py:1060``)."""
+  if not _has_tendon_armature(m):
+    return d
+  A = m.tendon_armature[:, None] * d.ten_J
+  return d.replace(qM=d.qM + torch.einsum('wtv,wtu->wvu', d.ten_J, A))
+
+
+def _ten_J_dot(m: types.Model, d: types.Data, plan: dict) -> torch.Tensor:
+  """d(ten_J)/dt (W, ntendon, nv) of the site-to-site segments of
+  ``plan``, analytic per segment (MuJoCo's ``_tendon_dot``): with u the
+  segment's direction, L its length and dJ = jacp(b) - jacp(a),
+  (dJ-dot^T u + dJ^T (I - u u^T) dJ qvel / L) over its divisor; the
+  point Jacobians' derivatives from cvel and cdof_dot (``constraint``
+  ``_jac_dot``, as the connect rows take them)."""
+  from mujoco_warp_tpu_torch.ops import constraint
+  dev = d.qpos.device
+  seg = plan['seg']
+  a, b = seg['a'], seg['b']
+  ba, bb = m.site_bodyid[a], m.site_bodyid[b]
+  pa, pb = d.site_xpos[:, ix(a, dev)], d.site_xpos[:, ix(b, dev)]
+  cdof_dot = constraint._cdof_dot_jac(m, d)
+  dJ = constraint._jac(m, d, pb, bb)[0] - constraint._jac(m, d, pa, ba)[0]
+  dJd = (constraint._jac_dot(m, d, pb, bb, cdof_dot)[0] -
+         constraint._jac_dot(m, d, pa, ba, cdof_dot)[0])  # (W, n, nv, 3)
+  s = pb - pa
+  L = torch.clamp(math.norm(s), min=1e-15)[..., None]
+  u = s / L
+  vrel = torch.einsum('wnvk,wv->wnk', dJ, d.qvel)
+  udot = (vrel - u * torch.sum(u * vrel, -1, keepdim=True)) / L
+  Jdot = (torch.einsum('wnvk,wnk->wnv', dJd, u) +
+          torch.einsum('wnvk,wnk->wnv', dJ, udot)) / \
+      fmask(seg['div'], d.qpos)[:, None]
+  out = torch.zeros((d.qpos.shape[0], m.ntendon, m.nv), dtype=d.qpos.dtype,
+                    device=dev)
+  return out.index_add(1, ix(seg['ten'], dev), Jdot)
+
+
+def tendon_bias(m: types.Model, d: types.Data) -> types.Data:
+  """qfrc_bias += ten_J^T (armature (d(ten_J)/dt qvel))
+  (``smooth.py:1099``), after the mass chain (it reads cvel and
+  cdof_dot).  d(ten_J)/dt is analytic per segment (``_ten_J_dot``) for
+  the spatial tendons with armature only: a fixed tendon's J is constant,
+  and MuJoCo allows no armature on a tendon that wraps a geom.  The JAX
+  package takes it by ``jax.jvp`` of kinematics -> com_pos -> tendon; the
+  two agree to float32 rounding (tests/test_torch_tendon_mix.py and
+  ``test_torch_tendon_step.py``); a forward-mode jvp here took ~300 ms
+  of host time per step at 8192 worlds of tendon_mix beside an H100
+  80GB HBM3 (PERF.md).  (The JAX jvp runs
+  through every tendon and multiplies the others' J-dot by their zero
+  armature; where a wrap's branch not taken has a non-finite tangent,
+  that gives NaN, see ROADMAP queue 3.)"""
+  if not _has_tendon_armature(m):
+    return d
+  plan = _BIAS_PLANS.get(m, d.qpos.device)
+  if not len(plan['seg']['ten']):
+    return d  # fixed tendons only: J-dot is 0
+  coef = m.tendon_armature * torch.einsum(
+      'wtv,wv->wt', _ten_J_dot(m, d, plan), d.qvel)
+  return d.replace(qfrc_bias=d.qfrc_bias + torch.einsum(
+      'wtv,wt->wv', d.ten_J, coef))
+
+
 def transmission(m: types.Model, d: types.Data) -> types.Data:
-  """Actuator lengths and moment arms, joint transmission
-  (``smooth.py:857``)."""
+  """Actuator lengths and moment arms, joint and tendon transmissions
+  (``smooth.py:857``; a tendon actuator's are its tendon's length and J
+  times gear[0], :920-922)."""
   if not m.nu:
     return d
-  if not np.all(m.actuator_trntype == types.TrnType.JOINT):
-    raise NotImplementedError('only joint transmissions are ported')
+  trn = m.actuator_trntype
+  is_ten = trn == types.TrnType.TENDON
+  if not np.all((trn == types.TrnType.JOINT) | is_ten):
+    raise NotImplementedError('only joint and tendon transmissions are '
+                              'ported')
   dev, dt = d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
   tid = m.actuator_trnid[:, 0]
-  jt = m.jnt_type[tid]
+  jt = m.jnt_type[np.where(is_ten, 0, tid)]
   gear = m.actuator_gear
-  if np.all((jt == _JT.SLIDE) | (jt == _JT.HINGE)):
+  if not np.any(is_ten) and np.all((jt == _JT.SLIDE) | (jt == _JT.HINGE)):
     qadr, dadr = m.jnt_qposadr[tid], m.jnt_dofadr[tid]
     gear0 = gear[:, 0]
     length = d.qpos[:, ix(qadr, dev)] * gear0
@@ -332,7 +795,13 @@ def transmission(m: types.Model, d: types.Data) -> types.Data:
     return d.replace(actuator_length=length, actuator_moment=moment)
   length = torch.zeros((W, m.nu), dtype=dt, device=dev)
   moment = torch.zeros((W, m.nu, m.nv), dtype=dt, device=dev)
-  for u in range(m.nu):
+  if np.any(is_ten):
+    u = np.nonzero(is_ten)[0]
+    ui, ti = ix(u, dev), ix(tid[u], dev)
+    g0 = gear[ui, 0]
+    length[:, ui] = d.ten_length[:, ti] * g0
+    moment[:, ui] = d.ten_J[:, ti] * g0[:, None]
+  for u in np.nonzero(~is_ten)[0]:
     j = int(tid[u])
     qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
     if jt[u] in (_JT.SLIDE, _JT.HINGE):

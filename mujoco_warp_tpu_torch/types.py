@@ -118,6 +118,15 @@ class EqType(enum.IntEnum):
   DISTANCE = 7
 
 
+class WrapType(enum.IntEnum):
+  NONE = 0
+  JOINT = 1
+  PULLEY = 2
+  SITE = 3
+  SPHERE = 4
+  CYLINDER = 5
+
+
 class SolverType(enum.IntEnum):
   PGS = 0
   CG = 1
@@ -458,6 +467,29 @@ class Model(_Replace):
   eq_solimp: torch.Tensor = array()
   eq_data: torch.Tensor = array()
 
+  # tendons (``types.py:702-723``)
+  tendon_adr: np.ndarray = static()
+  tendon_num: np.ndarray = static()
+  tendon_limited: np.ndarray = static()
+  tendon_actfrclimited: np.ndarray = static()
+  tendon_solref_lim: torch.Tensor = array()  # (ntendon, NREF)
+  tendon_solimp_lim: torch.Tensor = array()  # (ntendon, NIMP)
+  tendon_solref_fri: torch.Tensor = array()  # (ntendon, NREF)
+  tendon_solimp_fri: torch.Tensor = array()  # (ntendon, NIMP)
+  tendon_range: torch.Tensor = array()  # (ntendon, 2)
+  tendon_actfrcrange: torch.Tensor = array()  # (ntendon, 2)
+  tendon_margin: torch.Tensor = array()
+  tendon_stiffness: torch.Tensor = array()
+  tendon_damping: torch.Tensor = array()
+  tendon_armature: torch.Tensor = array()
+  tendon_frictionloss: torch.Tensor = array()
+  tendon_lengthspring: torch.Tensor = array()  # (ntendon, 2)
+  tendon_length0: torch.Tensor = array()
+  tendon_invweight0: torch.Tensor = array()
+  wrap_type: np.ndarray = static()
+  wrap_objid: np.ndarray = static()
+  wrap_prm: torch.Tensor = array()
+
   actuator_trntype: np.ndarray = static()
   actuator_dyntype: np.ndarray = static()
   actuator_gaintype: np.ndarray = static()
@@ -544,7 +576,10 @@ class Data:
   qLD: torch.Tensor = None  # (W, nv, nv) lower Cholesky factor of qM
   actuator_length: torch.Tensor = None  # (W, nu)
   actuator_moment: torch.Tensor = None  # (W, nu, nv)
+  ten_length: torch.Tensor = None  # (W, ntendon)
+  ten_J: torch.Tensor = None  # (W, ntendon, nv)
   # velocity stages
+  ten_velocity: torch.Tensor = None  # (W, ntendon)
   cvel: torch.Tensor = None  # (W, nbody, 6)
   cdof_dot: torch.Tensor = None  # (W, nv, 6)
   actuator_velocity: torch.Tensor = None  # (W, nu)

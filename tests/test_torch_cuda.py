@@ -677,3 +677,170 @@ def test_cg_solve_cuda_matches_cpu(cuda):
                      [t(want.qacc), t(want.efc_force),
                       t(want.qfrc_constraint), want.solver_niter], 'cg',
                      (lanes(dh.efc_J), lanes(dh.efc_D)))
+
+
+def tendon_inputs(scene, device, W=1000, seed=3):
+  """A tendon scene's position stages (its tendons among them) for the
+  parity state, with a seeded warmstart."""
+  from mujoco_warp_tpu_torch.ops import forward
+  m = io.load_model_npz(io.TENDON_SNAPSHOTS[scene], device=device)
+  qpos, qvel, ctrl = [torch.as_tensor(x, device=device)
+                      for x in parity.general_state(m, W, seed)]
+  ws = torch.as_tensor(0.1 * np.random.default_rng(seed).standard_normal(
+      (W, m.nv)), dtype=torch.float32, device=device)
+  d = io.make_data(m, W, device=device).replace(
+      qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=ws)
+  return m, forward.pre(m, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['ball_in_cup', 'point_mass', 'sensors2',
+                                   'tendon_wrap'])
+def test_tendon_scene_kernels_cuda_match_plain(cuda, scene):
+  """The small-tree kernels at the tendon scenes' sizes (nv 4: ball_in_cup,
+  nefc 65; nv 2: point_mass, nefc 26, sensors2 and tendon_wrap, no rows),
+  at 1000 worlds: the mass chain with its factor, chol_solve, the Newton
+  solve where there are rows and damped_solve where there is damping,
+  each against its plain version on the plain version's upstream
+  outputs."""
+  from mujoco_warp_tpu_torch.fused import k4_ref, solver_ref
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  from mujoco_warp_tpu_torch.kernels import world
+  from mujoco_warp_tpu_torch.ops import forward
+  m, d = tendon_inputs(scene, cuda)
+  nv, nb = m.nv, m.nbody
+  assert kmass.factor_in_kernel(m)
+  args = (m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+  n = kmass.launches
+  got = kmass.mass_chain_lanes(*args)
+  assert kmass.launches == n + 1
+  want = kmass.mass_chain_plain(*args)
+  parity.check_rel(got, want, parity.MASS_NAMES)
+  qM, qLD, cvel, cdd, bias = want
+  d = forward.mid(m, d.replace(
+      qM=world(qM, nv, nv), qLD=world(qLD, nv, nv), cvel=world(cvel, nb, 6),
+      cdof_dot=world(cdd, nv, 6), qfrc_bias=bias.T))
+  b = lanes(d.qfrc_smooth)
+  want_cs = klinalg.chol_solve_plain(qLD, b)
+  parity.check_world_scale(
+      klinalg.chol_solve_batched(m, d.qLD, d.qfrc_smooth).T, want_cs,
+      'chol_solve', parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  qacc = want_cs
+  if m.nefc:
+    d = d.replace(qacc_smooth=want_cs.T)
+    sa = (m, lanes(d.efc_J), lanes(d.efc_D), lanes(d.efc_aref),
+          lanes(d.efc_frictionloss), lanes(d.qM), lanes(d.qfrc_smooth),
+          lanes(d.qacc_warmstart))
+    n = ksolver.launches
+    got_s = ksolver.solve_tiles(*sa)
+    assert ksolver.launches == n + 1
+    want_s = solver_ref.solve_tiles(*sa)
+    parity.check_solve(got_s, want_s, 'dmc', sa[1:3])
+    qacc = want_s[0]
+  if k4_ref.damped(m):
+    dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+    parity.check_world_scale(
+        klinalg.damped_solve_batched(m, d.qM, qacc.T).T,
+        klinalg.damped_solve_plain(qM, qacc, dmp), 'damped_solve',
+        parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+def test_tendon_armature_route_cuda_matches_plain(cuda):
+  """tendon_mix (nv 5, tendon armature): the mass chain in its large-tree
+  form (no factor, qM world-major) at 1000 worlds, then the armature
+  term, then chol_batched, against the plain version of that route; and
+  qM and qLD of the card's mass-chain stage against the CPU's."""
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.ops import forward, smooth
+  m, d = tendon_inputs('tendon_mix', cuda)
+  nv, nb = m.nv, m.nbody
+  assert not kmass.big_tree(m) and not kmass.factor_in_kernel(m)
+  args = (m, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv), lanes(d.qvel))
+  got, want = kmass.mass_chain_lanes(*args), kmass.mass_chain_plain(*args)
+  assert got[1] is None and want[1] is None
+  assert got[0].shape == want[0].shape == (1000, nv, nv)
+  keep = (0, 2, 3, 4)
+  parity.check_rel([got[i] for i in keep], [want[i] for i in keep],
+                   ('qM', 'cvel', 'cdof_dot', 'bias'))
+  qM = smooth.tendon_armature(m, d.replace(qM=want[0])).qM
+  k = klinalg.launches['chol_batched']
+  L = klinalg.chol_batched(m, qM.contiguous(), kmass.BIG_JITTER)
+  assert klinalg.launches['chol_batched'] == k + 1
+  parity.check_world_scale(
+      lanes(L, nv * nv),
+      lanes(klinalg.chol_batched_plain(qM, kmass.BIG_JITTER), nv * nv),
+      'qLD', parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  mh, dh = tendon_inputs('tendon_mix', 'cpu')
+  dc, dh = forward.mass_chain(m, d), forward.mass_chain(mh, dh)
+  for name in ('qM', 'qLD', 'qfrc_bias'):
+    parity.check_world_scale(lanes(getattr(dc, name)).cpu().reshape(-1, 1000),
+                             lanes(getattr(dh, name)).reshape(-1, 1000), name,
+                             parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 2, 4, 5])
+def test_linalg_kernels_cuda_small_n(cuda, n):
+  """chol_batched (to the last bit), chol_solve and damped_solve at the
+  tendon scenes' sizes, n 1-5, fewer than a warp's lanes, at 1000
+  worlds against their plain versions."""
+  import types as pytypes
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  rng = np.random.default_rng(n)
+  g = rng.standard_normal((1000, n, n))
+  f32 = dict(dtype=torch.float32, device=cuda)
+  A = torch.as_tensor(g @ g.transpose(0, 2, 1) / n + 0.1 * np.eye(n), **f32)
+  b = torch.as_tensor(rng.standard_normal((1000, n)), **f32)
+  L = klinalg.chol_batched(None, A, jitter=1e-12)
+  assert torch.equal(L, klinalg.chol_batched_plain(A, 1e-12))
+  m = pytypes.SimpleNamespace(
+      nv=n, opt=pytypes.SimpleNamespace(timestep=0.002),
+      dof_damping=rng.uniform(0.0, 3.0, n).astype(np.float32))
+  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  parity.check_world_scale(
+      klinalg.chol_solve_batched(m, L, b).T,
+      klinalg.chol_solve_plain(lanes(L, n * n), lanes(b)), 'chol_solve',
+      parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+  parity.check_world_scale(
+      klinalg.damped_solve_batched(m, A, b).T,
+      klinalg.damped_solve_plain(lanes(A, n * n), lanes(b), dmp),
+      'damped_solve', parity.SOLVE_ATOL, parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['ball_in_cup', 'point_mass', 'sensors2',
+                                   'tendon_wrap', 'tendon_mix'])
+def test_tendon_step_cuda_matches_cpu(cuda, scene):
+  """Three general steps of each tendon scene at 256 worlds through the
+  kernels against the plain path: sensordata of the first step (the
+  only one both sides take from the same state) by
+  ``parity.check_sensors``; after the third, ten_length and ten_J within
+  1e-4 + 1e-4 and qpos and qvel at the step bars."""
+  from mujoco_warp_tpu_torch.ops import forward
+  path = io.TENDON_SNAPSHOTS[scene]
+  mh = io.load_model_npz(path, device='cpu')
+  mc = io.load_model_npz(path, device=cuda)
+  qpos, qvel, ctrl = parity.general_state(mh, 256, 5)
+  dh = io.make_data(mh, 256, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl))
+  dc = io.make_data(mc, 256, device=cuda).replace(
+      qpos=dh.qpos.to(cuda), qvel=dh.qvel.to(cuda), ctrl=dh.ctrl.to(cuda))
+  dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+  # sensordata of the one step that both sides take from the same state
+  if mh.nsensor:
+    parity.check_sensors(mh, dc.sensordata.cpu(), dh.sensordata,
+                         dc.solver_niter.cpu(), dh.solver_niter)
+  for _ in range(2):
+    dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+  for k in ('ten_length', 'ten_J'):
+    np.testing.assert_allclose(getattr(dc, k).cpu().numpy(),
+                               getattr(dh, k).numpy(), atol=1e-4, rtol=1e-4)
+  np.testing.assert_allclose(dc.qpos.cpu().numpy(), dh.qpos.numpy(),
+                             atol=2e-4, rtol=1e-3)
+  np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
+                             atol=5e-3, rtol=5e-3)
