@@ -129,6 +129,29 @@ Phases, one line each or more, any failure exits non-zero:
     of NSENSOR_CMP worlds on the card and on the CPU: ten_J within
     TEN_J_ATOL + TEN_J_RTOL, qpos at parity's bar, sensordata by
     parity.check_sensors.
+13. cylinders, ellipsoids, RK4, the implicit integrators and inverse
+    dynamics on the general step: benchmarks.run at 8192 worlds,
+    CLS_NSTEP steps after 10 warmup (humanoid_CMU CMU_NSTEP), on
+    dm_control's pendulum, reacher, finger (elliptic cones through the
+    solve kernel's elliptic form), cartpole and acrobot (RK4: four
+    forwards per step) and humanoid_CMU (nv 62: the large-tree mass
+    chain, chol_batched, the torch Newton; ellipsoids; 1157 candidates
+    in 48 slots; from parity.dmc_state, lying on the floor, its
+    contacts live), and constraints_implicitfast and cheetah_implicit.
+    Exact counts per step (``classic_expect``): per forward the mass
+    chain and chol_solve, chol_batched after the large-tree chain, the
+    solve kernel or the torch Newton's chol_batched and chol_solve at its
+    start and per trip; damped_solve under damped Euler; one chol_batched
+    and one chol_solve on M - h qDeriv under IMPLICITFAST.  No overflow;
+    qpos and sensordata finite.  On each scene's last state its kernels
+    against their plain versions (the torch Newton's first H factored
+    and solved; M - h qDeriv under IMPLICITFAST), timed (*_pend, *_reach,
+    *_fin, *_rk4, *_acro, *_cmu, *_ifast, *_impl); one step of
+    NSENSOR_CMP worlds on the card and on the CPU (qpos, sensordata).
+    Then ops/inverse at 8192 worlds on constraints at the forward's
+    converged qacc, plain and under INVDISCRETE: the mass chain once (and
+    chol_solve once under INVDISCRETE), qfrc_inverse against the CPU's,
+    and the round trip to qfrc_applied + qfrc_actuator.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -176,15 +199,17 @@ DMC_GEN_NSTEP = 150
 HOP_GEN_NSTEP = 100
 NSENSOR_CMP = 256
 # phase 11: clutter_arm with sleep (from its settled state); the skip
-# step's worlds and steps; spheres_cg's steps, as many as fit in about 60 s
-# (2.6 s per step on an H100 80GB HBM3 at 700 W); humanoid_implicitfast
-CA_NSTEP = 60
+# step's worlds and steps; spheres_cg's steps, as many as fit in about 45 s
+# with its warmup (2.4-2.6 s per step on an H100 80GB HBM3 at 700 W);
+# humanoid_implicitfast.  clutter_arm and spheres_cg run fewer steps since
+# phase 13 came (60 and 20 before), to keep the whole run near its length
+CA_NSTEP = 30
 # clutter_arm again from a woken start (trees near ready fall asleep)
 CA_WOKEN_NSTEP = 10
 SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP = 256, 20, 20
 # the skip step at clutter_arm's registered width: worlds, woken, steps
 SKIP_WIDE = (4096, 200, 5)
-CG_NSTEP = 20
+CG_NSTEP = 8
 IF_NSTEP = 200
 # phase 12: the tendon scenes, steps after the warmup
 TEN_NSTEP = 100
@@ -203,6 +228,17 @@ TEN_KERNELS = {
                    'damped_solve')}
 # ten_J of one card step against the CPU's: atol + rtol of each entry
 TEN_J_ATOL, TEN_J_RTOL = 1e-4, 1e-4
+# phase 13: dm_control's classic tasks and the integrator scenes on the
+# general step, steps after the warmup (humanoid_CMU, ~1.3 s per step on
+# an H100 80GB HBM3 at 700 W, fewer), and the key suffix of each scene's
+# kernels; humanoid_CMU starts from parity.dmc_state (lying on the floor,
+# its contacts live), where qpos0 holds it a metre up through these steps
+CLS_NSTEP = 30
+CMU_NSTEP = 10
+CLS_SFX = {'pendulum': '_pend', 'reacher': '_reach', 'finger': '_fin',
+           'cartpole': '_rk4', 'acrobot': '_acro', 'humanoid_CMU': '_cmu',
+           'constraints_implicitfast': '_ifast',
+           'cheetah_implicit': '_impl'}
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -334,7 +370,9 @@ def main():
   from mujoco_warp_tpu_torch.kernels import linalg as klinalg
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
   from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  from mujoco_warp_tpu_torch.ops import derivative as oderiv
   from mujoco_warp_tpu_torch.ops import forward
+  from mujoco_warp_tpu_torch.ops import inverse as oinverse
   from mujoco_warp_tpu_torch.ops import smooth as osmooth
   from mujoco_warp_tpu_torch.ops import solver as osolver
   from mujoco_warp_tpu_torch.ops import util as outil
@@ -393,7 +431,7 @@ def main():
                                 'chol_solve_n75', 'damped_solve_n75')) +
       ('chol_solve_n36_cg', 'mass_chain_n36_cg', 'k1_implicitfast',
        'k4_implicitfast') + tuple(
-          k + sfx for sfx in TEN_SFX.values()
+          k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values())
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
                     'damped_solve'))}
 
@@ -1364,14 +1402,16 @@ def main():
   say(f'[phase 12] at {time.perf_counter() - T0:.1f} s')
   t12 = time.perf_counter()
 
-  def tendon_compare(label, d, model, name):
-    """The kernels of ``model``'s step against their plain versions on
-    world-major state d (carried fields), each fed the plain version's
-    upstream outputs, in the main path's layouts; errors to err[kernel +
-    sfx].  Returns each kernel's arguments and the plain solve's mean
-    Newton count (0 without rows)."""
+  def step_compare(label, d, model, kerns, sfx):
+    """The kernels ``kerns`` of ``model``'s general step against their
+    plain versions on world-major state d (carried fields), each fed the
+    plain version's upstream outputs, in the main path's layouts; errors
+    to err[kernel + sfx].  Where the torch Newton runs, chol_batched also
+    on its first H and chol_solve on its first gradient; under
+    IMPLICITFAST chol_batched on M - h qDeriv and chol_solve on its
+    system.  Returns each kernel's arguments and the plain solve's mean
+    Newton count (0 without rows or without the solve kernel)."""
     nv, nb = model.nv, model.nbody
-    kerns, sfx = TEN_KERNELS[name], TEN_SFX[name]
     d = forward.pre(model, d)
     am = (model, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv),
           lanes(d.qvel))
@@ -1408,13 +1448,19 @@ def main():
       qacc = x
       if 'solve' in kerns:
         d = d.replace(qacc_smooth=x.T)
+        # elliptic cones: the solve kernel's elliptic form, with the
+        # contacts' row scales
+        ell = bool(solver_ref.ell_groups(model))
         args['solve'] = (model, lanes(d.efc_J), lanes(d.efc_D),
                          lanes(d.efc_aref), lanes(d.efc_frictionloss),
                          lanes(d.qM), lanes(d.qfrc_smooth),
-                         lanes(d.qacc_warmstart))
+                         lanes(d.qacc_warmstart),
+                         solver_ref.ell_scales(model, d.contact.friction)
+                         if ell else None)
         gs, ws = (ksolver.solve_tiles(*args['solve']),
                   solver_ref.solve_tiles(*args['solve']))
-        rs = parity.check_solve(gs, ws, 'dmc', args['solve'][1:3])
+        rs = parity.check_solve(gs, ws, 'elliptic' if ell else 'dmc',
+                                args['solve'][1:3])
         errs['solve'], niter, qacc = (rs['qacc_max_abs_err'],
                                       rs['niter_mean'], ws[0])
       if 'damped_solve' in kerns:
@@ -1424,6 +1470,30 @@ def main():
             klinalg.damped_solve_batched, *args['damped_solve'],
             klinalg.damped_solve_plain(lanes(d.qM, nv * nv), qacc, dmp),
             'qacc (damped)')
+      extra = []
+      if forward.large_system(model) and model.nefc:
+        # the torch Newton's first H at the warmstart, and its gradient
+        Jaref = osolver._mv(d.efc_J, d.qacc_warmstart) - d.efc_aref
+        Dq = d.efc_D * (Jaref < 0).to(d.efc_D.dtype)
+        H = (d.qM + torch.matmul(d.efc_J.transpose(1, 2) * Dq[:, None, :],
+                                 d.efc_J)).contiguous()
+        extra.append(('Newton H', H, osolver._MINVAL, d.qfrc_smooth))
+      if model.opt.integrator == types.IntegratorType.IMPLICITFAST:
+        A = (d.qM - model.opt.timestep *
+             oderiv.deriv_smooth_vel(model, d)).contiguous()
+        args['chol_batched'] = (model, A, 0.0)
+        extra.append(('M - h qDeriv', A, 0.0, d.qfrc_smooth))
+      for what, A, jit, b in extra:
+        L = klinalg.chol_batched_plain(A, jit)
+        e1 = parity.check_world_scale(
+            lanes(klinalg.chol_batched(model, A, jit), nv * nv),
+            lanes(L, nv * nv), f'L of {what}', *SB)
+        e2 = check_layouts(klinalg.chol_solve_batched, model, L, b,
+                           klinalg.chol_solve_plain(lanes(L, nv * nv),
+                                                    lanes(b)),
+                           f'solve with {what}')
+        errs['chol_batched'] = max(errs.get('chol_batched', 0.0), e1)
+        errs['chol_solve'] = max(errs['chol_solve'], e2)
     except AssertionError as e:
       fail(f'{label}: {e}')
     for k, e in errs.items():
@@ -1438,7 +1508,7 @@ def main():
     return args, niter
 
   def tendon_timing(args, niter, sfx):
-    """Times each kernel in ``args`` (``tendon_compare``'s) per launch
+    """Times each kernel in ``args`` (``step_compare``'s) per launch
     beside its plain version and the one PyTorch call of the same
     function where there is one, with its bound, under kernel + sfx."""
     model = args['mass_chain'][0]
@@ -1473,11 +1543,13 @@ def main():
       live_rows = float((asv[2] > 0).sum()) / W
       # no one PyTorch call computes a Newton solve; its work is that of
       # this state's live rows
+      flops = newton_flops if asv[-1] is None else newton_ell_flops
       rows['solve'] = (
-          'solve_kernel', lambda: ksolver.solve_tiles(*asv),
+          'solve_ell_kernel' if asv[-1] is not None else 'solve_kernel',
+          lambda: ksolver.solve_tiles(*asv),
           lambda: solver_ref.solve_tiles(*asv), None, bound(
               W * F32 * (nefc * nv + 3 * nefc + nv * nv + 2 * nv + 2 * nv +
-                         nefc + 1), W * newton_flops(live_rows, nv, niter)))
+                         nefc + 1), W * flops(live_rows, nv, niter)))
     if 'damped_solve' in args:
       ads = args['damped_solve']
       rows['damped_solve'] = (
@@ -1541,8 +1613,8 @@ def main():
         f"qpos, ten_length and sensordata finite{extra}")
     for k in kerns:
       kernel_launches[k + sfx] = launches[k]
-    args, niter = tendon_compare(f'{name} rollout W={w_t}',
-                                 types.carried(st), mt, name)
+    args, niter = step_compare(f'{name} rollout W={w_t}',
+                               types.carried(st), mt, kerns, sfx)
     tendon_timing(args, niter, sfx)
     # one step of the last state on the card and on the CPU (plain
     # versions)
@@ -1579,6 +1651,161 @@ def main():
            f'scale where Newton counts agree)'))
   say(f'[main path] phase 12 took {time.perf_counter() - t12:.1f} s')
 
+  # ---- 13. cylinders, ellipsoids, RK4, the implicit integrators and
+  # inverse dynamics on the general step
+  say(f'[phase 13] at {time.perf_counter() - T0:.1f} s')
+  t13 = time.perf_counter()
+  IT = types.IntegratorType
+
+  def classic_expect(model):
+    """Each kernel's launches per step of ``model``'s general step (the
+    main path's exact counts): per forward (four under RK4) the mass
+    chain, chol_solve for qacc_smooth, chol_batched after the large-tree
+    chain, and the solve kernel, or the torch Newton's chol_batched and
+    chol_solve once at its start and once per trip; damped_solve under
+    damped Euler; under IMPLICITFAST one chol_batched and one chol_solve
+    on M - h qDeriv; as a function (steps, Newton trips) -> counts."""
+    nfwd = 4 if model.opt.integrator == IT.RK4 else 1
+    rows = model.nefc and not (model.opt.disableflags &
+                               types.DisableBit.CONSTRAINT)
+    kernel_solve = forward.solve_kernel_runs(model)
+    big = not kmass.factor_in_kernel(model)
+    implicitfast = model.opt.integrator == IT.IMPLICITFAST
+    damped = model.opt.integrator == IT.EULER and k4_ref.damped(model)
+
+    def expect(n, trips):
+      c = {'mass_chain': nfwd * n, 'chol_solve': nfwd * n,
+           'chol_batched': nfwd * n if big else 0}
+      if rows and kernel_solve:
+        c['solve'] = nfwd * n
+      elif rows:
+        c['chol_batched'] += nfwd * n + trips
+        c['chol_solve'] += nfwd * n + trips
+      if damped:
+        c['damped_solve'] = n
+      if implicitfast:
+        c['chol_batched'] += n
+        c['chol_solve'] += n
+      return {k: v for k, v in c.items() if v}
+    return expect
+
+  for name, sfx in CLS_SFX.items():
+    mt, w_t = benchmarks.load_scene(name)
+    expect = classic_expect(mt)
+    nstep, init = CLS_NSTEP, None
+    if name in parity.DMC_DROP:
+      nstep = CMU_NSTEP
+      qpos, qvel, _ = parity.dmc_state(mt, name, w_t, 0)
+      init = {'qpos': qpos, 'qvel': qvel}
+    res, st, launches = main_path(mt, nstep, expect, w_t, init_state=init)
+    kerns = tuple(expect(1, 1))
+    if mt.nsensordata and not bool(torch.isfinite(st.sensordata).all()):
+      fail(f'{name}: sensordata not finite')
+    steps = nstep + WARMUP
+    ncon = 0.0 if st.ncon_active is None else float(
+        st.ncon_active.float().mean())
+    say(f"[main path] {name} (nv {mt.nv}, ncon {mt.ncon}, nefc {mt.nefc}, "
+        f"integrator {IT(mt.opt.integrator).name}): step "
+        f"{1e3 * w_t / res['steps_per_sec']:.3f} ms; mean live contacts "
+        f"per world {ncon:.3f}; Newton trips per step "
+        f"{osolver.trips / steps:.3f}; qpos and sensordata finite")
+    for k in kerns:
+      kernel_launches[k + sfx] = launches[k]
+    args, niter = step_compare(f'{name} rollout W={w_t}', types.carried(st),
+                               mt, kerns, sfx)
+    tendon_timing(args, niter, sfx)
+    # one step of NSENSOR_CMP worlds of the last state on the card and on
+    # the CPU (plain versions)
+    mcpu, _ = benchmarks.load_scene(name, device='cpu')
+    sub = {k: getattr(st, k)[:NSENSOR_CMP] for k in types.CARRY}
+    on_card = forward.step(mt, types.Data(**sub))
+    on_cpu = forward.step(mcpu, types.Data(**{k: v.cpu() for k, v in
+                                              sub.items()}))
+    try:
+      parity.check_world_scale(on_card.qpos.cpu().T, on_cpu.qpos.T, 'qpos',
+                               parity.QPOS_ATOL, parity.QPOS_RTOL)
+      rsen = None
+      if mt.nsensordata:
+        slack = parity.step_slack(mcpu, types.Data(**{
+            k: v.cpu() for k, v in sub.items()})) \
+            if forward.large_system(mt) else None
+        rsen = parity.check_sensors(mcpu, on_card.sensordata.cpu(),
+                                    on_cpu.sensordata,
+                                    on_card.solver_niter.cpu(),
+                                    on_cpu.solver_niter, slack)
+    except AssertionError as e:
+      fail(f'{name}, one step card against CPU: {e}')
+    say(f'[compare] {name} one step W={NSENSOR_CMP}, card against the '
+        f'CPU\'s plain versions: qpos within atol {parity.QPOS_ATOL} + rtol '
+        f'{parity.QPOS_RTOL} of world scale'
+        + ('' if rsen is None else '; sensordata max abs err by stage '
+           + json.dumps(rsen['max_abs_err'])))
+
+  # inverse dynamics at the constraints scene's width: the forward's
+  # converged qacc at a seeded state, then the inverse on the card and on
+  # the CPU, plain and under INVDISCRETE, and the round trip
+  mi, w_i = benchmarks.load_scene('constraints')
+  mih = io.load_model_npz(benchmarks.SCENES['constraints'][0], device='cpu')
+  qpos, qvel, ctrl = parity.general_state(mih, w_i, 8)
+  applied = (0.5 * np.random.default_rng(8).standard_normal(
+      (w_i, mi.nv))).astype(np.float32)
+  dh = io.make_data(mih, w_i, device='cpu').replace(
+      qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(qvel),
+      ctrl=torch.as_tensor(ctrl), qfrc_applied=torch.as_tensor(applied))
+  dc = types.carried(dh, lambda x: x.to(dev))
+  fwd = forward._forward(mi, dc)
+  # the round trip holds where the forward's Newton converged
+  conv = (fwd.solver_niter < mi.opt.iterations).cpu()
+  dc, dh = dc.replace(qacc=fwd.qacc), dh.replace(qacc=fwd.qacc.cpu())
+  for discrete in (False, True):
+    flags = mi.opt.enableflags | (int(types.EnableBit.INVDISCRETE)
+                                  if discrete else 0)
+    mc_ = mi.replace(opt=mi.opt.replace(enableflags=flags))
+    mh_ = mih.replace(opt=mih.opt.replace(enableflags=flags))
+    zero_counters()
+    t0 = time.perf_counter()
+    inv = oinverse.inverse(mc_, dc)
+    torch.cuda.synchronize()
+    t_inv = time.perf_counter() - t0
+    got = counters()
+    want = {k: 0 for k in got}
+    want.update({'mass_chain': 1, 'chol_solve': 1 if discrete else 0})
+    if got != want:
+      fail(f'inverse launch counts {got} != {want}')
+    ref = oinverse.inverse(mh_, dh)
+    # qfrc_inverse is a difference of its terms (M qacc, the bias, the
+    # stiff rows' forces), each held at its own bar: the bar is relative
+    # to the largest term of the world
+    terms = torch.stack([x.abs().amax(1) for x in (
+        torch.einsum('wij,wj->wi', ref.qM, dh.qacc), ref.qfrc_bias,
+        ref.qfrc_constraint)]).amax(0)
+    err_w = (inv.qfrc_inverse.cpu() - ref.qfrc_inverse).abs().amax(1)
+    e_inv = float(err_w.max())
+    excess = float((err_w - (SB[0] + SB[1] * terms)).max())
+    if excess > 0.0:
+      fail(f'inverse on the card against the CPU exceeds atol {SB[0]} + '
+           f'rtol {SB[1]} of the largest term by {excess} (world '
+           f'{int((err_w - SB[1] * terms).argmax())})')
+    trip = ''
+    if not discrete:
+      want_f = (fwd.qfrc_actuator + fwd.qfrc_applied).cpu()
+      scale = torch.stack([x.abs().amax(1) for x in (
+          torch.einsum('wij,wj->wi', fwd.qM, fwd.qacc), fwd.qfrc_bias,
+          fwd.qfrc_constraint)]).amax(0).cpu()
+      excess = float(((inv.qfrc_inverse.cpu() - want_f).abs().amax(1) -
+                      (1e-4 + 1e-4 * scale))[conv].max())
+      if excess > 0.0:
+        fail(f'inverse round trip exceeds 1e-4 + 1e-4 of world scale by '
+             f'{excess}')
+      trip = ('; round trip qfrc_inverse = qfrc_applied + qfrc_actuator '
+              f'within 1e-4 + 1e-4 of world scale in the {int(conv.sum())} '
+              f'of {w_i} worlds whose forward converged')
+    say(f'[main path] inverse on constraints W={w_i}'
+        f"{' (INVDISCRETE)' if discrete else ''}: {1e3 * t_inv:.3f} ms, "
+        f'launches {got}; against the CPU max abs err {e_inv:.3e} (atol '
+        f'{SB[0]} + rtol {SB[1]} of the world\'s largest term){trip}')
+  say(f'[main path] phase 13 took {time.perf_counter() - t13:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -1613,7 +1840,7 @@ def main():
     replaces[k + '_cg'] = replaces[k]
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
-  for sfx in TEN_SFX.values():
+  for sfx in (*TEN_SFX.values(), *CLS_SFX.values()):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

@@ -30,7 +30,14 @@ registry's stand-in for an implicitfast robot, on the fused step), and
 the tendon scenes (8192 worlds each, general step): dm_control's
 ``ball_in_cup`` and ``point_mass``, ``sensors2`` (the repo's
 ``sensors2.xml``), ``tendon_wrap`` (spatial tendons over a sphere and a
-cylinder) and ``tendon_mix`` (every ported tendon feature).
+cylinder) and ``tendon_mix`` (every ported tendon feature); dm_control's
+classic tasks (8192 worlds each, general step): ``pendulum``,
+``reacher`` and ``finger`` (Euler; cylinders, finger's elliptic cones),
+``cartpole`` and ``acrobot`` (RK4) and ``humanoid_CMU`` (nv 62, ellipsoids,
+1157 candidates in 48 slots), and two integrator scenes,
+``constraints_implicitfast`` (the constraints snapshot under
+IMPLICITFAST) and ``cheetah_implicit`` (the cheetah snapshot under
+IMPLICIT, which the fused gate refuses).
 ``SCENES`` names each with its snapshot and registered width,
 ``OVERRIDES`` the options set on a snapshot, and ``load_scene`` loads
 one.
@@ -69,11 +76,21 @@ SCENES = {
     # the tendon scenes (general step): dm_control's ball_in_cup and
     # point_mass, sensors2.xml, tendon_wrap and tendon_mix
     **{name: (io.TENDON_SNAPSHOTS[name], 8192) for name in io.TENDON_SNAPSHOTS},
+    # dm_control's classic tasks and two integrator scenes (general step)
+    **{name: (io.CLASSIC_SNAPSHOTS[name], 8192) for name in io.CLASSIC_DMC},
+    'constraints_implicitfast': (io.CONSTRAINTS_SNAPSHOT, 8192),
+    'cheetah_implicit': (io.DMC_SNAPSHOTS['cheetah'], 8192),
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {
     'humanoid_implicitfast': {
         'integrator': int(types.IntegratorType.IMPLICITFAST)},
+    # the AFFINE actuators' biasprm[2] (-0.4, -2.0) give qDeriv a term
+    # beside the joint damping
+    'constraints_implicitfast': {
+        'integrator': int(types.IntegratorType.IMPLICITFAST)},
+    # IMPLICIT's RNE derivative on a planar floating base
+    'cheetah_implicit': {'integrator': int(types.IntegratorType.IMPLICIT)},
 }
 
 

@@ -4,7 +4,9 @@
       [--scene constraints|clutter_arm_nosleep|spheres|spheres_elliptic|
                walker|cheetah|hopper|humanoid_dmc|clutter_arm|spheres_cg|
                humanoid_implicitfast|ball_in_cup|point_mass|sensors2|
-               tendon_wrap|tendon_mix] [--general]
+               tendon_wrap|tendon_mix|pendulum|reacher|finger|cartpole|
+               acrobot|humanoid_CMU|constraints_implicitfast|
+               cheetah_implicit] [--general]
   python -m mujoco_warp_tpu_torch.devprofile --skip [--worlds 256]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
@@ -20,11 +22,14 @@ floor; the dm_control scenes at 8192 worlds x 200, fused, or with
 4096 x 20 from its settled state (``benchmarks.START``), the general
 step with sleep and islands; ``spheres_cg``, 8192 x 20, the CG solver;
 ``humanoid_implicitfast``, 8192 x 300, fused; the tendon scenes,
-8192 x 100, the general step with their tendons), traces a few more with
+8192 x 100, the general step with their tendons; dm_control's classic
+tasks and the two integrator scenes, 8192 x 100 (humanoid_CMU x 20), the
+general step), traces a few more with
 ``torch.profiler`` (CPU and CUDA activities; 40 steps, 4 for the clutter
-scenes, whose step launches tens of thousands of kernels, 3 for
-spheres_cg, 10 for the spheres scenes, the tendon scenes and the general
-step of a dm_control scene) and prints one JSON line:
+scenes and humanoid_CMU, whose step launches tens of thousands of
+kernels, 3 for spheres_cg, 10 for the spheres scenes, the tendon scenes,
+the classic tasks, the integrator scenes and the general step of a
+dm_control scene) and prints one JSON line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
   that closes after a device synchronize);
@@ -76,7 +81,10 @@ WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            **{k: (200, 40) for k in io.DMC_NCONMAX},
            'clutter_arm': (20, 4), 'spheres_cg': (20, 3),
            'humanoid_implicitfast': (300, 40),
-           **{k: (100, 10) for k in io.TENDON_SNAPSHOTS}}
+           **{k: (100, 10) for k in io.TENDON_SNAPSHOTS},
+           **{k: (100, 10) for k in io.CLASSIC_DMC},
+           'humanoid_CMU': (20, 4), 'constraints_implicitfast': (100, 10),
+           'cheetah_implicit': (100, 10)}
 # the general step's window, for --general
 GENERAL_WINDOW = (200, 10)
 # steps traced of each path with --skip

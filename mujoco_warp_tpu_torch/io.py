@@ -83,6 +83,17 @@ TENDON_XML = {'sensors2': os.path.join(_MODELS, 'sensors2.xml'),
               'tendon_mix': os.path.join(_ASSETS, 'tendon_mix.xml')}
 TENDON_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
                     for name in TENDON_DMC + tuple(TENDON_XML)}
+# dm_control's classic tasks of the cylinder, ellipsoid and integrator
+# slice: pendulum, reacher and finger (Euler), cartpole and acrobot (RK4)
+# and humanoid_CMU (1157 candidates: the default budget of 48 slots,
+# ``_default_nconmax``); the others lossless
+CLASSIC_DMC = ('pendulum', 'reacher', 'finger', 'cartpole', 'acrobot',
+               'humanoid_CMU')
+CLASSIC_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                     for name in CLASSIC_DMC}
+# more candidate pairs than this and no budget given: the default budget
+# (``io.py:653-654``)
+LOSSLESS_MAX_CAND = 512
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
 
@@ -352,6 +363,29 @@ def _con_classes(con_dim: np.ndarray, nconmax) -> Tuple:
   return tuple(classes)
 
 
+def _custom_numeric(mjm, name: str):
+  """A named MJCF ``<custom><numeric>`` scalar, or None
+  (``mujoco_warp_tpu/io.py:358``)."""
+  import mujoco
+  nid = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_NUMERIC, name)
+  if nid < 0:
+    return None
+  return float(mjm.numeric_data[mjm.numeric_adr[nid]])
+
+
+def _default_nconmax(mjm) -> int:
+  """The default per-world contact budget (``mujoco_warp_tpu/io.py:396``):
+  a heuristic on the scene, rounded up to the ladder 16, 24, 32, 48, 64,
+  96, ..."""
+  valid = (2 + (np.arange(19) % 2)) * (2 ** (np.arange(19) // 2 + 3))
+  has_sdf = bool((mjm.geom_type == int(_GT.SDF)).any())
+  guess = max(mjm.nv * 0.35 * (mjm.nhfield > 0) * 10 + 45,
+              256 * (mjm.nflex > 0), 64 * has_sdf)
+  if guess > valid[-1]:
+    return int(guess)
+  return int(valid[np.searchsorted(valid, guess)])
+
+
 def _collision_pairs(mjm):
   """Filtered candidate pairs grouped by collider
   (``mujoco_warp_tpu/ops/collision_driver.py:49``): the primitive
@@ -464,17 +498,25 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
 
   ``nconmax``: per-world active-contact budget, an int or a
   ``{condim: budget}`` dict; below the candidate count, active contacts
-  are compacted into the budgeted slots each step.  Raises for a model
-  that neither the fused step nor the general step supports yet.
+  are compacted into the budgeted slots each step.  Without one, the
+  model's ``<numeric name="nconmax">`` sets it, and failing that a model
+  of more than ``LOSSLESS_MAX_CAND`` candidates takes ``_default_nconmax``
+  (``io.py:616-661``).  Raises for a model that neither the fused step nor
+  the general step supports yet.
   """
   device = resolve_device(device)
   if mjm.opt.solver == 0:
     raise NotImplementedError('PGS solver is not supported')
   if mjm.opt.enableflags & types.EnableBit.OVERRIDE:
     raise NotImplementedError('contact override runs on the general path')
+  if nconmax is None:
+    cn = _custom_numeric(mjm, 'nconmax')
+    nconmax = int(cn) if cn is not None else None
   g1, g2, pdim, con_pair, groups = _collision_pairs(mjm)
   ncand = len(con_pair)
   cand_dim = pdim[con_pair] if ncand else np.zeros(0, np.int32)
+  if nconmax is None and ncand > LOSSLESS_MAX_CAND:
+    nconmax = _default_nconmax(mjm)
   con_classes, con_compact, ncon, slot_dim = (), False, ncand, cand_dim
   if nconmax is not None and ncand:
     con_classes = _con_classes(cand_dim, nconmax)
@@ -751,7 +793,8 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
 
 
 def load_dmc(name: str):
-  """A dm_control suite scene of ``DMC_NCONMAX`` or ``TENDON_DMC`` as a
+  """A dm_control suite scene of ``DMC_NCONMAX``, ``TENDON_DMC`` or
+  ``CLASSIC_DMC`` as a
   ``mujoco.MjModel`` with its sensors, cameras and lights, from the XML in
   the installed ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
   import importlib.util
@@ -765,11 +808,10 @@ def load_dmc(name: str):
 
 def make_dmc_snapshot(name: str, path: Optional[str] = None) -> types.Model:
   """The dm_control scene ``name`` at its contact budget (``DMC_NCONMAX``;
-  the tendon scenes lossless), written to ``path`` (by default its
+  the others ``put_model``'s default), written to ``path`` (by default its
   committed snapshot)."""
   if path is None:
-    path = DMC_SNAPSHOTS[name] if name in DMC_SNAPSHOTS else \
-        TENDON_SNAPSHOTS[name]
+    path = {**DMC_SNAPSHOTS, **TENDON_SNAPSHOTS, **CLASSIC_SNAPSHOTS}[name]
   m = put_model(load_dmc(name), nconmax=DMC_NCONMAX.get(name),
                 device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -808,7 +850,8 @@ def snapshot_makers() -> tuple:
           (CLUTTER_SLEEP_SNAPSHOT, make_clutter_sleep_snapshot)) + tuple(
               (TENDON_SNAPSHOTS[name], dmc(name)) for name in TENDON_DMC) + \
       tuple((TENDON_SNAPSHOTS[name], xml(path))
-            for name, path in TENDON_XML.items())
+            for name, path in TENDON_XML.items()) + tuple(
+              (CLASSIC_SNAPSHOTS[name], dmc(name)) for name in CLASSIC_DMC)
 
 
 def main(argv: Optional[list] = None):
@@ -822,7 +865,9 @@ def main(argv: Optional[list] = None):
                  'hopper.npz and humanoid_dmc.npz, assets/clutter_arm.npz, '
                  'assets/spheres_cg.npz and assets/clutter.npz, the tendon '
                  'scenes assets/ball_in_cup.npz, point_mass.npz, '
-                 'sensors2.npz, tendon_wrap.npz and tendon_mix.npz, and '
+                 'sensors2.npz, tendon_wrap.npz and tendon_mix.npz, '
+                 'dm_control\'s pendulum.npz, reacher.npz, finger.npz, '
+                 'cartpole.npz, acrobot.npz and humanoid_CMU.npz, and '
                  '(with --settle) the settled states '
                  'assets/clutter_arm_settled.npz and '
                  'assets/clutter_settled.npz')

@@ -1,4 +1,4 @@
-"""Convex-convex narrowphase by MPR for box-box pairs, world-major.
+"""Convex-convex narrowphase by MPR, world-major.
 
 Counterpart of ``mujoco_warp_tpu/ops/collision_convex.py``:
 ``_support_local`` (:132), ``_make_support`` (:168), ``mpr`` (:187-425),
@@ -6,9 +6,9 @@ Counterpart of ``mujoco_warp_tpu/ops/collision_convex.py``:
 (16 discover, 30 refine and 22 polish iterations) with masked updates and
 no early exit, as the JAX function does; flat-flat pairs then take a
 4-point manifold from supports tilted into the four tangent quadrants.
-The support functions of the port's types are sphere, capsule and box;
-mesh, ellipsoid and cylinder supports wait for the convex-geoms slice
-(``put_model`` raises for those geoms).
+The support functions of the port's types are sphere, capsule,
+ellipsoid, cylinder and box; mesh supports wait for the mesh slice
+(``put_model`` raises for mesh geoms).
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ _POLISH_GROW = 1.6
 CONVEX_TYPES = (int(_GT.SPHERE), int(_GT.CAPSULE), int(_GT.ELLIPSOID),
                 int(_GT.CYLINDER), int(_GT.BOX), int(_GT.MESH))
 # the convex types whose support the port has
-PORTED_TYPES = (int(_GT.SPHERE), int(_GT.CAPSULE), int(_GT.BOX))
+PORTED_TYPES = (int(_GT.SPHERE), int(_GT.CAPSULE), int(_GT.ELLIPSOID),
+                int(_GT.CYLINDER), int(_GT.BOX))
 _FLAT = (_GT.CYLINDER, _GT.BOX, _GT.MESH)
 _CURVED = (_GT.SPHERE, _GT.CAPSULE, _GT.ELLIPSOID)
 
@@ -58,6 +59,19 @@ def _support_local(gtype: int, size, d):
         [torch.zeros_like(dn[..., :2]),
          (size[..., 1:2] * torch.sign(dn[..., 2:3])).expand(dn[..., 2:3].shape)],
         dim=-1)
+  if gtype == _GT.ELLIPSOID:
+    nrm = torch.sqrt(torch.clamp(torch.sum(dn * size * dn * size, -1,
+                                           keepdim=True), min=_EPS))
+    return size * size * dn / nrm
+  if gtype == _GT.CYLINDER:
+    # no radial part along the axis; a zero axial component picks the
+    # mid-plane (jnp.sign gives 0), unlike the box
+    xy = dn[..., :2]
+    xyn = math.norm(xy, keepdim=True)
+    radial = torch.where(xyn > 1e-9, xy / torch.clamp(xyn, min=_EPS),
+                         torch.zeros_like(xy))
+    return torch.cat([size[..., 0:1] * radial,
+                      size[..., 1:2] * torch.sign(dn[..., 2:3])], dim=-1)
   if gtype == _GT.BOX:
     # a zero direction component picks the + corner (jnp.sign, then 1)
     s = torch.sign(dn)
@@ -68,9 +82,9 @@ def _support_local(gtype: int, size, d):
 
 def unported(gtype: int) -> str:
   """Why the port has no convex support for ``gtype``."""
-  return (f'convex support of geom type {_GT(int(gtype)).name}: mesh, '
-          'ellipsoid and cylinder geoms arrive with the convex-geoms slice '
-          'of the general step (ROADMAP.md, queue 1)')
+  return (f'convex support of geom type {_GT(int(gtype)).name}: mesh '
+          'geoms arrive with the mesh slice of the general step '
+          '(ROADMAP.md, queue 1)')
 
 
 def _make_support(t1: int, t2: int):

@@ -1,10 +1,12 @@
 """Analytic primitive colliders of the general step, world-major.
 
-Counterpart of ``mujoco_warp_tpu/ops/collision_primitive.py``: the eight
-colliders ``plane_sphere`` (:54), ``plane_capsule`` (:72), ``plane_box``
+Counterpart of ``mujoco_warp_tpu/ops/collision_primitive.py``: the
+eleven colliders ``plane_sphere`` (:54), ``plane_capsule`` (:72),
+``plane_ellipsoid`` (:99), ``plane_cylinder`` (:114), ``plane_box``
 (:146), ``sphere_sphere`` (:170), ``sphere_capsule`` (:193),
-``sphere_box`` (:230), ``capsule_capsule`` (:278) and ``capsule_box``
-(:287).  Each takes static geom id arrays ``g1``, ``g2`` (n,) of one pair
+``sphere_cylinder`` (:202), ``sphere_box`` (:230), ``capsule_capsule``
+(:278) and ``capsule_box`` (:287).  Sphere-ellipsoid has its point count
+here but no collider, as in JAX: it runs MPR.  Each takes static geom id arrays ``g1``, ``g2`` (n,) of one pair
 group and returns ``(dist, pos, normal[, frame])`` of shapes (W, k, n),
 (W, k, n, 3), (W, k, n, 3)[, (W, k, n, 3, 3)], k the group's contact
 points per pair.  Normals point from geom1 into geom2.  These are not the
@@ -26,10 +28,14 @@ _GT = types.GeomType
 PAIR_NCON = {
     (_GT.PLANE, _GT.SPHERE): 1,
     (_GT.PLANE, _GT.CAPSULE): 2,
+    (_GT.PLANE, _GT.ELLIPSOID): 1,
+    (_GT.PLANE, _GT.CYLINDER): 3,
     (_GT.PLANE, _GT.BOX): 4,
     (_GT.SPHERE, _GT.SPHERE): 1,
     (_GT.SPHERE, _GT.CAPSULE): 1,
     (_GT.SPHERE, _GT.BOX): 1,
+    (_GT.SPHERE, _GT.ELLIPSOID): 1,
+    (_GT.SPHERE, _GT.CYLINDER): 1,
     (_GT.CAPSULE, _GT.CAPSULE): 1,
     (_GT.CAPSULE, _GT.BOX): 2,
 }
@@ -99,6 +105,50 @@ def plane_capsule(m, d, g1, g2):
           torch.stack([n, n], 1), torch.stack([frame, frame], 1))
 
 
+def plane_ellipsoid(m, d, g1, g2):
+  """The ellipsoid's support point along -n."""
+  p_pos, p_mat, _ = _geom(m, d, g1)
+  e_pos, e_mat, e_size = _geom(m, d, g2)
+  n = p_mat[..., 2]
+  nl = torch.einsum('wnij,wni->wnj', e_mat, n)  # n in the ellipsoid frame
+  v = -(e_size ** 2) * nl
+  nrm = torch.sqrt(torch.sum(nl * nl * e_size * e_size, dim=-1))
+  v = v / torch.clamp(nrm, min=1e-12)[..., None]
+  sp = e_pos + torch.einsum('wnij,wnj->wni', e_mat, v)
+  dist = math.dot(n, sp - p_pos)
+  pos = sp - 0.5 * dist[..., None] * n
+  return dist[:, None], pos[:, None], n[:, None]
+
+
+def plane_cylinder(m, d, g1, g2):
+  """Three rim points of the lower cap: the deepest, and two at +-120
+  degrees from it."""
+  p_pos, p_mat, _ = _geom(m, d, g1)
+  c_pos, c_mat, c_size = _geom(m, d, g2)
+  n = p_mat[..., 2]
+  axis = c_mat[..., 2]
+  r, half = c_size[:, 0], c_size[:, 1]
+  a_n = math.dot(axis, n)
+  sgn = -torch.sign(torch.where(torch.abs(a_n) < 1e-12,
+                                torch.ones_like(a_n), a_n))
+  cap = c_pos + axis * (half * sgn)[..., None]
+  radial = n - axis * a_n[..., None]
+  rn = math.norm(radial, keepdim=True)
+  # the axis along the normal: any radial direction
+  radial = torch.where(rn > 1e-8, radial / torch.clamp(rn, min=1e-12),
+                       math.orthogonals(axis)[0])
+  rim = cap - radial * r[:, None]
+  zero = torch.zeros_like(a_n)
+  d0, p0 = _plane_sphere_point(n, p_pos, rim, zero)
+  t = math.cross(axis, radial)
+  back = cap - radial * (0.5 * r)[:, None]
+  side = t * (0.866 * r)[:, None]
+  d1, p1 = _plane_sphere_point(n, p_pos, back + side, zero)
+  d2, p2 = _plane_sphere_point(n, p_pos, back - side, zero)
+  return (torch.stack([d0, d1, d2], 1), torch.stack([p0, p1, p2], 1),
+          torch.stack([n, n, n], 1))
+
+
 _CORNERS = np.asarray([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
                        for sz in (-1, 1)], np.float32)
 
@@ -148,6 +198,28 @@ def sphere_capsule(m, d, g1, g2):
   seg = c_mat[..., 2] * c_size[:, 1:2]
   pt = _closest_segment_point(c_pos - seg, c_pos + seg, s_pos)
   return _sphere_sphere_point(s_pos, s_size[:, 0], pt, c_size[:, 0])
+
+
+def sphere_cylinder(m, d, g1, g2):
+  """The point of the solid cylinder nearest the sphere's center; a
+  center inside goes to the nearer of the side wall and the cap."""
+  s_pos, _, s_size = _geom(m, d, g1)
+  c_pos, c_mat, c_size = _geom(m, d, g2)
+  r_cyl, half = c_size[:, 0], c_size[:, 1]
+  rel = torch.einsum('wnij,wni->wnj', c_mat, s_pos - c_pos)
+  x, y, z = rel.unbind(-1)
+  rad = torch.sqrt(x * x + y * y + 1e-24)
+  scale = torch.minimum(rad, r_cyl.expand(rad.shape)) / rad
+  closest = torch.stack([x * scale, y * scale, _clip(z, -half, half)], -1)
+  inside = (rad < r_cyl) & (torch.abs(z) < half)
+  side_pt = torch.stack([x * r_cyl / rad, y * r_cyl / rad, z], -1)
+  cap_pt = torch.stack([x, y, torch.sign(z) * half], -1)
+  closest_in = torch.where((r_cyl - rad < half - torch.abs(z))[..., None],
+                           side_pt, cap_pt)
+  closest = torch.where(inside[..., None], closest_in, closest)
+  cw = c_pos + torch.einsum('wnij,wnj->wni', c_mat, closest)
+  return _sphere_sphere_point(s_pos, s_size[:, 0], cw, torch.zeros_like(
+      r_cyl))
 
 
 def sphere_box(m, d, g1, g2):
@@ -232,9 +304,12 @@ def capsule_box(m, d, g1, g2):
 COLLIDERS = {
     (_GT.PLANE, _GT.SPHERE): plane_sphere,
     (_GT.PLANE, _GT.CAPSULE): plane_capsule,
+    (_GT.PLANE, _GT.ELLIPSOID): plane_ellipsoid,
+    (_GT.PLANE, _GT.CYLINDER): plane_cylinder,
     (_GT.PLANE, _GT.BOX): plane_box,
     (_GT.SPHERE, _GT.SPHERE): sphere_sphere,
     (_GT.SPHERE, _GT.CAPSULE): sphere_capsule,
+    (_GT.SPHERE, _GT.CYLINDER): sphere_cylinder,
     (_GT.SPHERE, _GT.BOX): sphere_box,
     (_GT.CAPSULE, _GT.CAPSULE): capsule_capsule,
     (_GT.CAPSULE, _GT.BOX): capsule_box,

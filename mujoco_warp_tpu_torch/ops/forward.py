@@ -2,7 +2,8 @@
 
 Counterpart of ``mujoco_warp_tpu/ops/forward.py``: ``fwd_actuation``
 (:333), ``fwd_smooth_force`` (:479), ``_next_position`` (:497),
-``_advance`` (:523), ``euler`` (:540), ``_step_batched`` (:696) and
+``_advance`` (:523), ``euler`` (:540), ``rungekutta4`` (:573),
+``_step_batched`` (:696) and
 ``step`` (:649), ``_island_lazy`` (:679) and ``_step_sleep_skip`` (:814)
 for batched Data.  The stage order of ``_step_batched`` is kept: the wake
 pass, the position stages with the camera, light and site frames
@@ -16,9 +17,12 @@ and actuator forces (``mid``), the lazy island labeler, qacc_smooth
 (Cholesky-solve kernel), the solve (the Newton solve kernel; for a large
 system or the CG solver the torch solver of ``ops/solver.py`` around the
 ``chol_batched`` and ``chol_solve`` kernels), qacc zeroed on sleeping
-dofs, the acceleration sensors, the damped Euler solve (kernel),
-``_advance`` and the sleep pass.  On CUDA tensors the kernels launch; on
-CPU tensors their plain versions run.
+dofs, the acceleration sensors, the integrator and the sleep pass.  On
+CUDA tensors the kernels launch; on CPU tensors their plain versions run.
+
+The integrators: Euler with its damped solve (kernel), RK4 (three more
+forwards through the same stages and kernels, ``rungekutta4``), and
+IMPLICIT / IMPLICITFAST (``ops/derivative.py``).
 
 ``unsupported`` is this slice's gate: the models the general step runs
 are those it returns None for.  Contact rows go through either solver,
@@ -37,8 +41,8 @@ from mujoco_warp_tpu_torch.fused import k4_ref
 from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
-from mujoco_warp_tpu_torch.ops import collision_driver, constraint, island, \
-    math, passive, sensor, smooth, support
+from mujoco_warp_tpu_torch.ops import collision_driver, constraint, \
+    derivative, island, math, passive, sensor, smooth, support
 from mujoco_warp_tpu_torch.ops import sleep as osleep
 from mujoco_warp_tpu_torch.ops import solver as osolver
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, host_item, ix
@@ -46,6 +50,11 @@ from mujoco_warp_tpu_torch.ops.util import bmask, fmask, host_item, ix
 _JT = types.JointType
 _GT = types.GainType
 _BT = types.BiasType
+_IT = types.IntegratorType
+_INTEGRATORS = (_IT.EULER, _IT.RK4, _IT.IMPLICIT, _IT.IMPLICITFAST)
+# RK4's stage fractions and weights (``forward.py:576-577``)
+_RK4_A = (0.5, 0.5, 1.0)
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 
 # beyond this nefc * nv the JAX package leaves the Pallas solver for the
 # jnp Newton (pallas/solver.py _use_big :65), ops/solver.py here
@@ -86,8 +95,10 @@ def unsupported(m: types.Model):
                                       for t, why in later)
   if o.solver not in (types.SolverType.NEWTON, types.SolverType.CG):
     return 'solver (PGS)'
-  if o.integrator != types.IntegratorType.EULER:
-    return 'integrator (RK4, implicit)'
+  if o.integrator not in _INTEGRATORS:
+    return f'integrator {o.integrator}'
+  if o.integrator == types.IntegratorType.RK4 and osleep.enabled(m):
+    return 'sleep under RK4 (its stage forwards run no wake pass)'
   if o.cone != types.ConeType.PYRAMIDAL and (
       large_system(m) or o.solver == types.SolverType.CG):
     return (f'elliptic cones in the torch solver (nefc {m.nefc} x nv {m.nv} '
@@ -211,12 +222,16 @@ def _next_position(m: types.Model, qpos, qvel, dt):
   return out
 
 
-def _advance(m: types.Model, d: types.Data, qacc) -> types.Data:
-  """Integrate by one timestep (``forward.py:523``)."""
+def _advance(m: types.Model, d: types.Data, qacc, qvel=None
+             ) -> types.Data:
+  """Integrate by one timestep (``forward.py:523``): qvel += dt qacc,
+  and qpos integrates with the new qvel, or with ``qvel`` where given
+  (RK4's weighted velocity)."""
   dt = m.opt.timestep
-  qvel = d.qvel + dt * qacc
-  return d.replace(qvel=qvel, qpos=_next_position(m, d.qpos, qvel, dt),
-                   time=d.time + dt, qacc_warmstart=d.qacc)
+  qvel_new = d.qvel + dt * qacc
+  qpos = _next_position(m, d.qpos, qvel_new if qvel is None else qvel, dt)
+  return d.replace(qvel=qvel_new, qpos=qpos, time=d.time + dt,
+                   qacc_warmstart=d.qacc)
 
 
 def euler(m: types.Model, d: types.Data) -> types.Data:
@@ -225,6 +240,57 @@ def euler(m: types.Model, d: types.Data) -> types.Data:
   if k4_ref.damped(m):
     return _advance(m, d, klinalg.damped_solve_batched(m, d.qM, d.qacc))
   return _advance(m, d, d.qacc)
+
+
+def _forward(m: types.Model, d: types.Data) -> types.Data:
+  """One forward of an RK4 stage (JAX's ``_forward``, :607): the step's
+  stages up to the solve, with its kernels; the sensors are left out,
+  since the stage's sensordata is dropped."""
+  with stage('pre'):
+    d = pre(m, d)
+  with stage('mass_chain'):
+    d = mass_chain(m, d)
+  d = mid(m, d, sensors=False)
+  with stage('qacc_smooth'):
+    d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
+                                                         d.qfrc_smooth))
+  with stage('solve'):
+    return solve(m, d)
+
+
+def rungekutta4(m: types.Model, d: types.Data) -> types.Data:
+  """Explicit RK4 (``forward.py:573``) from the step's forward at t0:
+  three more forwards at the stage states, then the t0 state advanced by
+  the weighted accelerations, qpos by the weighted velocities.  Each
+  stage's solve warmstarts from the qacc_warmstart the stage before left
+  (the t0 solve's for the first); the final qacc is the last stage's.  All
+  else of d (sensordata, energy, solver_niter, overflow) stays the t0
+  forward's."""
+  dt = m.opt.timestep
+  qvel_rk = _RK4_B[0] * d.qvel
+  qacc_rk = _RK4_B[0] * d.qacc
+  dd = d
+  for a, b in zip(_RK4_A, _RK4_B[1:]):
+    with stage('integrate'):
+      dd = dd.replace(qpos=_next_position(m, d.qpos, dd.qvel, a * dt),
+                      qvel=d.qvel + (a * dt) * dd.qacc)
+    dd = _forward(m, dd)
+    with stage('integrate'):
+      qvel_rk = qvel_rk + b * dd.qvel
+      qacc_rk = qacc_rk + b * dd.qacc
+  with stage('integrate'):
+    return _advance(m, d.replace(qacc=dd.qacc), qacc_rk, qvel=qvel_rk)
+
+
+def integrate(m: types.Model, d: types.Data) -> types.Data:
+  """The model's integrator (``_step_batched`` ``post``, :759)."""
+  integ = m.opt.integrator
+  if integ == _IT.RK4:
+    return rungekutta4(m, d)
+  with stage('integrate'):
+    if integ == _IT.EULER:
+      return euler(m, d)
+    return derivative.implicit(m, d)
 
 
 def solve(m: types.Model, d: types.Data) -> types.Data:
@@ -267,11 +333,13 @@ def stage(name: str):
   return torch.profiler.record_function(f'stage:{name}')
 
 
-def mid(m: types.Model, d: types.Data) -> types.Data:
+def mid(m: types.Model, d: types.Data, sensors: bool = True
+        ) -> types.Data:
   """The stages after the mass chain: collision, constraint rows,
   transmission, the position sensors and energy, passive forces, the
   velocity sensors and energy, actuator forces, qfrc_smooth
-  (``_step_batched`` mid)."""
+  (``_step_batched`` mid); without ``sensors``, no sensor and no
+  energy."""
   sleeping = osleep.enabled(m)
   if m.ntendon:
     # ten_J qvel (JAX sets it after the rows, :746-748): the tendon
@@ -293,15 +361,17 @@ def mid(m: types.Model, d: types.Data) -> types.Data:
       d = osleep.mask_sleeping(m, osleep.wake_equality(m, d))
   with stage('forces'):
     d = smooth.transmission(m, d)
-  with stage('sensors'):
-    d = sensor.energy_pos(m, sensor.sensor_pos(m, d))
+  if sensors:
+    with stage('sensors'):
+      d = sensor.energy_pos(m, sensor.sensor_pos(m, d))
   with stage('forces'):
     if m.nu:
       d = d.replace(actuator_velocity=torch.einsum(
           'wuv,wv->wu', d.actuator_moment, d.qvel))
     d = passive.passive(m, d)
-  with stage('sensors'):
-    d = sensor.energy_vel(m, sensor.sensor_vel(m, d))
+  if sensors:
+    with stage('sensors'):
+      d = sensor.energy_vel(m, sensor.sensor_vel(m, d))
   with stage('forces'):
     d = fwd_actuation(m, d)
     return fwd_smooth_force(m, d)
@@ -350,8 +420,7 @@ def _step_batched(m: types.Model, d: types.Data,
   # the accelerometer reads the undamped qacc
   with stage('sensors'):
     d = sensor.sensor_acc(m, d)
-  with stage('euler'):
-    d = euler(m, d)
+  d = integrate(m, d)
   if sleeping:
     with stage('sleep'):
       d = osleep.sleep(m, d)

@@ -7,11 +7,13 @@ camera and light modes), ``rne_postconstraint`` (:406) with
 (:760) with the wrap helpers ``_wrap_2d_circle`` (:529),
 ``_wrap_2d_inside`` (:603) and ``_wrap_geom`` (:688), ``transmission``
 (:857, joint and tendon), ``tendon_armature`` (:1060), ``tendon_bias``
-(:1099) and ``factor_m`` / ``solve_m`` / ``mul_m`` (:301-330).  The mass chain (crb,
-qM, its factor, com_vel and RNE) runs as one kernel
-(``kernels/mass_chain.py``).  ``factor_m`` and ``solve_m`` use the plain
-lane Cholesky of the kernels (``fused/solver_ref.py``), which floors the
-pivots as the kernels do.
+(:1099), ``factor_m`` / ``solve_m`` / ``mul_m`` (:301-330) and
+``com_vel`` / ``rne`` (:360, :378).  The step's mass chain (crb, qM, its
+factor, com_vel and RNE) runs as one kernel (``kernels/mass_chain.py``);
+``com_vel`` and ``rne`` here are the differentiable torch forms that the
+IMPLICIT integrator's velocity derivative takes (``ops/derivative.py``).
+``factor_m`` and ``solve_m`` run the ``chol_batched`` and ``chol_solve``
+kernels on CUDA tensors and their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.fused import solver_ref
 from mujoco_warp_tpu_torch.kernels import TableCache
+from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.ops import math
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
@@ -819,18 +821,52 @@ def transmission(m: types.Model, d: types.Data) -> types.Data:
 
 
 def factor_m(m: types.Model, d: types.Data) -> types.Data:
-  """Cholesky factor of qM (``smooth.py:301``), plain lane Cholesky."""
-  W = d.qM.shape[0]
-  L = solver_ref.chol_tile(d.qM.permute(1, 2, 0), m.nv)
-  return d.replace(qLD=L.permute(2, 0, 1).contiguous())
+  """Cholesky factor of qM (``smooth.py:301``) by the ``chol_batched``
+  kernel, world-major."""
+  return d.replace(qLD=klinalg.chol_batched(m, d.qM.contiguous()))
 
 
 def solve_m(m: types.Model, d: types.Data, x: torch.Tensor) -> torch.Tensor:
-  """y with M y = x from the factor (``smooth.py:310``)."""
-  y = solver_ref.chol_solve_tile(d.qLD.permute(1, 2, 0), x.T, m.nv)
-  return y.T
+  """y with M y = x from the factor qLD (``smooth.py:310``) by the
+  ``chol_solve`` kernel."""
+  return klinalg.chol_solve_batched(m, d.qLD, x)
 
 
 def mul_m(m: types.Model, d: types.Data, x: torch.Tensor) -> torch.Tensor:
   """M x (``smooth.py:321``)."""
   return torch.einsum('wij,wj->wi', d.qM, x)
+
+
+def com_vel(m: types.Model, d: types.Data) -> types.Data:
+  """Body velocities and cdof time-derivatives (``smooth.py:360``): cvel
+  of a body sums cdof qvel over its dofs and its ancestors'; cdof_dot of
+  a dof is the velocity before it (``cdofdot_mask``) crossed with it."""
+  cdof_qvel = d.cdof * d.qvel[..., None]  # (W, nv, 6)
+  bd = fmask(m.tree.body_dof_mask, d.cdof)  # (nbody, nv)
+  cvel = torch.einsum('bv,wvk->wbk', bd, cdof_qvel)
+  cm = fmask(m.tree.cdofdot_mask, d.cdof)  # (nv, nv)
+  before = torch.einsum('iv,wvk->wik', cm, cdof_qvel)
+  return d.replace(cvel=cvel, cdof_dot=math.motion_cross(before, d.cdof))
+
+
+def rne(m: types.Model, d: types.Data) -> types.Data:
+  """The bias force by recursive Newton-Euler as masked sums
+  (``smooth.py:378``): cacc = -gravity + the cdof_dot qvel of the body's
+  dofs and its ancestors', cfrc = cinert cacc + cvel x* (cinert cvel),
+  qfrc_bias = cdof . the cfrc summed over the dof's subtree."""
+  bd = fmask(m.tree.body_dof_mask, d.cdof)
+  g = m.opt.gravity.to(d.cdof.dtype)
+  if m.opt.disableflags & types.DisableBit.GRAVITY:
+    g = torch.zeros_like(g)
+  cacc = torch.cat([torch.zeros_like(g), -g]) + torch.einsum(
+      'bv,wvk->wbk', bd, d.cdof_dot * d.qvel[..., None])
+  # the world body's cacc is 0
+  not_world = np.ones((m.nbody, 1), np.float32)
+  not_world[0] = 0.0
+  cacc = cacc * fmask(not_world, d.cdof)
+  iv = torch.einsum('wbij,wbj->wbi', d.cinert, d.cvel)
+  ia = torch.einsum('wbij,wbj->wbi', d.cinert, cacc)
+  cfrc = ia + math.motion_cross_force(d.cvel, iv)
+  ds = fmask(m.tree.dof_subtree_mask, d.cdof)  # (nv, nbody)
+  fsum = torch.einsum('vb,wbk->wvk', ds, cfrc)
+  return d.replace(qfrc_bias=torch.sum(fsum * d.cdof, dim=-1))

@@ -81,7 +81,13 @@ with the output's name and by how much it missed.
   ``QACC_RTOL`` of the world's largest |reference| of that type, and only
   in the worlds whose Newton counts agree, with the counts at the
   'contact' bar (two correct solvers differ by one iteration in a few
-  percent of contact worlds, as above).
+  percent of contact worlds, as above).  Where the torch Newton solves a
+  contact-rich system (humanoid_CMU: nefc 248 x nv 62), moving each qvel
+  by 1e-7 of itself moves the acceleration sensors by up to 0.009 on the
+  CPU at 256 worlds of ``dmc_state``, of the order of that bar (on an
+  H100 the card's step missed it by 0.0002 in 1 of 256 worlds); there the
+  card-against-CPU step adds ``step_slack``, twice that change per
+  element, to the acceleration bar.
 - The solve on the dm_control general states (the 'dmc' bar, on the last
   state of a general rollout of humanoid_dmc or hopper): qacc and
   qfrc_constraint at the K4 bars in every world, Newton counts at the
@@ -165,10 +171,13 @@ MASS_NAMES = ('qM', 'qLD', 'cvel', 'cdof_dot', 'bias')
 SOLVE_ATOL, SOLVE_RTOL = 1e-5, 1e-4
 # dm_control scenes: the qpos row of the root's height, and how far
 # ``dmc_state`` lowers it for the contact state (the feet in the floor:
-# the hopper's two TOUCH sites and the humanoid's FORCE sites live)
-DMC_ROOT = {'walker': 0, 'cheetah': 1, 'hopper': 1, 'humanoid_dmc': 2}
+# the hopper's two TOUCH sites and the humanoid's FORCE sites live;
+# humanoid_CMU, which lies on its back at qpos0, 0.1 m into the floor:
+# ~5 of its 48 slots live)
+DMC_ROOT = {'walker': 0, 'cheetah': 1, 'hopper': 1, 'humanoid_dmc': 2,
+            'humanoid_CMU': 2}
 DMC_DROP = {'walker': 0.05, 'cheetah': 0.2, 'hopper': 0.1,
-            'humanoid_dmc': 0.3}
+            'humanoid_dmc': 0.3, 'humanoid_CMU': 0.1}
 SENSOR_ATOL, SENSOR_RTOL = 1e-4, 1e-4
 # K4's scenes (``k4_case``): the snapshot's name in ``io`` (or in
 # ``io.DMC_SNAPSHOTS``), and the qpos row that the 'contact' state lowers
@@ -263,10 +272,12 @@ def sensor_stages(m) -> dict:
   return out
 
 
-def check_sensors(m, got, want, niter_got, niter_want) -> dict:
+def check_sensors(m, got, want, niter_got, niter_want, slack=None) -> dict:
   """sensordata (W, nsensordata) of one step against another on the same
-  state, with the Newton counts of that step.  Returns the max abs error
-  per stage and the share of worlds whose counts agree."""
+  state, with the Newton counts of that step; ``slack`` (W, nsensordata),
+  where given, widens the acceleration sensors' bar (``step_slack``).
+  Returns the max abs error per stage and the share of worlds whose
+  counts agree."""
   got, want = _t(got), _t(want)
   got = got.to(want.device)
   share, _ = check_niter(niter_got, niter_want, 'contact')
@@ -279,14 +290,31 @@ def check_sensors(m, got, want, niter_got, niter_want) -> dict:
       a, b = got[:, c], want[:, c]
       if stage == 'acc':
         a, b = a[agree], b[agree]
+        sl = None if slack is None else _t(slack, want)[:, c][agree].T
         errs[stage] = max(errs[stage], check_world_scale(
-            a.T, b.T, f'sensor {name}'))
+            a.T, b.T, f'sensor {name}', slack=sl))
         continue
       err = (a - b).abs()
       excess = float((err - (SENSOR_ATOL + SENSOR_RTOL * b.abs())).max())
       assert excess <= 0.0, f'sensor {name}: exceeds tolerance by {excess}'
       errs[stage] = max(errs[stage], float(err.max()))
   return {'max_abs_err': errs, 'niter_share': share}
+
+
+def step_slack(m, d, seed: int = 0):
+  """Twice the change of the general step's sensordata when each qvel of
+  d moves by 1e-7 of itself (N draws of ``seed``): the step's own float32
+  sensitivity, which a contact-rich torch Newton step (humanoid_CMU,
+  nefc 248 x nv 62) carries into its acceleration sensors at the size of
+  ``check_sensors``' bar.  A slack for that bar where two sides of one
+  step may differ by rounding (card against CPU)."""
+  from mujoco_warp_tpu_torch.ops import forward
+  rng = np.random.default_rng(seed)
+  scale = 1.0 + 1e-7 * rng.standard_normal(tuple(d.qvel.shape))
+  moved = d.replace(qvel=d.qvel * torch.as_tensor(
+      scale.astype(np.float32), device=d.qvel.device))
+  return 2.0 * (forward.step(m, moved).sensordata -
+                forward.step(m, d).sensordata).abs()
 
 
 def general_state(m, W: int, seed: int):

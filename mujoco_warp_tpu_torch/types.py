@@ -599,6 +599,8 @@ class Data:
   qfrc_constraint: torch.Tensor = None  # (W, nv)
   qacc: torch.Tensor = None  # (W, nv)
   qacc_warmstart: torch.Tensor = None  # (W, nv)
+  # inverse dynamics (``ops/inverse.py``)
+  qfrc_inverse: torch.Tensor = None  # (W, nv)
   # after the solve (rne_postconstraint): com-frame body accelerations,
   # the force each body takes from its parent, external wrenches
   cacc: torch.Tensor = None  # (W, nbody, 6)

@@ -112,12 +112,15 @@ def test_clutter_modules_import_no_jax():
 
 
 def test_put_model_refuses_unported_convex_geoms():
-  """A convex pair without a ported support (cylinder-box here) makes
-  ``put_model`` raise, naming the slice that brings it."""
-  xml = """<mujoco><worldbody>
-    <body><freejoint/><geom type="cylinder" size=".1 .1"/></body>
+  """A convex pair without a ported support (mesh-box here; cylinder and
+  ellipsoid supports are ported) makes ``put_model`` raise, naming the
+  slice that brings it."""
+  xml = """<mujoco><asset>
+    <mesh name="tet" vertex="0 0 0  .1 0 0  0 .1 0  0 0 .1"/>
+  </asset><worldbody>
+    <body><freejoint/><geom type="mesh" mesh="tet"/></body>
     <body pos="0 0 .5"><freejoint/><geom type="box" size=".1 .1 .1"/></body>
   </worldbody></mujoco>"""
   mjm = mujoco.MjModel.from_xml_string(xml)
-  with pytest.raises(NotImplementedError, match='CYLINDER.*convex-geoms'):
+  with pytest.raises(NotImplementedError, match='MESH.*mesh slice'):
     tio.put_model(mjm, device='cpu')

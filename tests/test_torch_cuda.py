@@ -844,3 +844,77 @@ def test_tendon_step_cuda_matches_cpu(cuda, scene):
                              atol=2e-4, rtol=1e-3)
   np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                              atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['constraints', 'humanoid_CMU'])
+def test_factor_and_solve_m_cuda_match_plain(cuda, scene):
+  """``ops/smooth.py`` ``factor_m`` and ``solve_m`` on CUDA tensors launch
+  ``chol_batched`` and ``chol_solve`` (one launch each) and meet their
+  plain versions: the factor to the last bit, the solve within parity's
+  bar, at 1000 worlds of the scene's qM after the position stages."""
+  from mujoco_warp_tpu_torch import benchmarks
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.ops import forward, smooth
+  m, _ = benchmarks.load_scene(scene, device=cuda)
+  mh, _ = benchmarks.load_scene(scene, device='cpu')
+  qpos, qvel, ctrl = parity.general_state(mh, 1000, 4)
+  d = io.make_data(m, 1000, device=cuda).replace(
+      qpos=torch.as_tensor(qpos, device=cuda),
+      qvel=torch.as_tensor(qvel, device=cuda))
+  d = forward.mass_chain(m, forward.pre(m, d))
+  qM = d.qM.contiguous()
+  n0 = dict(klinalg.launches)
+  L = smooth.factor_m(m, d.replace(qM=qM)).qLD
+  assert klinalg.launches['chol_batched'] == n0['chol_batched'] + 1
+  assert torch.equal(L, klinalg.chol_batched_plain(qM))
+  x = torch.as_tensor(ctrl[:, :1] * np.ones((1, m.nv), np.float32),
+                      device=cuda)
+  y = smooth.solve_m(m, d.replace(qLD=L), x)
+  assert klinalg.launches['chol_solve'] == n0['chol_solve'] + 1
+  parity.check_world_scale(y.T, klinalg.chol_solve_plain(
+      lanes(L, m.nv * m.nv), lanes(x)), 'solve_m', parity.SOLVE_ATOL,
+      parity.SOLVE_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['pendulum', 'reacher', 'finger',
+                                   'cartpole', 'acrobot', 'humanoid_CMU',
+                                   'constraints_implicitfast',
+                                   'cheetah_implicit'])
+def test_classic_step_cuda_matches_cpu(cuda, scene):
+  """One general step of each scene of the cylinder, ellipsoid and
+  integrator slice at 256 worlds through the kernels against the plain
+  path: qpos and qvel at the step bars, sensordata by
+  ``parity.check_sensors`` (with ``parity.step_slack`` where the torch
+  Newton runs); the mass chain and chol_solve launch once per forward
+  (four under RK4)."""
+  from mujoco_warp_tpu_torch import benchmarks
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.ops import forward
+  mc, _ = benchmarks.load_scene(scene, device=cuda)
+  mh, _ = benchmarks.load_scene(scene, device='cpu')
+  if scene in parity.DMC_DROP:
+    qpos, qvel, ctrl = parity.dmc_state(mh, scene, 256, 5)
+  else:
+    qpos, qvel, ctrl = parity.general_state(mh, 256, 5)
+  t = torch.as_tensor
+  dh = io.make_data(mh, 256, device='cpu').replace(
+      qpos=t(qpos), qvel=t(qvel), ctrl=t(ctrl))
+  dc = io.make_data(mc, 256, device=cuda).replace(
+      qpos=dh.qpos.to(cuda), qvel=dh.qvel.to(cuda), ctrl=dh.ctrl.to(cuda))
+  n_mc, n_cs = kmass.launches, klinalg.launches['chol_solve']
+  d0 = dh
+  dh, dc = forward.step(mh, dh), forward.step(mc, dc)
+  nfwd = 4 if mh.opt.integrator == 1 else 1
+  assert kmass.launches - n_mc == nfwd
+  assert klinalg.launches['chol_solve'] - n_cs >= nfwd
+  if mh.nsensor:
+    slack = parity.step_slack(mh, d0) if forward.large_system(mh) else None
+    parity.check_sensors(mh, dc.sensordata.cpu(), dh.sensordata,
+                         dc.solver_niter.cpu(), dh.solver_niter, slack)
+  np.testing.assert_allclose(dc.qpos.cpu().numpy(), dh.qpos.numpy(),
+                             atol=2e-4, rtol=1e-3)
+  np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
+                             atol=5e-3, rtol=5e-3)
