@@ -40,7 +40,7 @@ Phases, one line each or more, any failure exits non-zero:
     lanes-last transposes of its wrapper (none for the Cholesky solves).
  6. the large-tree contact path: benchmarks.run on the snapshot
     clutter_arm_nosleep (nv 75, 183 contact slots, nefc 732) at 4096
-    worlds, 150 steps after 10 warmup.  Exact launch counts: the mass
+    worlds, CL_NSTEP steps after 10 warmup.  Exact launch counts: the mass
     chain and damped_solve once per step; chol_batched and chol_solve
     twice per step (qLD and the Newton's first gradient; qacc_smooth and
     the first gradient) plus once per Newton trip the solver counted; the
@@ -152,6 +152,22 @@ Phases, one line each or more, any failure exits non-zero:
     converged qacc, plain and under INVDISCRETE: the mass chain once (and
     chol_solve once under INVDISCRETE), qfrc_inverse against the CPU's,
     and the round trip to qfrc_applied + qfrc_actuator.
+14. elliptic cones in the torch Newton and CG, the public Data API, the
+    contact override and float64: benchmarks.run at 8192 worlds from each
+    scene's seeded contact state (benchmarks.start_state), TASK_NSTEP
+    steps and warmup, on manipulator_insert_peg and stack_2 (the solve
+    kernel's elliptic form at nefc 920 and 725; its registers, worlds and
+    shared bytes per block printed), stack_4 (the torch elliptic Newton:
+    chol_batched and chol_solve at its start and once per trip) and
+    finger_cg (CG: chol_solve at its start and once per trip), as phase
+    13 runs its scenes (exact counts, kernels held and timed: *_peg,
+    *_st2, *_st4, *_fcg; one step of NSENSOR_CMP worlds against the CPU,
+    CG's counts at parity's 'cg' bar with capped worlds left out).  Then
+    io.put_data of host records named as MjData's fields (the card has no
+    mujoco) at 8192 worlds, a step with exact counts, io.get_data_into
+    against the CPU's; io.reset_data with a mask; io.override_model with
+    the contact override, its tables equal to the CPU's and one step
+    against the CPU's; a float64 Model on the card must raise.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -181,6 +197,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -188,28 +205,32 @@ import torch
 # every rollout runs its scene at the width benchmarks.SCENES registers
 NSTEP = 300
 GEN_NSTEP = 200
-CL_NSTEP = 150
+# clutter's bodies land within ~60 steps, 25 live contacts per world from
+# then on
+CL_NSTEP = 75
 # the spheres scenes' bodies fall onto the floor within ~140 steps
 SP_NSTEP = 150
 SPHERES_MIN_CONTACTS = 10.0
 # the dm_control scenes: fused rollouts, the general step with sensors on
 # humanoid_dmc and hopper, and the worlds of the card-against-CPU step
 DMC_NSTEP = 200
-DMC_GEN_NSTEP = 150
-HOP_GEN_NSTEP = 100
+# (the general steps with sensors run half their first depth since phase
+# 14 came, to keep the whole run near its length)
+DMC_GEN_NSTEP = 75
+HOP_GEN_NSTEP = 50
 NSENSOR_CMP = 256
 # phase 11: clutter_arm with sleep (from its settled state); the skip
-# step's worlds and steps; spheres_cg's steps, as many as fit in about 45 s
-# with its warmup (2.4-2.6 s per step on an H100 80GB HBM3 at 700 W);
-# humanoid_implicitfast.  clutter_arm and spheres_cg run fewer steps since
-# phase 13 came (60 and 20 before), to keep the whole run near its length
-CA_NSTEP = 30
+# step's worlds and steps; spheres_cg's steps after its warmup (2.3-2.6 s
+# per step on an H100 80GB HBM3 at 700 W); humanoid_implicitfast.
+# clutter_arm, the skip step and spheres_cg run a few steps each, to keep
+# the whole run near its length
+CA_NSTEP = 20
 # clutter_arm again from a woken start (trees near ready fall asleep)
 CA_WOKEN_NSTEP = 10
-SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP = 256, 20, 20
+SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP = 256, 20, 10
 # the skip step at clutter_arm's registered width: worlds, woken, steps
 SKIP_WIDE = (4096, 200, 5)
-CG_NSTEP = 8
+CG_NSTEP = 2
 IF_NSTEP = 200
 # phase 12: the tendon scenes, steps after the warmup
 TEN_NSTEP = 100
@@ -233,12 +254,23 @@ TEN_J_ATOL, TEN_J_RTOL = 1e-4, 1e-4
 # an H100 80GB HBM3 at 700 W, fewer), and the key suffix of each scene's
 # kernels; humanoid_CMU starts from parity.dmc_state (lying on the floor,
 # its contacts live), where qpos0 holds it a metre up through these steps
-CLS_NSTEP = 30
-CMU_NSTEP = 10
+CLS_NSTEP = 15
+CMU_NSTEP = 5
 CLS_SFX = {'pendulum': '_pend', 'reacher': '_reach', 'finger': '_fin',
            'cartpole': '_rk4', 'acrobot': '_acro', 'humanoid_CMU': '_cmu',
            'constraints_implicitfast': '_ifast',
            'cheetah_implicit': '_impl'}
+# phase 14: the elliptic-cone tasks on the general step, steps after the
+# warmup, each from its seeded contact state tiled to the width
+# (benchmarks.start_state: io.TASK_STARTS, made by io.make_task_start),
+# and the key suffix of each scene's kernels
+# (steps, warmup steps): stack_4 takes ~3.3 s per step and finger_cg ~18
+# s (its float32 CG runs some worlds to the 200-trip cap every step) on an
+# H100 80GB HBM3 at 700 W
+TASK_NSTEP = {'manipulator_insert_peg': (10, 5), 'stack_2': (10, 5),
+              'stack_4': (1, 1), 'finger_cg': (1, 1)}
+TASK_SFX = {'manipulator_insert_peg': '_peg', 'stack_2': '_st2',
+            'stack_4': '_st4', 'finger_cg': '_fcg'}
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -431,7 +463,8 @@ def main():
                                 'chol_solve_n75', 'damped_solve_n75')) +
       ('chol_solve_n36_cg', 'mass_chain_n36_cg', 'k1_implicitfast',
        'k4_implicitfast') + tuple(
-          k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values())
+          k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values(),
+                              *TASK_SFX.values())
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
                     'damped_solve'))}
 
@@ -766,17 +799,18 @@ def main():
   # ---- 4. the fused main path
   say(f'[phase 4] at {time.perf_counter() - T0:.1f} s')
   def main_path(model, nstep, expect, nworld, general=False,
-                init_state=None):
+                init_state=None, warmup=WARMUP):
     """benchmarks.run from zeroed counters (``general``: the general step
     for a model inside the fused gate; ``init_state``: the worlds start
-    there); ``expect(steps, trips)`` gives each kernel's launch count that
-    must be seen (0 when absent)."""
+    there), ``warmup`` steps before the timed ``nstep``;
+    ``expect(steps, trips)`` gives each kernel's launch count that must be
+    seen (0 when absent)."""
     zero_counters()
     res = benchmarks.run(model, nworld=nworld, nstep=nstep,
-                         warmup_steps=WARMUP, general=general,
+                         warmup_steps=warmup, general=general,
                          init_state=init_state)
     launches = counters()
-    steps = nstep + WARMUP
+    steps = nstep + warmup
     want = {k: 0 for k in launches}
     want.update(expect(steps, osolver.trips))
     if launches != want:
@@ -786,7 +820,7 @@ def main():
     if res['converged_worlds'] != nworld:
       fail(f"{res['converged_worlds']} of {nworld} worlds finite")
     st = res.pop('state')
-    say(f"[main path] {nworld} worlds x {nstep} steps (+{WARMUP} warmup): "
+    say(f"[main path] {nworld} worlds x {nstep} steps (+{warmup} warmup): "
         f"{res['steps_per_sec']:.1f} steps/s, first step "
         f"{res['jit_duration']:.3f} s, solver_niter_mean "
         f"{res['solver_niter_mean']:.4f}, solver_cap_worlds "
@@ -1471,12 +1505,13 @@ def main():
             klinalg.damped_solve_plain(lanes(d.qM, nv * nv), qacc, dmp),
             'qacc (damped)')
       extra = []
-      if forward.large_system(model) and model.nefc:
-        # the torch Newton's first H at the warmstart, and its gradient
-        Jaref = osolver._mv(d.efc_J, d.qacc_warmstart) - d.efc_aref
-        Dq = d.efc_D * (Jaref < 0).to(d.efc_D.dtype)
-        H = (d.qM + torch.matmul(d.efc_J.transpose(1, 2) * Dq[:, None, :],
-                                 d.efc_J)).contiguous()
+      if forward.large_system(model) and model.nefc and \
+          model.opt.solver == types.SolverType.NEWTON:
+        # the torch Newton's first H at the warmstart (with elliptic cones
+        # its cone curvature), and its gradient
+        H = osolver.first_hessian(model, d.replace(qacc_smooth=x.T))
+        # timed where no large-tree factor is (stack_4's n 20)
+        args.setdefault('chol_batched', (model, H, osolver._MINVAL))
         extra.append(('Newton H', H, osolver._MINVAL, d.qfrc_smooth))
       if model.opt.integrator == types.IntegratorType.IMPLICITFAST:
         A = (d.qM - model.opt.timestep *
@@ -1664,7 +1699,9 @@ def main():
     chain, and the solve kernel, or the torch Newton's chol_batched and
     chol_solve once at its start and once per trip; damped_solve under
     damped Euler; under IMPLICITFAST one chol_batched and one chol_solve
-    on M - h qDeriv; as a function (steps, Newton trips) -> counts."""
+    on M - h qDeriv; under CG chol_solve at its start and once per trip,
+    and no chol_batched of its own; as a function (steps, Newton or CG
+    trips) -> counts."""
     nfwd = 4 if model.opt.integrator == IT.RK4 else 1
     rows = model.nefc and not (model.opt.disableflags &
                                types.DisableBit.CONSTRAINT)
@@ -1672,6 +1709,7 @@ def main():
     big = not kmass.factor_in_kernel(model)
     implicitfast = model.opt.integrator == IT.IMPLICITFAST
     damped = model.opt.integrator == IT.EULER and k4_ref.damped(model)
+    cg = model.opt.solver == types.SolverType.CG
 
     def expect(n, trips):
       c = {'mass_chain': nfwd * n, 'chol_solve': nfwd * n,
@@ -1679,7 +1717,8 @@ def main():
       if rows and kernel_solve:
         c['solve'] = nfwd * n
       elif rows:
-        c['chol_batched'] += nfwd * n + trips
+        # CG: M^-1 grad by chol_solve on qLD, no factor of its own
+        c['chol_batched'] += 0 if cg else nfwd * n + trips
         c['chol_solve'] += nfwd * n + trips
       if damped:
         c['damped_solve'] = n
@@ -1689,31 +1728,41 @@ def main():
       return {k: v for k, v in c.items() if v}
     return expect
 
-  for name, sfx in CLS_SFX.items():
+  def general_scene(name, sfx, nstep, init=None, warmup=WARMUP):
+    """One scene of phases 13 and 14: ``main_path`` at its registered
+    width from ``init`` (or qpos0 plus noise), exact counts from
+    ``classic_expect``, its kernels held and timed on the last state
+    (``step_compare``, ``tendon_timing``), and one step of NSENSOR_CMP
+    worlds on the card against the CPU's plain step.  Returns the last
+    state and the rollout's metrics."""
+    t_scene = time.perf_counter()
     mt, w_t = benchmarks.load_scene(name)
     expect = classic_expect(mt)
-    nstep, init = CLS_NSTEP, None
-    if name in parity.DMC_DROP:
-      nstep = CMU_NSTEP
-      qpos, qvel, _ = parity.dmc_state(mt, name, w_t, 0)
-      init = {'qpos': qpos, 'qvel': qvel}
-    res, st, launches = main_path(mt, nstep, expect, w_t, init_state=init)
+    res, st, launches = main_path(mt, nstep, expect, w_t, init_state=init,
+                                  warmup=warmup)
     kerns = tuple(expect(1, 1))
     if mt.nsensordata and not bool(torch.isfinite(st.sensordata).all()):
       fail(f'{name}: sensordata not finite')
-    steps = nstep + WARMUP
+    steps = nstep + warmup
     ncon = 0.0 if st.ncon_active is None else float(
         st.ncon_active.float().mean())
     say(f"[main path] {name} (nv {mt.nv}, ncon {mt.ncon}, nefc {mt.nefc}, "
-        f"integrator {IT(mt.opt.integrator).name}): step "
+        f"integrator {IT(mt.opt.integrator).name}, solver "
+        f"{types.SolverType(mt.opt.solver).name}, cone "
+        f"{types.ConeType(mt.opt.cone).name}): step "
         f"{1e3 * w_t / res['steps_per_sec']:.3f} ms; mean live contacts "
-        f"per world {ncon:.3f}; Newton trips per step "
-        f"{osolver.trips / steps:.3f}; qpos and sensordata finite")
+        f"per world {ncon:.3f}; torch Newton or CG trips per step "
+        f"{osolver.trips / steps:.3f}; host reads per step "
+        f"{outil.host_reads['solver'] / steps:.3f}; qpos and sensordata "
+        'finite')
     for k in kerns:
       kernel_launches[k + sfx] = launches[k]
+    t_hold = time.perf_counter()
     args, niter = step_compare(f'{name} rollout W={w_t}', types.carried(st),
                                mt, kerns, sfx)
     tendon_timing(args, niter, sfx)
+    t_hold = time.perf_counter() - t_hold
+    t_cmp = time.perf_counter()
     # one step of NSENSOR_CMP worlds of the last state on the card and on
     # the CPU (plain versions)
     mcpu, _ = benchmarks.load_scene(name, device='cpu')
@@ -1729,10 +1778,11 @@ def main():
         slack = parity.step_slack(mcpu, types.Data(**{
             k: v.cpu() for k, v in sub.items()})) \
             if forward.large_system(mt) else None
-        rsen = parity.check_sensors(mcpu, on_card.sensordata.cpu(),
-                                    on_cpu.sensordata,
-                                    on_card.solver_niter.cpu(),
-                                    on_cpu.solver_niter, slack)
+        rsen = parity.check_sensors(
+            mcpu, on_card.sensordata.cpu(), on_cpu.sensordata,
+            on_card.solver_niter.cpu(), on_cpu.solver_niter, slack,
+            'cg' if mt.opt.solver == types.SolverType.CG else 'contact',
+            mt.opt.iterations)
     except AssertionError as e:
       fail(f'{name}, one step card against CPU: {e}')
     say(f'[compare] {name} one step W={NSENSOR_CMP}, card against the '
@@ -1740,6 +1790,21 @@ def main():
         f'{parity.QPOS_RTOL} of world scale'
         + ('' if rsen is None else '; sensordata max abs err by stage '
            + json.dumps(rsen['max_abs_err'])))
+    t_cmp = time.perf_counter() - t_cmp
+    say(f'[main path] {name} took {time.perf_counter() - t_scene:.1f} s: '
+        f'the rollout (build and first step included) '
+        f'{time.perf_counter() - t_scene - t_cmp - t_hold:.1f} s, the '
+        f'kernels held and timed {t_hold:.1f} s, the step against the CPU '
+        f'{t_cmp:.1f} s')
+    return st, res
+
+  for name, sfx in CLS_SFX.items():
+    init = None
+    if name in parity.DMC_DROP:
+      mh, w_t = benchmarks.load_scene(name, device='cpu')
+      qpos, qvel, _ = parity.dmc_state(mh, name, w_t, 0)
+      init = {'qpos': qpos, 'qvel': qvel}
+    general_scene(name, sfx, CMU_NSTEP if init else CLS_NSTEP, init)
 
   # inverse dynamics at the constraints scene's width: the forward's
   # converged qacc at a seeded state, then the inverse on the card and on
@@ -1806,6 +1871,146 @@ def main():
         f'{SB[0]} + rtol {SB[1]} of the world\'s largest term){trip}')
   say(f'[main path] phase 13 took {time.perf_counter() - t13:.1f} s')
 
+  # ---- 14. elliptic cones in the torch Newton and CG, the public Data
+  # API, the contact override and the float64 refusal on the card
+  say(f'[phase 14] at {time.perf_counter() - T0:.1f} s')
+  t14 = time.perf_counter()
+  for name, sfx in TASK_SFX.items():
+    mh, _ = benchmarks.load_scene(name, device='cpu')
+    nstep, warmup = TASK_NSTEP[name]
+    _, res = general_scene(name, sfx, nstep, benchmarks.start_state(name),
+                           warmup)
+    if forward.solve_kernel_runs(mh):
+      say(f'[kernel] solve_ell_kernel on {name} (nefc {mh.nefc}, nv '
+          f'{mh.nv}): {json.dumps(ksolver.kernel_info(mh))}')
+    say(f"[main path] {name}: solver_cap_worlds {res['solver_cap_worlds']}"
+        f", overflow_worlds {res['overflow_worlds']}")
+
+  # the public Data API on the card, which has no mujoco: host records
+  # with MjData's field names, from manipulator insert_peg's snapshot
+  t_api = time.perf_counter()
+  name = 'manipulator_insert_peg'
+  mt, w_t = benchmarks.load_scene(name)
+  mh, _ = benchmarks.load_scene(name, device='cpu')
+  sizes = SimpleNamespace(**{k: getattr(mh, k) for k in (
+      'nq', 'nv', 'nu', 'na', 'nbody', 'ngeom', 'nsite', 'ntendon',
+      'nsensordata', 'ntree')})
+  qpos, qvel, ctrl = parity.task_state(mh, 1, 14)
+  rng = np.random.default_rng(14)
+  rec = SimpleNamespace(
+      time=0.5, qpos=qpos[0].astype(np.float64),
+      qvel=qvel[0].astype(np.float64), act=np.zeros(mh.na),
+      ctrl=ctrl[0].astype(np.float64),
+      qfrc_applied=0.1 * rng.standard_normal(mh.nv),
+      xfrc_applied=np.zeros((mh.nbody, 6)),
+      eq_active=np.asarray(mh.eq_active0, bool),
+      qacc_warmstart=np.zeros(mh.nv), qacc=np.zeros(mh.nv),
+      tree_asleep=np.full(mh.ntree, types.K_AWAKE, np.int32))
+
+  def out_record():
+    """A host record of every field get_data_into writes, as MjData
+    shapes it."""
+    n = {'qpos': sizes.nq, 'act': sizes.na, 'ctrl': sizes.nu,
+         'sensordata': sizes.nsensordata, 'ten_length': sizes.ntendon,
+         'ten_velocity': sizes.ntendon, 'tree_asleep': sizes.ntree}
+    for k in ('qvel', 'qacc', 'qacc_warmstart', 'qfrc_bias', 'qfrc_passive',
+              'qfrc_actuator', 'qfrc_constraint'):
+      n[k] = sizes.nv
+    for k in ('actuator_force', 'actuator_length', 'actuator_velocity'):
+      n[k] = sizes.nu
+    for obj, cnt in (('x', sizes.nbody), ('geom_x', sizes.ngeom),
+                     ('site_x', sizes.nsite)):
+      n[obj + 'pos'], n[obj + 'mat'] = (cnt, 3), (cnt, 9)
+    n.update(xquat=(sizes.nbody, 4), xipos=(sizes.nbody, 3),
+             ximat=(sizes.nbody, 9), subtree_com=(sizes.nbody, 3))
+    return SimpleNamespace(time=0.0, **{k: np.zeros(v) for k, v in
+                                               n.items()})
+
+  zero_counters()
+  d_card = io.put_data(sizes, rec, mt, nworld=w_t)
+  qvel0 = rec.qvel.copy()
+  rec.qvel[:] = 123.0  # put_data copied: the Data must not see this
+  if not bool((d_card.qvel[:, 0] != 123.0).all()):
+    fail('put_data aliased the host record')
+  rec.qvel[:] = qvel0
+  d_card = forward.step(mt, d_card)
+  got = counters()
+  want = {k: 0 for k in got}
+  want.update(classic_expect(mt)(1, osolver.trips))
+  if got != want:
+    fail(f'put_data -> step launch counts {got} != {want}')
+  d_cpu = forward.step(mh, io.put_data(sizes, rec, mh, nworld=4))
+  out_card, out_cpu = out_record(), out_record()
+  io.get_data_into(out_card, sizes, d_card, world=w_t - 1)
+  io.get_data_into(out_cpu, sizes, d_cpu, world=3)
+  worst = 0.0
+  for k, _ in io.GET_FIELDS:
+    a, b = getattr(out_card, k), getattr(out_cpu, k)
+    if not b.size:
+      continue
+    e = float(np.abs(a - b).max())
+    bar = (parity.QPOS_ATOL + parity.QPOS_RTOL * float(np.abs(b).max())
+           if k == 'qpos' else parity.QACC_ATOL + parity.QACC_RTOL *
+           float(np.abs(b).max()))
+    if e > bar:
+      fail(f'get_data_into {k}: card against CPU {e} > {bar}')
+    worst = max(worst, e / max(1.0, float(np.abs(b).max())))
+  if out_card.time != out_cpu.time or not np.array_equal(
+      out_card.tree_asleep, rec.tree_asleep):
+    fail('get_data_into: time or tree_asleep differ')
+  # reset_data with a mask of every third world
+  mask = torch.zeros(w_t, dtype=torch.bool, device=dev)
+  mask[::3] = True
+  r = io.reset_data(mt, d_card, mask)
+  fresh = io.make_data(mt, w_t)
+  for k in ('qpos', 'qvel', 'time', 'qacc_warmstart', 'tree_island',
+            'efc_island', 'xpos'):
+    x = getattr(r, k)
+    want_m = getattr(fresh, k)
+    want_m = torch.zeros_like(x) if want_m is None else want_m
+    if not (torch.equal(x[mask], want_m[mask]) and
+            torch.equal(x[~mask], getattr(d_card, k)[~mask])):
+      fail(f'reset_data: {k} of the masked or the other worlds wrong')
+  # the contact slots of the reset worlds as make_data leaves them in JAX
+  # (dist 1e10: every row masked until collision fills the slot)
+  if not (bool((r.contact.dist[mask] == 1e10).all()) and torch.equal(
+      r.contact.dist[~mask], d_card.contact.dist[~mask])):
+    fail('reset_data: contact slots of the masked or the other worlds '
+         'wrong')
+  # override_model on the card: the contact override's tables against the
+  # CPU's, and one step with them
+  ovs = ['opt.enableflags=1', 'opt.o_margin=0.002', 'opt.o_solref=0.02',
+         'opt.o_solimp=0.9', 'opt.o_friction=0.8']
+  mo, moh = io.override_model(mt, ovs), io.override_model(mh, ovs)
+  for k in ('cand_friction', 'cand_solref', 'cand_solimp',
+            'cand_includemargin'):
+    if not torch.equal(getattr(mo, k).cpu(), getattr(moh, k)):
+      fail(f'override_model on the card: {k} differs from the CPU\'s')
+  sub = {k: getattr(d_card, k)[:NSENSOR_CMP] for k in types.CARRY}
+  on_card = forward.step(mo, types.Data(**sub))
+  on_cpu = forward.step(moh, types.Data(**{k: v.cpu()
+                                           for k, v in sub.items()}))
+  try:
+    parity.check_world_scale(on_card.qpos.cpu().T, on_cpu.qpos.T,
+                             'qpos (override)', parity.QPOS_ATOL,
+                             parity.QPOS_RTOL)
+  except AssertionError as e:
+    fail(f'override step card against CPU: {e}')
+  say(f'[main path] Data API on {name} W={w_t}: put_data -> step -> '
+      f'get_data_into against the CPU\'s, worst error {worst:.3e} of the '
+      f'field\'s scale; reset_data of {int(mask.sum())} worlds; '
+      f'override_model (contact override) tables equal to the CPU\'s, its '
+      f'step within parity\'s qpos bar; {time.perf_counter() - t_api:.1f} s')
+  # a float64 Model on the card raises in its first kernel
+  m64 = io.load_model_npz(benchmarks.SCENES[name][0], device=dev,
+                          dtype=torch.float64)
+  try:
+    forward.step(m64, io.make_data(m64, 64))
+    fail('a float64 Model ran on the card')
+  except TypeError as e:
+    say(f'[main path] float64 Model on the card raises: {e}')
+  say(f'[main path] phase 14 took {time.perf_counter() - t14:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -1840,7 +2045,7 @@ def main():
     replaces[k + '_cg'] = replaces[k]
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
-  for sfx in (*TEN_SFX.values(), *CLS_SFX.values()):
+  for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values()):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

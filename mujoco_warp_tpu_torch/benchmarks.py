@@ -37,7 +37,11 @@ classic tasks (8192 worlds each, general step): ``pendulum``,
 1157 candidates in 48 slots), and two integrator scenes,
 ``constraints_implicitfast`` (the constraints snapshot under
 IMPLICITFAST) and ``cheetah_implicit`` (the cheetah snapshot under
-IMPLICIT, which the fused gate refuses).
+IMPLICIT, which the fused gate refuses); and the elliptic-cone tasks
+(8192 worlds each, general step): ``manipulator_insert_peg`` and
+``stack_2`` (the elliptic solve kernel at nefc 920 and 725), ``stack_4``
+(nefc 1025 x nv 20: the torch elliptic Newton) and ``finger_cg`` (the
+finger snapshot under CG, elliptic).
 ``SCENES`` names each with its snapshot and registered width,
 ``OVERRIDES`` the options set on a snapshot, and ``load_scene`` loads
 one.
@@ -80,6 +84,11 @@ SCENES = {
     **{name: (io.CLASSIC_SNAPSHOTS[name], 8192) for name in io.CLASSIC_DMC},
     'constraints_implicitfast': (io.CONSTRAINTS_SNAPSHOT, 8192),
     'cheetah_implicit': (io.DMC_SNAPSHOTS['cheetah'], 8192),
+    # the elliptic-cone tasks (general step): manipulator insert_peg and
+    # stacker stack_2 through the elliptic solve kernel, stack_4 through
+    # the torch elliptic Newton, and finger under CG
+    **{name: (io.TASK_SNAPSHOTS[name], 8192) for name in io.TASK_DMC},
+    'finger_cg': (io.CLASSIC_SNAPSHOTS['finger'], 8192),
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {
@@ -91,17 +100,21 @@ OVERRIDES = {
         'integrator': int(types.IntegratorType.IMPLICITFAST)},
     # IMPLICIT's RNE derivative on a planar floating base
     'cheetah_implicit': {'integrator': int(types.IntegratorType.IMPLICIT)},
+    # CG with elliptic cones (finger's condim-3 contacts)
+    'finger_cg': {'solver': int(types.SolverType.CG)},
 }
 
 
 # scene: the committed state its chip runs start from (``io.load_state``;
-# clutter_arm's clutter asleep, as its first hundred steps leave it)
-START = {'clutter_arm': io.CLUTTER_ARM_SETTLED}
+# clutter_arm's clutter asleep, as its first hundred steps leave it; the
+# elliptic-cone tasks' seeded contact states, ``io.make_task_start``)
+START = {'clutter_arm': io.CLUTTER_ARM_SETTLED, **io.TASK_STARTS}
 
 
 def start_state(name: str):
-  """The state a scene's runs start from (``START``), or None: worlds at
-  qpos0 plus noise."""
+  """The state a scene's runs start from (``START``: arrays of n worlds,
+  which ``build`` tiles to the width), or None: worlds at qpos0 plus
+  noise."""
   return io.load_state(START[name]) if name in START else None
 
 

@@ -60,6 +60,9 @@ def _sensors_ok(m: types.Model) -> bool:
 def reason(m: types.Model):
   """Why a model is outside the fused gate, or None."""
   o = m.opt
+  if types.dtype_of(m) != torch.float32:
+    return 'float64 (K1 and K4 take float32; the float64 path is the ' \
+        'general step on the CPU)'
   if o.enableflags & types.EnableBit.SLEEP:
     return 'sleep'
   if m.nflex:

@@ -416,7 +416,7 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
       rows.append(L.cat(cols))
     qM = torch.stack(rows)
   eye = torch.eye(nv, **kw)
-  arm = torch.as_tensor(host(armature, np.float32), **kw)
+  arm = torch.as_tensor(host(armature), **kw)
   qM = qM + eye[:, :, None] * arm[:, None, None]
   Lf = chol_tile(qM, nv) if need_L else None
 
@@ -445,7 +445,7 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
   if m.opt.disableflags & types.DisableBit.GRAVITY:
     cacc0 = torch.zeros((6, W), **kw)
   else:
-    g = torch.as_tensor(host(gravity, np.float32), **kw)[:, None] * \
+    g = torch.as_tensor(host(gravity), **kw)[:, None] * \
         torch.ones((3, W), **kw)
     cacc0 = L.cat([torch.zeros((3, W), **kw), -g])
   cacc = [None] * nb

@@ -111,7 +111,7 @@ def ell_scales(m: types.Model, friction):
   src, normal, fric = _SCALE_TABLES.get(m, friction.device)
   mu_scale = 1.0 / torch.sqrt(torch.clamp(
       m.opt.impratio.to(friction.dtype), min=MINVAL))
-  w = normal * mu_scale + fric
+  w = normal.to(friction.dtype) * mu_scale + fric.to(friction.dtype)
   return (friction.reshape(friction.shape[0], -1)[:, src] * w).T.contiguous()
 
 
@@ -562,8 +562,10 @@ def row_weights(m, device):
 
 
 def scalars(m, device):
-  """tolerance, ls_tolerance and meaninertia as 0-d float32 tensors."""
-  f = lambda x: torch.as_tensor(types.host(x, np.float32), device=device)
+  """tolerance, ls_tolerance and meaninertia as 0-d tensors of the
+  Model's dtype."""
+  f = lambda x: torch.as_tensor(types.host(x, types.np_float(x.dtype)),
+                               device=device)
   return f(m.opt.tolerance), f(m.opt.ls_tolerance), f(m.stat.meaninertia)
 
 

@@ -16,6 +16,7 @@ passes ``device='cpu'``; without a CUDA device it raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import Optional, Tuple
 
@@ -91,8 +92,23 @@ CLASSIC_DMC = ('pendulum', 'reacher', 'finger', 'cartpole', 'acrobot',
                'humanoid_CMU')
 CLASSIC_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
                      for name in CLASSIC_DMC}
+# the elliptic-cone slice's dm_control tasks, each the model its task builds
+# (the suite module's ``make_model`` with these arguments), lossless slots:
+# manipulator insert_peg and stacker stack_2 (the elliptic solve kernel),
+# stacker stack_4 (nefc x nv past the kernel: the torch elliptic Newton)
+TASK_DMC = {'manipulator_insert_peg': ('manipulator',
+                                       {'use_peg': True, 'insert': True}),
+            'stack_2': ('stacker', {'n_boxes': 2}),
+            'stack_4': ('stacker', {'n_boxes': 4})}
+TASK_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                  for name in TASK_DMC}
 # more candidate pairs than this and no budget given: the default budget
 # (``io.py:653-654``)
+# the elliptic-cone tasks' committed start states (``make_task_start``):
+# finger_cg is finger's snapshot under the CG solver
+TASK_STARTS = {name: os.path.join(_ASSETS, f'{name}_start.npz')
+               for name in (*TASK_DMC, 'finger_cg')}
+TASK_START_NWORLD = 64
 LOSSLESS_MAX_CAND = 512
 # the benchmark's per-condim contact budget (12 condim-1 + 24 condim-3 slots)
 BENCH_NCONMAX = {1: 12, 3: 24}
@@ -137,21 +153,34 @@ def model_to_numpy(m: types.Model) -> dict:
       if kind == 'node':
         put(val, _NESTED[name], name + '.')
       elif kind == 'array':
-        out[prefix + name] = types.host(val, np.float32)
+        out[prefix + name] = types.host(val, types.np_float(val.dtype))
       else:
         out[prefix + name] = val
   put(m, types.Model, '')
   return out
 
 
-def model_from_numpy(d: dict, device=None) -> types.Model:
+def float_dtype(dtype) -> torch.dtype:
+  """torch.float32 or torch.float64 from a torch or numpy float dtype;
+  raises for any other."""
+  name = str(dtype).split('.')[-1] if isinstance(dtype, torch.dtype) \
+      else np.dtype(dtype).name
+  if name not in ('float32', 'float64'):
+    raise ValueError(f'dtype {dtype}: the port runs float32 or float64')
+  return getattr(torch, name)
+
+
+def model_from_numpy(d: dict, device=None, dtype=torch.float32
+                     ) -> types.Model:
   """The port's Model from the JAX Model's fields as numpy values.
 
   ``d`` maps each field name (``'opt.timestep'`` for nested fields) to a
   numpy array, or to a python value for sizes, flags and the static tuple
-  tables (``pair_groups``, ``con_classes``, ``tree.body_levels``).
+  tables (``pair_groups``, ``con_classes``, ``tree.body_levels``).  The
+  float fields take ``dtype`` (float32 or float64).
   """
   device = resolve_device(device)
+  fdt = types.np_float(float_dtype(dtype))
 
   def build(cls, prefix):
     kw = {}
@@ -161,7 +190,7 @@ def model_from_numpy(d: dict, device=None) -> types.Model:
         continue
       val = d[prefix + name]
       if kind == 'array':
-        kw[name] = torch.tensor(np.asarray(val, np.float32), device=device)
+        kw[name] = torch.tensor(np.asarray(val, fdt), device=device)
       elif kind == 'static':
         kw[name] = np.array(val)
       elif name == 'pair_groups':
@@ -227,9 +256,12 @@ def save_model_npz(path: str, m: types.Model):
   np.savez_compressed(path, **_encode(model_to_numpy(m)))
 
 
-def load_model_npz(path: str = SNAPSHOT, device=None) -> types.Model:
+def load_model_npz(path: str = SNAPSHOT, device=None,
+                   dtype=torch.float32) -> types.Model:
+  """A snapshot of ``save_model_npz`` (float32 snapshots: ``dtype``
+  float64 widens them, it does not recover what float32 dropped)."""
   with np.load(path) as z:
-    return model_from_numpy(_decode(z), device=device)
+    return model_from_numpy(_decode(z), device=device, dtype=dtype)
 
 
 # ------------------------------------------------------------- put_model
@@ -462,39 +494,67 @@ def _collision_pairs(mjm):
       tuple(groups)
 
 
-def _mix_params(mjm, g1, g2):
-  """Per-candidate mixed contact params in float32 numpy
-  (``collision_driver.py:250`` ``_mix_params``, host form)."""
-  f32 = lambda x: np.asarray(x, np.float32)
-  dtype = np.float32
-  p1, p2 = mjm.geom_priority[g1], mjm.geom_priority[g2]
-  use1 = (p1 > p2).astype(dtype)[:, None]
-  use2 = (p2 > p1).astype(dtype)[:, None]
+# the per-candidate contact tables that ``remix`` fills
+CAND_FIELDS = ('cand_friction', 'cand_solref', 'cand_solimp',
+               'cand_includemargin')
+
+
+def remix(m: types.Model) -> types.Model:
+  """``m`` with its per-candidate contact tables mixed from its geom
+  fields (``collision_driver.py:250`` ``_mix_params``, host form, with its
+  ``EnableBit.OVERRIDE`` branch :317-326), in the Model's dtype, on its
+  device: the geoms' priority, solmix, solref, solimp, margin, gap and
+  friction, or under the override ``opt.o_margin`` and the other ``o_*``
+  fields.  ``cand_includemargin`` is margin - gap."""
+  fdt = types.np_float(types.dtype_of(m))
+  h = lambda x: types.host(x, fdt)
+  g1, g2 = m.pair_geom1[m.con_pair], m.pair_geom2[m.con_pair]
+  prio = np.asarray(m.geom_priority, np.int32)
+  p1, p2 = prio[g1], prio[g2]
+  use1 = (p1 > p2).astype(fdt)[:, None]
+  use2 = (p2 > p1).astype(fdt)[:, None]
   eq = 1.0 - use1 - use2
-  s1, s2 = f32(mjm.geom_solmix)[g1], f32(mjm.geom_solmix)[g2]
+  solmix = h(m.geom_solmix)
+  s1, s2 = solmix[g1], solmix[g2]
   mix = s1 / np.maximum(s1 + s2, 1e-12)
   mix = np.where((s1 < 1e-12) & (s2 < 1e-12), 0.5, mix)
   mix = np.where((s1 < 1e-12) & (s2 >= 1e-12), 0.0, mix)
   mix = np.where((s1 >= 1e-12) & (s2 < 1e-12), 1.0, mix)
   mix = (eq[:, 0] * mix + use1[:, 0] * 1.0 + use2[:, 0] * 0.0)[:, None]
-  sr1, sr2 = f32(mjm.geom_solref)[g1], f32(mjm.geom_solref)[g2]
+  sr, si = h(m.geom_solref), h(m.geom_solimp)
+  sr1, sr2 = sr[g1], sr[g2]
   standard = (sr1[:, [0]] > 0) & (sr2[:, [0]] > 0)
   solref = np.where(standard, mix * sr1 + (1 - mix) * sr2,
                     np.minimum(sr1, sr2))
-  solimp = mix * f32(mjm.geom_solimp)[g1] + \
-      (1 - mix) * f32(mjm.geom_solimp)[g2]
-  margin = np.maximum(f32(mjm.geom_margin)[g1], f32(mjm.geom_margin)[g2])
-  gap = np.maximum(f32(mjm.geom_gap)[g1], f32(mjm.geom_gap)[g2])
-  f1, f2 = f32(mjm.geom_friction)[g1], f32(mjm.geom_friction)[g2]
+  solimp = mix * si[g1] + (1 - mix) * si[g2]
+  gm, gg = h(m.geom_margin), h(m.geom_gap)
+  margin = np.maximum(gm[g1], gm[g2])
+  gap = np.maximum(gg[g1], gg[g2])
+  fr = h(m.geom_friction)
+  f1, f2 = fr[g1], fr[g2]
   fr3 = eq * np.maximum(f1, f2) + use1 * f1 + use2 * f2
   friction = np.stack(
       [fr3[:, 0], fr3[:, 0], fr3[:, 1], fr3[:, 2], fr3[:, 2]], axis=-1)
-  return solref, solimp, margin - gap, friction
+  o = m.opt
+  if int(o.enableflags) & types.EnableBit.OVERRIDE:
+    margin = np.full_like(margin, h(o.o_margin))
+    solref = np.broadcast_to(h(o.o_solref), solref.shape)
+    solimp = np.broadcast_to(h(o.o_solimp), solimp.shape)
+    friction = np.broadcast_to(h(o.o_friction), friction.shape)
+  dev = m.qpos0.device
+  put = lambda x: torch.tensor(np.ascontiguousarray(x, fdt), device=dev)
+  return m.replace(cand_friction=put(friction), cand_solref=put(solref),
+                   cand_solimp=put(solimp),
+                   cand_includemargin=put(margin - gap))
 
 
-def put_model(mjm, nconmax=None, device=None) -> types.Model:
-  """A ``mujoco.MjModel`` as the port's Model (``io.py:585`` ``put_model``,
-  float32).
+def put_model(mjm, nconmax=None, device=None, dtype=torch.float32
+              ) -> types.Model:
+  """A ``mujoco.MjModel`` as the port's Model (``io.py:585`` ``put_model``):
+  every float field of ``dtype``, float32 or float64.  A float32 model
+  floors ``opt.tolerance`` at 1e-6, a float64 model keeps MuJoCo's
+  (``io.py:610-612``).  The float64 path runs the general step on the
+  CPU; the fused step and the CUDA kernels take float32 only.
 
   ``nconmax``: per-world active-contact budget, an int or a
   ``{condim: budget}`` dict; below the candidate count, active contacts
@@ -505,10 +565,9 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
   the general step supports yet.
   """
   device = resolve_device(device)
+  dtype = float_dtype(dtype)
   if mjm.opt.solver == 0:
     raise NotImplementedError('PGS solver is not supported')
-  if mjm.opt.enableflags & types.EnableBit.OVERRIDE:
-    raise NotImplementedError('contact override runs on the general path')
   if nconmax is None:
     cn = _custom_numeric(mjm, 'nconmax')
     nconmax = int(cn) if cn is not None else None
@@ -529,14 +588,6 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       con_classes, ncon = (), ncand
   ne, nf, nl, nefc, con_adr, efc = _efc_layout(mjm, slot_dim,
                                                int(mjm.opt.cone))
-  if ncand:
-    solref, solimp, imargin, friction = _mix_params(
-        mjm, g1[con_pair], g2[con_pair])
-  else:
-    solref = np.zeros((0, types.NREF), np.float32)
-    solimp = np.zeros((0, types.NIMP), np.float32)
-    imargin = np.zeros(0, np.float32)
-    friction = np.zeros((0, 5), np.float32)
   o = mjm.opt
   d = {
       'nq': mjm.nq, 'nv': mjm.nv, 'nu': mjm.nu, 'na': mjm.na,
@@ -548,13 +599,16 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'nflex': mjm.nflex, 'ne': ne, 'nf': nf, 'nl': nl, 'nefc': nefc,
       'ncon': ncon, 'ncand': ncand, 'con_classes': con_classes,
       'con_compact': con_compact,
-      # f32 models floor the tolerance at 1e-6 (io.py:610)
+      # f32 models floor the tolerance at 1e-6 (io.py:610-612)
       'opt.timestep': o.timestep, 'opt.impratio': o.impratio,
-      'opt.tolerance': max(float(o.tolerance), 1e-6),
+      'opt.tolerance': (max(float(o.tolerance), 1e-6)
+                        if dtype == torch.float32 else float(o.tolerance)),
       'opt.ls_tolerance': o.ls_tolerance, 'opt.gravity': o.gravity,
       'opt.magnetic': o.magnetic,
       'opt.density': o.density, 'opt.viscosity': o.viscosity,
       'opt.sleep_tolerance': o.sleep_tolerance,
+      'opt.o_margin': o.o_margin, 'opt.o_solref': o.o_solref,
+      'opt.o_solimp': o.o_solimp, 'opt.o_friction': o.o_friction,
       'opt.integrator': int(o.integrator), 'opt.cone': int(o.cone),
       'opt.solver': int(o.solver), 'opt.iterations': int(o.iterations),
       'opt.ls_iterations': int(o.ls_iterations),
@@ -564,8 +618,8 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
       'stat.meaninertia': mjm.stat.meaninertia,
       'con_dim': slot_dim, 'con_efc_address': con_adr, 'pair_geom1': g1, 'pair_geom2': g2,
       'con_pair': con_pair, 'pair_groups': groups,
-      'cand_friction': friction, 'cand_solref': solref,
-      'cand_solimp': solimp, 'cand_includemargin': imargin,
+      # filled by remix below, from the Model's geom fields
+      **{k: np.zeros(0) for k in CAND_FIELDS},
       'cam_mat0': np.asarray(mjm.cam_mat0).reshape(-1, 3, 3),
   }
   for name in ('ancestor_mask', 'subtree_mask', 'body_dof_mask',
@@ -577,7 +631,7 @@ def put_model(mjm, nconmax=None, device=None) -> types.Model:
     if name in d or kind not in ('array', 'static'):
       continue
     d[name] = np.array(getattr(mjm, name))
-  m = model_from_numpy(d, device=device)
+  m = remix(model_from_numpy(d, device=device, dtype=dtype))
   check_supported(m)
   return m
 
@@ -596,15 +650,18 @@ def check_supported(m: types.Model):
 # ------------------------------------------------------------------ Data
 
 
-def make_data(m: types.Model, nworld: int, device=None) -> types.Data:
+def make_data(m: types.Model, nworld: int, device=None, dtype=None
+              ) -> types.Data:
   """A batch of worlds at qpos0 and rest (``io.py:1076`` ``make_data``):
-  every tree awake (``K_AWAKE``, ``io.py:1198-1202``), no island."""
+  every tree awake (``K_AWAKE``, ``io.py:1198-1202``), no island.  The
+  float fields take ``dtype``, by default the Model's."""
   dev = resolve_device(device)
-  f32 = dict(dtype=torch.float32, device=dev)
-  z = lambda *shape: torch.zeros((nworld,) + shape, **f32)
+  fl = dict(dtype=types.dtype_of(m) if dtype is None else float_dtype(dtype),
+            device=dev)
+  z = lambda *shape: torch.zeros((nworld,) + shape, **fl)
   i32 = lambda fill, *shape: torch.full((nworld,) + shape, fill,
                                         dtype=torch.int32, device=dev)
-  qpos = m.qpos0.to(**f32)
+  qpos = m.qpos0.to(**fl)
   eq0 = torch.as_tensor(np.asarray(m.eq_active0, bool).reshape(-1),
                         device=dev)
   return types.Data(
@@ -617,6 +674,228 @@ def make_data(m: types.Model, nworld: int, device=None) -> types.Data:
       tree_asleep=i32(types.K_AWAKE, m.ntree), nisland=i32(0),
       tree_island=i32(-1, m.ntree), dof_island=i32(-1, m.nv),
       efc_island=i32(-1, m.nefc))
+
+
+# ------------------------------------------------------- the public Data API
+
+# the MjData fields ``put_data`` copies (``io.py:1221-1234``)
+PUT_FIELDS = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
+              'xfrc_applied', 'qacc_warmstart', 'qacc')
+# the fields ``get_data_into`` copies back, each where the model has its
+# objects (``io.py:1282-1327``); MjData keeps its xmat-like fields flat
+GET_FIELDS = (('qpos', None), ('qvel', None), ('act', 'na'), ('ctrl', 'nu'),
+              ('qacc', None), ('qacc_warmstart', None), ('xpos', None),
+              ('xquat', None), ('xmat', None), ('sensordata', 'nsensordata'),
+              ('xipos', None), ('ximat', None), ('geom_xpos', None),
+              ('geom_xmat', None), ('site_xpos', 'nsite'),
+              ('site_xmat', 'nsite'), ('subtree_com', None),
+              ('qfrc_bias', None), ('qfrc_passive', None),
+              ('qfrc_actuator', None), ('qfrc_constraint', None),
+              ('actuator_force', 'nu'), ('actuator_length', 'nu'),
+              ('actuator_velocity', 'nu'), ('ten_length', 'ntendon'),
+              ('ten_velocity', 'ntendon'))
+
+
+def _asleep_cycles_to_labels(asleep: np.ndarray) -> np.ndarray:
+  """MuJoCo C's sleep cycles (each asleep tree points at the next of its
+  group) as group labels, the smallest tree id of the group; awake
+  counters (< 0) pass through (``io.py:1245``)."""
+  out = asleep.astype(np.int32).copy()
+  n = len(asleep)
+  for t in range(n):
+    if asleep[t] < 0:
+      continue
+    smallest, cur = t, t
+    for _ in range(n + 1):
+      nxt = int(asleep[cur])
+      if nxt < 0 or nxt >= n:
+        break
+      smallest = min(smallest, nxt)
+      cur = nxt
+      if cur == t:
+        break
+    out[t] = smallest
+  return out
+
+
+def _asleep_labels_to_cycles(labels: np.ndarray) -> np.ndarray:
+  """The inverse of ``_asleep_cycles_to_labels``: each group linked into
+  a cycle in ascending tree id (``io.py:1266``)."""
+  out = labels.astype(np.int32).copy()
+  n = len(labels)
+  for lab in sorted(set(int(x) for x in labels if x >= 0)):
+    members = sorted(int(t) for t in range(n) if labels[t] == lab)
+    for i, t in enumerate(members):
+      out[t] = members[(i + 1) % len(members)]
+  return out
+
+
+def put_data(mjm, mjd, m: types.Model, nworld: Optional[int] = None,
+             dtype=None) -> types.Data:
+  """Batched Data of ``nworld`` worlds, each in ``mjd``'s state
+  (``io.py:1214`` ``put_data``), on the Model's device: time, qpos, qvel,
+  act, ctrl, qfrc_applied, xfrc_applied, eq_active, qacc_warmstart and
+  qacc, and ``tree_asleep`` as the port's group labels.  The port's Data
+  is always batched: ``nworld`` None gives one world, where the JAX
+  ``put_data`` gives unbatched Data.  The float fields take ``dtype``, by
+  default the Model's.  Every tensor is a copy: a later change to ``mjd``
+  does not reach it.  Raises for mocap bodies and history, which the port
+  does not run."""
+  if m.nmocap or m.nhistory:
+    raise NotImplementedError('put_data: mocap bodies and history are not '
+                              'ported')
+  W = 1 if nworld is None else int(nworld)
+  dev = m.qpos0.device
+  d = make_data(m, W, device=dev, dtype=dtype)
+  fdt = types.np_float(d.qpos.dtype)
+
+  def put(x, dt=fdt):
+    t = torch.tensor(np.array(x, dt, copy=True), device=dev)
+    return t[None].repeat((W,) + (1,) * t.dim())
+
+  kw = {k: put(getattr(mjd, k)) for k in PUT_FIELDS}
+  kw['eq_active'] = put(mjd.eq_active, bool)
+  if m.ntree and hasattr(mjd, 'tree_asleep'):
+    kw['tree_asleep'] = put(_asleep_cycles_to_labels(
+        np.asarray(mjd.tree_asleep)), np.int32)
+  return d.replace(**kw)
+
+
+def get_data_into(mjd, mjm, d: types.Data, world: int = 0):
+  """Copy world ``world`` of batched Data (on either device) into an
+  MjData (``io.py:1278`` ``get_data_into``): the state, the frames, the
+  forces and sensordata that the JAX function copies, and
+  ``tree_asleep`` as MuJoCo C's sleep cycles.  A field the step has not
+  computed (None) leaves ``mjd``'s as it is."""
+  def one(x):
+    return x[world].detach().cpu().numpy().astype(np.float64)
+
+  mjd.time = float(one(d.time))
+  if mjm.ntree and hasattr(mjd, 'tree_asleep') and \
+      d.tree_asleep is not None:
+    mjd.tree_asleep[:] = _asleep_labels_to_cycles(
+        d.tree_asleep[world].cpu().numpy())
+  for name, size in GET_FIELDS:
+    x = getattr(d, name)
+    if x is None or (size is not None and not getattr(mjm, size)):
+      continue
+    dst = getattr(mjd, name)
+    dst[:] = one(x).reshape(dst.shape)
+
+
+# the rotation fields, which rest at the identity (``io.py:1111-1129``)
+_IDENTITY_FIELDS = {'xquat', 'xmat', 'ximat', 'geom_xmat', 'site_xmat',
+                    'cam_xmat'}
+
+
+def _contact_rest(m: types.Model, name: str, x: torch.Tensor
+                  ) -> torch.Tensor:
+  """The value the JAX ``make_data`` gives contact field ``name`` of
+  world-major slots ``x`` (``io.py:1116-1146``): dist 1e10 (every row
+  masked until collision fills the slot), frame the identity, geom1 and
+  geom2 each slot's first candidate, cand -1 where slots are compacted
+  (else the candidate id), the rest zero."""
+  if name == 'dist':
+    return torch.full_like(x, 1e10)
+  if name == 'frame':
+    return torch.eye(3, dtype=x.dtype, device=x.device).expand_as(x)
+  if name not in ('geom1', 'geom2', 'cand'):
+    return torch.zeros_like(x)
+  if m.con_compact:
+    first = np.concatenate([ci[np.minimum(np.arange(cap), len(ci) - 1)]
+                            for _, cap, ci, _ in m.con_classes])
+    cand = np.full(m.ncon, -1)
+  else:
+    first = cand = np.arange(m.ncon)
+  pair = m.pair_geom1 if name == 'geom1' else m.pair_geom2
+  val = cand if name == 'cand' else pair[m.con_pair[first]]
+  return torch.as_tensor(np.asarray(val, np.int64), device=x.device).to(
+      x.dtype).expand_as(x)
+
+
+def reset_data(m: types.Model, d: types.Data, reset_mask=None
+               ) -> types.Data:
+  """``d`` reset to ``make_data``'s state (``io.py:1330`` ``reset_data``):
+  every world (then ``make_data``'s Data, whose stage outputs are None),
+  or the worlds of ``reset_mask``, a (W,) bool tensor on ``d``'s device.
+  In the masked worlds every field takes the JAX ``make_data``'s value:
+  the fields the port's ``make_data`` sets take its values, the port's
+  ``tree_island``, ``nisland`` and the other island fields among them;
+  the stage outputs (frames, forces, rows) rest at zero and the rotations
+  at the identity; the contact slots as ``_contact_rest`` gives them."""
+  W = d.qpos.shape[0]
+  fresh = make_data(m, W, device=d.qpos.device, dtype=d.qpos.dtype)
+  if reset_mask is None:
+    return fresh
+  mask = torch.as_tensor(reset_mask, dtype=torch.bool,
+                         device=d.qpos.device).reshape(W)
+
+  def rest(name, x):
+    if name in _IDENTITY_FIELDS - {'xquat'}:
+      return torch.eye(3, dtype=x.dtype, device=x.device).expand_as(x)
+    out = torch.zeros_like(x)
+    if name == 'xquat':
+      out[..., 0] = 1.0
+    return out
+
+  def pick(obj, new_of):
+    kw = {}
+    for f in dataclasses.fields(obj):
+      x = getattr(obj, f.name)
+      if not isinstance(x, torch.Tensor) or x.dim() == 0 or x.shape[0] != W:
+        continue
+      kw[f.name] = torch.where(mask.reshape((W,) + (1,) * (x.dim() - 1)),
+                               new_of(f.name, x), x)
+    return obj.replace(**kw)
+
+  def data_rest(name, x):
+    new = getattr(fresh, name)
+    return rest(name, x) if new is None else new
+
+  out = pick(d, data_rest)
+  if d.contact is not None:
+    out = out.replace(contact=pick(
+        d.contact, lambda name, x: _contact_rest(m, name, x)))
+  return out
+
+
+# the option enums ``override_model`` takes by name (``io.py:1349``)
+_ENUM_VALUES = {
+    'solver': {'cg': types.SolverType.CG, 'newton': types.SolverType.NEWTON},
+    'integrator': {
+        'euler': types.IntegratorType.EULER, 'rk4': types.IntegratorType.RK4,
+        'implicit': types.IntegratorType.IMPLICIT,
+        'implicitfast': types.IntegratorType.IMPLICITFAST},
+}
+
+
+def override_model(m: types.Model, overrides) -> types.Model:
+  """``m`` with ``opt.*`` overrides (``io.py:1498`` ``override_model``),
+  e.g. ``['opt.solver=cg', 'opt.iterations=20', 'opt.o_margin=0.01']``:
+  enums by name or number, ints, and float fields (a vector field takes
+  the value in every entry).  ``opt.cone`` raises, since the cone shapes
+  the row layout.  The per-candidate contact tables are mixed again from
+  the Model's geom fields (the contact override among them) in the
+  Model's dtype, on its device; no ``mujoco`` is needed."""
+  for ov in overrides:
+    key, val = ov.split('=')
+    parts = key.split('.')
+    if parts[0] != 'opt' or len(parts) != 2:
+      raise NotImplementedError(f'override path {key!r} not supported '
+                                '(only opt.*)')
+    name = parts[1]
+    cur = getattr(m.opt, name)
+    if name == 'cone':
+      raise ValueError('opt.cone is baked into the constraint row layout at '
+                       'put_model; set mjm.opt.cone before put_model')
+    if name in _ENUM_VALUES and not val.lstrip('-').isdigit():
+      new = int(_ENUM_VALUES[name][val.lower()])
+    elif isinstance(cur, (int, bool)):
+      new = type(cur)(float(val))
+    else:
+      new = torch.full_like(cur, float(val))
+    m = m.replace(opt=m.opt.replace(**{name: new}))
+  return remix(m)
 
 
 def load_humanoid_benchmark():
@@ -762,6 +1041,26 @@ def make_settled_state(model_path: str, path: str) -> types.Data:
       f'after {SETTLE_MAX_STEPS} steps, short of {SETTLE_ASLEEP_SHARE}')
 
 
+def make_task_start(name: str, path: str) -> types.Data:
+  """The seeded contact state of the elliptic-cone task ``name`` of
+  ``TASK_STARTS``, ``TASK_START_NWORLD`` worlds, written to ``path``:
+  ``parity.task_state`` (seed 0) for manipulator and stacker, whose qpos0
+  holds their objects in the air, and ``parity.touching`` (seed 0) for
+  finger_cg, whose tip is off its spinner at qpos0; zero ctrl."""
+  from mujoco_warp_tpu_torch import parity
+  n = TASK_START_NWORLD
+  if name == 'finger_cg':
+    m = load_model_npz(CLASSIC_SNAPSHOTS['finger'], device='cpu')
+    qpos, qvel, _ = parity.touching(m, 0, n)
+  else:
+    m = load_model_npz(TASK_SNAPSHOTS[name], device='cpu')
+    qpos, qvel, _ = parity.task_state(m, n, 0)
+  d = make_data(m, n, device='cpu').replace(qpos=torch.as_tensor(qpos),
+                                            qvel=torch.as_tensor(qvel))
+  save_state(path, d, seed=0)
+  return d
+
+
 def load_spheres(cone: int = types.ConeType.PYRAMIDAL):
   """``spheres.xml`` as a ``mujoco.MjModel`` with ``opt.cone`` set to
   ``cone``, as the JAX ``benchmarks.build`` sets it before ``put_model``
@@ -793,13 +1092,19 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
 
 
 def load_dmc(name: str):
-  """A dm_control suite scene of ``DMC_NCONMAX``, ``TENDON_DMC`` or
-  ``CLASSIC_DMC`` as a
+  """A dm_control suite scene of ``DMC_NCONMAX``, ``TENDON_DMC``,
+  ``CLASSIC_DMC`` or ``TASK_DMC`` as a
   ``mujoco.MjModel`` with its sensors, cameras and lights, from the XML in
   the installed ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
+  import importlib
   import importlib.util
 
   import mujoco
+  if name in TASK_DMC:
+    module, kw = TASK_DMC[name]
+    xml, assets = importlib.import_module(
+        f'dm_control.suite.{module}').make_model(**kw)
+    return mujoco.MjModel.from_xml_string(xml, assets)
   suite = os.path.join(os.path.dirname(
       importlib.util.find_spec('dm_control').origin), 'suite')
   xml = 'humanoid' if name == 'humanoid_dmc' else name
@@ -811,7 +1116,8 @@ def make_dmc_snapshot(name: str, path: Optional[str] = None) -> types.Model:
   the others ``put_model``'s default), written to ``path`` (by default its
   committed snapshot)."""
   if path is None:
-    path = {**DMC_SNAPSHOTS, **TENDON_SNAPSHOTS, **CLASSIC_SNAPSHOTS}[name]
+    path = {**DMC_SNAPSHOTS, **TENDON_SNAPSHOTS, **CLASSIC_SNAPSHOTS,
+            **TASK_SNAPSHOTS}[name]
   m = put_model(load_dmc(name), nconmax=DMC_NCONMAX.get(name),
                 device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -851,7 +1157,8 @@ def snapshot_makers() -> tuple:
               (TENDON_SNAPSHOTS[name], dmc(name)) for name in TENDON_DMC) + \
       tuple((TENDON_SNAPSHOTS[name], xml(path))
             for name, path in TENDON_XML.items()) + tuple(
-              (CLASSIC_SNAPSHOTS[name], dmc(name)) for name in CLASSIC_DMC)
+              (CLASSIC_SNAPSHOTS[name], dmc(name)) for name in CLASSIC_DMC) + \
+      tuple((TASK_SNAPSHOTS[name], dmc(name)) for name in TASK_DMC)
 
 
 def main(argv: Optional[list] = None):
@@ -867,7 +1174,10 @@ def main(argv: Optional[list] = None):
                  'scenes assets/ball_in_cup.npz, point_mass.npz, '
                  'sensors2.npz, tendon_wrap.npz and tendon_mix.npz, '
                  'dm_control\'s pendulum.npz, reacher.npz, finger.npz, '
-                 'cartpole.npz, acrobot.npz and humanoid_CMU.npz, and '
+                 'cartpole.npz, acrobot.npz and humanoid_CMU.npz, '
+                 'manipulator_insert_peg.npz, stack_2.npz and stack_4.npz, '
+                 'the elliptic-cone tasks\' start states '
+                 'assets/*_start.npz, and '
                  '(with --settle) the settled states '
                  'assets/clutter_arm_settled.npz and '
                  'assets/clutter_settled.npz')
@@ -881,6 +1191,9 @@ def main(argv: Optional[list] = None):
     m = make(path)
     print(f'wrote {path}: nq {m.nq} nv {m.nv} nbody {m.nbody} '
           f'ncand {m.ncand} ncon {m.ncon} nefc {m.nefc}')
+  for name, path in TASK_STARTS.items():
+    d = make_task_start(name, path)
+    print(f'wrote {path}: {d.qpos.shape[0]} worlds')
   if args.settle:
     for model_path, path in ((CLUTTER_ARM_SNAPSHOT, CLUTTER_ARM_SETTLED),
                              (CLUTTER_SLEEP_SNAPSHOT, CLUTTER_SETTLED)):

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
-On a CPU tensor each wrapper runs the plain PyTorch version, on a CUDA
-tensor it launches the kernel (``csrc/*.cu``) or raises.  ``k1`` and
+On a CPU tensor each wrapper runs the plain PyTorch version, in float32
+or float64; on a CUDA tensor it launches the kernel (``csrc/*.cu``),
+which takes float32 only, or raises (a float64 CUDA tensor raises a
+TypeError: nothing converts it or hands it to the plain version).  ``k1`` and
 ``k4`` serve the fused step on lanes-last tensors; ``mass_chain`` and
 ``solver`` the general step, each on lanes-last tensors with a
 world-major entry that transposes with ``lanes`` and ``world``;
@@ -26,11 +28,22 @@ def check(t: torch.Tensor, shape, name: str, device, dtype=torch.float32):
   if t.device != device:
     raise ValueError(f'{name}: on {t.device}, expected {device}')
   if t.dtype != dtype:
+    if t.device.type == 'cuda' and t.is_floating_point():
+      raise TypeError(f'{name}: {t.dtype} on {t.device}: the CUDA kernels '
+                      f'take {dtype} (the float64 path runs on the CPU)')
     raise ValueError(f'{name}: dtype {t.dtype}, expected {dtype}')
   if tuple(t.shape) != tuple(shape):
     raise ValueError(f'{name}: shape {tuple(t.shape)}, expected {shape}')
   if not t.is_contiguous():
     raise ValueError(f'{name}: not contiguous')
+
+
+def host_dtype(t: torch.Tensor) -> torch.dtype:
+  """The dtype a wrapper takes for ``t``: the plain versions run float32
+  or float64 on the CPU, the kernels float32 on the card."""
+  if t.device.type == 'cpu' and t.dtype == torch.float64:
+    return torch.float64
+  return torch.float32
 
 
 def lanes(x: torch.Tensor, rows: int = None) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused.solver_ref import chol_solve_tile, chol_tile
 from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
-    device_tables, ptr
+    device_tables, host_dtype, ptr
 
 # launches of the CUDA kernels (not of the plain versions)
 launches = {'chol_batched': 0, 'chol_solve': 0, 'damped_solve': 0}
@@ -45,10 +45,11 @@ DampedSolveParams = build.params_struct(
     ptrs=('M', 'a', 'dmp', 'x'))
 
 
-def damping_terms(m: types.Model) -> np.ndarray:
-  """h * damping per dof, the float32 product the JAX kernel takes."""
-  return np.float32(types.host(m.opt.timestep, np.float32)) * \
-      types.host(m.dof_damping, np.float32)
+def damping_terms(m: types.Model, dtype=np.float32) -> np.ndarray:
+  """h * damping per dof, the product the JAX kernel takes, in ``dtype``
+  (float32 for the kernel)."""
+  return dtype(types.host(m.opt.timestep, dtype)) * \
+      types.host(m.dof_damping, dtype)
 
 
 _DMP = TableCache(lambda m, dev: device_tables({'dmp': damping_terms(m)},
@@ -105,17 +106,21 @@ def _cap(n, what):
     raise ValueError(f'{what} caps n at {MAX_N}, got {n}')
 
 
-def strides(t, shape, name, device):
-  """(world stride, element stride) of a float32 tensor of ``shape`` (W,
-  n) or (W, n, n) on ``device`` whose elements (row-major within a world)
-  lie one element stride apart: world-major, or a ``world()`` view of
-  lanes-last.  Raises for any other layout."""
+def strides(t, shape, name, device, dtype=torch.float32):
+  """(world stride, element stride) of a ``dtype`` tensor of ``shape``
+  (W, n) or (W, n, n) on ``device`` whose elements (row-major within a
+  world) lie one element stride apart: world-major, or a ``world()`` view
+  of lanes-last.  Raises for any other layout; a float64 CUDA tensor
+  raises a TypeError."""
   if not isinstance(t, torch.Tensor):
     raise TypeError(f'{name}: expected a tensor, got {type(t).__name__}')
-  if t.device != device or t.dtype != torch.float32 or \
+  if t.device.type == 'cuda' and t.dtype != torch.float32:
+    raise TypeError(f'{name}: {t.dtype} on {t.device}: the CUDA kernels '
+                    'take float32 (the float64 path runs on the CPU)')
+  if t.device != device or t.dtype != dtype or \
       tuple(t.shape) != tuple(shape):
     raise ValueError(f'{name}: {tuple(t.shape)} {t.dtype} on {t.device}, '
-                     f'expected {tuple(shape)} float32 on {device}')
+                     f'expected {tuple(shape)} {dtype} on {device}')
   es = t.stride(-1)
   if len(shape) == 3 and shape[1] > 1 and t.stride(1) != shape[2] * es:
     raise ValueError(f'{name}: strides {t.stride()} do not place a '
@@ -139,7 +144,7 @@ def chol_batched(m: types.Model, A, jitter: float = 0.0):
   same checks."""
   W, n = A.shape[0], A.shape[-1]
   _cap(n, 'chol_batched')
-  check(A, (W, n, n), 'A', A.device)
+  check(A, (W, n, n), 'A', A.device, host_dtype(A))
   if not _device(A, 'chol_batched'):
     return chol_batched_plain(A, jitter)
   L = torch.empty_like(A)
@@ -169,8 +174,8 @@ def chol_solve_batched(m: types.Model, L, rhs):
   takes (``read``)."""
   W, n = rhs.shape
   on_card = _device(rhs, 'chol_solve')
-  ls = strides(L, (W, n, n), 'L', rhs.device)
-  bs = strides(rhs, (W, n), 'rhs', rhs.device)
+  bs = strides(rhs, (W, n), 'rhs', rhs.device, host_dtype(rhs))
+  ls = strides(L, (W, n, n), 'L', rhs.device, rhs.dtype)
   if not on_card:
     return chol_solve_plain(read(L, n * n, ls), read(rhs, n, bs)).T
   _cap(n, 'chol_solve')
@@ -190,12 +195,13 @@ def damped_solve_batched(m: types.Model, qM, qacc):
   takes (``read``)."""
   W, n = qacc.shape
   on_card = _device(qacc, 'damped_solve')
-  ms = strides(qM, (W, n, n), 'qM', qacc.device)
-  as_ = strides(qacc, (W, n), 'qacc', qacc.device)
+  as_ = strides(qacc, (W, n), 'qacc', qacc.device, host_dtype(qacc))
+  ms = strides(qM, (W, n, n), 'qM', qacc.device, qacc.dtype)
   if n != m.nv:
     raise ValueError(f'damped_solve: n {n}, model nv {m.nv}')
   if not on_card:
-    dmp = torch.as_tensor(damping_terms(m), device=qacc.device)
+    dmp = torch.as_tensor(damping_terms(m, types.np_float(qacc.dtype)),
+                          device=qacc.device)
     return damped_solve_plain(read(qM, n * n, ms), read(qacc, n, as_),
                               dmp).T
   _cap(n, 'damped_solve')

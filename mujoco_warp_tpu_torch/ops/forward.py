@@ -26,9 +26,8 @@ IMPLICIT / IMPLICITFAST (``ops/derivative.py``).
 
 ``unsupported`` is this slice's gate: the models the general step runs
 are those it returns None for.  Contact rows go through either solver,
-pyramidal or frictionless in both; elliptic cones only through the solve
-kernel (Newton, nefc x nv up to 12,000), since the torch solver has no
-cone Hessian yet.
+frictionless, pyramidal or elliptic: the solve kernel (Newton, nefc x nv
+up to 12,000) or the torch Newton and CG of ``ops/solver.py``.
 """
 
 from __future__ import annotations
@@ -99,10 +98,6 @@ def unsupported(m: types.Model):
     return f'integrator {o.integrator}'
   if o.integrator == types.IntegratorType.RK4 and osleep.enabled(m):
     return 'sleep under RK4 (its stage forwards run no wake pass)'
-  if o.cone != types.ConeType.PYRAMIDAL and (
-      large_system(m) or o.solver == types.SolverType.CG):
-    return (f'elliptic cones in the torch solver (nefc {m.nefc} x nv {m.nv} '
-            f'beyond the solve kernel, or CG)')
   if m.nu:
     if not np.all(np.isin(m.actuator_trntype, (types.TrnType.JOINT,
                                                types.TrnType.TENDON))):

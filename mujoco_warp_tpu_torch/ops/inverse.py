@@ -5,7 +5,8 @@ Counterpart of ``mujoco_warp_tpu/ops/inverse.py``: ``_discrete_acc``
 (:26) and ``inverse`` (:51) for batched Data.  The position and velocity
 stages run as the general step runs them (the mass chain kernel among
 them), the constraint forces follow in closed form at the given qacc
-(``ops/solver._update_constraint``, no solve), and
+(``ops/solver._update_constraint``, elliptic cones included, no solve),
+and
 
   qfrc_inverse = M qacc + qfrc_bias - qfrc_passive - qfrc_constraint.
 
@@ -16,7 +17,6 @@ continuous one by an M^-1 solve through the ``chol_solve`` kernel on qLD.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
@@ -51,11 +51,6 @@ def inverse(m: types.Model, d: types.Data) -> types.Data:
   why = forward.unsupported(m)
   if why is not None:
     raise NotImplementedError(f'inverse: {why} is not ported yet')
-  if np.any(m.efc.efc_type == types.ConstraintType.CONTACT_ELLIPTIC):
-    raise NotImplementedError(
-        'inverse: elliptic cones, which the torch constraint update has '
-        'not yet (ROADMAP.md, queue 1: elliptic cones in the torch Newton '
-        'and in CG)')
   with forward.stage('pre'):
     d = forward.pre(m, d)
   with forward.stage('mass_chain'):

@@ -264,10 +264,10 @@ def _cam_projection(m, d, ids):
 def _cutoff_tables(m: types.Model):
   """Per element of sensordata: the cutoff and whether the sensor's data
   is positive-only (mjDATATYPE_POSITIVE), or None without cutoffs."""
-  cut_s = types.host(m.sensor_cutoff, np.float32)
+  cut_s = types.host(m.sensor_cutoff)
   if not np.any(cut_s > 0):
     return None
-  cut = np.zeros(m.nsensordata, np.float32)
+  cut = np.zeros(m.nsensordata)
   positive = np.zeros(m.nsensordata, bool)
   for s in range(m.nsensor):
     a, dim = int(m.sensor_adr[s]), int(m.sensor_dim[s])

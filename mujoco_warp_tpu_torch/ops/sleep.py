@@ -49,7 +49,8 @@ def _any_per_tree(viol, mask, like):
 
 def _cannot_sleep(m: types.Model, d: types.Data, tol: float):
   """(W, ntree) bool: the tree fails the quiescence test.  ``tol`` > 0
-  compares |dof_length qvel| with it in float32; 0 asks for qvel == 0."""
+  compares |dof_length qvel| with it in the Model's dtype; 0 asks for
+  qvel == 0."""
   dof_mask, body_mask = _tree_masks(m)
   qvel = d.qvel
   if tol > 0.0:
@@ -65,7 +66,8 @@ def _cannot_sleep(m: types.Model, d: types.Data, tol: float):
 
 
 def _tolerance(m: types.Model) -> float:
-  return float(types.host(m.opt.sleep_tolerance, np.float32))
+  return float(types.host(m.opt.sleep_tolerance,
+                          types.np_float(types.dtype_of(m))))
 
 
 def _tree_of_dof(m: types.Model, asleep):

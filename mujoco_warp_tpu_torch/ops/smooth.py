@@ -593,8 +593,7 @@ def _tendon_plan(m: types.Model, only=None) -> dict:
       else:
         raise NotImplementedError(f'tendon {t}: wrap type {wt}')
   ar = lambda k, v: np.asarray(v, np.float64 if k == 'div' else np.int64)
-  return {'fixed_q': fixed_q.astype(np.float32),
-          'fixed_J': fixed_J.astype(np.float32),
+  return {'fixed_q': fixed_q, 'fixed_J': fixed_J,
           'seg': {k: ar(k, v) for k, v in seg.items()},
           'wraps': {key: {k: ar(k, v) for k, v in g.items()}
                     for key, g in sorted(wraps.items())}}

@@ -138,6 +138,38 @@ with the output's name and by how much it missed.
   (``NITER_MEAN_DIFF_OF``, near 4 times the largest sound reading),
   qacc, efc_force and qfrc_constraint as above.  It is a bar for a new
   comparison; no other bar changed for it.
+- The torch elliptic Newton in float64 (the 'elliptic64' count bar,
+  ``tests/test_torch_elliptic.py``: stack_4 at 32 worlds of
+  ``task_state``, both sides float64): qacc within 5.6e-9 of the world's
+  scale in every world over seeds 0-3, and the cone terms (zones, forces,
+  cone Hessian, linesearch segments) equal to JAX's to 1e-12, yet the
+  Newton counts agreed in only 0.8125-1.0 of worlds (13 of 16 at seed 0
+  with 16 worlds; 1.0, 0.875, 0.9375, 0.8125 at seeds 0-3 with 32), up to
+  two apart.  The stop tests are not where they part: in every world
+  whose counts differ, no stop quantity (improvement, gradient, model
+  improvement over opt.tolerance, 1e-8 unfloored) lies within 1e6 of the
+  tolerance before the last trip, nor above 1.1e-6 of it at the last.
+  The linesearch is: it accepts the exact minimizer only if its slope,
+  zero up to rounding, keeps the bracket's sign, and where the bracket
+  has closed on one point it otherwise stops far short (world 6 of seed
+  3: search directions equal to 2.4e-16, alpha 1.6203 on one side and
+  1.3986 at a slope of -9.8e5 on the other), and the Newton takes
+  another trip.  The JAX package parts from itself the same way: its
+  ``solve`` against the same functions run one trip at a time agreed in
+  0.9375-1.0 of worlds; and the port with LAPACK's factor in place of
+  the lane Cholesky agreed with JAX in 0.78-0.97, no closer
+  (``tests/measure_elliptic_counts.py``,
+  ``tests/test_torch_elliptic_counts.py``).  The
+  bar: 0.80 of worlds equal, below every measured share, and never more
+  than ``NITER_MAX_DIFF`` apart.
+- CG with elliptic cones in float32 (finger_cg) runs some worlds
+  to ``opt.iterations`` (200) without meeting the tolerance, its qacc
+  within 1e-5 of the float64 optimum: on a CPU 1 of 32 worlds of
+  ``touching`` (seed 3) for the port and another 1 of 32 for the JAX
+  float32 CG on the same system; on an H100 (700 W) 223 of 8192 worlds
+  per step of the rollout.  Two sides seldom cap the same world, so under
+  the 'cg' bar such worlds (``NITER_CAPPED_SHARE_OF``: at most 5%) are
+  held by qacc and the forces and left out of the count bar.
 """
 
 from __future__ import annotations
@@ -153,12 +185,17 @@ K1_TOL = 1e-4
 QACC_ATOL, QACC_RTOL = 1e-4, 1e-3
 QPOS_ATOL, QPOS_RTOL = 1e-5, 1e-5
 NITER_SHARE = {'rest': 0.99, 'contact': 0.85, 'constraints': 0.90,
-               'elliptic': 0.90, 'dmc': 0.85, 'cg': 0.10}
+               'elliptic': 0.90, 'dmc': 0.85, 'cg': 0.10,
+               'elliptic64': 0.80}
 NITER_MAX_DIFF = 2
 # bars whose counts may lie further apart than NITER_MAX_DIFF
 NITER_MAX_DIFF_OF = {'cg': 40}
 # bars that also hold the mean count over the worlds within this many
 NITER_MEAN_DIFF_OF = {'cg': 3.0}
+# bars under which a float32 solve may run a world to opt.iterations on one
+# side: at most this share of worlds, held by their outputs and left out
+# of the count bar (``check_niter``'s ``cap``)
+NITER_CAPPED_SHARE_OF = {'cg': 0.05}
 # Newton-count bars whose efc_force is compared only where counts agree
 FORCE_WHERE_NITER_AGREES = ('elliptic',)
 # Newton-count bars whose efc_force bar carries each row's D |J dqacc|
@@ -272,15 +309,17 @@ def sensor_stages(m) -> dict:
   return out
 
 
-def check_sensors(m, got, want, niter_got, niter_want, slack=None) -> dict:
+def check_sensors(m, got, want, niter_got, niter_want, slack=None,
+                  bar: str = 'contact', cap=None) -> dict:
   """sensordata (W, nsensordata) of one step against another on the same
-  state, with the Newton counts of that step; ``slack`` (W, nsensordata),
-  where given, widens the acceleration sensors' bar (``step_slack``).
-  Returns the max abs error per stage and the share of worlds whose
-  counts agree."""
+  state, with the Newton (or CG) counts of that step at the ``bar`` of
+  ``check_niter``; ``slack`` (W, nsensordata), where given, widens the
+  acceleration sensors' bar (``step_slack``); ``cap`` as for
+  ``check_niter``.  Returns the max abs error per stage and the share of
+  worlds whose counts agree."""
   got, want = _t(got), _t(want)
   got = got.to(want.device)
-  share, _ = check_niter(niter_got, niter_want, 'contact')
+  share, _ = check_niter(niter_got, niter_want, bar, cap)
   agree = _t(niter_got, want).reshape(-1) == _t(niter_want, want).reshape(-1)
   errs = {}
   for stage, cols in sensor_stages(m).items():
@@ -315,6 +354,28 @@ def step_slack(m, d, seed: int = 0):
       scale.astype(np.float32), device=d.qvel.device))
   return 2.0 * (forward.step(m, moved).sensordata -
                 forward.step(m, d).sensordata).abs()
+
+
+def touching(m, seed: int, nworld: int):
+  """World-major float32 numpy (qpos, qvel, ctrl) of ``nworld`` worlds in
+  contact: of 2048 poses qpos0 + N (finger's tip meets its spinner in ~5%
+  of them), the first ``nworld`` with a live contact slot, then qvel 0.2 N
+  and ctrl 0.3 N.  The poses' contacts come from the port's collision on
+  the CPU."""
+  from mujoco_warp_tpu_torch import io
+  from mujoco_warp_tpu_torch.ops import collision_driver, forward
+  rng = np.random.default_rng(seed)
+  qpos = (types.host(m.qpos0, np.float32)[None] +
+          rng.standard_normal((2048, m.nq))).astype(np.float32)
+  if m.qpos0.device.type != 'cpu':
+    raise ValueError('touching takes a CPU model')
+  d = io.make_data(m, 2048, device='cpu').replace(qpos=torch.as_tensor(qpos))
+  dist, _, _ = collision_driver._narrowphase_candidates(m, forward.pre(m, d))
+  live = (dist < m.cand_includemargin).any(1).numpy()
+  assert live.sum() >= nworld, live.sum()
+  qvel = (0.2 * rng.standard_normal((nworld, m.nv))).astype(np.float32)
+  ctrl = (0.3 * rng.standard_normal((nworld, m.nu))).astype(np.float32)
+  return qpos[live][:nworld], qvel, ctrl
 
 
 def general_state(m, W: int, seed: int):
@@ -457,6 +518,74 @@ def spheres_state(m, W: int, seed: int):
   return qpos, qvel, ctrl
 
 
+# the elliptic-cone slice's dm_control tasks (``task_state``): how deep
+# each object sinks into the floor, plus 1 mm N
+TASK_DEPTH = 0.003
+
+
+def task_state(m, W: int, seed: int):
+  """World-major float32 numpy (qpos, qvel, ctrl) of the seeded contact
+  state of manipulator and stacker, drawn in that order from
+  ``default_rng(seed)``: the arm's joints at qpos0 + 0.3 N; each planar
+  object (a body of the world with a z slide) at its qpos0 x + 0.02 N,
+  turned by 0.1 N about its hinge, and lowered until its lowest geom lies
+  ``TASK_DEPTH`` + 1 mm N below the floor (the highest plane facing up);
+  qvel 0.2 N
+  on the arm, and on each object 0.3 N along x and z and 2 N about its
+  hinge, so that its contacts slide, stick and lift off (all three
+  elliptic zones); ctrl 0.3 N.  The heights come from the port's
+  kinematics on the CPU."""
+  from mujoco_warp_tpu_torch import io
+  from mujoco_warp_tpu_torch.ops import collision_convex, smooth
+  rng = np.random.default_rng(seed)
+  noise = rng.standard_normal((W, m.nq)).astype(np.float32)
+  qvel_n = rng.standard_normal((W, m.nv)).astype(np.float32)
+  depth = rng.standard_normal((W, m.nbody)).astype(np.float32)
+  ctrl = (0.3 * rng.standard_normal((W, m.nu))).astype(np.float32)
+  qpos0 = types.host(m.qpos0, np.float32)
+  axis = types.host(m.jnt_axis, np.float32)
+  qpos = np.broadcast_to(qpos0, (W, m.nq)).copy()
+  qvel = (0.2 * qvel_n).astype(np.float32)
+  zs = {}  # object body -> its z slide's qpos row
+  for j in range(m.njnt):
+    b, a = int(m.jnt_bodyid[j]), int(m.jnt_qposadr[j])
+    obj = int(m.body_parentid[b]) == 0 and any(
+        int(m.jnt_type[k]) == types.JointType.SLIDE and axis[k, 2] > 0.99
+        for k in np.nonzero(m.jnt_bodyid == b)[0])
+    jt, da = int(m.jnt_type[j]), int(m.jnt_dofadr[j])
+    if not obj:
+      qpos[:, a] += 0.3 * noise[:, a]
+    elif jt == types.JointType.HINGE:
+      qpos[:, a] += 0.1 * noise[:, a]
+      qvel[:, da] = 2.0 * qvel_n[:, da]
+    else:
+      qvel[:, da] = 0.3 * qvel_n[:, da]
+      if axis[j, 2] > 0.99:
+        zs[b] = a
+      else:
+        qpos[:, a] += 0.02 * noise[:, a]
+  d = io.make_data(m, W, device='cpu')
+  d = smooth.kinematics(m, d.replace(qpos=torch.as_tensor(qpos).to(
+      d.qpos.dtype)))
+  gt = np.asarray(m.geom_type)
+  up = (torch.as_tensor(gt == types.GeomType.PLANE) &
+        (d.geom_xmat[0, :, 2, 2] > 0.99))  # planes facing up
+  floor = float(d.geom_xpos[0, up, 2].max())
+  sub = m.tree.subtree_mask
+  size = m.geom_size.to(d.qpos.dtype)
+  for b, a in zs.items():
+    low = None
+    for g in np.nonzero(sub[b, np.asarray(m.geom_bodyid)])[0]:
+      R = d.geom_xmat[:, g]
+      p = collision_convex._support_local(
+          int(gt[g]), size[g], -R[:, 2, :])  # -z in the geom's frame
+      z = d.geom_xpos[:, g, 2] + torch.einsum('wk,wk->w', R[:, 2, :], p)
+      low = z if low is None else torch.minimum(low, z)
+    qpos[:, a] += (floor - TASK_DEPTH + 0.001 * depth[:, b] -
+                   low.numpy()).astype(np.float32)
+  return qpos, qvel, ctrl
+
+
 def solve_args(m, d):
   """The standalone solve's arguments (``kernels.solver.solve_tiles``: m,
   J, D, aref, fl, M, qfrc_smooth, warmstart, and the elliptic row scales
@@ -528,11 +657,20 @@ def check_world_scale(got, want, name: str, atol: float = QACC_ATOL,
   return float(err.max())
 
 
-def check_niter(got, want, state: str) -> tuple[float, int]:
-  """Newton counts of one K4 or solve against another.  Returns (share of
-  equal worlds, largest difference)."""
+def check_niter(got, want, state: str, cap=None) -> tuple[float, int]:
+  """Newton counts of one K4 or solve against another; with ``cap``
+  (opt.iterations), under the bars of ``NITER_CAPPED_SHARE_OF`` the
+  worlds that ran to it on either side are left out, at most that share
+  of them.  Returns (share of equal worlds, largest difference)."""
   want = _t(want).reshape(-1).long()
   got = _t(got, want).reshape(-1).long()
+  if cap is not None and state in NITER_CAPPED_SHARE_OF:
+    capped = (got >= cap) | (want >= cap)
+    share_c = float(capped.double().mean())
+    assert share_c <= NITER_CAPPED_SHARE_OF[state], (
+        f'niter at the cap {cap} in {share_c:.4f} of worlds > '
+        f'{NITER_CAPPED_SHARE_OF[state]}')
+    got, want = got[~capped], want[~capped]
   share = float((got == want).double().mean())
   diff = int((got - want).abs().max())
   most = NITER_MAX_DIFF_OF.get(state, NITER_MAX_DIFF)
@@ -565,15 +703,16 @@ def check_k4(got, want, qvel, h: float, state: str) -> dict:
           'niter_max_diff': diff, 'niter_mean': float(want[4].float().mean())}
 
 
-def check_solve(got, want, state: str = 'constraints', rows=None) -> dict:
+def check_solve(got, want, state: str = 'constraints', rows=None,
+                cap=None) -> dict:
   """Standalone Newton solve outputs (qacc, efc_force, qfrc_constraint,
   niter), lanes-last, on the same inputs; Newton counts at the ``state``
   bar, for the bars of ``FORCE_WHERE_NITER_AGREES`` efc_force only in
   the worlds whose counts agree, and for those of ``FORCE_THROUGH_QACC``
   each row's efc_force with the slack D_r |J_r dqacc| of the inputs
   ``rows`` = (J (nefc, nv, W), D (nefc, W)), for those of
-  ``QFRC_THROUGH_QACC`` also qfrc_constraint with |J|^T of that slack.
-  Returns the errors seen."""
+  ``QFRC_THROUGH_QACC`` also qfrc_constraint with |J|^T of that slack;
+  ``cap`` as for ``check_niter``.  Returns the errors seen."""
   qacc_err = check_world_scale(got[0], want[0], 'qacc')
   f_got, f_want = _t(got[1]), _t(want[1])
   slack = None
@@ -592,7 +731,7 @@ def check_solve(got, want, state: str = 'constraints', rows=None) -> dict:
   check_world_scale(got[2], want[2], 'qfrc_constraint', slack=None if (
       state not in QFRC_THROUGH_QACC) else torch.einsum(
           'rvw,rw->vw', J.abs(), slack))
-  share, diff = check_niter(got[3], want[3], state)
+  share, diff = check_niter(got[3], want[3], state, cap)
   return {'qacc_max_abs_err': qacc_err, 'force_max_abs_err': force_err,
           'force_worlds': int(f_want.shape[1]), 'force_past_bar': past,
           'niter_share': share, 'niter_max_diff': diff,

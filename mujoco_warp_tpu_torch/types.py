@@ -5,8 +5,9 @@ it (they mirror MuJoCo's public C enums).  ``Model`` holds only the fields
 the ported paths read: the fused lanes-last step
 (``mujoco_warp_tpu/pallas/fused.py``) and the general stage-split step
 (``mujoco_warp_tpu/ops/forward.py`` ``_step_batched``).  Physical
-parameters are float32 ``torch.Tensor``s, index and type tables are numpy
-arrays (host constants the plain versions fold and the CUDA wrappers
+parameters are ``torch.Tensor``s of the Model's dtype (float32, or
+float64 for the CPU's float64 path; ``dtype_of``), index and type tables
+are numpy arrays (host constants the plain versions fold and the CUDA wrappers
 upload once per model).  ``Data`` is world-major: every field carries a
 leading ``nworld`` axis, as the JAX Data does under ``vmap``.
 """
@@ -237,7 +238,7 @@ def _tensor(kind):
 
 
 def array():
-  """A float32 tensor field (a physical parameter)."""
+  """A float tensor field of the Model's dtype (a physical parameter)."""
   return _tensor('array')
 
 
@@ -249,6 +250,19 @@ def static():
 def scalar(default=0):
   """A python int/bool field (a size or a flag)."""
   return dataclasses.field(default=default, metadata={'kind': 'scalar'})
+
+
+def dtype_of(m) -> torch.dtype:
+  """The float dtype of a Model: float32, or float64 (``io.put_model``'s
+  ``dtype``)."""
+  return m.qpos0.dtype
+
+
+def np_float(dtype):
+  """The numpy float type of a torch float dtype (a numpy type passes
+  through)."""
+  return {torch.float32: np.float32, torch.float64: np.float64}.get(
+      dtype, dtype)
 
 
 def field_kinds(cls):
@@ -275,6 +289,11 @@ class Option(_Replace):
   density: torch.Tensor = array()
   viscosity: torch.Tensor = array()
   sleep_tolerance: torch.Tensor = array()  # velocity threshold of sleep
+  # the contact override (EnableBit.OVERRIDE, ``types.py:317-321``)
+  o_margin: torch.Tensor = array()  # ()
+  o_solref: torch.Tensor = array()  # (NREF,)
+  o_solimp: torch.Tensor = array()  # (NIMP,)
+  o_friction: torch.Tensor = array()  # (5,)
   integrator: int = scalar(int(IntegratorType.EULER))
   cone: int = scalar(int(ConeType.PYRAMIDAL))
   solver: int = scalar(int(SolverType.NEWTON))
@@ -418,6 +437,14 @@ class Model(_Replace):
   geom_pos: torch.Tensor = array()
   geom_quat: torch.Tensor = array()
   geom_margin: torch.Tensor = array()
+  # the geoms' contact parameters, which ``io.remix`` mixes into the
+  # per-candidate tables (``override_model`` mixes them again)
+  geom_priority: np.ndarray = static()
+  geom_solmix: torch.Tensor = array()
+  geom_solref: torch.Tensor = array()  # (ngeom, NREF)
+  geom_solimp: torch.Tensor = array()  # (ngeom, NIMP)
+  geom_friction: torch.Tensor = array()  # (ngeom, 3)
+  geom_gap: torch.Tensor = array()
 
   site_bodyid: np.ndarray = static()
   site_type: np.ndarray = static()

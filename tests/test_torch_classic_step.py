@@ -27,7 +27,7 @@ from mujoco_warp_tpu import io as jio
 from mujoco_warp_tpu.ops import forward as jfwd
 from mujoco_warp_tpu_torch import benchmarks, parity, types
 from mujoco_warp_tpu_torch import io as tio
-from mujoco_warp_tpu_torch.ops import collision_driver, forward
+from mujoco_warp_tpu_torch.ops import forward
 from tests.oracle import assert_close
 from tests.test_torch_io import assert_models_equal
 from tests.torch_threads import few_threads  # noqa: F401
@@ -77,20 +77,8 @@ def case(scene, nworld=W):
   return mjm, mj, m, fast_compile(lambda x: jfwd.step(mj, x), dj)
 
 
-def touching(m, seed, nworld):
-  """World-major (qpos, qvel, ctrl) of W worlds in contact: of 2048 poses
-  qpos0 + N (finger's tip meets its spinner in ~5% of them), the first W
-  with a live contact slot, then qvel 0.2 N and ctrl 0.3 N."""
-  rng = np.random.default_rng(seed)
-  qpos = (types.host(m.qpos0, np.float32)[None] +
-          rng.standard_normal((2048, m.nq))).astype(np.float32)
-  d = tio.make_data(m, 2048, device='cpu').replace(qpos=torch.as_tensor(qpos))
-  dist, _, _ = collision_driver._narrowphase_candidates(m, forward.pre(m, d))
-  live = (dist < m.cand_includemargin).any(1).numpy()
-  assert live.sum() >= nworld, live.sum()
-  qvel = (0.2 * rng.standard_normal((nworld, m.nv))).astype(np.float32)
-  ctrl = (0.3 * rng.standard_normal((nworld, m.nu))).astype(np.float32)
-  return qpos[live][:nworld], qvel, ctrl
+# the seeded state of the scenes where a pose must touch (finger)
+touching = parity.touching
 
 
 def start(scene, seed=3, nworld=W):

@@ -918,3 +918,54 @@ def test_classic_step_cuda_matches_cpu(cuda, scene):
                              atol=2e-4, rtol=1e-3)
   np.testing.assert_allclose(dc.qvel.cpu().numpy(), dh.qvel.numpy(),
                              atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.cuda
+def test_float64_raises_in_every_kernel_wrapper(cuda):
+  """A float64 CUDA tensor raises a TypeError in each wrapper (the kernels
+  take float32; the float64 path runs on the CPU): nothing converts it
+  or hands it to the plain version, and no kernel launches.  A float64
+  Model on the card raises in its first kernel."""
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  from mujoco_warp_tpu_torch.ops import forward
+  f64 = lambda x: x.double() if isinstance(x, torch.Tensor) and \
+      x.is_floating_point() else x
+  m, qpos, qvel, _, _ = parity.k1_case('humanoid', 'contact', 64, 1, cuda)
+  _, args = parity.k4_case('humanoid', 'contact', 64, 1, cuda)
+  args = [({k: f64(v) for k, v in a.items()} if isinstance(a, dict) else
+           f64(a)) for a in args]
+  mc = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT, device=cuda)
+  W, nv = 64, mc.nv
+  A = torch.eye(nv, device=cuda, dtype=torch.float64).repeat(W, 1, 1)
+  b = torch.ones((W, nv), device=cuda, dtype=torch.float64)
+  sm = io.load_model_npz(io.SPHERES_SNAPSHOT, device=cuda)
+  sh = io.load_model_npz(io.SPHERES_SNAPSHOT, device='cpu')
+  sargs, _ = parity.solve_args(sh, io.make_data(sh, W, device='cpu'))
+  sargs = [f64(x.to(cuda)) if isinstance(x, torch.Tensor) else x
+           for x in sargs[1:]]
+  calls = {
+      'k1': lambda: kk1.k1(m, f64(qpos), f64(qvel)),
+      'k4': lambda: kk4.k4(*args),
+      'mass_chain': lambda: kmass.mass_chain_lanes(
+          mc, torch.zeros((36 * mc.nbody, W), device=cuda,
+                          dtype=torch.float64),
+          torch.zeros((6 * nv, W), device=cuda, dtype=torch.float64),
+          torch.zeros((nv, W), device=cuda, dtype=torch.float64)),
+      'solve': lambda: ksolver.solve_tiles(sm, *sargs),
+      'chol_batched': lambda: klinalg.chol_batched(mc, A),
+      'chol_solve': lambda: klinalg.chol_solve_batched(mc, A, b),
+      'damped_solve': lambda: klinalg.damped_solve_batched(mc, A, b),
+  }
+  before = (kk1.launches, kk4.launches, kmass.launches, ksolver.launches,
+            dict(klinalg.launches))
+  for name, call in calls.items():
+    with pytest.raises(TypeError, match='float32'):
+      call()
+  m64 = io.load_model_npz(io.CONSTRAINTS_SNAPSHOT, device=cuda,
+                          dtype=torch.float64)
+  with pytest.raises(TypeError, match='float32'):
+    forward.step(m64, io.make_data(m64, W, device=cuda))
+  assert before == (kk1.launches, kk4.launches, kmass.launches,
+                    ksolver.launches, dict(klinalg.launches))

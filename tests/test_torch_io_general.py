@@ -55,22 +55,24 @@ def test_constraints_snapshot_matches_fresh_put_model(tmp_path):
 
 def test_gate_raises_outside_the_slice():
   """spheres.xml is outside the fused gate; the general step runs its
-  contacts in lossless slots and compacted into a smaller budget, and
-  with the CG solver, but not elliptic cones in the torch solver (CG's,
-  or a system beyond the solve kernel's size: clutter_arm's, for the
-  torch Newton)."""
+  contacts in lossless slots and compacted into a smaller budget, with
+  the CG solver, and, since the torch solver has elliptic cones, CG's
+  elliptic cones and a system beyond the solve kernel's size
+  (clutter_arm's, for the torch Newton); PGS still raises."""
   mjm = mujoco.MjModel.from_xml_path(os.path.join(_MODELS, 'spheres.xml'))
   m = tio.put_model(mjm, nconmax=4, device='cpu')
   assert m.con_compact and forward.unsupported(m) is None
   mjm.opt.solver = 1  # CG: ported, through the torch solver
   assert forward.unsupported(tio.put_model(mjm, device='cpu')) is None
-  mjm.opt.cone = 1  # elliptic cones in the torch solver: not yet
-  with pytest.raises(NotImplementedError, match='elliptic cones'):
+  mjm.opt.cone = 1  # elliptic cones in the torch CG
+  assert forward.unsupported(tio.put_model(mjm, device='cpu')) is None
+  mjm.opt.solver = 0
+  with pytest.raises(NotImplementedError, match='PGS'):
     tio.put_model(mjm, device='cpu')
   mjm = tio.load_clutter()
-  mjm.opt.cone = 1
-  with pytest.raises(NotImplementedError, match='elliptic cones'):
-    tio.put_model(mjm, device='cpu')
+  mjm.opt.cone = 1  # elliptic cones in the torch Newton
+  m = tio.put_model(mjm, device='cpu')
+  assert forward.large_system(m) and forward.unsupported(m) is None
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
