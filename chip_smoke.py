@@ -168,6 +168,25 @@ Phases, one line each or more, any failure exits non-zero:
     against the CPU's; io.reset_data with a mask; io.override_model with
     the contact override, its tables equal to the CPU's and one step
     against the CPU's; a float64 Model on the card must raise.
+15. domain randomization: humanoid_dmc_dr (benchmarks.randomize's
+    per-world friction, masses and inertias, damping, armature, actuator
+    gains and gravity, io.batch_model, then io.set_const at 8192 worlds:
+    the mass chain, chol_batched and one chol_solve per dof, exact counts;
+    its outputs on DR_NSC worlds within SC_RTOL of the world's scale of
+    the CPU's plain set_const, SC_MINV_RTOL for those through M^-1, whose
+    float32 rounding kappa(M) amplifies; M^-1 of chol_batched and
+    chol_solve within SC_RTOL of their plain versions on the same qM; both
+    timed on its own operands, *_sc); benchmarks.run at 8192 worlds, DR_NSTEP steps
+    and WARMUP, sorted with their parameters (exact counts, steps/s, ms
+    and host reads per step, kernels per step, overflow 0, every world
+    finite; the sorted Model's worlds are the Data's); the general
+    kernels held and timed on the last state with each world's tables
+    (*_dr: the mass chain, chol_solve, the solve kernel, damped_solve);
+    the mass chain and damped_solve with every world carrying the
+    unbatched values equal to the unbatched kernels to the bit; and
+    DR_KEEP_NSTEP steps sorted (every world moved) against unsorted,
+    the order undone, within parity's qpos bar (beside the error of the
+    same sort with the parameters left in their slots, for scale).
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -271,6 +290,21 @@ TASK_NSTEP = {'manipulator_insert_peg': (10, 5), 'stack_2': (10, 5),
               'stack_4': (1, 1), 'finger_cg': (1, 1)}
 TASK_SFX = {'manipulator_insert_peg': '_peg', 'stack_2': '_st2',
             'stack_4': '_st4', 'finger_cg': '_fcg'}
+# phase 15: domain randomization (humanoid_dmc_dr), steps after the
+# warmup; the steps a sorted and an unsorted run take side by side; the
+# worlds set_const's card run is held against the CPU's at; its bar
+DR_NSTEP = 30
+DR_KEEP_NSTEP = 8
+DR_NSC = 256
+SC_RTOL = 1e-5
+# set_const's outputs through M^-1 (the invweights, actuator_acc0), card
+# against CPU: the float32 rounding of qM alone moves the exact inverse by
+# up to 1.10e-5 of the world's scale on these draws (kappa(M) up to 5.0e3),
+# and the CPU's float32 set_const lies up to 1.46e-5 from float64; two
+# float32 runs part by up to the sum
+SC_MINV_RTOL = 4e-5
+SC_MINV = ('dof_invweight0', 'body_invweight0', 'tendon_invweight0',
+           'actuator_acc0')
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -337,10 +371,17 @@ def bound(nbytes, flops):
   return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
 
 
-def chol_solve_bytes(n):
-  """Bytes one world's x = (L L^T)^-1 b must move: L's lower triangle
-  (all of L the solve reads), b and x."""
-  return F32 * (n * (n + 1) // 2 + 2 * n)
+def chol_solve_bytes(n, w, shared_b=False):
+  """Bytes w worlds' x = (L L^T)^-1 b must move: each world's lower
+  triangle of L (all of L the solve reads) and x, and b per world or, at
+  world stride 0 (``shared_b``), once."""
+  return F32 * (w * (n * (n + 1) // 2 + n) + (1 if shared_b else w) * n)
+
+
+def chol_batched_bytes(n, w):
+  """Bytes w worlds' L L^T = A must move: each world's lower triangle of A
+  (all of A the factor reads) and the n^2 of L it writes."""
+  return F32 * w * (n * (n + 1) // 2 + n * n)
 
 
 def chol_flops(n):
@@ -464,9 +505,9 @@ def main():
       ('chol_solve_n36_cg', 'mass_chain_n36_cg', 'k1_implicitfast',
        'k4_implicitfast') + tuple(
           k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values(),
-                              *TASK_SFX.values())
+                              *TASK_SFX.values(), '_dr')
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
-                    'damped_solve'))}
+                    'damped_solve')) + ('chol_batched_sc', 'chol_solve_sc')}
 
   def counters():
     return {'k1': kk1.launches, 'k4': kk4.launches,
@@ -493,9 +534,10 @@ def main():
   def yardsticks(acs, ads=None, dmp=None):
     """The plain version and the one PyTorch call of the same function
     (``torch.cholesky_solve``, ``torch.linalg.solve``) for chol_solve_batched
-    arguments ``acs`` and damped_solve_batched arguments ``ads``, their
-    inputs made ahead so that each call times only its own work: a dict
-    of name -> call."""
+    arguments ``acs`` and damped_solve_batched arguments ``ads`` (``dmp``:
+    h damping, (n,) or lanes-last (n, 1 or W) per world), their inputs
+    made ahead so that each call times only its own work: a dict of name
+    -> call."""
     n = acs[2].shape[1]
     pcs = (lanes(acs[1], n * n), lanes(acs[2]))
     L_w, b_w = acs[1].contiguous(), acs[2].contiguous()[:, :, None]
@@ -504,7 +546,7 @@ def main():
     if ads is not None:
       pds = (lanes(ads[1], n * n), lanes(ads[2]), dmp)
       M_w = ads[1].contiguous()
-      A_w = M_w + torch.diag(dmp)
+      A_w = M_w + torch.diag_embed(dmp.reshape(n, -1).T)
       rhs_w = torch.einsum('wij,wj->wi', M_w, ads[2])
       out['damped_solve_plain'] = lambda: klinalg.damped_solve_plain(*pds)
       out['damped_solve_library'] = lambda: torch.linalg.solve(A_w, rhs_w)
@@ -638,7 +680,7 @@ def main():
                    solver_ref.solve_tiles(*args['solve']))
       rs = parity.check_solve(got, want, state, args['solve'][1:3])
       args['damped_solve'] = (model, d.qM, want[0].T)
-      dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+      dmp = klinalg.world_damping(model).to(dev)
       e_ds = check_layouts(klinalg.damped_solve_batched,
                            *args['damped_solve'],
                            klinalg.damped_solve_plain(qM, want[0], dmp),
@@ -728,7 +770,7 @@ def main():
       # the main path's layouts: qM world-major as the mass chain writes
       # it, qacc world-major
       ads = (mcl, qM_w, d.qacc)
-      dmp = torch.as_tensor(klinalg.damping_terms(mcl), device=dev)
+      dmp = klinalg.world_damping(mcl).to(dev)
       e_ds = check_layouts(
           klinalg.damped_solve_batched, *ads,
           klinalg.damped_solve_plain(lanes(qM_w, nvl * nvl), lanes(d.qacc),
@@ -820,6 +862,7 @@ def main():
     if res['converged_worlds'] != nworld:
       fail(f"{res['converged_worlds']} of {nworld} worlds finite")
     st = res.pop('state')
+    res.pop('model'), res.pop('world_ids')
     say(f"[main path] {nworld} worlds x {nstep} steps (+{warmup} warmup): "
         f"{res['steps_per_sec']:.1f} steps/s, first step "
         f"{res['jit_duration']:.3f} s, solver_niter_mean "
@@ -857,7 +900,7 @@ def main():
                          args['solve'], args['damped_solve'])
     model = am[0]
     nv, nb, nefc, W = model.nv, model.nbody, model.nefc, am[3].shape[-1]
-    dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+    dmp = klinalg.world_damping(model).to(dev)
     ys = yardsticks(acs, ads, dmp)
     live_rows = float((asv[2] > 0).sum()) / W
     for k, fn, plain, plain_reps, lib, bnd in (
@@ -867,7 +910,7 @@ def main():
              W * mass_chain_flops(model, True))),
         ('chol_solve', lambda: klinalg.chol_solve_batched(*acs),
          ys['chol_solve_plain'], 3, ys['chol_solve_library'],
-         bound(W * chol_solve_bytes(nv), W * 2 * nv * nv)),
+         bound(chol_solve_bytes(nv, W), W * 2 * nv * nv)),
         # no one PyTorch call computes a Newton solve; its work is that of
         # this state's live rows
         ('solve', lambda: ksolver.solve_tiles(*asv),
@@ -983,7 +1026,7 @@ def main():
     args = clutter_compare(label, d, model, sfx)
     am, acb, acs, ads = (args['mass_chain_big'], args['chol_batched'],
                          args['chol_solve_n75'], args['damped_solve_n75'])
-    dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+    dmp = klinalg.world_damping(model).to(dev)
     calls = {
         'mass_chain_big': ('mass_chain_kernel',
                            lambda: kmass.mass_chain_lanes(*am)),
@@ -1029,8 +1072,9 @@ def main():
         'mass_chain_big': bound(
             W * F32 * (36 * nbl + 7 * nvl + nvl * nvl + 6 * nbl + 7 * nvl),
             W * mass_chain_flops(model, False)),
-        'chol_batched': bound(W * F32 * 2 * nvl * nvl, W * chol_flops(nvl)),
-        'chol_solve_n75': bound(W * chol_solve_bytes(nvl),
+        'chol_batched': bound(chol_batched_bytes(nvl, W),
+                              W * chol_flops(nvl)),
+        'chol_solve_n75': bound(chol_solve_bytes(nvl, W),
                                 W * 2 * nvl * nvl),
         'damped_solve_n75': bound(
             W * F32 * (nvl * nvl + 2 * nvl) + F32 * nvl,
@@ -1070,7 +1114,7 @@ def main():
     plain_ms[k36] = time_ms(ys['chol_solve_plain'], 3)
     library_ms[k36] = time_ms(ys['chol_solve_library'], 20)
     transpose_ms[k36] = 0.0  # the kernel reads its operands in place
-    bounds[k36] = bound(nworld * chol_solve_bytes(nvs),
+    bounds[k36] = bound(chol_solve_bytes(nvs, nworld),
                         nworld * 2 * nvs * nvs)
     say(f"[timing] {k36} W={nworld} per launch: cuda {ms[k36]:.4f} ms "
         f"(call {call_ms[k36]:.4f}), plain {plain_ms[k36]:.3f} ms, library "
@@ -1499,7 +1543,7 @@ def main():
                                       rs['niter_mean'], ws[0])
       if 'damped_solve' in kerns:
         args['damped_solve'] = (model, d.qM, qacc.T)
-        dmp = torch.as_tensor(klinalg.damping_terms(model), device=dev)
+        dmp = klinalg.world_damping(model)  # per world where batched
         errs['damped_solve'] = check_layouts(
             klinalg.damped_solve_batched, *args['damped_solve'],
             klinalg.damped_solve_plain(lanes(d.qM, nv * nv), qacc, dmp),
@@ -1551,11 +1595,14 @@ def main():
     W = args['mass_chain'][3].shape[-1]
     factor = kmass.factor_in_kernel(model)
     am = args['mass_chain']
+    # the armature and gravity read: one row, or one per world
+    tables = sum(x.numel() for x in kmass.world_params(model, W))
     rows = {'mass_chain': (
         'mass_chain_kernel', lambda: kmass.mass_chain_lanes(*am),
         lambda: kmass.mass_chain_plain(*am), None, bound(
             W * F32 * (36 * nb + 7 * nv + (2 if factor else 1) * nv * nv +
-                       6 * nb + 7 * nv), W * mass_chain_flops(model, factor)))}
+                       6 * nb + 7 * nv) + F32 * tables,
+            W * mass_chain_flops(model, factor)))}
     if 'chol_batched' in args:
       acb = args['chol_batched']
       A_j = (acb[1] + acb[2] * torch.eye(nv, device=dev)).contiguous()
@@ -1563,15 +1610,14 @@ def main():
           'chol_batched_kernel', lambda: klinalg.chol_batched(*acb),
           lambda: klinalg.chol_batched_plain(acb[1], acb[2]),
           lambda: torch.linalg.cholesky(A_j),
-          bound(W * F32 * 2 * nv * nv, W * chol_flops(nv)))
-    ys = yardsticks(args['chol_solve'], args.get('damped_solve'),
-                    torch.as_tensor(klinalg.damping_terms(model),
-                                    device=dev))
+          bound(chol_batched_bytes(nv, W), W * chol_flops(nv)))
+    dmp = klinalg.world_damping(model)
+    ys = yardsticks(args['chol_solve'], args.get('damped_solve'), dmp)
     acs = args['chol_solve']
     rows['chol_solve'] = (
         'chol_solve_kernel', lambda: klinalg.chol_solve_batched(*acs),
         ys['chol_solve_plain'], ys['chol_solve_library'],
-        bound(W * chol_solve_bytes(nv), W * 2 * nv * nv))
+        bound(chol_solve_bytes(nv, W), W * 2 * nv * nv))
     live_rows = 0.0
     if 'solve' in args:
       asv = args['solve']
@@ -1590,7 +1636,7 @@ def main():
       rows['damped_solve'] = (
           'damped_solve_kernel', lambda: klinalg.damped_solve_batched(*ads),
           ys['damped_solve_plain'], ys['damped_solve_library'],
-          bound(W * F32 * (nv * nv + 2 * nv) + F32 * nv,
+          bound(W * F32 * (nv * nv + 2 * nv) + F32 * dmp.numel(),
                 W * (chol_flops(nv) + 4 * nv * nv + nv)))
     for k, (kern, fn, plain, lib, bnd) in rows.items():
       key = k + sfx
@@ -2011,6 +2057,215 @@ def main():
     say(f'[main path] float64 Model on the card raises: {e}')
   say(f'[main path] phase 14 took {time.perf_counter() - t14:.1f} s')
 
+  # ---- 15. domain randomization: humanoid_dmc_dr on the general step,
+  # each world with its own physical parameters (io.batch_model,
+  # io.set_const), kernels 4 and 7 reading per-world tables
+  say(f'[phase 15] at {time.perf_counter() - T0:.1f} s')
+  t15 = time.perf_counter()
+  name, sfx = 'humanoid_dmc_dr', '_dr'
+  # the draws and set_const at the scene's width: M^-1 by the mass chain,
+  # chol_batched and one chol_solve per dof on the card
+  zero_counters()
+  t0 = time.perf_counter()
+  mt, w_t = benchmarks.load_scene(name)
+  torch.cuda.synchronize()
+  t_setup = time.perf_counter() - t0
+  got = counters()
+  want = {k: 0 for k in got}
+  want.update(mass_chain=1, chol_batched=1, chol_solve=mt.nv)
+  if got != want:
+    fail(f'{name}: set_const launch counts {got} != {want}')
+  kernel_launches['chol_batched_sc'] = got['chol_batched']
+  kernel_launches['chol_solve_sc'] = got['chol_solve']
+  # set_const's outputs against its plain version on the CPU, on the
+  # first DR_NSC worlds' drawn inputs (worlds are independent)
+  mh0 = io.load_model_npz(benchmarks.SCENES[name][0], device='cpu')
+  drawn = {k: types.get_model_field(mt, k)[:DR_NSC].cpu()
+           for k in mt.batch_fields if k not in io.SET_CONST_FIELDS
+           and not k.startswith('cand_')}
+  mh = io.set_const(io.batch_model(mh0, DR_NSC, drawn))
+
+  def world_rel(a, b):
+    """Each world's largest |a - b| over its largest |b|, the worst."""
+    scale = b.abs().reshape(b.shape[0], -1).amax(1).clamp(min=1e-30)
+    return float(((a - b).abs().reshape(a.shape[0], -1).amax(1) /
+                  scale).max())
+
+  worst_sc = {}
+  for k in io.SET_CONST_FIELDS:
+    b = types.world_field(mh, k)
+    if not b.numel():
+      continue
+    worst_sc[k] = world_rel(types.world_field(mt, k)[:DR_NSC].cpu(), b)
+    bar = SC_MINV_RTOL if k in SC_MINV else SC_RTOL
+    if worst_sc[k] > bar:
+      fail(f'{name}: set_const {k} on the card against the CPU: '
+           f'{worst_sc[k]} relative > {bar}')
+  # planted faults: set_const on the card with world 0's armature, or its
+  # masses and inertias, in every world (a per-world table read at world
+  # stride 0) must read above the bar through M^-1, or the check is blind
+  planted = {}
+  mc = io.load_model_npz(benchmarks.SCENES[name][0], device=dev)
+  for fault, keys in (('armature', ('dof_armature',)),
+                      ('masses', ('body_mass', 'body_inertia'))):
+    bad = {k: (v[:1].expand(v.shape) if k in keys else v).numpy()
+           for k, v in drawn.items()}
+    mf = io.set_const(io.batch_model(mc, DR_NSC, bad))
+    planted[fault] = max(
+        world_rel(types.world_field(mf, k).expand(
+            types.world_field(mh, k).shape).cpu(), types.world_field(mh, k))
+        for k in SC_MINV if types.world_field(mh, k).numel())
+    if planted[fault] <= SC_MINV_RTOL:
+      fail(f'{name}: set_const with world 0\'s {fault} in every world reads '
+           f'{planted[fault]} through M^-1, within the bar {SC_MINV_RTOL}')
+  say(f'[main path] {name}: set_const with world 0\'s armature or masses in '
+      f'every world, the worst world of its M^-1 outputs against the CPU '
+      f'(bar {SC_MINV_RTOL}): '
+      + json.dumps({k: float(f'{v:.3e}') for k, v in planted.items()}))
+  # M^-1 of set_const's two Cholesky kernels against their plain versions
+  # on the same qM; then both timed at the scene's width
+  qM_sc = kmass.mass_chain(mt, forward.pre(
+      mt, io.make_data(mt, w_t))).qM.contiguous()
+  L_sc = klinalg.chol_batched(mt, qM_sc)
+  eye = torch.eye(mt.nv, device=dev)
+  Minv = torch.stack([klinalg.chol_solve_batched(
+      mt, L_sc, eye[j].expand(w_t, mt.nv)) for j in range(mt.nv)], -1)
+  Lh = klinalg.chol_batched_plain(qM_sc[:DR_NSC].cpu())
+  Minv_h = torch.stack([klinalg.chol_solve_plain(
+      lanes(Lh, mt.nv * mt.nv), lanes(eye[j].cpu().expand(
+          DR_NSC, mt.nv))).T for j in range(mt.nv)], -1)
+  worst_sc['M^-1 (kernels 5-6)'] = world_rel(Minv[:DR_NSC].cpu(), Minv_h)
+  if worst_sc['M^-1 (kernels 5-6)'] > SC_RTOL:
+    fail(f"{name}: set_const's M^-1 by the kernels against the plain "
+         f"versions: {worst_sc['M^-1 (kernels 5-6)']} relative > {SC_RTOL}")
+  e0 = torch.zeros((w_t, mt.nv), device=dev)
+  e0[:, 0] = 1.0
+  e_sc = torch.eye(mt.nv, device=dev)[0].expand(w_t, mt.nv)
+  err['chol_batched_sc'] = parity.check_world_scale(
+      lanes(L_sc[:DR_NSC], mt.nv * mt.nv).cpu(), lanes(Lh, mt.nv * mt.nv),
+      'set_const L', *SB)
+  err['chol_solve_sc'] = parity.check_world_scale(
+      klinalg.chol_solve_batched(mt, L_sc, e_sc).T.cpu(),
+      klinalg.chol_solve_plain(lanes(L_sc, mt.nv * mt.nv).cpu(),
+                               lanes(e0).cpu()), 'set_const M^-1 e_0', *SB)
+  nv = mt.nv
+  for key, kern, fn, plain, lib, bnd in (
+      ('chol_batched_sc', 'chol_batched_kernel',
+       lambda: klinalg.chol_batched(mt, qM_sc),
+       lambda: klinalg.chol_batched_plain(qM_sc),
+       lambda: torch.linalg.cholesky(qM_sc),
+       bound(chol_batched_bytes(nv, w_t), w_t * chol_flops(nv))),
+      ('chol_solve_sc', 'chol_solve_kernel',
+       lambda: klinalg.chol_solve_batched(mt, L_sc, e_sc),
+       lambda: klinalg.chol_solve_plain(lanes(L_sc, nv * nv), lanes(e0)),
+       lambda: torch.cholesky_solve(e0[:, :, None], L_sc),
+       bound(chol_solve_bytes(nv, w_t, shared_b=True), w_t * 2 * nv * nv))):
+    time_kernel(key, fn, kern)
+    call_ms[key] = time_ms(fn, 20)
+    plain_ms[key] = time_ms(plain, 3)
+    library_ms[key] = time_ms(lib, 20)
+    bounds[key] = bnd
+    say(f"[timing] {key} W={w_t} per launch: cuda {ms[key]:.4f} ms (call "
+        f"{call_ms[key]:.4f}), plain {plain_ms[key]:.3f} ms, library "
+        f"{library_ms[key]:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+  shapes['chol_batched_sc'] = klinalg.chol_batched_info(nv)
+  say(f'[main path] {name} setup W={w_t}: the draws, batch_model and '
+      f'set_const {t_setup:.2f} s, launches {got}; set_const against the '
+      f'CPU\'s plain versions on {DR_NSC} worlds, the worst of each '
+      f'field\'s world scale (bar {SC_RTOL}, through M^-1 {SC_MINV_RTOL}): '
+      + json.dumps({k: float(f'{v:.3e}') for k, v in worst_sc.items()}))
+
+  # the rollout: OU ctrl noise, worlds sorted every 4 steps with their
+  # parameters
+  expect = classic_expect(mt)
+  zero_counters()
+  res = benchmarks.run(mt, nworld=w_t, nstep=DR_NSTEP, warmup_steps=WARMUP)
+  launches = counters()
+  steps = DR_NSTEP + WARMUP
+  want = {k: 0 for k in launches}
+  want.update(expect(steps, osolver.trips))
+  if launches != want:
+    fail(f'{name}: launch counts {launches} != {want}')
+  if res['overflow_worlds'] != 0:
+    fail(f"{name}: overflow in {res['overflow_worlds']} worlds")
+  st = res.pop('state')
+  if res['converged_worlds'] != w_t or not bool(
+      torch.isfinite(st.qvel).all()) or not bool(
+          torch.isfinite(st.sensordata).all()):
+    fail(f"{name}: {res['converged_worlds']} of {w_t} worlds finite")
+  reads = sum(outil.host_reads.values()) / steps
+  say(f"[main path] {name} W={w_t} x {DR_NSTEP} steps (+{WARMUP} warmup) "
+      f"on {card}: {res['steps_per_sec']:.1f} steps/s, "
+      f"{1e3 * w_t / res['steps_per_sec']:.3f} ms per step, host reads per "
+      f"step {reads:.3f}, kernels per step "
+      f"{sum(launches.values()) / steps:.3f} ({launches}), "
+      f"solver_niter_mean {res['solver_niter_mean']:.4f}, overflow_worlds "
+      f"0, {w_t}/{w_t} finite")
+  for k in expect(1, 1):
+    kernel_launches[k + sfx] = launches[k]
+  mperm = res['model']
+  if not torch.equal(types.world_field(mperm, 'dof_damping'),
+                     types.world_field(mt, 'dof_damping')[
+                         res['world_ids']]):
+    fail(f'{name}: the sorted Model\'s worlds are not the Data\'s')
+  # kernels 4 and 7 (and chol_solve, the solve) against their plain
+  # versions on the last state, each world with its own tables, and timed
+  args, niter = step_compare(f'{name} rollout W={w_t}', types.carried(st),
+                             mperm, tuple(expect(1, 1)), sfx)
+  tendon_timing(args, niter, sfx)
+  # stride 0 against stride W: a batch whose every world carries the
+  # unbatched values gives the unbatched kernels' output to the bit
+  m0 = io.load_model_npz(benchmarks.SCENES[name][0])
+  same = io.batch_model(m0, w_t, {
+      k: types.host(types.get_model_field(m0, k), np.float32)[None]
+      for k in ('dof_armature', 'opt.gravity', 'dof_damping')})
+  am = args['mass_chain'][1:]
+  for a, b in zip(kmass.mass_chain_lanes(same, *am),
+                  kmass.mass_chain_lanes(m0, *am)):
+    if (a is None) != (b is None) or (a is not None and
+                                      not torch.equal(a, b)):
+      fail(f'{name}: mass chain at stride {nv} differs from stride 0')
+  ads = args['damped_solve'][1:]
+  if not torch.equal(klinalg.damped_solve_batched(same, *ads),
+                     klinalg.damped_solve_batched(m0, *ads)):
+    fail(f'{name}: damped_solve at stride {nv} differs from stride 0')
+  # worlds keep their parameters: the rollout's sort against no sort,
+  # DR_KEEP_NSTEP steps from the last state at its ctrl, the order undone
+  d0 = types.carried(st)
+  runs = {}
+  for sort in (True, False):
+    mw, d, ids = mperm, d0, torch.arange(w_t, device=dev)
+    for i in range(DR_KEEP_NSTEP):
+      if sort and i % 4 == 0:
+        perm = torch.argsort(d.solver_niter, stable=True)
+        if i == 0:  # a permutation every world feels
+          perm = torch.flip(perm, (0,))
+        d = types.map_worlds(d, lambda x: x[perm], w_t)
+        mw = types.map_model_worlds(mw, lambda x: x[perm])
+        ids = ids[perm]
+      d = forward.step(mw, d)
+    runs[sort] = d.qpos[torch.argsort(ids)]
+  try:
+    e_keep = parity.check_world_scale(runs[True].cpu().T, runs[False].cpu().T,
+                                      'qpos (sorted against unsorted)',
+                                      parity.QPOS_ATOL, parity.QPOS_RTOL)
+  except AssertionError as e:
+    fail(f'{name}: {e}')
+  # the same sort with the parameters left in their slots, for scale
+  d, mw = d0, mperm
+  perm = torch.flip(torch.argsort(d.solver_niter, stable=True), (0,))
+  d = types.map_worlds(d, lambda x: x[perm], w_t)
+  for _ in range(DR_KEEP_NSTEP):
+    d = forward.step(mw, d)
+  e_swap = float((d.qpos[torch.argsort(perm)] - runs[False]).abs().max())
+  say(f'[compare] {name}: {DR_KEEP_NSTEP} steps sorted (the worlds reversed, '
+      f'then by Newton count) against unsorted, order undone: qpos max abs '
+      f'err {e_keep:.3e} (bar atol {parity.QPOS_ATOL} + rtol '
+      f'{parity.QPOS_RTOL}); with the parameters left in their slots '
+      f'{e_swap:.3e}; mass chain and damped_solve at stride {nv} equal to '
+      f'stride 0 to the bit')
+  say(f'[main path] phase 15 took {time.perf_counter() - t15:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -2045,7 +2300,8 @@ def main():
     replaces[k + '_cg'] = replaces[k]
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
-  for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values()):
+  for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values(),
+              '_dr', '_sc'):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

@@ -33,7 +33,8 @@ def main():
   nstep = int(os.environ.get('BENCH_NSTEP', 1000))
   metrics = benchmarks.run(m, nworld=nworld, nstep=nstep, device='cuda',
                            init_state=benchmarks.start_state(scene))
-  metrics.pop('state')
+  for k in ('state', 'model', 'world_ids'):
+    metrics.pop(k)
   base = BASELINE_STEPS_PER_SEC.get(scene)
   if metrics['overflow_worlds'] > 0:
     print(json.dumps({'error': 'contact overflow in '

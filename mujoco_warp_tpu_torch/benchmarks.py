@@ -41,10 +41,15 @@ IMPLICIT, which the fused gate refuses); and the elliptic-cone tasks
 (8192 worlds each, general step): ``manipulator_insert_peg`` and
 ``stack_2`` (the elliptic solve kernel at nefc 920 and 725), ``stack_4``
 (nefc 1025 x nv 20: the torch elliptic Newton) and ``finger_cg`` (the
-finger snapshot under CG, elliptic).
+finger snapshot under CG, elliptic); and ``humanoid_dmc_dr`` (8192
+worlds, general step): dm_control's humanoid with per-world physical
+parameters (``io.batch_model``, ``io.set_const``; the draws of
+``randomize``), which the fused gate refuses.
 ``SCENES`` names each with its snapshot and registered width,
-``OVERRIDES`` the options set on a snapshot, and ``load_scene`` loads
-one.
+``OVERRIDES`` the options set on a snapshot, ``RANDOMIZED`` the scenes
+whose worlds draw their own parameters, and ``load_scene`` loads one.
+On the general path a sort permutes a batched Model's worlds with the
+Data's, so that each world keeps its parameters.
 """
 
 from __future__ import annotations
@@ -89,6 +94,9 @@ SCENES = {
     # the torch elliptic Newton, and finger under CG
     **{name: (io.TASK_SNAPSHOTS[name], 8192) for name in io.TASK_DMC},
     'finger_cg': (io.CLASSIC_SNAPSHOTS['finger'], 8192),
+    # domain randomization (general step): the humanoid, each world with
+    # its own physical parameters (``randomize``)
+    'humanoid_dmc_dr': (io.DMC_SNAPSHOTS['humanoid_dmc'], 8192),
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {
@@ -111,6 +119,39 @@ OVERRIDES = {
 START = {'clutter_arm': io.CLUTTER_ARM_SETTLED, **io.TASK_STARTS}
 
 
+def randomize(m: types.Model, nworld: int, seed: int = 0) -> types.Model:
+  """``m`` with per-world physical parameters drawn with numpy from
+  ``seed``, the kind RL users of MJX and MJWarp randomize locomotion
+  models by: the sliding friction of every geom x U(0.6, 1.4); each
+  body's mass and inertia x one factor U(0.8, 1.2), then ``io.set_const``
+  (subtree masses, invweights, actuator_acc0 per world); each dof's
+  damping x U(0.8, 1.2) and armature x U(1.0, 1.1); each actuator's gain
+  x U(0.9, 1.1); gravity (0, 0, -9.81 x U(0.95, 1.05))."""
+  rng = np.random.default_rng(seed)
+  h = lambda x: types.host(x, np.float32)
+  u = lambda lo, hi, *shape: rng.uniform(lo, hi, (nworld,) + shape)
+  fric = np.repeat(h(m.geom_friction)[None], nworld, 0)
+  fric[..., 0] *= u(0.6, 1.4, m.ngeom)
+  body = u(0.8, 1.2, m.nbody)
+  gain = np.repeat(h(m.actuator_gainprm)[None], nworld, 0)
+  gain[..., 0] *= u(0.9, 1.1, m.nu)
+  grav = np.zeros((nworld, 3))
+  grav[:, 2] = -9.81 * u(0.95, 1.05)
+  mb = io.batch_model(m, nworld, {
+      'geom_friction': fric,
+      'body_mass': h(m.body_mass) * body,
+      'body_inertia': h(m.body_inertia) * body[..., None],
+      'dof_damping': h(m.dof_damping) * u(0.8, 1.2, m.nv),
+      'dof_armature': h(m.dof_armature) * u(1.0, 1.1, m.nv),
+      'actuator_gainprm': gain,
+      'opt.gravity': grav})
+  return io.set_const(mb)
+
+
+# scene: the draws of its worlds' parameters
+RANDOMIZED = {'humanoid_dmc_dr': randomize}
+
+
 def start_state(name: str):
   """The state a scene's runs start from (``START``: arrays of n worlds,
   which ``build`` tiles to the width), or None: worlds at qpos0 plus
@@ -118,13 +159,18 @@ def start_state(name: str):
   return io.load_state(START[name]) if name in START else None
 
 
-def load_scene(name: str, device=None):
-  """(model, registered width) of a scene of ``SCENES``."""
-  path, nworld = SCENES[name]
+def load_scene(name: str, device=None, nworld: Optional[int] = None):
+  """(model, width) of a scene of ``SCENES``: its registered width, or
+  ``nworld``; a scene of ``RANDOMIZED`` draws its worlds' parameters at
+  that width (seed 0)."""
+  path, width = SCENES[name]
+  width = width if nworld is None else nworld
   m = io.load_model_npz(path, device=device)
   if name in OVERRIDES:
     m = m.replace(opt=m.opt.replace(**OVERRIDES[name]))
-  return m, nworld
+  if name in RANDOMIZED:
+    m = RANDOMIZED[name](m, width)
+  return m, width
 
 
 def build(m: types.Model, nworld: int, seed: int = 0, device=None,
@@ -208,8 +254,9 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
   on the fused path, world-major ``types.Data`` on the general path.
   Every ``sort_every`` steps worlds are sorted by their last Newton count
   where ``sorts`` says so (the OU noise rides the same permutation, and
-  on the general path every per-world field of Data), then the OU noise
-  sets ctrl and the step runs.
+  on the general path every per-world field of Data and of a batched
+  Model, ``types.map_model_worlds``), then the OU noise sets ctrl and
+  the step runs.
 
   ``replay``: {'ctrl': (T, nu) array, 'qpos': (nq,), 'qvel': (nv,)} —
   worlds start from the recorded state exactly and the OU noise runs
@@ -218,6 +265,15 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
   does not).  ``init_state``: worlds start from this state, tiled
   (``build``); with ``replay``, which sets the start, it raises.
   """
+  return _rollout(m, nworld, seed, device, sort_every, replay, general,
+                  init_state)[0]
+
+
+def _rollout(m, nworld, seed, device, sort_every, replay, general,
+             init_state):
+  """``rollout``'s generator, and a dict that holds, after each step, the
+  Model that step took ('model') and the world each slot holds
+  ('world_ids', (W,) int64), as the sorts left them."""
   device = io.resolve_device(device)
   use_fused = fused.supported(m) and not general
   if not use_fused:
@@ -240,6 +296,7 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
   ou = ou_noise(m, replay is not None, device, lanes=use_fused)
   gen = torch.Generator(device=device)
   gen.manual_seed(seed)
+  now = {'model': m, 'world_ids': torch.arange(nworld, device=device)}
 
   def fused_steps(st, noise):
     i = 0
@@ -248,6 +305,7 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
         perm = fused.sort_perm(st)
         st = st.map(lambda x: x[:, perm])
         noise = noise[:, perm]
+        now['world_ids'] = now['world_ids'][perm]
       if m.nu:
         noise, ctrl = ou(noise, gen,
                          None if traj is None else traj[i % traj.shape[0]])
@@ -262,19 +320,22 @@ def rollout(m: types.Model, nworld: int, seed: int = 0, device=None,
       if sort_every > 0 and i % sort_every == 0:
         perm = torch.argsort(d.solver_niter, stable=True)
         d = types.map_worlds(d, lambda x: x[perm], nworld)
+        now.update(model=types.map_model_worlds(now['model'],
+                                                lambda x: x[perm]),
+                   world_ids=now['world_ids'][perm])
         noise = noise[perm]
       if m.nu:
         noise, ctrl = ou(noise, gen,
                          None if traj is None else traj[i % traj.shape[0]])
         d = d.replace(ctrl=ctrl)
-      d = forward.step(m, d)
+      d = forward.step(now['model'], d)
       i += 1
       yield d
 
   if use_fused:
     st = fused.to_lane(m, d)
-    return fused_steps(st, torch.zeros_like(st.ctrl))
-  return general_steps(d, torch.zeros_like(d.ctrl))
+    return fused_steps(st, torch.zeros_like(st.ctrl)), now
+  return general_steps(d, torch.zeros_like(d.ctrl)), now
 
 
 def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
@@ -284,10 +345,12 @@ def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
   """Steps/s of the rollout (``rollout``) on ``device``, from
   ``init_state`` where given.  Returns the metrics dict with the keys of
   ``mujoco_warp_tpu.benchmarks.run``, plus the last state under
-  'state'."""
+  'state', the Model it stepped under 'model' (a batched Model's worlds
+  sorted with the state's) and the world each slot of the state holds
+  under 'world_ids'."""
   device = io.resolve_device(device)
-  steps_of = rollout(m, nworld, seed, device, sort_every, replay, general,
-                     init_state)
+  steps_of, now = _rollout(m, nworld, seed, device, sort_every, replay,
+                           general, init_state)
   t0 = time.perf_counter()
   st = next(steps_of)
   _sync(device)
@@ -326,4 +389,5 @@ def run(m: types.Model, nworld: int = 8192, nstep: int = 100, seed: int = 0,
       'nstep': nstep,
       'solver_niter_mean': float(st.solver_niter.float().mean()),
       'state': st,
+      **now,
   }

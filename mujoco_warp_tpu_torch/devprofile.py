@@ -7,7 +7,7 @@
                tendon_wrap|tendon_mix|pendulum|reacher|finger|cartpole|
                acrobot|humanoid_CMU|constraints_implicitfast|
                cheetah_implicit|manipulator_insert_peg|stack_2|stack_4|
-               finger_cg] [--general]
+               finger_cg|humanoid_dmc_dr] [--general]
   python -m mujoco_warp_tpu_torch.devprofile --skip [--worlds 256]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
@@ -27,14 +27,15 @@ step with sleep and islands; ``spheres_cg``, 8192 x 20, the CG solver;
 tasks and the two integrator scenes, 8192 x 100 (humanoid_CMU x 20), the
 general step; the elliptic-cone tasks from their committed seeded
 contact states (``benchmarks.START``), 8192 x 20 (stack_4 x 10, finger_cg x 2),
-the general step), traces a few more with
+the general step; ``humanoid_dmc_dr``, 8192 x 100, each world with its
+own parameters, the general step), traces a few more with
 ``torch.profiler`` (CPU and CUDA activities; 40 steps, 4 for the clutter
 scenes and humanoid_CMU, whose step launches tens of thousands of
 kernels, 3 for spheres_cg and stack_4, 1 for finger_cg, 5 for
 manipulator_insert_peg and stack_2, 10 for the spheres scenes, the
 tendon scenes,
-the classic tasks, the integrator scenes and the general step of a
-dm_control scene) and prints one JSON line:
+the classic tasks, the integrator scenes, humanoid_dmc_dr and the
+general step of a dm_control scene) and prints one JSON line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
   that closes after a device synchronize);
@@ -91,7 +92,8 @@ WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            'humanoid_CMU': (20, 4), 'constraints_implicitfast': (100, 10),
            'cheetah_implicit': (100, 10),
            'manipulator_insert_peg': (20, 5), 'stack_2': (20, 5),
-           'stack_4': (10, 3), 'finger_cg': (2, 1)}
+           'stack_4': (10, 3), 'finger_cg': (2, 1),
+           'humanoid_dmc_dr': (100, 10)}
 # the general step's window, for --general
 GENERAL_WINDOW = (200, 10)
 # steps traced of each path with --skip

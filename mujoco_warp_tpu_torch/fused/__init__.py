@@ -63,6 +63,10 @@ def reason(m: types.Model):
   if types.dtype_of(m) != torch.float32:
     return 'float64 (K1 and K4 take float32; the float64 path is the ' \
         'general step on the CPU)'
+  if m.batch_fields:
+    # JAX vmaps the jnp step over a batched Model and never reaches
+    # step_lane; K1, the glue and K4 read one set of tables
+    return 'per-world model fields (' + ', '.join(m.batch_fields) + ')'
   if o.enableflags & types.EnableBit.SLEEP:
     return 'sleep'
   if m.nflex:
@@ -213,9 +217,14 @@ def sort_worlds(st: FusedState) -> FusedState:
 
 
 def step_lane(m: types.Model, st: FusedState) -> FusedState:
-  """One physics step on lane-form state."""
+  """One physics step on lane-form state.  A Model with per-world fields
+  raises (``reason``): the glue and K4 read one set of tables."""
   from mujoco_warp_tpu_torch.kernels import k1 as kk1
   from mujoco_warp_tpu_torch.kernels import k4 as kk4
+
+  if m.batch_fields:
+    raise NotImplementedError(f'fused step: {reason(m)}; batched Models '
+                              'take the general step')
 
   need_qLD = not k4_ref.has_rows(m)
   qM, qLD, bias, cdof, c_dist, c_pos, c_frame, stcom = kk1.k1(

@@ -370,7 +370,8 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
   (nv, nv, W) products masked by the ancestor relation (1: cdof[j] f[i],
   2: cdof[i] f[j], 0: zero), and no factor.  Returns (qM (nv, nv, W), L
   or None, cvel list (6, W) per body, cdof_dot list (6, W) per dof, bias
-  (nv, W)).
+  (nv, W)).  ``armature`` (nv,) and ``gravity`` (3,) are one model's, or
+  lanes-last (nv, W) and (3, W), each world's own.
   """
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
@@ -416,8 +417,8 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
       rows.append(L.cat(cols))
     qM = torch.stack(rows)
   eye = torch.eye(nv, **kw)
-  arm = torch.as_tensor(host(armature), **kw)
-  qM = qM + eye[:, :, None] * arm[:, None, None]
+  arm = torch.as_tensor(armature).to(**kw).reshape(nv, -1)
+  qM = qM + eye[:, :, None] * arm[:, None, :]
   Lf = chol_tile(qM, nv) if need_L else None
 
   cdof_qvel = [cdof[i] * qv[i] for i in range(nv)]
@@ -445,7 +446,7 @@ def mass_chain(m: types.Model, cinert, cdof, qvel, armature, gravity,
   if m.opt.disableflags & types.DisableBit.GRAVITY:
     cacc0 = torch.zeros((6, W), **kw)
   else:
-    g = torch.as_tensor(host(gravity), **kw)[:, None] * \
+    g = torch.as_tensor(gravity).to(**kw).reshape(3, -1) * \
         torch.ones((3, W), **kw)
     cacc0 = L.cat([torch.zeros((3, W), **kw), -g])
   cacc = [None] * nb

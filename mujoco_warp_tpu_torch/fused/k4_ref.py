@@ -121,14 +121,19 @@ def scalars(m: types.Model, device='cpu'):
 
 
 def damped(m: types.Model) -> bool:
-  """Does K4 solve (M + h diag(damping)) for the integrator?"""
-  damping = host(m.dof_damping, np.float32)
+  """Does K4 (and the general step's Euler) solve (M + h diag(damping))
+  for the integrator?  For a batched ``dof_damping`` yes, unless a flag
+  says no: JAX takes that branch where the damping is a tracer
+  (``forward.py:544-545``), which is right for every value, and a host
+  read of the per-world damping every step would wait for the card."""
   dsbl = m.opt.disableflags
+  any_damping = 'dof_damping' in m.batch_fields or bool(
+      np.any(host(m.dof_damping, np.float32) > 0))
   if m.opt.integrator == types.IntegratorType.IMPLICITFAST:
     # within the fused gate (M - h qDeriv) is exactly M + h diag(damping)
-    return not (dsbl & types.DisableBit.DAMPER) and bool(np.any(damping > 0))
+    return not (dsbl & types.DisableBit.DAMPER) and any_damping
   return (not (dsbl & (types.DisableBit.EULERDAMP | types.DisableBit.DAMPER))
-          and bool(np.any(damping > 0)))
+          and any_damping)
 
 
 def rows(m: types.Model, qpos, qvel, cdof, con):

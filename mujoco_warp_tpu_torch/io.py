@@ -152,6 +152,8 @@ def model_to_numpy(m: types.Model) -> dict:
       val = getattr(obj, name)
       if kind == 'node':
         put(val, _NESTED[name], name + '.')
+      elif kind == 'batch':
+        continue
       elif kind == 'array':
         out[prefix + name] = types.host(val, types.np_float(val.dtype))
       else:
@@ -187,6 +189,8 @@ def model_from_numpy(d: dict, device=None, dtype=torch.float32
     for name, kind in types.field_kinds(cls).items():
       if kind == 'node':
         kw[name] = build(_NESTED[name], name + '.')
+        continue
+      if kind == 'batch':
         continue
       val = d[prefix + name]
       if kind == 'array':
@@ -253,6 +257,9 @@ def _decode(enc) -> dict:
 
 
 def save_model_npz(path: str, m: types.Model):
+  if m.batch_fields:
+    raise ValueError('a batched Model has no snapshot: save the unbatched '
+                     'one and batch it after loading')
   np.savez_compressed(path, **_encode(model_to_numpy(m)))
 
 
@@ -505,47 +512,152 @@ def remix(m: types.Model) -> types.Model:
   ``EnableBit.OVERRIDE`` branch :317-326), in the Model's dtype, on its
   device: the geoms' priority, solmix, solref, solimp, margin, gap and
   friction, or under the override ``opt.o_margin`` and the other ``o_*``
-  fields.  ``cand_includemargin`` is margin - gap."""
+  fields.  ``cand_includemargin`` is margin - gap.  Where a geom contact
+  field is batched (``batch_model``), every world mixes its own values
+  and the tables are batched too."""
   fdt = types.np_float(types.dtype_of(m))
-  h = lambda x: types.host(x, fdt)
+  batched = any(n in m.batch_fields for n in GEOM_CONTACT)
+
+  def h(name, dtype=fdt):
+    x = types.world_field(m, name)
+    return np.asarray(types.host(x, dtype) if isinstance(x, torch.Tensor)
+                      else x, dtype)
+
+  # every operand (1 or W, ngeom, ...): the mix is elementwise per world
   g1, g2 = m.pair_geom1[m.con_pair], m.pair_geom2[m.con_pair]
-  prio = np.asarray(m.geom_priority, np.int32)
-  p1, p2 = prio[g1], prio[g2]
-  use1 = (p1 > p2).astype(fdt)[:, None]
-  use2 = (p2 > p1).astype(fdt)[:, None]
+  prio = h('geom_priority', np.int32)
+  p1, p2 = prio[:, g1], prio[:, g2]
+  use1 = (p1 > p2).astype(fdt)[..., None]
+  use2 = (p2 > p1).astype(fdt)[..., None]
   eq = 1.0 - use1 - use2
-  solmix = h(m.geom_solmix)
-  s1, s2 = solmix[g1], solmix[g2]
+  solmix = h('geom_solmix')
+  s1, s2 = solmix[:, g1], solmix[:, g2]
   mix = s1 / np.maximum(s1 + s2, 1e-12)
   mix = np.where((s1 < 1e-12) & (s2 < 1e-12), 0.5, mix)
   mix = np.where((s1 < 1e-12) & (s2 >= 1e-12), 0.0, mix)
   mix = np.where((s1 >= 1e-12) & (s2 < 1e-12), 1.0, mix)
-  mix = (eq[:, 0] * mix + use1[:, 0] * 1.0 + use2[:, 0] * 0.0)[:, None]
-  sr, si = h(m.geom_solref), h(m.geom_solimp)
-  sr1, sr2 = sr[g1], sr[g2]
-  standard = (sr1[:, [0]] > 0) & (sr2[:, [0]] > 0)
+  mix = (eq[..., 0] * mix + use1[..., 0] * 1.0 + use2[..., 0] * 0.0)[
+      ..., None]
+  sr, si = h('geom_solref'), h('geom_solimp')
+  sr1, sr2 = sr[:, g1], sr[:, g2]
+  standard = (sr1[..., [0]] > 0) & (sr2[..., [0]] > 0)
   solref = np.where(standard, mix * sr1 + (1 - mix) * sr2,
                     np.minimum(sr1, sr2))
-  solimp = mix * si[g1] + (1 - mix) * si[g2]
-  gm, gg = h(m.geom_margin), h(m.geom_gap)
-  margin = np.maximum(gm[g1], gm[g2])
-  gap = np.maximum(gg[g1], gg[g2])
-  fr = h(m.geom_friction)
-  f1, f2 = fr[g1], fr[g2]
+  solimp = mix * si[:, g1] + (1 - mix) * si[:, g2]
+  gm, gg = h('geom_margin'), h('geom_gap')
+  margin = np.maximum(gm[:, g1], gm[:, g2])
+  gap = np.maximum(gg[:, g1], gg[:, g2])
+  fr = h('geom_friction')
+  f1, f2 = fr[:, g1], fr[:, g2]
   fr3 = eq * np.maximum(f1, f2) + use1 * f1 + use2 * f2
   friction = np.stack(
-      [fr3[:, 0], fr3[:, 0], fr3[:, 1], fr3[:, 2], fr3[:, 2]], axis=-1)
+      [fr3[..., 0], fr3[..., 0], fr3[..., 1], fr3[..., 2], fr3[..., 2]],
+      axis=-1)
   o = m.opt
   if int(o.enableflags) & types.EnableBit.OVERRIDE:
-    margin = np.full_like(margin, h(o.o_margin))
-    solref = np.broadcast_to(h(o.o_solref), solref.shape)
-    solimp = np.broadcast_to(h(o.o_solimp), solimp.shape)
-    friction = np.broadcast_to(h(o.o_friction), friction.shape)
+    margin = np.full_like(margin, types.host(o.o_margin, fdt))
+    solref = np.broadcast_to(types.host(o.o_solref, fdt), solref.shape)
+    solimp = np.broadcast_to(types.host(o.o_solimp, fdt), solimp.shape)
+    friction = np.broadcast_to(types.host(o.o_friction, fdt),
+                               friction.shape)
   dev = m.qpos0.device
-  put = lambda x: torch.tensor(np.ascontiguousarray(x, fdt), device=dev)
-  return m.replace(cand_friction=put(friction), cand_solref=put(solref),
-                   cand_solimp=put(solimp),
-                   cand_includemargin=put(margin - gap))
+  W = types.model_nworld(m) if batched else 1
+  tables = dict(cand_friction=friction, cand_solref=solref,
+                cand_solimp=solimp, cand_includemargin=margin - gap)
+  out = {}
+  for k, x in tables.items():
+    x = np.broadcast_to(x, (W,) + x.shape[1:])
+    x = torch.tensor(np.ascontiguousarray(x, fdt), device=dev)
+    out[k] = x if batched else x[0]
+  if batched:
+    out['batch_fields'] = tuple(sorted(set(m.batch_fields) |
+                                       set(CAND_FIELDS)))
+  return m.replace(**out)
+
+
+# the fields that gate the program's structure on the host and that no
+# world may carry its own value of (``io.py:1004``)
+_NO_BATCH = frozenset({'geom_size', 'wrap_prm', 'sensor_cutoff',
+                       'opt.timestep'})
+# the geoms' contact parameters, which ``remix`` mixes into the
+# candidate tables (``io.py:1009``)
+GEOM_CONTACT = ('geom_friction', 'geom_solref', 'geom_solimp',
+                'geom_margin', 'geom_gap', 'geom_solmix', 'geom_priority')
+# what ``set_const`` recomputes
+SET_CONST_FIELDS = ('body_subtreemass', 'dof_invweight0', 'body_invweight0',
+                    'tendon_length0', 'tendon_invweight0',
+                    'tendon_lengthspring', 'eq_data', 'actuator_acc0',
+                    'actuator_biasprm')
+# the fields the port's general step reads per world; ``batch_model``
+# refuses any other (ROADMAP queue 1 lists those still to batch)
+BATCHABLE = frozenset(
+    ('opt.gravity', 'dof_damping', 'dof_armature', 'dof_frictionloss',
+     'body_mass', 'body_inertia', 'body_ipos', 'qpos0', 'actuator_gainprm',
+     'actuator_biasprm') + GEOM_CONTACT + SET_CONST_FIELDS)
+
+
+def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
+  """Per-world model parameters, for domain randomization
+  (``io.py:1013`` ``batch_model``).
+
+  ``fields`` maps names (``opt.``-dotted for Option fields) to ``(B,
+  *field.shape)`` arrays; B must divide ``nworld``, and the arrays are
+  tiled to ``nworld`` (world w takes row w % B).  Each named field gets a
+  leading world axis on the Model's device, in its dtype, and
+  ``batch_fields`` records the names.  Batching a geom contact field
+  (``GEOM_CONTACT``) mixes the candidate tables per world (``remix``),
+  whose names join ``batch_fields``.  ``forward.step`` then runs world w
+  with world w's values; it takes Data of ``nworld`` worlds.
+
+  Raises NotImplementedError for a field of ``_NO_BATCH`` and for one
+  the port does not batch yet (outside ``BATCHABLE``), ValueError for a
+  field that is not an array, a wrong trailing shape, a batch that does
+  not divide ``nworld``, or a width other than the Model's batch."""
+  have = types.model_nworld(m)
+  if have is not None and have != nworld:
+    raise ValueError(f'the Model is batched over {have} worlds, not '
+                     f'{nworld}')
+  dev = m.qpos0.device
+  updates = {}
+  for name, val in fields.items():
+    if name in _NO_BATCH:
+      raise NotImplementedError(
+          f'{name} gates static host-side structure and cannot be '
+          'batched per world')
+    try:
+      base = types.get_model_field(m, name)
+    except AttributeError:
+      base = None
+    if not isinstance(base, (torch.Tensor, np.ndarray)):
+      raise ValueError(f'{name} is not a batchable array field')
+    if name not in BATCHABLE:
+      raise NotImplementedError(
+          f'{name}: the port does not batch this field yet (ROADMAP queue '
+          f'1); it batches {sorted(BATCHABLE)}')
+    shape = tuple(base.shape[1:] if name in m.batch_fields else base.shape)
+    if isinstance(val, torch.Tensor):
+      val = val.detach().cpu().numpy()
+    val = np.asarray(val)
+    if val.shape[1:] != shape:
+      raise ValueError(f'{name}: expected trailing shape {shape}, got '
+                       f'{val.shape[1:]}')
+    b = val.shape[0]
+    if b == 0 or nworld % b:
+      raise ValueError(f'{name}: batch {b} does not divide nworld {nworld}')
+    # C order whatever the input's strides (a broadcast view, Fortran
+    # order): the kernels read a batched field at a world stride
+    val = np.ascontiguousarray(np.tile(val, (nworld // b,) +
+                                       (1,) * (val.ndim - 1)))
+    if isinstance(base, torch.Tensor):
+      updates[name] = torch.tensor(val, dtype=base.dtype, device=dev)
+    else:  # an int table (geom_priority): an int32 tensor per world
+      updates[name] = torch.tensor(val.astype(np.int32), device=dev)
+  names = set(m.batch_fields) | set(updates)
+  m = types.set_model_fields(m, updates).replace(
+      batch_fields=tuple(sorted(names)))
+  if m.ncand and any(n in updates for n in GEOM_CONTACT):
+    m = remix(m)
+  return m
 
 
 def put_model(mjm, nconmax=None, device=None, dtype=torch.float32
@@ -654,18 +766,23 @@ def make_data(m: types.Model, nworld: int, device=None, dtype=None
               ) -> types.Data:
   """A batch of worlds at qpos0 and rest (``io.py:1076`` ``make_data``):
   every tree awake (``K_AWAKE``, ``io.py:1198-1202``), no island.  The
-  float fields take ``dtype``, by default the Model's."""
+  float fields take ``dtype``, by default the Model's.  A batched qpos0
+  (``batch_model``) gives each world its own, and then ``nworld`` must be
+  the Model's batch."""
   dev = resolve_device(device)
   fl = dict(dtype=types.dtype_of(m) if dtype is None else float_dtype(dtype),
             device=dev)
   z = lambda *shape: torch.zeros((nworld,) + shape, **fl)
   i32 = lambda fill, *shape: torch.full((nworld,) + shape, fill,
                                         dtype=torch.int32, device=dev)
-  qpos = m.qpos0.to(**fl)
+  qpos0 = types.world_field(m, 'qpos0').to(**fl)
+  if qpos0.shape[0] not in (1, nworld):
+    raise ValueError(f'qpos0 is batched over {qpos0.shape[0]} worlds, not '
+                     f'{nworld}')
   eq0 = torch.as_tensor(np.asarray(m.eq_active0, bool).reshape(-1),
                         device=dev)
   return types.Data(
-      time=z(), qpos=qpos[None].repeat(nworld, 1), qvel=z(m.nv),
+      time=z(), qpos=qpos0.expand(nworld, m.nq).clone(), qvel=z(m.nv),
       act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
       xfrc_applied=z(m.nbody, 6), eq_active=eq0[None].repeat(nworld, 1),
       qacc_warmstart=z(m.nv), qacc=z(m.nv),
@@ -896,6 +1013,163 @@ def override_model(m: types.Model, overrides) -> types.Model:
       new = torch.full_like(cur, float(val))
     m = m.replace(opt=m.opt.replace(**{name: new}))
   return remix(m)
+
+
+# the batchable fields each output of ``set_const`` depends on (M at
+# qpos0 on the masses, inertias, inertial frames, qpos0 and armature): an
+# output is batched where one of them is
+_M_INPUTS = ('body_mass', 'body_inertia', 'body_ipos', 'qpos0',
+             'dof_armature')
+_SET_CONST_DEPS = {
+    'body_subtreemass': ('body_mass',),
+    'dof_invweight0': _M_INPUTS, 'body_invweight0': _M_INPUTS,
+    'tendon_invweight0': _M_INPUTS, 'actuator_acc0': _M_INPUTS,
+    'tendon_length0': ('qpos0',),
+    'tendon_lengthspring': ('tendon_lengthspring',),
+    'eq_data': ('qpos0', 'eq_data'),
+    'actuator_biasprm': _M_INPUTS + ('actuator_gainprm', 'actuator_biasprm'),
+}
+
+
+def _block_average(m: types.Model) -> np.ndarray:
+  """(nv, nv): the mean over each joint's dof block (a ball joint's 3, a
+  free joint's translational and rotational triples), as mj_setConst
+  averages dof_invweight0 (``io.py:1406-1413``)."""
+  avg = np.zeros((m.nv, m.nv))
+  for j in range(m.njnt):
+    adr, jt = int(m.jnt_dofadr[j]), int(m.jnt_type[j])
+    blocks = ([(adr, 3), (adr + 3, 3)] if jt == _JT.FREE else
+              [(adr, 3)] if jt == _JT.BALL else [(adr, 1)])
+    for a, n in blocks:
+      avg[a:a + n, a:a + n] = 1.0 / n
+  return avg
+
+
+def set_const(m: types.Model) -> types.Model:
+  """The qpos0-derived constants of ``m`` recomputed from its fields
+  (``io.py:1360`` ``set_const``): body_subtreemass, dof_invweight0 (the
+  diagonal of M^-1, averaged within ball and free blocks),
+  body_invweight0 (trace(J M^-1 J^T) / 3 of each body's translation and
+  rotation), tendon_length0, tendon_invweight0, the automatic entries of
+  tendon_lengthspring, the connect and weld anchors of eq_data,
+  actuator_acc0 and the dampratio of position actuators in
+  actuator_biasprm.  Call it after editing masses, inertias, qpos0 and
+  the like.
+
+  On a batched Model each world takes its own values: the position
+  stages and the mass chain run at the batch's width, M^-1 comes from
+  the ``chol_batched`` factor and one ``chol_solve`` per dof (the kernels
+  on the card, their plain versions on the CPU), and each output that
+  depends on a batched field (``_SET_CONST_DEPS``) is batched and joins
+  ``batch_fields``.  In the Model's dtype, float64 included."""
+  from mujoco_warp_tpu_torch.kernels import linalg as klinalg
+  from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
+  from mujoco_warp_tpu_torch.ops import constraint, forward, math, smooth
+  W = types.model_nworld(m) or 1
+  dev, dt = m.qpos0.device, types.dtype_of(m)
+  nv = m.nv
+  wf = lambda name: types.world_field(m, name)
+  out, names = {}, set(m.batch_fields)
+
+  def put(name, x):
+    """Output ``name`` from its (W, ...) value: batched where an input it
+    depends on is, else world 0's."""
+    if any(n in m.batch_fields for n in _SET_CONST_DEPS[name]):
+      out[name] = x.expand((W,) + tuple(x.shape[1:])).contiguous()
+      names.add(name)
+    else:
+      out[name] = x[0].contiguous()
+      names.discard(name)
+
+  def model():
+    return types.set_model_fields(m, out).replace(
+        batch_fields=tuple(sorted(names)))
+
+  sub = torch.as_tensor(m.tree.subtree_mask, dtype=dt, device=dev)
+  put('body_subtreemass', torch.sum(wf('body_mass')[:, None, :] * sub,
+                                    dim=-1))
+  m1 = model()
+  d0 = forward.pre(m1, make_data(m1, W, device=dev))
+  d0 = smooth.transmission(m1, kmass.mass_chain(m1, d0))
+  L = klinalg.chol_batched(m1, d0.qM.contiguous())
+  eye = torch.eye(nv, dtype=dt, device=dev)
+  # M^-1 column by column: one chol_solve per dof
+  Minv = torch.stack([klinalg.chol_solve_batched(
+      m1, L, eye[j].expand(W, nv)) for j in range(nv)], dim=-1)
+  avg = torch.as_tensor(_block_average(m), dtype=dt, device=dev)
+  put('dof_invweight0', torch.sum(
+      torch.diagonal(Minv, dim1=-2, dim2=-1)[:, None, :] * avg, dim=-1))
+  jacp, jacr = constraint._jac(m1, d0, d0.xipos, np.arange(m.nbody))
+
+  def block_w(jac):  # trace(J M^-1 J^T) / 3 per body
+    JM = torch.einsum('wbvk,wvu->wbuk', jac, Minv)
+    return torch.sum(JM * jac, dim=(-1, -2)) / 3.0
+
+  put('body_invweight0', torch.stack([block_w(jacp), block_w(jacr)], -1))
+  if m.ntendon:
+    tJ = d0.ten_J
+    put('tendon_length0', d0.ten_length)
+    put('tendon_invweight0', torch.einsum('wtv,wvu,wtu->wt', tJ, Minv, tJ))
+    # automatic spring ranges (-1, -1) resolve to the length at
+    # qpos_spring (``io.py:1431``)
+    spring = wf('tendon_lengthspring')
+    auto = torch.all(spring == -1.0, dim=-1, keepdim=True)
+    if bool(auto.any()):
+      ds = make_data(m1, W, device=dev)
+      ds = smooth.tendon(m1, smooth.kinematics(m1, ds.replace(
+          qpos=m.qpos_spring.to(dt).expand(W, m.nq).clone())))
+      spring = torch.where(auto, ds.ten_length[..., None], spring)
+    put('tendon_lengthspring', spring.expand(W, m.ntendon, 2))
+  if m.neq:
+    # connect: data[3:6] is body1's anchor in body2's frame; weld:
+    # data[3:6] body2's anchor in body1's frame, data[6:10] the relative
+    # quaternion unless the model set one (``io.py:1440-1472``)
+    data = wf('eq_data').expand(W, m.neq, -1)
+    o1 = torch.as_tensor(np.asarray(m.eq_obj1id, np.int64), device=dev)
+    o2 = torch.as_tensor(np.asarray(m.eq_obj2id, np.int64), device=dev)
+    body = np.asarray(m.eq_objtype) == types.ObjType.BODY
+    conn = (np.asarray(m.eq_type) == types.EqType.CONNECT) & body
+    weld = (np.asarray(m.eq_type) == types.EqType.WELD) & body
+    xp1, xm1 = d0.xpos[:, o1], d0.xmat[:, o1]
+    xp2, xm2 = d0.xpos[:, o2], d0.xmat[:, o2]
+    rot = lambda mat, v: torch.sum(mat * v[..., None, :], dim=-1)
+    rot_t = lambda mat, v: torch.sum(mat * v[..., :, None], dim=-2)
+    a_conn = rot_t(xm2, xp1 + rot(xm1, data[..., 0:3]) - xp2)
+    a_weld = rot_t(xm1, xp2 + rot(xm2, data[..., 0:3]) - xp1)
+    relquat = math.mul_quat(math.quat_inv(d0.xquat[:, o1]), d0.xquat[:, o2])
+    q = data[..., 6:10]
+    qq = torch.sum(q * q, dim=-1, keepdim=True)
+    has_q = qq > 0.0
+    qn = q / torch.sqrt(torch.clamp(qq, min=1e-15))
+    is_conn = torch.as_tensor(conn, device=dev)[:, None]
+    is_weld = torch.as_tensor(weld, device=dev)[:, None]
+    anchor = torch.where(is_conn, a_conn, torch.where(
+        is_weld & ~has_q, a_weld, data[..., 3:6]))
+    quat = torch.where(is_weld, torch.where(has_q, qn, relquat),
+                       data[..., 6:10])
+    put('eq_data', torch.cat([data[..., 0:3], anchor, quat, data[..., 10:]],
+                             dim=-1))
+  if m.nu:
+    mom = d0.actuator_moment
+    acc = torch.einsum('wuv,wvx->wux', mom, Minv)
+    put('actuator_acc0', torch.sqrt(torch.clamp(
+        torch.sum(acc * acc, dim=-1), min=0.0)))
+    # dampratio -> damping of position actuators (``io.py:1476-1493``)
+    M0 = torch.diagonal(d0.qM, dim1=-2, dim2=-1)
+    kp = wf('actuator_gainprm')[..., 0]
+    bp = wf('actuator_biasprm').expand(W, m.nu, -1)
+    aff = torch.as_tensor(np.asarray(m.actuator_biastype) ==
+                          types.BiasType.AFFINE, device=dev)
+    cond = aff & (torch.abs(kp + bp[..., 1]) <= 1e-15) & (bp[..., 2] > 0.0)
+    mass = torch.sum(torch.where(
+        torch.abs(mom) > 1e-15,
+        M0[:, None, :] / torch.clamp(mom * mom, min=1e-30),
+        torch.zeros((), dtype=dt, device=dev)), dim=-1)
+    damping = bp[..., 2] * 2.0 * torch.sqrt(torch.clamp(kp * mass, min=0.0))
+    put('actuator_biasprm', torch.cat([
+        bp[..., :2], torch.where(cond, -damping, bp[..., 2])[..., None],
+        bp[..., 3:]], dim=-1))
+  return model()
 
 
 def load_humanoid_benchmark():

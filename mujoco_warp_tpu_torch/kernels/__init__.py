@@ -19,6 +19,8 @@ import ctypes
 import numpy as np
 import torch
 
+from mujoco_warp_tpu_torch import types
+
 
 def check(t: torch.Tensor, shape, name: str, device, dtype=torch.float32):
   """Raise unless ``t`` is a contiguous tensor of ``shape`` and ``dtype``
@@ -103,17 +105,19 @@ def device_tables(arrays: dict, device) -> dict:
 
 
 class TableCache:
-  """Device tables per (model, device), built once; the model is held so
-  its id cannot be reused while cached."""
+  """Device tables per (Model, device), built once, keyed on
+  ``types.model_token``: every field of the Model but its batched ones,
+  which ``build`` must not read.  A Model whose batched fields a sort
+  permuted shares the tables of the Model it came from; any other change
+  rebuilds them."""
 
   def __init__(self, build):
     self._build = build
     self._cache = {}
 
   def get(self, m, device):
-    key = (id(m), str(device))
+    key = (types.model_token(m), str(device))
     hit = self._cache.get(key)
-    if hit is None or hit[0] is not m:
-      hit = (m, self._build(m, device))
-      self._cache[key] = hit
-    return hit[1]
+    if hit is None:
+      hit = self._cache[key] = self._build(m, device)
+    return hit

@@ -65,13 +65,16 @@ struct CholSolveParams {
   float* x;        // (W, n) world-major
 };
 
+// The damping of world w's dof i is damping[w * dmp_ws + i]: dmp_ws n
+// where each world carries its own, 0 where one row serves every world.
 struct DampedSolveParams {
   int W, n;
-  int M_ws, M_es, a_ws, a_es;
-  const float* M;    // (W, n, n)
-  const float* a;    // (W, n) qacc
-  const float* dmp;  // (n,) h * damping
-  float* x;          // (W, n) world-major
+  int M_ws, M_es, a_ws, a_es, dmp_ws;
+  float h;                // the timestep
+  const float* M;         // (W, n, n)
+  const float* a;         // (W, n) qacc
+  const float* damping;   // (W or 1, n)
+  float* x;               // (W, n) world-major
 };
 
 // worlds per block of chol_solve and damped_solve: as many as fit in 96
@@ -160,11 +163,13 @@ __global__ void damped_solve_kernel(const DampedSolveParams p) {
     float* S = smem + warp * wf;
     float* a = S + n * ld;
     float* v = S + n * ld + n;
+    const float* dmp = p.damping + (size_t)(w0 + warp) * p.dmp_ws;
     // M qacc from every entry of row i, before the damping; then the
-    // damped diagonal (each lane its own rows, so no barrier between)
+    // damped diagonal, + h damping as a rounded product and a rounded
+    // sum (each lane its own rows, so no barrier between)
     for (int i = lane; i < n; i += 32) {
       v[i] = dot_in_order(0.0f, S + i * ld, a, n);
-      S[i * ld + i] = S[i * ld + i] + p.dmp[i];
+      S[i * ld + i] = S[i * ld + i] + __fmul_rn(p.h, dmp[i]);
     }
     chol_warp(S, n, AtStrided{ld}, lane);
     chol_subst(S, v, n, ld, lane);

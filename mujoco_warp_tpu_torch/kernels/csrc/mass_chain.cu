@@ -32,11 +32,19 @@
 // end.  The large tree's qM (nv^2 floats, 22.5 KB at nv 75) is not
 // staged: each warp writes its world's qM world-major, its lanes on
 // consecutive entries, and chol_batched reads it there in place.
+//
+// Per-world parameters.  The armature and gravity are read where the
+// Model holds them, at a world stride: nv and 3 for a model whose worlds
+// carry their own (domain randomization), 0 for one set shared by every
+// world.  Each warp offsets the two pointers by its world, so the chain
+// itself (mass_chain.cuh, shared with K1, which passes stride 0) reads
+// one world's values as before.
 
 #include "mass_chain.cuh"
 
 struct MassChainParams {
   int W, nb, nv, nlevel, no_gravity, small;
+  int arm_ws, grav_ws;  // world strides of armature and gravity (0: shared)
   const float* cinert;  // (36 nbody, W)
   const float* cdof;    // (6 nv, W)
   const float* qvel;    // (nv, W)
@@ -54,8 +62,8 @@ struct MassChainParams {
   const unsigned* anc_bits;
   const unsigned* rel_bits;
   const unsigned* cdofdot_bits;
-  const float* armature;
-  const float* gravity;
+  const float* armature;  // (W or 1, nv)
+  const float* gravity;   // (W or 1, 3)
 };
 
 // One world's shared floats: the inputs, the chain's intermediates, bias,
@@ -96,10 +104,14 @@ __global__ void mass_chain_kernel(const MassChainParams p) {
              smem + lay.qvel, wf);
   copies_done();
   float* b = smem + warp * wf;
+  // this warp's world's armature and gravity (read only for warp < nw)
+  const size_t w = (size_t)(w0 + warp);
   const MassChainTables t{nb, nv, p.nlevel, p.no_gravity, p.topo,
                           p.level_adr, p.body_parent, p.body_dofadr,
                           p.body_dofnum, p.dof_bodyid, p.anc_bits,
-                          p.rel_bits, p.cdofdot_bits, p.armature, p.gravity};
+                          p.rel_bits, p.cdofdot_bits,
+                          p.armature + w * p.arm_ws,
+                          p.gravity + w * p.grav_ws};
   const MassChainSmem s{b + lay.cinert, b + lay.cdof, b + lay.qvel,
                         b + lay.crb, b + lay.f, b + lay.cvel, b + lay.cdotd,
                         small ? b + lay.M : nullptr, ld,

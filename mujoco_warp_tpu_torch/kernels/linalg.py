@@ -24,8 +24,7 @@ import torch
 
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.fused.solver_ref import chol_solve_tile, chol_tile
-from mujoco_warp_tpu_torch.kernels import TableCache, build, check, \
-    device_tables, host_dtype, ptr
+from mujoco_warp_tpu_torch.kernels import build, check, host_dtype, ptr
 
 # launches of the CUDA kernels (not of the plain versions)
 launches = {'chol_batched': 0, 'chol_solve': 0, 'damped_solve': 0}
@@ -41,19 +40,18 @@ CholSolveParams = build.params_struct(
     'CholSolveParams', ints=('W', 'n', 'L_ws', 'L_es', 'b_ws', 'b_es'),
     ptrs=('L', 'b', 'x'))
 DampedSolveParams = build.params_struct(
-    'DampedSolveParams', ints=('W', 'n', 'M_ws', 'M_es', 'a_ws', 'a_es'),
-    ptrs=('M', 'a', 'dmp', 'x'))
+    'DampedSolveParams',
+    ints=('W', 'n', 'M_ws', 'M_es', 'a_ws', 'a_es', 'dmp_ws'),
+    floats=('h',), ptrs=('M', 'a', 'damping', 'x'))
 
 
-def damping_terms(m: types.Model, dtype=np.float32) -> np.ndarray:
-  """h * damping per dof, the product the JAX kernel takes, in ``dtype``
-  (float32 for the kernel)."""
-  return dtype(types.host(m.opt.timestep, dtype)) * \
-      types.host(m.dof_damping, dtype)
-
-
-_DMP = TableCache(lambda m, dev: device_tables({'dmp': damping_terms(m)},
-                                               dev)['dmp'])
+def world_damping(m: types.Model, dtype=torch.float32) -> torch.Tensor:
+  """h * damping of ``m`` as the plain damped solve takes it: lanes-last
+  (n, W) where ``dof_damping`` is batched, (n, 1) where it is not; each
+  product rounded to ``dtype``, as the kernel rounds it."""
+  h = torch.as_tensor(m.opt.timestep, dtype=dtype)
+  damping = torch.as_tensor(types.world_field(m, 'dof_damping'), dtype=dtype)
+  return (h.to(damping.device) * damping).T
 
 
 def chol_batched_plain(A, jitter: float = 0.0):
@@ -72,11 +70,12 @@ def chol_solve_plain(L, b):
 
 
 def damped_solve_plain(M, a, dmp):
-  """(M + diag(dmp))^-1 (M a), lanes-last: M (n n, W), a (n, W), dmp (n,)."""
+  """(M + diag(dmp))^-1 (M a), lanes-last: M (n n, W), a (n, W), dmp (n,)
+  for every world or (n, W) for each its own (``world_damping``)."""
   n = a.shape[0]
   M3 = M.reshape(n, n, -1)
   eye = torch.eye(n, dtype=M.dtype, device=M.device)
-  A = M3 + eye[:, :, None] * dmp[:, None, None]
+  A = M3 + eye[:, :, None] * dmp.reshape(n, 1, -1)
   return chol_solve_tile(chol_tile(A, n), torch.sum(M3 * a[None], dim=1), n)
 
 
@@ -190,24 +189,33 @@ def damped_solve_batched(m: types.Model, qM, qacc):
   """(M + h diag(damping))^-1 (M qacc) for qM (W, nv, nv) and qacc (W,
   nv), each world-major or a ``world()`` view of lanes-last, h and
   damping from ``m`` (``pallas/linalg.py`` ``damped_solve_batched``
-  :145); x (W, nv) world-major.  A CPU tensor takes the plain version,
-  after the same checks, on its operands read at the strides the kernel
-  takes (``read``)."""
+  :145), a batched ``dof_damping`` per world; x (W, nv) world-major.
+  The kernel reads the damping where the Model holds it and forms h
+  damping itself.  A CPU tensor takes the plain version, after the same
+  checks, on its operands read at the strides the kernel takes
+  (``read``)."""
   W, n = qacc.shape
   on_card = _device(qacc, 'damped_solve')
   as_ = strides(qacc, (W, n), 'qacc', qacc.device, host_dtype(qacc))
   ms = strides(qM, (W, n, n), 'qM', qacc.device, qacc.dtype)
   if n != m.nv:
     raise ValueError(f'damped_solve: n {n}, model nv {m.nv}')
+  # the Model's own tensor, no copy (a stand-in's array is copied)
+  damping = torch.as_tensor(types.world_field(m, 'dof_damping'),
+                            dtype=qacc.dtype, device=qacc.device)
+  if damping.shape[0] not in (1, W):
+    raise ValueError(f'damped_solve: dof_damping is batched over '
+                     f'{damping.shape[0]} worlds, the state holds {W}')
   if not on_card:
-    dmp = torch.as_tensor(damping_terms(m, types.np_float(qacc.dtype)),
-                          device=qacc.device)
     return damped_solve_plain(read(qM, n * n, ms), read(qacc, n, as_),
-                              dmp).T
+                              world_damping(m, qacc.dtype)).T
   _cap(n, 'damped_solve')
+  check(damping, (damping.shape[0], n), 'dof_damping', qacc.device)
   x = torch.empty((W, n), dtype=torch.float32, device=qacc.device)
   with torch.cuda.device(qacc.device):
     _launch('damped_solve', DampedSolveParams, W=W, n=n, M_ws=ms[0],
-            M_es=ms[1], a_ws=as_[0], a_es=as_[1], M=ptr(qM), a=ptr(qacc),
-            dmp=ptr(_DMP.get(m, qacc.device)), x=ptr(x))
+            M_es=ms[1], a_ws=as_[0], a_es=as_[1],
+            dmp_ws=n if damping.shape[0] > 1 else 0,
+            h=float(types.host(m.opt.timestep, np.float32)), M=ptr(qM),
+            a=ptr(qacc), damping=ptr(damping), x=ptr(x))
   return x

@@ -17,6 +17,11 @@ ten_J^T diag(armature) ten_J (``ops/smooth.py`` ``tendon_armature``) is
 added to that qM before ``chol_batched`` factors it; the JAX package
 declines such a model in its kernel (``pallas/smooth.py:30``) and
 factors the sum in jnp.
+
+The armature and gravity come from the Model's own tensors, each at a
+world stride: ``nv`` and 3 where ``io.batch_model`` batched
+``dof_armature`` and ``opt.gravity`` (world w reads its own row), 0 where
+it did not (every world reads the one row).
 """
 
 from __future__ import annotations
@@ -44,11 +49,12 @@ BIG_JITTER = 1e-12
 
 _TABLE_PTRS = ('topo', 'level_adr', 'body_parent', 'body_dofadr',
                'body_dofnum', 'dof_bodyid', 'anc_bits', 'rel_bits',
-               'cdofdot_bits', 'armature', 'gravity')
+               'cdofdot_bits')
 MassChainParams = build.params_struct(
-    'MassChainParams', ints=('W', 'nb', 'nv', 'nlevel', 'no_gravity', 'small'),
+    'MassChainParams', ints=('W', 'nb', 'nv', 'nlevel', 'no_gravity', 'small',
+                             'arm_ws', 'grav_ws'),
     ptrs=('cinert', 'cdof', 'qvel', 'qM', 'qLD', 'cvel', 'cdof_dot', 'bias')
-    + _TABLE_PTRS)
+    + _TABLE_PTRS + ('armature', 'gravity'))
 
 
 def big_tree(m: types.Model) -> bool:
@@ -96,16 +102,27 @@ def ancm_table(m: types.Model) -> np.ndarray:
 
 
 def tables(m: types.Model) -> dict:
-  """Model tables the kernel walks, as numpy."""
-  h = lambda x: np.asarray(types.host(x), np.float32)
+  """The tree tables the kernel walks, as numpy."""
   return dict(
       **tree_levels(m),
       body_parent=m.body_parentid, body_dofadr=m.body_dofadr,
-      body_dofnum=m.body_dofnum, dof_bodyid=m.dof_bodyid, **chain_bits(m),
-      armature=h(m.dof_armature), gravity=h(m.opt.gravity))
+      body_dofnum=m.body_dofnum, dof_bodyid=m.dof_bodyid, **chain_bits(m))
 
 
 _TABLES = TableCache(lambda m, dev: device_tables(tables(m), dev))
+
+
+def world_params(m: types.Model, W: int):
+  """The armature (1 or W, nv) and gravity (1 or W, 3) of ``m`` for a
+  batch of W worlds: batched fields per world, the others as one row
+  (``types.world_field``)."""
+  arm = types.world_field(m, 'dof_armature')
+  grav = types.world_field(m, 'opt.gravity')
+  for x, name in ((arm, 'dof_armature'), (grav, 'opt.gravity')):
+    if x.shape[0] not in (1, W):
+      raise ValueError(f'mass chain: {name} is batched over {x.shape[0]} '
+                       f'worlds, the state holds {W}')
+  return arm, grav
 
 
 def mass_chain_plain(m: types.Model, cinert, cdof, qvel):
@@ -114,9 +131,10 @@ def mass_chain_plain(m: types.Model, cinert, cdof, qvel):
   nb, nv = m.nbody, m.nv
   W = qvel.shape[-1]
   small = factor_in_kernel(m)
+  arm, grav = world_params(m, W)
   qM, Lf, cvel, cdd, bias = k1_ref.mass_chain(
       m, list(cinert.reshape(nb, 36, W)), list(cdof.reshape(nv, 6, W)),
-      qvel, m.dof_armature, m.opt.gravity, need_L=small,
+      qvel, arm.T, grav.T, need_L=small,
       ancm=ancm_table(m) if big_tree(m) else None)
   qM = qM.reshape(nv * nv, W)
   return (qM if small else world(qM, nv, nv).contiguous(),
@@ -154,6 +172,9 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
     raise RuntimeError('MassChainParams or the shared layout differs '
                        'between C and Python')
   tab = _TABLES.get(m, dev)
+  arm, grav = world_params(m, W)
+  check(arm, (arm.shape[0], nv), 'dof_armature', dev)
+  check(grav, (grav.shape[0], 3), 'opt.gravity', dev)
   new = lambda rows: torch.empty((rows, W), dtype=torch.float32, device=dev)
   cvel, cdd, bias = new(6 * nb), new(6 * nv), new(nv)
   qM = new(nv * nv) if small else torch.empty(
@@ -162,9 +183,12 @@ def mass_chain_lanes(m: types.Model, cinert, cdof, qvel):
   p = MassChainParams(
       W=W, nb=nb, nv=nv, nlevel=len(m.tree.body_levels),
       no_gravity=int(bool(m.opt.disableflags & types.DisableBit.GRAVITY)),
-      small=int(small), cinert=ptr(cinert), cdof=ptr(cdof), qvel=ptr(qvel),
-      qM=ptr(qM), qLD=ptr(qLD), cvel=ptr(cvel), cdof_dot=ptr(cdd),
-      bias=ptr(bias), **{k: ptr(tab[k]) for k in _TABLE_PTRS})
+      small=int(small), arm_ws=nv if arm.shape[0] > 1 else 0,
+      grav_ws=3 if grav.shape[0] > 1 else 0, cinert=ptr(cinert),
+      cdof=ptr(cdof), qvel=ptr(qvel), qM=ptr(qM), qLD=ptr(qLD),
+      cvel=ptr(cvel), cdof_dot=ptr(cdd), bias=ptr(bias),
+      armature=ptr(arm), gravity=ptr(grav),
+      **{k: ptr(tab[k]) for k in _TABLE_PTRS})
   stream = torch.cuda.current_stream(dev).cuda_stream
   rc = lib.mwt_mass_chain_launch(ctypes.byref(p), ctypes.c_void_p(stream))
   if rc != 0:

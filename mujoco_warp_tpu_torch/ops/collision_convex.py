@@ -257,8 +257,9 @@ def _collide(m, d, t1, t2, k, g1, g2):
   i1, i2 = ix(g1, dev), ix(g2, dev)
   pos1, mat1, size1 = d.geom_xpos[:, i1], d.geom_xmat[:, i1], m.geom_size[i1]
   pos2, mat2, size2 = d.geom_xpos[:, i2], d.geom_xmat[:, i2], m.geom_size[i2]
-  margin = torch.maximum(m.geom_margin[i1], m.geom_margin[i2])
-  inflate = (0.5 * margin)[:, None]
+  gm = types.world_field(m, 'geom_margin')  # per world where batched
+  margin = torch.maximum(gm[:, i1], gm[:, i2])  # (1 or W, n)
+  inflate = (0.5 * margin)[..., None]
   hit, depth, normal, point = mpr(t1, t2, pos1, mat1, size1, pos2, mat2,
                                   size2, inflate)
   big = torch.full_like(depth, _BIG)

@@ -63,6 +63,18 @@ def _narrowphase_candidates(m: types.Model, d: types.Data):
   return torch.cat(dists, 1), torch.cat(poss, 1), torch.cat(frames, 1)
 
 
+def cand_tables(m: types.Model, W: int) -> dict:
+  """The candidate tables (``io.CAND_FIELDS``) as (W, ncand, ...) views:
+  each world's own where ``io.batch_model`` batched them, else one table
+  for every world."""
+  out = {}
+  for name in ('cand_includemargin', 'cand_friction', 'cand_solref',
+               'cand_solimp'):
+    x = types.world_field(m, name)
+    out[name] = x.expand((W,) + tuple(x.shape[1:]))
+  return out
+
+
 def collision(m: types.Model, d: types.Data) -> types.Data:
   """Narrowphase over all candidate pairs into the contact slots, and the
   count of live slots per world (``collision_driver.py:545``)."""
@@ -73,14 +85,14 @@ def collision(m: types.Model, d: types.Data) -> types.Data:
     return _compact(m, d, dist, pos, frame)
   W, dev = dist.shape[0], dist.device
   per_world = lambda x: x[None].expand((W,) + tuple(x.shape))
-  im = m.cand_includemargin
+  ct = cand_tables(m, W)
+  im = ct['cand_includemargin']
   cp = m.con_pair
   contact = types.Contact(
-      dist=dist, pos=pos, frame=frame, includemargin=per_world(im),
-      friction=per_world(m.cand_friction),
-      solref=per_world(m.cand_solref),
-      solreffriction=per_world(torch.zeros_like(m.cand_solref)),
-      solimp=per_world(m.cand_solimp),
+      dist=dist, pos=pos, frame=frame, includemargin=im,
+      friction=ct['cand_friction'], solref=ct['cand_solref'],
+      solreffriction=torch.zeros_like(ct['cand_solref']),
+      solimp=ct['cand_solimp'],
       geom1=per_world(ix(m.pair_geom1[cp], dev).int()),
       geom2=per_world(ix(m.pair_geom2[cp], dev).int()),
       cand=per_world(ix(np.arange(m.ncon), dev).int()))
@@ -96,14 +108,15 @@ def _compact(m: types.Model, d: types.Data, dist, pos, frame):
   the selected candidate.  The CONTACT overflow bit marks a world where
   a class had more live candidates than slots."""
   W, dev = dist.shape[0], dist.device
-  im = m.cand_includemargin
+  ct = cand_tables(m, W)
+  im = ct['cand_includemargin']
   sels, valids = [], []
   ncon_active = torch.zeros(W, dtype=torch.int32, device=dev)
   over = torch.zeros(W, dtype=torch.bool, device=dev)
   for _, cap, ci, _ in m.con_classes:
     ci_t = ix(ci, dev)
     dc = dist[:, ci_t]
-    act = dc < im[ci_t]
+    act = dc < im[:, ci_t]
     key = torch.where(act, dc, torch.full((), BIG, dtype=dc.dtype,
                                            device=dev))
     order = torch.topk(-key, cap, dim=1, sorted=True).indices
@@ -116,14 +129,15 @@ def _compact(m: types.Model, d: types.Data, dist, pos, frame):
   valid = torch.cat(valids, 1)
   w = torch.arange(W, device=dev)[:, None]
   cp = ix(m.con_pair, dev)[sel]
+  solref = ct['cand_solref'][w, sel]
   contact = types.Contact(
       dist=torch.where(valid, dist[w, sel],
                        torch.full((), BIG, dtype=dist.dtype, device=dev)),
       pos=pos[w, sel], frame=frame[w, sel],
-      includemargin=im[sel] * valid.to(dist.dtype),
-      friction=m.cand_friction[sel], solref=m.cand_solref[sel],
-      solreffriction=torch.zeros_like(m.cand_solref)[sel],
-      solimp=m.cand_solimp[sel],
+      includemargin=im[w, sel] * valid.to(dist.dtype),
+      friction=ct['cand_friction'][w, sel], solref=solref,
+      solreffriction=torch.zeros_like(solref),
+      solimp=ct['cand_solimp'][w, sel],
       geom1=ix(m.pair_geom1, dev)[cp].int(),
       geom2=ix(m.pair_geom2, dev)[cp].int(),
       cand=torch.where(valid, sel, -1).int())

@@ -10,9 +10,11 @@ Counterpart of ``mujoco_warp_tpu/ops/constraint.py``: ``_kbi`` (:32),
 pyramidal and elliptic rows; under contact compaction each world's
 slots take their bodies from its own ``contact.geom1/geom2``) and
 ``make_constraint`` (:919).  Every potential row exists every step;
-inactive rows are zeroed.  The Jacobian is dense (W, nefc, nv).  The
-chain form of the contact rows (``_contact_compact`` :703, for
-``efc_compact`` models) and flex rows are not ported yet.
+inactive rows are zeroed.  The invweights, friction losses, eq_data,
+qpos0 and tendon_length0 are read per world (``types.world_field``).
+The Jacobian is dense (W, nefc, nv).  The chain form of the contact
+rows (``_contact_compact`` :703, for ``efc_compact`` models) and flex
+rows are not ported yet.
 """
 
 from __future__ import annotations
@@ -144,8 +146,14 @@ def _eq_bodies(m, ids):
 
 
 def _bmv(mat, vec):
-  """(W, n, 3, 3) matrices times (n, 3) vectors."""
-  return torch.einsum('wnij,nj->wni', mat, vec)
+  """(W, n, 3, 3) matrices times (1 or W, n, 3) vectors."""
+  return torch.sum(mat * vec[..., None, :], dim=-1)
+
+
+def _wf(m, name, idx, dev):
+  """Model field ``name`` at element ids ``idx``, per world (1 or W,
+  n, ...)."""
+  return types.world_field(m, name)[:, ix(idx, dev)]
 
 
 def _equality_connect(m, d, rows, cdof_dot):
@@ -154,11 +162,11 @@ def _equality_connect(m, d, rows, cdof_dot):
   if not len(ids):
     return
   dev = d.qpos.device
-  data = m.eq_data[ix(ids, dev)]
+  data = _wf(m, 'eq_data', ids, dev)
   body1, body2 = _eq_bodies(m, ids)
   b1, b2 = ix(body1, dev), ix(body2, dev)
-  pos1 = d.xpos[:, b1] + _bmv(d.xmat[:, b1], data[:, 0:3])
-  pos2 = d.xpos[:, b2] + _bmv(d.xmat[:, b2], data[:, 3:6])
+  pos1 = d.xpos[:, b1] + _bmv(d.xmat[:, b1], data[..., 0:3])
+  pos2 = d.xpos[:, b2] + _bmv(d.xmat[:, b2], data[..., 3:6])
   jacp1, _ = _jac(m, d, pos1, body1)
   jacp2, _ = _jac(m, d, pos2, body2)
   jd = jacp1 - jacp2  # (W, n, nv, 3)
@@ -169,10 +177,11 @@ def _equality_connect(m, d, rows, cdof_dot):
   Jqvel = torch.einsum('wnvi,wv->wni', jd, d.qvel)
   Jdotv = torch.einsum('wnvi,wv->wni', jdot, d.qvel)
   pos_imp = math.norm(cpos)
-  invweight = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+  iw = types.world_field(m, 'body_invweight0')
+  invweight = iw[:, b1, 0] + iw[:, b2, 0]
   ti = ix(ids, dev)
   D, aref, posv = _row_values(
-      m, cpos, pos_imp[..., None], invweight[:, None],
+      m, cpos, pos_imp[..., None], invweight[..., None],
       m.eq_solref[ti][:, None, :], m.eq_solimp[ti][:, None, :], 0.0, Jqvel)
   D = D.expand(cpos.shape)
   aref = aref - Jdotv
@@ -193,9 +202,9 @@ def _equality_weld(m, d, rows, cdof_dot):
     return
   dev = d.qpos.device
   ti = ix(ids, dev)
-  data = m.eq_data[ti]
-  anchor1, anchor2 = data[:, 0:3], data[:, 3:6]
-  relpose, torquescale = data[:, 6:10], data[:, 10]
+  data = _wf(m, 'eq_data', ids, dev)
+  anchor1, anchor2 = data[..., 0:3], data[..., 3:6]
+  relpose, torquescale = data[..., 6:10], data[..., 10]
   body1, body2 = _eq_bodies(m, ids)
   b1, b2 = ix(body1, dev), ix(body2, dev)
   # body1 carries anchor2 and body2 anchor1 (reference :1078-1079)
@@ -214,13 +223,13 @@ def _equality_weld(m, d, rows, cdof_dot):
   jacdifr_dot = jacrd1 - jacrd2
 
   # rotational rows through the quaternion map (reference :1196-1198)
-  jacdifr = (jacr1 - jacr2) * torquescale[:, None, None]
+  jacdifr = (jacr1 - jacr2) * torquescale[..., None, None]
   jacdifrq = math.mul_quat(math.quat_mul_axis(quat1[:, :, None], jacdifr),
                            quat[:, :, None])
   jacdifr = 0.5 * jacdifrq[..., 1:4]
 
   cpos = pos1 - pos2
-  crot = math.mul_quat(quat1, quat)[..., 1:4] * torquescale[:, None]
+  crot = math.mul_quat(quat1, quat)[..., 1:4] * torquescale[..., None]
   mv = lambda J: torch.einsum('wnvi,wv->wni', J, d.qvel)
   Jqvelp, Jqvelr = mv(jacdifp), mv(jacdifr)
   Jdotv_p, Jdotv_r0 = mv(jacdifp_dot), mv(jacdifr_dot)
@@ -242,17 +251,18 @@ def _equality_weld(m, d, rows, cdof_dot):
   t2 = math.mul_quat(math.mul_quat(negq1, djrdv_q), quat)
   t3 = math.mul_quat(math.mul_quat(negq1, domega_q), qdot0r)
   Jdotv_r = (t1[..., 1:4] + t2[..., 1:4] + t3[..., 1:4]) * 0.5 * \
-      torquescale[:, None]
+      torquescale[..., None]
 
   pos_imp = torch.sqrt(torch.sum(cpos * cpos, -1) + torch.sum(crot * crot, -1))
-  iw_t = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
-  iw_r = m.body_invweight0[b1, 1] + m.body_invweight0[b2, 1]
+  iw = types.world_field(m, 'body_invweight0')
+  iw_t = iw[:, b1, 0] + iw[:, b2, 0]
+  iw_r = iw[:, b1, 1] + iw[:, b2, 1]
   solref = m.eq_solref[ti][:, None, :]
   solimp = m.eq_solimp[ti][:, None, :]
-  Dp, arefp, posp = _row_values(m, cpos, pos_imp[..., None], iw_t[:, None],
-                                solref, solimp, 0.0, Jqvelp)
-  Dr, arefr, posr = _row_values(m, crot, pos_imp[..., None], iw_r[:, None],
-                                solref, solimp, 0.0, Jqvelr)
+  Dp, arefp, posp = _row_values(m, cpos, pos_imp[..., None],
+                                iw_t[..., None], solref, solimp, 0.0, Jqvelp)
+  Dr, arefr, posr = _row_values(m, crot, pos_imp[..., None],
+                                iw_r[..., None], solref, solimp, 0.0, Jqvelr)
   Dp, Dr = Dp.expand(cpos.shape), Dr.expand(crot.shape)
   arefp, arefr = arefp - Jdotv_p, arefr - Jdotv_r
 
@@ -276,24 +286,26 @@ def _equality_joint(m, d, rows):
     return
   dev = d.qpos.device
   ti = ix(ids, dev)
-  data = m.eq_data[ti]
+  data = _wf(m, 'eq_data', ids, dev)
   j1, j2 = m.eq_obj1id[ids], m.eq_obj2id[ids]
   has2 = j2 > -1
   j2c = np.maximum(j2, 0)
   qadr1, dadr1 = ix(m.jnt_qposadr[j1], dev), m.jnt_dofadr[j1]
   qadr2, dadr2 = ix(m.jnt_qposadr[j2c], dev), m.jnt_dofadr[j2c]
-  dif = d.qpos[:, qadr2] - m.qpos0[qadr2]
-  rhs = data[:, 0] + dif * (data[:, 1] + dif * (
-      data[:, 2] + dif * (data[:, 3] + dif * data[:, 4])))
-  deriv2 = data[:, 1] + dif * (2.0 * data[:, 2] + dif * (
-      3.0 * data[:, 3] + dif * 4.0 * data[:, 4]))
+  qpos0 = types.world_field(m, 'qpos0')
+  dif = d.qpos[:, qadr2] - qpos0[:, qadr2]
+  rhs = data[..., 0] + dif * (data[..., 1] + dif * (
+      data[..., 2] + dif * (data[..., 3] + dif * data[..., 4])))
+  deriv2 = data[..., 1] + dif * (2.0 * data[..., 2] + dif * (
+      3.0 * data[..., 3] + dif * 4.0 * data[..., 4]))
   h2 = fmask(has2.astype(np.float32), d.qpos)
   has2_t = bmask(has2, dev)
-  pos = d.qpos[:, qadr1] - m.qpos0[qadr1] - torch.where(has2_t, rhs,
-                                                          data[:, 0])
+  pos = d.qpos[:, qadr1] - qpos0[:, qadr1] - torch.where(has2_t, rhs,
+                                                           data[..., 0])
   td1, td2 = ix(dadr1, dev), ix(dadr2, dev)
   Jqvel = d.qvel[:, td1] - d.qvel[:, td2] * deriv2 * h2
-  invweight = m.dof_invweight0[td1] + m.dof_invweight0[td2] * h2
+  iw = types.world_field(m, 'dof_invweight0')
+  invweight = iw[:, td1] + iw[:, td2] * h2
   # J = e_dof1 + e_dof2 * (-deriv2 where there is a second joint), from
   # static one-hot rows (the same values as setting 1 and adding)
   e1 = fmask(np.eye(m.nv)[dadr1], d.qpos)
@@ -315,21 +327,23 @@ def _equality_tendon(m, d, rows):
     return
   dev = d.qpos.device
   ti = ix(ids, dev)
-  data = m.eq_data[ti]
+  data = _wf(m, 'eq_data', ids, dev)
   t1, t2 = m.eq_obj1id[ids], m.eq_obj2id[ids]
   has2 = t2 > -1
   i1, i2 = ix(t1, dev), ix(np.maximum(t2, 0), dev)
-  dif = d.ten_length[:, i2] - m.tendon_length0[i2]
-  rhs = data[:, 0] + dif * (data[:, 1] + dif * (
-      data[:, 2] + dif * (data[:, 3] + dif * data[:, 4])))
-  deriv2 = data[:, 1] + dif * (2.0 * data[:, 2] + dif * (
-      3.0 * data[:, 3] + dif * 4.0 * data[:, 4]))
+  length0 = types.world_field(m, 'tendon_length0')
+  dif = d.ten_length[:, i2] - length0[:, i2]
+  rhs = data[..., 0] + dif * (data[..., 1] + dif * (
+      data[..., 2] + dif * (data[..., 3] + dif * data[..., 4])))
+  deriv2 = data[..., 1] + dif * (2.0 * data[..., 2] + dif * (
+      3.0 * data[..., 3] + dif * 4.0 * data[..., 4]))
   h2 = fmask(has2.astype(np.float32), d.qpos)
-  pos = d.ten_length[:, i1] - m.tendon_length0[i1] - torch.where(
-      bmask(has2, dev), rhs, data[:, 0])
+  pos = d.ten_length[:, i1] - length0[:, i1] - torch.where(
+      bmask(has2, dev), rhs, data[..., 0])
   J = d.ten_J[:, i1] - (deriv2 * h2)[..., None] * d.ten_J[:, i2]
   Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
-  invweight = m.tendon_invweight0[i1] + m.tendon_invweight0[i2] * h2
+  iw = types.world_field(m, 'tendon_invweight0')
+  invweight = iw[:, i1] + iw[:, i2] * h2
   D, aref, posv = _row_values(m, pos, pos, invweight, m.eq_solref[ti],
                               m.eq_solimp[ti], 0.0, Jqvel)
   rows.set(m.efc.tendon_adr, J, posv, torch.zeros_like(posv), D, aref, None,
@@ -348,18 +362,21 @@ def _friction(m, d, rows):
     td = ix(dofs, dev)
     J = fmask(np.eye(m.nv)[dofs], d.qpos)
     zero = torch.zeros((n,), dtype=dt, device=dev)
-    D, aref, posv = _row_values(m, zero, zero, m.dof_invweight0[td],
+    D, aref, posv = _row_values(m, zero, zero,
+                                _wf(m, 'dof_invweight0', dofs, dev),
                                 m.dof_solref[td], m.dof_solimp[td], 0.0,
                                 d.qvel[:, td])
     rows.set(m.efc.fri_dof_adr, J.expand(W, n, m.nv), posv,
-             torch.zeros_like(posv), D, aref, m.dof_frictionloss[td],
+             torch.zeros_like(posv), D, aref,
+             _wf(m, 'dof_frictionloss', dofs, dev),
              torch.ones((n,), dtype=torch.bool, device=dev))
   tens = m.efc.fri_ten_id
   if len(tens):
     n = len(tens)
     tt = ix(tens, dev)
     zero = torch.zeros((n,), dtype=dt, device=dev)
-    D, aref, posv = _row_values(m, zero, zero, m.tendon_invweight0[tt],
+    D, aref, posv = _row_values(m, zero, zero,
+                                _wf(m, 'tendon_invweight0', tens, dev),
                                 m.tendon_solref_fri[tt],
                                 m.tendon_solimp_fri[tt], 0.0,
                                 d.ten_velocity[:, tt])
@@ -374,7 +391,8 @@ def _limit_tendon(m, d, rows):
   tids = m.efc.lim_ten_id
   if not len(tids):
     return
-  tt = ix(tids, d.qpos.device)
+  dev = d.qpos.device
+  tt = ix(tids, dev)
   margin = m.tendon_margin[tt]
   trange = m.tendon_range[tt]
   ln = d.ten_length[:, tt]
@@ -384,7 +402,8 @@ def _limit_tendon(m, d, rows):
   Jsign = torch.where(dist_min < dist_max, 1.0, -1.0).to(ln.dtype)
   J = Jsign[..., None] * d.ten_J[:, tt]
   Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
-  D, aref, posv = _row_values(m, pos, pos, m.tendon_invweight0[tt],
+  D, aref, posv = _row_values(m, pos, pos,
+                              _wf(m, 'tendon_invweight0', tids, dev),
                               m.tendon_solref_lim[tt],
                               m.tendon_solimp_lim[tt], margin, Jqvel)
   rows.set(m.efc.lim_ten_adr, J, posv, margin, D, aref, None, pos < 0)
@@ -428,7 +447,8 @@ def _limit(m, d, rows):
     J[:, ar, col] = J[:, ar, col] + (-axis[..., i] * ball_mask)
   Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
   td = ix(dadr, dev)
-  D, aref, posv = _row_values(m, pos, pos, m.dof_invweight0[td],
+  D, aref, posv = _row_values(m, pos, pos,
+                              _wf(m, 'dof_invweight0', dadr, dev),
                               m.jnt_solref[tj], m.jnt_solimp[tj], margin,
                               Jqvel)
   rows.set(m.efc.lim_jnt_adr, J, posv, margin, D, aref, None, active)
@@ -452,7 +472,8 @@ def _contact(m, d, rows):
   wid = torch.arange(W, device=dev)[:, None]
   bdm = fmask(m.tree.body_dof_mask, d.qpos)
   roots = ix(m.body_rootid, dev)
-  iw0 = m.body_invweight0[:, 0]
+  iw0 = types.world_field(m, 'body_invweight0')[..., 0].expand(
+      W, m.nbody)
   for dim in np.unique(dims):
     dim = int(dim)
     idx = np.nonzero(dims == dim)[0]
@@ -462,7 +483,7 @@ def _contact(m, d, rows):
     dist, margin = con.dist[:, ti], con.includemargin[:, ti]
     cpos = dist - margin
     active = dist < margin
-    invweight = iw0[body1] + iw0[body2]
+    invweight = torch.gather(iw0, 1, body1) + torch.gather(iw0, 1, body2)
     Fl = torch.einsum('wkij,wvj->wkiv', frame, lin)
     Fa = torch.einsum('wkij,wvj->wkiv', frame, ang)
 

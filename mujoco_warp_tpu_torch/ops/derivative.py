@@ -33,18 +33,23 @@ _BT = types.BiasType
 
 
 def deriv_smooth_vel(m: types.Model, d: types.Data) -> torch.Tensor:
-  """qDeriv = d qfrc_smooth / d qvel (W, nv, nv) (``derivative.py:32``)."""
+  """qDeriv = d qfrc_smooth / d qvel (W, nv, nv) (``derivative.py:32``),
+  the damping and the actuators' gains and biases per world where they
+  are batched."""
   W, nv = d.qvel.shape
-  qderiv = -torch.diag_embed(m.dof_damping.to(d.qvel.dtype).expand(W, nv))
+  damping = types.world_field(m, 'dof_damping')
+  qderiv = -torch.diag_embed(damping.to(d.qvel.dtype).expand(W, nv))
   if m.ntendon:
     qderiv = qderiv - torch.einsum('wtv,t,wtu->wvu', d.ten_J,
                                    m.tendon_damping, d.ten_J)
   if m.nu:
     dev = d.qvel.device
     gain_v = torch.where(bmask(m.actuator_gaintype == _GT.AFFINE, dev),
-                         m.actuator_gainprm[:, 2], 0.0)
+                         types.world_field(m, 'actuator_gainprm')[..., 2],
+                         0.0)
     bias_v = torch.where(bmask(m.actuator_biastype == _BT.AFFINE, dev),
-                         m.actuator_biasprm[:, 2], 0.0)
+                         types.world_field(m, 'actuator_biasprm')[..., 2],
+                         0.0)
     # the input is ctrl (the general step refuses activations), clamped
     # as fwd_actuation clamps it
     u = d.ctrl

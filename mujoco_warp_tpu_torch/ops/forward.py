@@ -128,7 +128,8 @@ def unsupported(m: types.Model):
 
 def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
   """Actuator forces: FIXED or AFFINE gain and bias, no activation, ctrl
-  clamped to its range (``forward.py:333``)."""
+  clamped to its range (``forward.py:333``); gainprm and biasprm per
+  world where they are batched."""
   zero_v = torch.zeros_like(d.qvel)
   if not m.nu or (m.opt.disableflags & types.DisableBit.ACTUATION):
     return d.replace(actuator_force=d.ctrl[:, :0].expand(-1, m.nu) * 0.0,
@@ -140,20 +141,20 @@ def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
     ctrl = torch.where(lim, torch.minimum(torch.maximum(ctrl, cr[:, 0]),
                                           cr[:, 1]), ctrl)
   length, velocity = d.actuator_length, d.actuator_velocity
-  gt, gp = m.actuator_gaintype, m.actuator_gainprm
+  gt, gp = m.actuator_gaintype, types.world_field(m, 'actuator_gainprm')
   gain = torch.zeros_like(ctrl)
   gain = torch.where(bmask(gt == _GT.FIXED, ctrl.device),
-                     gp[:, 0], gain)
+                     gp[..., 0], gain)
   if np.any(gt == _GT.AFFINE):
     gain = torch.where(bmask(gt == _GT.AFFINE, ctrl.device),
-                       gp[:, 0] + gp[:, 1] * length + gp[:, 2] * velocity,
-                       gain)
+                       gp[..., 0] + gp[..., 1] * length +
+                       gp[..., 2] * velocity, gain)
   bias = torch.zeros_like(ctrl)
-  bt, bp = m.actuator_biastype, m.actuator_biasprm
+  bt, bp = m.actuator_biastype, types.world_field(m, 'actuator_biasprm')
   if np.any(bt == _BT.AFFINE):
     bias = torch.where(bmask(bt == _BT.AFFINE, ctrl.device),
-                       bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity,
-                       bias)
+                       bp[..., 0] + bp[..., 1] * length +
+                       bp[..., 2] * velocity, bias)
   force = gain * ctrl + bias
   if np.any(m.actuator_forcelimited):
     lim = bmask(m.actuator_forcelimited, ctrl.device)
@@ -456,12 +457,21 @@ def _step_sleep_skip(m: types.Model, d: types.Data) -> types.Data:
 def step(m: types.Model, d: types.Data) -> types.Data:
   """One physics step of batched Data (``forward.py:649``): with sleep on
   and at least 256 worlds, the step that skips asleep worlds
-  (``forward.py:674-675``)."""
+  (``forward.py:674-675``).  A Model with per-world fields
+  (``io.batch_model``) takes Data of its batch's width and runs
+  ``_step_batched``, each stage reading world w's values, as the JAX
+  step vmaps its per-world step over them (:657-671)."""
   if d.qpos.dim() != 2:
     raise ValueError('the general step takes batched (W, nq) Data')
   why = unsupported(m)
   if why is not None:
     raise NotImplementedError(f'general step: {why} is not ported yet')
+  nb = types.model_nworld(m)
+  if nb is not None:
+    if nb != d.qpos.shape[0]:
+      raise ValueError(f'the Model\'s fields are batched over {nb} worlds, '
+                       f'the Data holds {d.qpos.shape[0]}')
+    return _step_batched(m, d)
   if osleep.enabled(m) and d.qpos.shape[0] >= 256:
     return _step_sleep_skip(m, d)
   return _step_batched(m, d)

@@ -36,7 +36,8 @@ def _discrete_acc(m: types.Model, d: types.Data) -> torch.Tensor:
   if integ == types.IntegratorType.EULER:
     if not (k4_ref.damped(m)):
       return d.qacc
-    rhs = smooth.mul_m(m, d, d.qacc) + dt * m.dof_damping * d.qacc
+    rhs = smooth.mul_m(m, d, d.qacc) + \
+        dt * types.world_field(m, 'dof_damping') * d.qacc
   else:
     A = d.qM - dt * derivative.deriv_smooth_vel(m, d)
     rhs = torch.einsum('wij,wj->wi', A, d.qacc)

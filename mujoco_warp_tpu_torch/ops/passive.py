@@ -52,14 +52,16 @@ def _spring(m: types.Model, d: types.Data) -> torch.Tensor:
 def tendon_stretch(m: types.Model, d: types.Data) -> torch.Tensor:
   """(W, ntendon): each tendon's length past its spring's deadband
   [lengthspring lo, hi], 0 inside it (``passive.py:290-293``)."""
-  lo, hi = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+  spring = types.world_field(m, 'tendon_lengthspring')
+  lo, hi = spring[..., 0], spring[..., 1]
   L = d.ten_length
   return torch.where(L > hi, L - hi, torch.where(L < lo, L - lo, 0.0))
 
 
 def passive(m: types.Model, d: types.Data) -> types.Data:
   """Spring and damper forces (``passive.py:269``), the tendons' springs
-  with their deadband and their dampers among them (:286-304)."""
+  with their deadband and their dampers among them (:286-304); the dof
+  damping and spring deadbands per world where they are batched."""
   dsbl = m.opt.disableflags
   if float(types.host(m.opt.density)) or float(types.host(m.opt.viscosity)):
     raise NotImplementedError('fluid forces are not ported yet')
@@ -69,7 +71,7 @@ def passive(m: types.Model, d: types.Data) -> types.Data:
   zero = torch.zeros_like(d.qvel)
   qfrc_spring = zero if dsbl & types.DisableBit.SPRING else _spring(m, d)
   qfrc_damper = zero if dsbl & types.DisableBit.DAMPER else \
-      -m.dof_damping * d.qvel
+      -types.world_field(m, 'dof_damping') * d.qvel
   if m.ntendon:
     if not dsbl & types.DisableBit.SPRING:
       qfrc_spring = qfrc_spring + torch.einsum(

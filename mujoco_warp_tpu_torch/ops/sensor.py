@@ -346,13 +346,13 @@ def sensor_pos(m: types.Model, d: types.Data) -> types.Data:
     elif t == _ST.INSIDESITE:
       pos = _obj_pos(m, d, objtype, objid)
       # a massless body with a massive subtree reads its subtree's CoM
+      # (each world's masses: no host read)
       body = np.where(objtype == _OT.BODY, objid, 0)
-      mass = types.host(m.body_mass)[body]
-      smass = types.host(m.body_subtreemass)[body]
-      use_com = (body > 0) & (mass < 1e-15) & (smass >= 1e-15)
-      if np.any(use_com):
-        pos = torch.where(bmask(use_com, dev)[:, None],
-                          d.subtree_com[:, ix(body, dev)], pos)
+      mass = types.world_field(m, 'body_mass')[:, ix(body, dev)]
+      smass = types.world_field(m, 'body_subtreemass')[:, ix(body, dev)]
+      use_com = bmask(body > 0, dev) & (mass < 1e-15) & (smass >= 1e-15)
+      pos = torch.where(use_com[..., None],
+                        d.subtree_com[:, ix(body, dev)], pos)
       refid = m.sensor_refid[ids]
       val = torch.stack([_inside_site(m, d, int(refid[k]), pos[:, k])
                          for k in range(len(ids))], -1)
@@ -372,19 +372,21 @@ def _subtree_vel(m: types.Model, d: types.Data):
   """Subtree linear velocity and angular momentum about the subtree CoM,
   (W, nbody, 3) each (mj_subtreeVel, ``sensor.py:477``)."""
   dev = d.qpos.device
-  mass = m.body_mass
+  mass = types.world_field(m, 'body_mass')  # (1 or W, nbody)
   off = d.xipos - d.subtree_com[:, ix(m.body_rootid, dev)]
   ang = d.cvel[..., :3]
   lin = d.cvel[..., 3:] - math.cross(off, ang)
   sub = fmask(m.tree.subtree_mask, d.qpos)
-  subtree_mass = torch.clamp(sub @ mass, min=1e-12)
-  linvel = torch.einsum('sb,wbi->wsi', sub, mass[:, None] * lin) / \
-      subtree_mass[:, None]
-  I3 = d.ximat @ (m.body_inertia[..., None] * d.ximat.transpose(-1, -2))
+  subtree_mass = torch.clamp(torch.sum(sub * mass[:, None, :], dim=-1),
+                             min=1e-12)
+  linvel = torch.einsum('sb,wbi->wsi', sub, mass[..., None] * lin) / \
+      subtree_mass[..., None]
+  inertia = types.world_field(m, 'body_inertia')
+  I3 = d.ximat @ (inertia[..., None] * d.ximat.transpose(-1, -2))
   spin = torch.einsum('wbij,wbj->wbi', I3, ang)
   rel_p = d.xipos[:, None] - d.subtree_com[:, :, None]  # (W, s, b, 3)
   rel_v = lin[:, None] - linvel[:, :, None]
-  orb = math.cross(rel_p, rel_v) * mass[:, None]
+  orb = math.cross(rel_p, rel_v) * mass[:, None, :, None]
   angmom = torch.einsum('sb,wsbi->wsi', sub, orb + spin[:, None])
   return linvel, angmom
 
@@ -521,8 +523,9 @@ def energy_pos_value(m: types.Model, d: types.Data) -> torch.Tensor:
   W = d.qpos.shape[0]
   e = torch.zeros(W, dtype=dt, device=dev)
   if not (m.opt.disableflags & types.DisableBit.GRAVITY):
-    e = e - torch.sum(m.body_mass[:, None] * d.xipos * m.opt.gravity,
-                      dim=(1, 2))
+    grav = types.world_field(m, 'opt.gravity')[:, None]  # (1 or W, 1, 3)
+    e = e - torch.sum(types.world_field(m, 'body_mass')[..., None] *
+                      d.xipos * grav, dim=(1, 2))
   if m.opt.disableflags & types.DisableBit.SPRING:
     return e
   JT = types.JointType

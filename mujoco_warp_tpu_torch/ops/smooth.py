@@ -31,10 +31,12 @@ _JT = types.JointType
 
 
 def kinematics(m: types.Model, d: types.Data) -> types.Data:
-  """Forward kinematics, bodies level by level (``smooth.py:36``)."""
+  """Forward kinematics, bodies level by level (``smooth.py:36``); qpos0
+  and body_ipos per world where they are batched."""
   qpos = d.qpos
   W, dev, dt = qpos.shape[0], qpos.device, qpos.dtype
   nb = m.nbody
+  qpos0 = types.world_field(m, 'qpos0')
   xpos = torch.zeros((W, nb, 3), dtype=dt, device=dev)
   xquat = torch.zeros((W, nb, 4), dtype=dt, device=dev)
   xquat[..., 0] = 1.0
@@ -78,7 +80,8 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
           axis = math.rot_vec_quat(m.jnt_axis[jj], quat[:, s2])
           anchor = pos[:, s2] + math.rot_vec_quat(m.jnt_pos[jj], quat[:, s2])
           qa = ix(qadr, dev)
-          pos[:, s2] = pos[:, s2] + axis * (qpos[:, qa] - m.qpos0[qa])[..., None]
+          pos[:, s2] = pos[:, s2] + axis * (qpos[:, qa] -
+                                            qpos0[:, qa])[..., None]
           xanchor[:, jj] = anchor
           xaxis[:, jj] = axis
         else:  # HINGE
@@ -86,7 +89,7 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
           axis = math.rot_vec_quat(m.jnt_axis[jj], quat[:, s2])
           qa = ix(qadr, dev)
           qloc = math.axis_angle_to_quat(m.jnt_axis[jj],
-                                         qpos[:, qa] - m.qpos0[qa])
+                                         qpos[:, qa] - qpos0[:, qa])
           qnew = math.mul_quat(quat[:, s2], qloc)
           pos[:, s2] = anchor - math.rot_vec_quat(m.jnt_pos[jj], qnew)
           quat[:, s2] = qnew
@@ -96,7 +99,7 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
     xquat[:, tid] = math.normalize_quat(quat)
 
   xmat = math.quat_to_mat(xquat)
-  xipos = xpos + math.rot_vec_quat(m.body_ipos, xquat)
+  xipos = xpos + math.rot_vec_quat(types.world_field(m, 'body_ipos'), xquat)
   ximat = math.quat_to_mat(math.mul_quat(xquat, m.body_iquat))
   gb = ix(m.geom_bodyid[:m.ngeom], dev)
   geom_xpos = xpos[:, gb] + math.rot_vec_quat(m.geom_pos, xquat[:, gb])
@@ -113,17 +116,20 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
 
 
 def com_pos(m: types.Model, d: types.Data) -> types.Data:
-  """Subtree CoM, spatial inertia and dof axes (``smooth.py:131``)."""
+  """Subtree CoM, spatial inertia and dof axes (``smooth.py:131``); the
+  masses, inertias and subtree masses per world where they are
+  batched."""
   dev, dt = d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
-  mass = m.body_mass
-  wpos = mass[:, None] * d.xipos
+  mass = types.world_field(m, 'body_mass')  # (1 or W, nbody)
+  wpos = mass[..., None] * d.xipos
   sub = fmask(m.tree.subtree_mask, d.qpos)
-  subtree_com = (sub @ wpos) / torch.clamp(m.body_subtreemass,
-                                           min=1e-12)[:, None]
+  subtree_com = (sub @ wpos) / torch.clamp(types.world_field(
+      m, 'body_subtreemass'), min=1e-12)[..., None]
   root_com = subtree_com[:, ix(m.body_rootid, dev)]
   offset = d.xipos - root_com
-  cinert = math.inert_matrix(m.body_inertia, mass, offset, d.ximat)
+  cinert = math.inert_matrix(types.world_field(m, 'body_inertia'), mass,
+                             offset, d.ximat)
 
   cdof = torch.zeros((W, m.nv, 6), dtype=dt, device=dev)
   for jt in np.unique(m.jnt_type):
@@ -299,9 +305,10 @@ def rne_postconstraint(m: types.Model, d: types.Data) -> types.Data:
       cfrc_ext = cfrc_ext + torch.zeros((W, nb, 6), dtype=dt,
                                         device=dev).scatter_add_(
           1, bodies[..., None].expand(W, m.ncon, 6), w)
-  g = torch.zeros(6, dtype=dt, device=dev)
+  g = torch.zeros((1, 1, 6), dtype=dt, device=dev)
   if not (m.opt.disableflags & types.DisableBit.GRAVITY):
-    g = torch.cat([g[:3], -m.opt.gravity.to(dt)])
+    grav = types.world_field(m, 'opt.gravity').to(dt)[:, None]
+    g = torch.cat([torch.zeros_like(grav), -grav], -1)  # (1 or W, 1, 6)
   bd = fmask(m.tree.body_dof_mask, d.qpos)  # (nbody, nv)
   cacc = g + torch.einsum('bv,wvi->wbi', bd,
                           d.cdof_dot * d.qvel[..., None] +
@@ -854,10 +861,10 @@ def rne(m: types.Model, d: types.Data) -> types.Data:
   dofs and its ancestors', cfrc = cinert cacc + cvel x* (cinert cvel),
   qfrc_bias = cdof . the cfrc summed over the dof's subtree."""
   bd = fmask(m.tree.body_dof_mask, d.cdof)
-  g = m.opt.gravity.to(d.cdof.dtype)
+  g = types.world_field(m, 'opt.gravity').to(d.cdof.dtype)[:, None]
   if m.opt.disableflags & types.DisableBit.GRAVITY:
     g = torch.zeros_like(g)
-  cacc = torch.cat([torch.zeros_like(g), -g]) + torch.einsum(
+  cacc = torch.cat([torch.zeros_like(g), -g], -1) + torch.einsum(
       'bv,wvk->wbk', bd, d.cdof_dot * d.qvel[..., None])
   # the world body's cacc is 0
   not_world = np.ones((m.nbody, 1), np.float32)

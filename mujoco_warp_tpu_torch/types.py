@@ -252,6 +252,12 @@ def scalar(default=0):
   return dataclasses.field(default=default, metadata={'kind': 'scalar'})
 
 
+def batch():
+  """The names of the Model's batched fields (``io.batch_model``); not
+  part of a snapshot."""
+  return dataclasses.field(default=(), metadata={'kind': 'batch'})
+
+
 def dtype_of(m) -> torch.dtype:
   """The float dtype of a Model: float32, or float64 (``io.put_model``'s
   ``dtype``)."""
@@ -266,6 +272,8 @@ def np_float(dtype):
 
 
 def field_kinds(cls):
+  """Each field's kind: 'array', 'static', 'scalar', 'node' (a nested
+  dataclass), or 'batch' (``Model.batch_fields``, kept out of snapshots)."""
   return {f.name: f.metadata.get('kind', 'node') for f in
           dataclasses.fields(cls)}
 
@@ -529,6 +537,7 @@ class Model(_Replace):
   actuator_ctrlrange: torch.Tensor = array()
   actuator_forcerange: torch.Tensor = array()
   actuator_gear: torch.Tensor = array()
+  actuator_acc0: torch.Tensor = array()  # (nu,) ||M^-1 moment|| at qpos0
 
   # collision tables: candidate pairs, slots and per-slot mixed params
   pair_geom1: np.ndarray = static()
@@ -542,6 +551,10 @@ class Model(_Replace):
   cand_solref: torch.Tensor = array()
   cand_solimp: torch.Tensor = array()
   cand_includemargin: torch.Tensor = array()
+
+  # the fields ``io.batch_model`` gave a leading world axis, sorted
+  # (``opt.``-dotted for Option fields); read them through ``world_field``
+  batch_fields: Tuple[str, ...] = batch()
 
 
 @dataclasses.dataclass
@@ -720,6 +733,84 @@ def scatter_worlds(d: Data, sub: Data, ids: torch.Tensor, W: int) -> Data:
         kw[f.name] = put(x, xs)
     return (objs if obj is None else obj).replace(**kw)
   return one(d, sub)
+
+
+def get_model_field(m: Model, name: str):
+  """A Model field by name, ``opt.``-dotted for an Option field
+  (``types.py:965``)."""
+  if name.startswith('opt.'):
+    return getattr(m.opt, name[4:])
+  return getattr(m, name)
+
+
+def set_model_fields(m: Model, updates: dict) -> Model:
+  """``m`` with the fields of ``updates`` (names as ``get_model_field``
+  takes them) replaced (``types.py:972``)."""
+  opt = {k[4:]: v for k, v in updates.items() if k.startswith('opt.')}
+  top = {k: v for k, v in updates.items() if not k.startswith('opt.')}
+  if opt:
+    top['opt'] = m.opt.replace(**opt)
+  return m.replace(**top)
+
+
+def model_nworld(m: Model):
+  """The world count of a Model's batched fields, or None unbatched."""
+  if not m.batch_fields:
+    return None
+  return get_model_field(m, m.batch_fields[0]).shape[0]
+
+
+def world_field(m: Model, name: str):
+  """A batchable Model field with a leading world axis: (W, ...) when
+  ``name`` is in ``m.batch_fields``, else a (1, ...) view of the field
+  (no copy) that broadcasts against world-major Data.  Every reader of a
+  field ``io.batch_model`` takes goes through this: indexing the field on
+  its element axis (``m.body_mass[ids]``) would index the world axis of a
+  batched field.  A stand-in for a Model without ``batch_fields`` (a
+  namespace of a few fields) reads as unbatched."""
+  x = get_model_field(m, name)
+  return x if name in getattr(m, 'batch_fields', ()) else x[None]
+
+
+def map_model_worlds(m: Model, fn) -> Model:
+  """``m`` with ``fn`` applied to every batched field (``map_worlds``'s
+  sibling: the rollout's sort permutes a batched Model's worlds with its
+  Data's)."""
+  if not m.batch_fields:
+    return m
+  return set_model_fields(m, {n: fn(get_model_field(m, n))
+                              for n in m.batch_fields})
+
+
+# the Model's fields in order, the Option's one by one ('opt.'-dotted)
+_LEAF_NAMES = []
+for _f in dataclasses.fields(Model):
+  if _f.name == 'opt':
+    _LEAF_NAMES += ['opt.' + g.name for g in dataclasses.fields(Option)]
+  else:
+    _LEAF_NAMES.append(_f.name)
+
+
+# model_token's tokens by the ids of the fields they stand for, the fields
+# held so that their ids are not reused
+_TOKENS = {}
+
+
+def model_token(m: Model) -> object:
+  """One object for every Model whose fields but ``batch_fields`` and
+  those it names (the Option's one by one) are the same objects: what a
+  table built once per Model may read is keyed on it
+  (``kernels.TableCache``).  A Model whose batched fields a sort permuted
+  shares its token; any other change makes a new one.  Kept on the Model,
+  which is frozen, after the first call."""
+  tok = m.__dict__.get('_token')
+  if tok is None:
+    skip = set(m.batch_fields) | {'batch_fields'}
+    leaves = tuple(get_model_field(m, n) for n in _LEAF_NAMES
+                   if n not in skip)
+    tok = _TOKENS.setdefault(tuple(map(id, leaves)), (leaves, object()))[1]
+    object.__setattr__(m, '_token', tok)
+  return tok
 
 
 _HOST = {}

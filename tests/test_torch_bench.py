@@ -29,7 +29,7 @@ def test_run_reports_the_jax_harness_keys(replay):
   res = benchmarks.run(m, nworld=8, nstep=3, warmup_steps=2, device='cpu',
                        replay=rp)
   st = res.pop('state')
-  assert set(res) == bench_keys()
+  assert set(res) == bench_keys() | {'model', 'world_ids'}
   assert res['converged_worlds'] == 8 and res['overflow_worlds'] == 0
   assert res['nworld'] == 8 and res['nstep'] == 3
   assert st.ctrl.abs().max() > 0  # OU noise drove ctrl
@@ -119,7 +119,7 @@ def test_run_takes_the_general_step_outside_the_fused_gate():
   res = benchmarks.run(m, nworld=8, nstep=3, warmup_steps=2, device='cpu')
   st = res.pop('state')
   assert isinstance(st, types.Data) and st.qpos.shape == (8, m.nq)
-  assert set(res) == bench_keys()
+  assert set(res) == bench_keys() | {'model', 'world_ids'}
   assert res['converged_worlds'] == 8 and res['overflow_worlds'] == 0
   assert st.ctrl.abs().max() > 0
 
@@ -140,6 +140,6 @@ def test_run_takes_the_clutter_snapshot():
   assert st.contact.dist.shape == (4, m.ncon)
   assert st.ncon_active.shape == (4,)
   assert osolver.trips - trips >= 3  # one solve per step at least
-  assert set(res) == bench_keys()
+  assert set(res) == bench_keys() | {'model', 'world_ids'}
   assert res['converged_worlds'] == 4 and res['overflow_worlds'] == 0
   assert st.ctrl.abs().max() > 0

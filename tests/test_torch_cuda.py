@@ -293,7 +293,7 @@ def test_general_kernels_cuda_match_plain(cuda):
   want = solver_ref.solve_tiles(*sa)
   parity.check_solve(got, want)
   M = lanes(d.qM, nv * nv)
-  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  dmp = klinalg.world_damping(m).to(cuda)
   parity.check_world_scale(
       klinalg.damped_solve_batched(m, d.qM, want[0].T).T,
       klinalg.damped_solve_plain(M, want[0], dmp), 'damped_solve',
@@ -395,7 +395,7 @@ def test_cholesky_solves_cuda_read_in_place(cuda, n, kind, monkeypatch):
       nv=n, opt=pytypes.SimpleNamespace(timestep=0.002),
       dof_damping=rng.uniform(0.0, 3.0, n).astype(np.float32))
   L = klinalg.chol_batched_plain(A, 1e-12)
-  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  dmp = klinalg.world_damping(m).to(cuda)
   want_cs = klinalg.chol_solve_plain(lanes(L, n * n), lanes(b))
   want_ds = klinalg.damped_solve_plain(lanes(A, n * n), lanes(b), dmp)
 
@@ -455,7 +455,7 @@ def test_large_tree_kernels_cuda_match_plain(cuda):
   parity.check_world_scale(klinalg.chol_solve_batched(m, L, b.T).T,
                            klinalg.chol_solve_plain(Ll, b), 'chol_solve',
                            parity.SOLVE_ATOL, parity.SOLVE_RTOL)
-  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  dmp = klinalg.world_damping(m).to(cuda)
   parity.check_world_scale(
       klinalg.damped_solve_batched(m, qM, b.T).T,
       klinalg.damped_solve_plain(lanes(qM, nv * nv), b, dmp), 'damped_solve',
@@ -740,7 +740,7 @@ def test_tendon_scene_kernels_cuda_match_plain(cuda, scene):
     parity.check_solve(got_s, want_s, 'dmc', sa[1:3])
     qacc = want_s[0]
   if k4_ref.damped(m):
-    dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+    dmp = klinalg.world_damping(m).to(cuda)
     parity.check_world_scale(
         klinalg.damped_solve_batched(m, d.qM, qacc.T).T,
         klinalg.damped_solve_plain(qM, qacc, dmp), 'damped_solve',
@@ -800,7 +800,7 @@ def test_linalg_kernels_cuda_small_n(cuda, n):
   m = pytypes.SimpleNamespace(
       nv=n, opt=pytypes.SimpleNamespace(timestep=0.002),
       dof_damping=rng.uniform(0.0, 3.0, n).astype(np.float32))
-  dmp = torch.as_tensor(klinalg.damping_terms(m), device=cuda)
+  dmp = klinalg.world_damping(m).to(cuda)
   parity.check_world_scale(
       klinalg.chol_solve_batched(m, L, b).T,
       klinalg.chol_solve_plain(lanes(L, n * n), lanes(b)), 'chol_solve',
