@@ -187,6 +187,22 @@ Phases, one line each or more, any failure exits non-zero:
     DR_KEEP_NSTEP steps sorted (every world moved) against unsorted,
     the order undone, within parity's qpos bar (beside the error of the
     same sort with the parameters left in their slots, for scale).
+16. actuation (activation dynamics, muscles, DC motors, the site,
+    slider-crank and body transmissions): dm_control's quadruped (nv 22,
+    12 FILTER actuators on tendons and joints, the solve kernel at nefc
+    300) and dog (nv 79, 38 FILTER actuators, 6273 candidates in 144
+    slots, the large-tree mass chain and the torch Newton at nefc 793) at
+    8192 worlds from parity.dmc_state tiled, ACT_NSTEP steps and warmup,
+    as phase 13 runs its scenes (exact counts, kernels held and timed:
+    *_qd, *_dog; one step of ACT_NCMP worlds against the CPU, act
+    included), with steps/s, overflow and converged worlds, live contacts
+    per world (which must be above 0), act's range and the rollout's peak
+    device memory; then the test scenes dcmotor, transmission and
+    actuator_mix (io.ACT_SNAPSHOTS) at ACT_TEST_NWORLD worlds for
+    ACT_TEST_NSTEP steps the same way (*_dcm, *_trn, *_amix);
+    transmission's solve at parity's 'adhesion' bar, with the worlds
+    where the kernel's qfrc_constraint lies past the plain bar (or the
+    nearest) held beside the float64 optimum (qfrc_witness).
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -305,6 +321,20 @@ SC_RTOL = 1e-5
 SC_MINV_RTOL = 4e-5
 SC_MINV = ('dof_invweight0', 'body_invweight0', 'tendon_invweight0',
            'actuator_acc0')
+# phase 16: actuation on the general step.  dm_control's quadruped and dog
+# from their seeded contact states (parity.dmc_state: the root lowered by
+# parity.DMC_DROP, 64 worlds tiled to the width), (steps, warmup) each;
+# then the test scenes dcmotor, transmission and actuator_mix
+# (io.ACT_SNAPSHOTS, qpos0 + noise) at ACT_TEST_NWORLD worlds for
+# ACT_TEST_NSTEP steps after 2 of warmup; the key suffix of each scene's
+# kernels; the worlds of each scene's one step against the CPU
+ACT_NSTEP = {'quadruped': (20, 5), 'dog': (1, 1)}
+ACT_TEST_NWORLD, ACT_TEST_NSTEP = 8192, 5
+ACT_SFX = {'quadruped': '_qd', 'dog': '_dog', 'dcmotor': '_dcm',
+           'transmission': '_trn', 'actuator_mix': '_amix'}
+ACT_NCMP = {'quadruped': 1024, 'dog': 16}
+# worlds of qfrc_witness where no world lies past the bar
+QFRC_WITNESS = 4
 WARMUP = 10
 NCMP = 1024
 # profiler timing: launches per trace, traces per kernel at most, and the
@@ -505,7 +535,8 @@ def main():
       ('chol_solve_n36_cg', 'mass_chain_n36_cg', 'k1_implicitfast',
        'k4_implicitfast') + tuple(
           k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values(),
-                              *TASK_SFX.values(), '_dr')
+                              *TASK_SFX.values(), '_dr',
+                              *ACT_SFX.values())
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
                     'damped_solve')) + ('chol_batched_sc', 'chol_solve_sc')}
 
@@ -1480,10 +1511,11 @@ def main():
   say(f'[phase 12] at {time.perf_counter() - T0:.1f} s')
   t12 = time.perf_counter()
 
-  def step_compare(label, d, model, kerns, sfx):
+  def step_compare(label, d, model, kerns, sfx, bar='dmc'):
     """The kernels ``kerns`` of ``model``'s general step against their
     plain versions on world-major state d (carried fields), each fed the
-    plain version's upstream outputs, in the main path's layouts; errors
+    plain version's upstream outputs, in the main path's layouts, the
+    solve at parity's ``bar`` ('elliptic' with elliptic cones); errors
     to err[kernel + sfx].  Where the torch Newton runs, chol_batched also
     on its first H and chol_solve on its first gradient; under
     IMPLICITFAST chol_batched on M - h qDeriv and chol_solve on its
@@ -1537,8 +1569,8 @@ def main():
                          if ell else None)
         gs, ws = (ksolver.solve_tiles(*args['solve']),
                   solver_ref.solve_tiles(*args['solve']))
-        rs = parity.check_solve(gs, ws, 'elliptic' if ell else 'dmc',
-                                args['solve'][1:3])
+        bar = 'elliptic' if ell else bar
+        rs = parity.check_solve(gs, ws, bar, args['solve'][1:3])
         errs['solve'], niter, qacc = (rs['qacc_max_abs_err'],
                                       rs['niter_mean'], ws[0])
       if 'damped_solve' in kerns:
@@ -1582,7 +1614,7 @@ def main():
         + f'; mass chain worst relative {rel:.2e} (tol {parity.K1_TOL}); '
         f'chol_batched, chol_solve and damped_solve within atol '
         f'{parity.SOLVE_ATOL} + rtol {parity.SOLVE_RTOL} of world scale '
-        f'(the solves in both layouts); the solve at parity\'s \'dmc\' '
+        f'(the solves in both layouts); the solve at parity\'s \'{bar}\' '
         f'bar; plain Newton niter mean {niter:.3f}')
     return args, niter
 
@@ -1774,18 +1806,65 @@ def main():
       return {k: v for k, v in c.items() if v}
     return expect
 
-  def general_scene(name, sfx, nstep, init=None, warmup=WARMUP):
-    """One scene of phases 13 and 14: ``main_path`` at its registered
-    width from ``init`` (or qpos0 plus noise), exact counts from
-    ``classic_expect``, its kernels held and timed on the last state
-    (``step_compare``, ``tendon_timing``), and one step of NSENSOR_CMP
-    worlds on the card against the CPU's plain step.  Returns the last
-    state and the rollout's metrics."""
+  def scene_model(name, device=None):
+    """(model, width) of a scene of ``benchmarks.SCENES``, or of one of
+    phase 16's test scenes (``io.ACT_SNAPSHOTS``) at ACT_TEST_NWORLD."""
+    if name in benchmarks.SCENES:
+      return benchmarks.load_scene(name, device=device)
+    return (io.load_model_npz(io.ACT_SNAPSHOTS[name], device=device),
+            ACT_TEST_NWORLD)
+
+  def qfrc_witness(name, a):
+    """For a scene whose solve bar carries qfrc_constraint's slack
+    (parity.SOLVE_BAR_OF): on the worlds of the system ``a`` (the solve
+    kernel's arguments) where the kernel's qfrc_constraint lies past the
+    K4 bar without it, or else the QFRC_WITNESS nearest, the plain solve
+    in float64 run to its optimum (tolerance 1e-14), and each world's
+    qfrc_constraint distance to it, in K4 bars, for the kernel, the plain
+    version and the float64 plain solve at the model's tolerance."""
+    gs, ws = ksolver.solve_tiles(*a), solver_ref.solve_tiles(*a)
+    q_bar = parity.QACC_ATOL + parity.QACC_RTOL * ws[2].abs().amax(0)
+    q_past = ((gs[2] - ws[2]).abs().amax(0) - q_bar)
+    ids = torch.nonzero(q_past > 0).reshape(-1)
+    if not len(ids):
+      ids = torch.argsort(q_past, descending=True)[:QFRC_WITNESS]
+    m64 = io.load_model_npz(io.ACT_SNAPSHOTS[name], dtype=torch.float64)
+    sub = [None if x is None else x[..., ids].double() for x in a[1:]]
+    f64 = solver_ref.solve_tiles(m64, *sub)
+    opt = solver_ref.solve_tiles(m64.replace(opt=m64.opt.replace(
+        tolerance=torch.tensor(1e-14, dtype=torch.float64, device=dev),
+        iterations=200)), *sub)
+    bar = parity.QACC_ATOL + parity.QACC_RTOL * opt[2].abs().amax(0)
+    far = lambda q: [float(f'{float(x):.4g}') for x in (
+        (q.double() - opt[2]).abs().amax(0) / bar)]
+    say(f'[compare] {name}: qfrc_constraint of the solve kernel against '
+        f'its plain version, past the K4 bar without the qacc slack by '
+        f'{float(q_past.max()):.4e} at most; worlds '
+        f'{ids.tolist()} ' + ('(past it)' if float(q_past.max()) > 0 else
+                              '(nearest it)') + ': distance to the float64 '
+        f'optimum in K4 bars, kernel {far(gs[2][:, ids])}, plain '
+        f'{far(ws[2][:, ids])}, float64 at the model\'s tolerance '
+        f'{far(f64[2])}; Newton counts kernel '
+        f'{gs[3][0, ids].tolist()}, plain {ws[3][0, ids].tolist()}, '
+        f'float64 {f64[3][0].tolist()}, optimum {opt[3][0].tolist()}')
+
+  def general_scene(name, sfx, nstep, init=None, warmup=WARMUP,
+                    ncmp=NSENSOR_CMP):
+    """One scene of phases 13, 14 and 16: ``main_path`` at its width
+    (``scene_model``) from ``init`` (or qpos0 plus noise), exact counts
+    from ``classic_expect``, its kernels held and timed on the last state
+    (``step_compare``, ``tendon_timing``), and one step of ``ncmp``
+    worlds on the card against the CPU's plain step (qpos, act and
+    sensordata).  Prints the rollout's peak device memory.  Returns the
+    last state and the rollout's metrics."""
     t_scene = time.perf_counter()
-    mt, w_t = benchmarks.load_scene(name)
+    mt, w_t = scene_model(name)
     expect = classic_expect(mt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     res, st, launches = main_path(mt, nstep, expect, w_t, init_state=init,
                                   warmup=warmup)
+    res['max_memory_allocated_gb'] = torch.cuda.max_memory_allocated() / 1e9
     kerns = tuple(expect(1, 1))
     if mt.nsensordata and not bool(torch.isfinite(st.sensordata).all()):
       fail(f'{name}: sensordata not finite')
@@ -1800,25 +1879,33 @@ def main():
         f"per world {ncon:.3f}; torch Newton or CG trips per step "
         f"{osolver.trips / steps:.3f}; host reads per step "
         f"{outil.host_reads['solver'] / steps:.3f}; qpos and sensordata "
-        'finite')
+        f"finite; peak device memory {res['max_memory_allocated_gb']:.3f} "
+        'GB' + (f'; act in [{float(st.act.min()):.4f}, '
+                f'{float(st.act.max()):.4f}]' if mt.na else ''))
     for k in kerns:
       kernel_launches[k + sfx] = launches[k]
     t_hold = time.perf_counter()
     args, niter = step_compare(f'{name} rollout W={w_t}', types.carried(st),
-                               mt, kerns, sfx)
+                               mt, kerns, sfx,
+                               parity.SOLVE_BAR_OF.get(name, 'dmc'))
     tendon_timing(args, niter, sfx)
+    if name in parity.SOLVE_BAR_OF and 'solve' in args:
+      qfrc_witness(name, args['solve'])
     t_hold = time.perf_counter() - t_hold
     t_cmp = time.perf_counter()
     # one step of NSENSOR_CMP worlds of the last state on the card and on
     # the CPU (plain versions)
-    mcpu, _ = benchmarks.load_scene(name, device='cpu')
-    sub = {k: getattr(st, k)[:NSENSOR_CMP] for k in types.CARRY}
+    mcpu, _ = scene_model(name, device='cpu')
+    sub = {k: getattr(st, k)[:ncmp] for k in types.CARRY}
     on_card = forward.step(mt, types.Data(**sub))
     on_cpu = forward.step(mcpu, types.Data(**{k: v.cpu() for k, v in
                                               sub.items()}))
     try:
       parity.check_world_scale(on_card.qpos.cpu().T, on_cpu.qpos.T, 'qpos',
                                parity.QPOS_ATOL, parity.QPOS_RTOL)
+      if mt.na:
+        parity.check_world_scale(on_card.act.cpu().T, on_cpu.act.T, 'act',
+                                 parity.QPOS_ATOL, parity.QPOS_RTOL)
       rsen = None
       if mt.nsensordata:
         slack = parity.step_slack(mcpu, types.Data(**{
@@ -1831,9 +1918,9 @@ def main():
             mt.opt.iterations)
     except AssertionError as e:
       fail(f'{name}, one step card against CPU: {e}')
-    say(f'[compare] {name} one step W={NSENSOR_CMP}, card against the '
-        f'CPU\'s plain versions: qpos within atol {parity.QPOS_ATOL} + rtol '
-        f'{parity.QPOS_RTOL} of world scale'
+    say(f'[compare] {name} one step W={ncmp}, card against the '
+        f'CPU\'s plain versions: qpos{" and act" if mt.na else ""} within '
+        f'atol {parity.QPOS_ATOL} + rtol {parity.QPOS_RTOL} of world scale'
         + ('' if rsen is None else '; sensordata max abs err by stage '
            + json.dumps(rsen['max_abs_err'])))
     t_cmp = time.perf_counter() - t_cmp
@@ -1959,6 +2046,7 @@ def main():
     n = {'qpos': sizes.nq, 'act': sizes.na, 'ctrl': sizes.nu,
          'sensordata': sizes.nsensordata, 'ten_length': sizes.ntendon,
          'ten_velocity': sizes.ntendon, 'tree_asleep': sizes.ntree}
+    n['act_dot'] = sizes.na
     for k in ('qvel', 'qacc', 'qacc_warmstart', 'qfrc_bias', 'qfrc_passive',
               'qfrc_actuator', 'qfrc_constraint'):
       n[k] = sizes.nv
@@ -2266,6 +2354,40 @@ def main():
       f'stride 0 to the bit')
   say(f'[main path] phase 15 took {time.perf_counter() - t15:.1f} s')
 
+  # ---- 16. actuation: activation dynamics, muscles, DC motors and the
+  # site, slider-crank and body transmissions on the general step
+  say(f'[phase 16] at {time.perf_counter() - T0:.1f} s')
+  t16 = time.perf_counter()
+  for name, (nstep, warmup) in ACT_NSTEP.items():
+    mh, w_t = scene_model(name, device='cpu')
+    qpos, qvel, _ = parity.dmc_state(mh, name, 64, 0)
+    st, res = general_scene(name, ACT_SFX[name], nstep,
+                            {'qpos': qpos, 'qvel': qvel}, warmup,
+                            ACT_NCMP[name])
+    ncon = float(st.ncon_active.float().mean())
+    if ncon <= 0.0:
+      fail(f'{name}: no live contact in the last state')
+    say(f"[main path] {name} W={w_t}: {res['steps_per_sec']:.1f} steps/s, "
+        f"overflow_worlds {res['overflow_worlds']}, converged_worlds "
+        f"{res['converged_worlds']}, solver_cap_worlds "
+        f"{res['solver_cap_worlds']}, live contacts per world {ncon:.3f}, "
+        f"peak device memory {res['max_memory_allocated_gb']:.3f} GB")
+    if forward.solve_kernel_runs(mh):
+      say(f'[kernel] solve_kernel on {name} (nefc {mh.nefc}, nv {mh.nv}): '
+          f'{json.dumps(ksolver.kernel_info(mh))}')
+    say(f'[kernel] mass chain on {name} (nv {mh.nv}, nbody {mh.nbody}): '
+        f'{json.dumps(kmass.kernel_info(mh))}')
+  for name in ('dcmotor', 'transmission', 'actuator_mix'):
+    st, res = general_scene(name, ACT_SFX[name], ACT_TEST_NSTEP, warmup=2)
+    say(f"[main path] {name} W={ACT_TEST_NWORLD}: act_dot in "
+        f"[{float(st.act_dot.min()):.4f}, {float(st.act_dot.max()):.4f}], "
+        f"actuator_force in [{float(st.actuator_force.min()):.4f}, "
+        f"{float(st.actuator_force.max()):.4f}]" if st.act_dot.numel() else
+        f"[main path] {name} W={ACT_TEST_NWORLD}: actuator_force in "
+        f"[{float(st.actuator_force.min()):.4f}, "
+        f"{float(st.actuator_force.max()):.4f}]")
+  say(f'[main path] phase 16 took {time.perf_counter() - t16:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -2301,7 +2423,7 @@ def main():
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
   for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values(),
-              '_dr', '_sc'):
+              '_dr', '_sc', *ACT_SFX.values()):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

@@ -97,6 +97,9 @@ SCENES = {
     # domain randomization (general step): the humanoid, each world with
     # its own physical parameters (``randomize``)
     'humanoid_dmc_dr': (io.DMC_SNAPSHOTS['humanoid_dmc'], 8192),
+    # actuation (general step): dm_control's quadruped (walk, run) and
+    # dog (stand, walk, trot, run), FILTER activations
+    **{name: (io.ACT_SNAPSHOTS[name], 8192) for name in io.ACT_DMC},
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {
@@ -206,14 +209,17 @@ def ou_noise(m: types.Model, replay: bool, device=None, lanes: bool = True):
   per_act = (lambda x: x[:, None]) if lanes else (lambda x: x[None, :])
   if replay:
     lim = m.actuator_ctrllimited.astype(bool)
-    crange = types.host(m.actuator_ctrlrange, np.float32)
-    col = lambda x: per_act(torch.as_tensor(np.asarray(x, np.float32),
-                                            device=device))
-    half = col(np.where(lim, 0.5 * (crange[:, 1] - crange[:, 0]), 1.0))
+    # (1 or W, nu, 2): each world's range where it is batched (the fused
+    # path takes no batched Model)
+    crange = types.host(types.world_field(m, 'actuator_ctrlrange'),
+                        np.float32)
+    col = lambda x: torch.as_tensor(np.asarray(
+        x[0][:, None] if lanes else x, np.float32), device=device)
+    half = col(np.where(lim, 0.5 * (crange[..., 1] - crange[..., 0]), 1.0))
     decay = float(np.exp(-dt / 0.1))
     scale = 0.01 * float(np.sqrt(1.0 - decay * decay))
-    lo = col(np.where(lim, crange[:, 0], -np.inf))
-    hi = col(np.where(lim, crange[:, 1], np.inf))
+    lo = col(np.where(lim, crange[..., 0], -np.inf))
+    hi = col(np.where(lim, crange[..., 1], np.inf))
   else:
     decay = float(np.exp(-dt / 0.2))
     scale = 0.2 * float(np.sqrt(dt))

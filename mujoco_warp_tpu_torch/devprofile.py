@@ -7,7 +7,7 @@
                tendon_wrap|tendon_mix|pendulum|reacher|finger|cartpole|
                acrobot|humanoid_CMU|constraints_implicitfast|
                cheetah_implicit|manipulator_insert_peg|stack_2|stack_4|
-               finger_cg|humanoid_dmc_dr] [--general]
+               finger_cg|humanoid_dmc_dr|quadruped|dog] [--general]
   python -m mujoco_warp_tpu_torch.devprofile --skip [--worlds 256]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
@@ -28,11 +28,14 @@ tasks and the two integrator scenes, 8192 x 100 (humanoid_CMU x 20), the
 general step; the elliptic-cone tasks from their committed seeded
 contact states (``benchmarks.START``), 8192 x 20 (stack_4 x 10, finger_cg x 2),
 the general step; ``humanoid_dmc_dr``, 8192 x 100, each world with its
-own parameters, the general step), traces a few more with
+own parameters, the general step; ``quadruped``, 8192 x 30, landed on
+its feet by then, and ``dog``, 8192 x 2, standing from qpos0, the
+general step with activations), traces a few more with
 ``torch.profiler`` (CPU and CUDA activities; 40 steps, 4 for the clutter
 scenes and humanoid_CMU, whose step launches tens of thousands of
 kernels, 3 for spheres_cg and stack_4, 1 for finger_cg, 5 for
-manipulator_insert_peg and stack_2, 10 for the spheres scenes, the
+manipulator_insert_peg and stack_2, 1 for dog, 10 for quadruped, the
+spheres scenes, the
 tendon scenes,
 the classic tasks, the integrator scenes, humanoid_dmc_dr and the
 general step of a dm_control scene) and prints one JSON line:
@@ -93,7 +96,8 @@ WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            'cheetah_implicit': (100, 10),
            'manipulator_insert_peg': (20, 5), 'stack_2': (20, 5),
            'stack_4': (10, 3), 'finger_cg': (2, 1),
-           'humanoid_dmc_dr': (100, 10)}
+           'humanoid_dmc_dr': (100, 10), 'quadruped': (30, 10),
+           'dog': (2, 1)}
 # the general step's window, for --general
 GENERAL_WINDOW = (200, 10)
 # steps traced of each path with --skip

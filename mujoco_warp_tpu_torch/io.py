@@ -102,6 +102,21 @@ TASK_DMC = {'manipulator_insert_peg': ('manipulator',
             'stack_4': ('stacker', {'n_boxes': 4})}
 TASK_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
                   for name in TASK_DMC}
+# the actuation slice's dm_control tasks, each the model ``suite.load``
+# builds for (domain, task): quadruped (walk; run takes the same model;
+# 175 candidates, lossless) and dog (run; stand, walk and trot take the
+# same model; 6273 candidates: the default budget of 48 slots per condim
+# class), both FILTER activations
+ACT_DMC = {'quadruped': ('quadruped', 'walk'), 'dog': ('dog', 'run')}
+# the actuation slice's test scenes: the repo's dcmotor.xml (DC motors)
+# and transmission.xml (slider-crank and adhesion), and the port's
+# actuator_mix.xml (every other dyntype, muscles, site transmissions and
+# a joint's actuatorfrcrange)
+ACT_XML = {'dcmotor': os.path.join(_MODELS, 'dcmotor.xml'),
+           'transmission': os.path.join(_MODELS, 'transmission.xml'),
+           'actuator_mix': os.path.join(_ASSETS, 'actuator_mix.xml')}
+ACT_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                 for name in (*ACT_DMC, *ACT_XML)}
 # more candidate pairs than this and no budget given: the default budget
 # (``io.py:653-654``)
 # the elliptic-cone tasks' committed start states (``make_task_start``):
@@ -503,7 +518,7 @@ def _collision_pairs(mjm):
 
 # the per-candidate contact tables that ``remix`` fills
 CAND_FIELDS = ('cand_friction', 'cand_solref', 'cand_solimp',
-               'cand_includemargin')
+               'cand_includemargin', 'cand_margin')
 
 
 def remix(m: types.Model) -> types.Model:
@@ -512,7 +527,8 @@ def remix(m: types.Model) -> types.Model:
   ``EnableBit.OVERRIDE`` branch :317-326), in the Model's dtype, on its
   device: the geoms' priority, solmix, solref, solimp, margin, gap and
   friction, or under the override ``opt.o_margin`` and the other ``o_*``
-  fields.  ``cand_includemargin`` is margin - gap.  Where a geom contact
+  fields.  ``cand_includemargin`` is margin - gap, ``cand_margin`` the
+  margin (adhesion's contact test).  Where a geom contact
   field is batched (``batch_model``), every world mixes its own values
   and the tables are batched too."""
   fdt = types.np_float(types.dtype_of(m))
@@ -563,7 +579,8 @@ def remix(m: types.Model) -> types.Model:
   dev = m.qpos0.device
   W = types.model_nworld(m) if batched else 1
   tables = dict(cand_friction=friction, cand_solref=solref,
-                cand_solimp=solimp, cand_includemargin=margin - gap)
+                cand_solimp=solimp, cand_includemargin=margin - gap,
+                cand_margin=margin)
   out = {}
   for k, x in tables.items():
     x = np.broadcast_to(x, (W,) + x.shape[1:])
@@ -593,7 +610,9 @@ SET_CONST_FIELDS = ('body_subtreemass', 'dof_invweight0', 'body_invweight0',
 BATCHABLE = frozenset(
     ('opt.gravity', 'dof_damping', 'dof_armature', 'dof_frictionloss',
      'body_mass', 'body_inertia', 'body_ipos', 'qpos0', 'actuator_gainprm',
-     'actuator_biasprm') + GEOM_CONTACT + SET_CONST_FIELDS)
+     'actuator_biasprm', 'actuator_gear', 'actuator_ctrlrange',
+     'actuator_forcerange', 'actuator_dynprm') + GEOM_CONTACT +
+    SET_CONST_FIELDS)
 
 
 def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
@@ -609,8 +628,9 @@ def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
   whose names join ``batch_fields``.  ``forward.step`` then runs world w
   with world w's values; it takes Data of ``nworld`` worlds.
 
-  Raises NotImplementedError for a field of ``_NO_BATCH`` and for one
-  the port does not batch yet (outside ``BATCHABLE``), ValueError for a
+  Raises NotImplementedError for a field of ``_NO_BATCH``, for one the
+  port does not batch yet (outside ``BATCHABLE``) and for an actuator
+  field of a model with a DC motor, ValueError for a
   field that is not an array, a wrong trailing shape, a batch that does
   not divide ``nworld``, or a width other than the Model's batch."""
   have = types.model_nworld(m)
@@ -634,6 +654,12 @@ def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
       raise NotImplementedError(
           f'{name}: the port does not batch this field yet (ROADMAP queue '
           f'1); it batches {sorted(BATCHABLE)}')
+    if name.startswith('actuator_') and m.nu and np.any(
+        m.actuator_dyntype == types.DynType.DCMOTOR):
+      raise NotImplementedError(
+          f'{name}: a DC motor\'s act slots are laid out from its '
+          'parameters on the host, so a model with one batches no '
+          'actuator field')
     shape = tuple(base.shape[1:] if name in m.batch_fields else base.shape)
     if isinstance(val, torch.Tensor):
       val = val.detach().cpu().numpy()
@@ -783,7 +809,7 @@ def make_data(m: types.Model, nworld: int, device=None, dtype=None
                         device=dev)
   return types.Data(
       time=z(), qpos=qpos0.expand(nworld, m.nq).clone(), qvel=z(m.nv),
-      act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
+      act=z(m.na), act_dot=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
       xfrc_applied=z(m.nbody, 6), eq_active=eq0[None].repeat(nworld, 1),
       qacc_warmstart=z(m.nv), qacc=z(m.nv),
       energy=z(2), sensordata=z(m.nsensordata),
@@ -810,7 +836,7 @@ GET_FIELDS = (('qpos', None), ('qvel', None), ('act', 'na'), ('ctrl', 'nu'),
               ('qfrc_actuator', None), ('qfrc_constraint', None),
               ('actuator_force', 'nu'), ('actuator_length', 'nu'),
               ('actuator_velocity', 'nu'), ('ten_length', 'ntendon'),
-              ('ten_velocity', 'ntendon'))
+              ('ten_velocity', 'ntendon'), ('act_dot', 'na'))
 
 
 def _asleep_cycles_to_labels(asleep: np.ndarray) -> np.ndarray:
@@ -1023,11 +1049,13 @@ _M_INPUTS = ('body_mass', 'body_inertia', 'body_ipos', 'qpos0',
 _SET_CONST_DEPS = {
     'body_subtreemass': ('body_mass',),
     'dof_invweight0': _M_INPUTS, 'body_invweight0': _M_INPUTS,
-    'tendon_invweight0': _M_INPUTS, 'actuator_acc0': _M_INPUTS,
+    'tendon_invweight0': _M_INPUTS,
+    'actuator_acc0': _M_INPUTS + ('actuator_gear',),
     'tendon_length0': ('qpos0',),
     'tendon_lengthspring': ('tendon_lengthspring',),
     'eq_data': ('qpos0', 'eq_data'),
-    'actuator_biasprm': _M_INPUTS + ('actuator_gainprm', 'actuator_biasprm'),
+    'actuator_biasprm': _M_INPUTS + ('actuator_gainprm', 'actuator_biasprm',
+                                     'actuator_gear'),
 }
 
 
@@ -1367,13 +1395,16 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
 
 def load_dmc(name: str):
   """A dm_control suite scene of ``DMC_NCONMAX``, ``TENDON_DMC``,
-  ``CLASSIC_DMC`` or ``TASK_DMC`` as a
+  ``CLASSIC_DMC``, ``TASK_DMC`` or ``ACT_DMC`` as a
   ``mujoco.MjModel`` with its sensors, cameras and lights, from the XML in
   the installed ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
   import importlib
   import importlib.util
 
   import mujoco
+  if name in ACT_DMC:
+    from dm_control import suite
+    return suite.load(*ACT_DMC[name]).physics.model.ptr
   if name in TASK_DMC:
     module, kw = TASK_DMC[name]
     xml, assets = importlib.import_module(
@@ -1391,7 +1422,7 @@ def make_dmc_snapshot(name: str, path: Optional[str] = None) -> types.Model:
   committed snapshot)."""
   if path is None:
     path = {**DMC_SNAPSHOTS, **TENDON_SNAPSHOTS, **CLASSIC_SNAPSHOTS,
-            **TASK_SNAPSHOTS}[name]
+            **TASK_SNAPSHOTS, **ACT_SNAPSHOTS}[name]
   m = put_model(load_dmc(name), nconmax=DMC_NCONMAX.get(name),
                 device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1432,7 +1463,10 @@ def snapshot_makers() -> tuple:
       tuple((TENDON_SNAPSHOTS[name], xml(path))
             for name, path in TENDON_XML.items()) + tuple(
               (CLASSIC_SNAPSHOTS[name], dmc(name)) for name in CLASSIC_DMC) + \
-      tuple((TASK_SNAPSHOTS[name], dmc(name)) for name in TASK_DMC)
+      tuple((TASK_SNAPSHOTS[name], dmc(name)) for name in TASK_DMC) + \
+      tuple((ACT_SNAPSHOTS[name], dmc(name)) for name in ACT_DMC) + \
+      tuple((ACT_SNAPSHOTS[name], xml(path)) for name, path in
+            ACT_XML.items())
 
 
 def main(argv: Optional[list] = None):
@@ -1450,6 +1484,8 @@ def main(argv: Optional[list] = None):
                  'dm_control\'s pendulum.npz, reacher.npz, finger.npz, '
                  'cartpole.npz, acrobot.npz and humanoid_CMU.npz, '
                  'manipulator_insert_peg.npz, stack_2.npz and stack_4.npz, '
+                 'the actuation scenes quadruped.npz, dog.npz, '
+                 'dcmotor.npz, transmission.npz and actuator_mix.npz, '
                  'the elliptic-cone tasks\' start states '
                  'assets/*_start.npz, and '
                  '(with --settle) the settled states '

@@ -69,12 +69,18 @@ def _row_values(m, pos_aref, pos_imp, invweight, solref, solimp, margin,
   return D, aref, pos_aref + margin
 
 
-def _jac(m: types.Model, d: types.Data, point, bodyid: np.ndarray):
-  """Point Jacobians: point (W, n, 3) on static bodies (n,) -> jacp, jacr
-  each (W, n, nv, 3)."""
+def _jac(m: types.Model, d: types.Data, point, bodyid):
+  """Point Jacobians: point (W, n, 3) on bodies ``bodyid``, static (n,)
+  or a (W, n) tensor of each world's own (a compacted contact's) ->
+  jacp, jacr each (W, n, nv, 3)."""
   dev = d.qpos.device
-  mask = fmask(m.tree.body_dof_mask[bodyid], d.qpos)  # (n, nv)
-  offset = point - d.subtree_com[:, ix(m.body_rootid[bodyid], dev)]
+  if isinstance(bodyid, torch.Tensor):
+    w = torch.arange(bodyid.shape[0], device=dev)[:, None]
+    mask = fmask(m.tree.body_dof_mask, d.qpos)[bodyid]  # (W, n, nv)
+    offset = point - d.subtree_com[w, ix(m.body_rootid, dev)[bodyid]]
+  else:
+    mask = fmask(m.tree.body_dof_mask[bodyid], d.qpos)  # (n, nv)
+    offset = point - d.subtree_com[:, ix(m.body_rootid[bodyid], dev)]
   ang, lin = d.cdof[..., :3], d.cdof[..., 3:]  # (W, nv, 3)
   jacp = (lin[:, None] + math.cross(ang[:, None], offset[:, :, None, :])) * \
       mask[..., None]

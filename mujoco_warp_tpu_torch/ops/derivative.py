@@ -21,12 +21,13 @@ there is no TPU kernel to port there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.ops import smooth
-from mujoco_warp_tpu_torch.ops.util import bmask
+from mujoco_warp_tpu_torch.ops.util import bmask, ix
 
 _GT = types.GainType
 _BT = types.BiasType
@@ -50,13 +51,19 @@ def deriv_smooth_vel(m: types.Model, d: types.Data) -> torch.Tensor:
     bias_v = torch.where(bmask(m.actuator_biastype == _BT.AFFINE, dev),
                          types.world_field(m, 'actuator_biasprm')[..., 2],
                          0.0)
-    # the input is ctrl (the general step refuses activations), clamped
-    # as fwd_actuation clamps it
+    # the input: the last act slot where the actuator has one, else ctrl
+    # clamped to its range (``derivative.py:50-60``)
+    from mujoco_warp_tpu_torch.ops import forward
+    has_act, last = forward._act_last(m)
     u = d.ctrl
+    if m.na:
+      u = torch.where(bmask(has_act, dev), d.act[:, ix(last, dev)], u)
     if not (m.opt.disableflags & types.DisableBit.CLAMPCTRL):
-      cr = m.actuator_ctrlrange
-      u = torch.where(bmask(m.actuator_ctrllimited, dev),
-                      torch.minimum(torch.maximum(u, cr[:, 0]), cr[:, 1]), u)
+      cr = types.world_field(m, 'actuator_ctrlrange')
+      u = torch.where(bmask(np.asarray(m.actuator_ctrllimited, bool) &
+                            ~has_act, dev),
+                      torch.minimum(torch.maximum(u, cr[..., 0]),
+                                    cr[..., 1]), u)
     dfdv = gain_v * u + bias_v
     qderiv = qderiv + torch.einsum('wuv,wu,wux->wvx', d.actuator_moment,
                                    dfdv, d.actuator_moment)

@@ -6,7 +6,7 @@ camera and light modes), ``rne_postconstraint`` (:406) with
 ``_contact_forces_local`` / ``_contact_forces`` (:466, :507), ``tendon``
 (:760) with the wrap helpers ``_wrap_2d_circle`` (:529),
 ``_wrap_2d_inside`` (:603) and ``_wrap_geom`` (:688), ``transmission``
-(:857, joint and tendon), ``tendon_armature`` (:1060), ``tendon_bias``
+(:857: joint, tendon, site, slider-crank and body), ``tendon_armature`` (:1060), ``tendon_bias``
 (:1099), ``factor_m`` / ``solve_m`` / ``mul_m`` (:301-330) and
 ``com_vel`` / ``rne`` (:360, :378).  The step's mass chain (crb, qM, its
 factor, com_vel and RNE) runs as one kernel (``kernels/mass_chain.py``);
@@ -779,24 +779,29 @@ def tendon_bias(m: types.Model, d: types.Data) -> types.Data:
 
 
 def transmission(m: types.Model, d: types.Data) -> types.Data:
-  """Actuator lengths and moment arms, joint and tendon transmissions
-  (``smooth.py:857``; a tendon actuator's are its tendon's length and J
-  times gear[0], :920-922)."""
+  """Actuator lengths and moment arms (``smooth.py:857``): joint (every
+  joint type), tendon (its length and J times gear[0], :920-922), site
+  with and without a reference site (:923-943), slider-crank (:944-967)
+  and body, which is adhesion (:968); gear per world where it is
+  batched."""
   if not m.nu:
     return d
   trn = m.actuator_trntype
-  is_ten = trn == types.TrnType.TENDON
-  if not np.all((trn == types.TrnType.JOINT) | is_ten):
-    raise NotImplementedError('only joint and tendon transmissions are '
+  TT = types.TrnType
+  is_ten = trn == TT.TENDON
+  is_jnt = trn == TT.JOINT
+  if not np.all(is_jnt | is_ten | (trn == TT.SITE) |
+                (trn == TT.SLIDERCRANK) | (trn == TT.BODY)):
+    raise NotImplementedError('the joint-in-parent transmission is not '
                               'ported')
   dev, dt = d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
   tid = m.actuator_trnid[:, 0]
-  jt = m.jnt_type[np.where(is_ten, 0, tid)]
-  gear = m.actuator_gear
-  if not np.any(is_ten) and np.all((jt == _JT.SLIDE) | (jt == _JT.HINGE)):
+  jt = m.jnt_type[np.where(is_jnt, tid, 0)]
+  gear = types.world_field(m, 'actuator_gear')  # (1 or W, nu, 6)
+  if np.all(is_jnt) and np.all((jt == _JT.SLIDE) | (jt == _JT.HINGE)):
     qadr, dadr = m.jnt_qposadr[tid], m.jnt_dofadr[tid]
-    gear0 = gear[:, 0]
+    gear0 = gear[..., 0]
     length = d.qpos[:, ix(qadr, dev)] * gear0
     moment = torch.zeros((W, m.nu, m.nv), dtype=dt, device=dev)
     moment[:, ix(np.arange(m.nu), dev), ix(dadr, dev)] = gear0
@@ -806,24 +811,133 @@ def transmission(m: types.Model, d: types.Data) -> types.Data:
   if np.any(is_ten):
     u = np.nonzero(is_ten)[0]
     ui, ti = ix(u, dev), ix(tid[u], dev)
-    g0 = gear[ui, 0]
+    g0 = gear[:, ui, 0]
     length[:, ui] = d.ten_length[:, ti] * g0
-    moment[:, ui] = d.ten_J[:, ti] * g0[:, None]
-  for u in np.nonzero(~is_ten)[0]:
+    moment[:, ui] = d.ten_J[:, ti] * g0[..., None]
+  for u in np.nonzero(is_jnt)[0]:
     j = int(tid[u])
+    g = gear[:, u]
     qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
     if jt[u] in (_JT.SLIDE, _JT.HINGE):
-      length[:, u] = d.qpos[:, qadr] * gear[u, 0]
-      moment[:, u, dadr] = gear[u, 0]
+      length[:, u] = d.qpos[:, qadr] * g[:, 0]
+      moment[:, u, dadr] = g[:, 0]
     elif jt[u] == _JT.BALL:
       q = math.normalize_quat(d.qpos[:, qadr:qadr + 4])
       axis_angle = math.quat_sub(q, fmask([1.0, 0.0, 0.0, 0.0], q))
-      length[:, u] = torch.sum(axis_angle * gear[u, :3], dim=-1)
-      moment[:, u, dadr:dadr + 3] = gear[u, :3]
+      length[:, u] = torch.sum(axis_angle * g[:, :3], dim=-1)
+      moment[:, u, dadr:dadr + 3] = g[:, :3]
     else:  # FREE
-      moment[:, u, dadr:dadr + 3] = gear[u, :3]
-      moment[:, u, dadr + 3:dadr + 6] = gear[u, 3:]
+      moment[:, u, dadr:dadr + 3] = g[:, :3]
+      moment[:, u, dadr + 3:dadr + 6] = g[:, 3:]
+  for u in np.nonzero(trn == TT.SITE)[0]:
+    length[:, u], moment[:, u] = _site_transmission(m, d, int(u), gear[:, u])
+  for u in np.nonzero(trn == TT.SLIDERCRANK)[0]:
+    length[:, u], moment[:, u] = _slidercrank(m, d, int(u), gear[:, u])
+  for u in np.nonzero(trn == TT.BODY)[0]:
+    moment[:, u] = _adhesion_moment(m, d, int(tid[u]))
   return d.replace(actuator_length=length, actuator_moment=moment)
+
+
+def _site_transmission(m: types.Model, d: types.Data, u: int, g):
+  """(length, moment) of a site actuator (``smooth.py:923-943``): without
+  a reference site, length 0 and the moment of the wrench gear[:3],
+  gear[3:] in the site's frame; with one, length the distance between
+  the sites times gear[0] and the moment along their direction."""
+  from mujoco_warp_tpu_torch.ops import support
+  sid, refid = int(m.actuator_trnid[u, 0]), int(m.actuator_trnid[u, 1])
+  jacp, jacr = support.jac(m, d, d.site_xpos[:, sid], int(m.site_bodyid[sid]))
+  if refid == -1:
+    frame = d.site_xmat[:, sid]
+    wrench_p = torch.einsum('wij,wj->wi', frame, g[:, :3].expand(
+        frame.shape[0], 3))
+    wrench_r = torch.einsum('wij,wj->wi', frame, g[:, 3:].expand(
+        frame.shape[0], 3))
+    mom = torch.einsum('wiv,wi->wv', jacp, wrench_p) + torch.einsum(
+        'wiv,wi->wv', jacr, wrench_r)
+    return torch.zeros_like(mom[:, 0]), mom
+  jacp2, _ = support.jac(m, d, d.site_xpos[:, refid],
+                         int(m.site_bodyid[refid]))
+  vec = d.site_xpos[:, sid] - d.site_xpos[:, refid]
+  dist = math.safe_norm(vec)
+  dirn = vec / torch.clamp(dist, min=1e-12)[:, None]
+  mom = torch.einsum('wiv,wi->wv', jacp - jacp2, dirn) * g[:, :1]
+  return dist * g[:, 0], mom
+
+
+def _slidercrank(m: types.Model, d: types.Data, u: int, g):
+  """(length, moment) of a slider-crank (``smooth.py:944-967``): the crank
+  site trnid[0] driven by a rod of cranklength from the slider site
+  trnid[1], along the slider's z axis."""
+  from mujoco_warp_tpu_torch.ops import support
+  cid, sid = int(m.actuator_trnid[u, 0]), int(m.actuator_trnid[u, 1])
+  rod = types.world_field(m, 'actuator_cranklength')[:, u]
+  axis = d.site_xmat[:, sid, :, 2]
+  vec = d.site_xpos[:, cid] - d.site_xpos[:, sid]
+  av = math.dot(vec, axis)
+  det = av * av + rod * rod - math.dot(vec, vec)
+  ok = det > 0.0
+  sdet = torch.sqrt(torch.clamp(det, min=1e-12))
+  length = torch.where(ok, av - sdet, av)
+  # the chain rule: dL/dvec and dL/daxis
+  scale = (1.0 - av / sdet)[:, None]
+  okc = ok[:, None]
+  dldv = torch.where(okc, axis * scale + vec / sdet[:, None], axis)
+  dlda = torch.where(okc, vec * scale, vec)
+  jacp_c, _ = support.jac(m, d, d.site_xpos[:, cid], int(m.site_bodyid[cid]))
+  jacp_s, jacr_s = support.jac(m, d, d.site_xpos[:, sid],
+                               int(m.site_bodyid[sid]))
+  # each dof's jacr x axis, (W, nv, 3)
+  jac_a = math.cross(jacr_s.transpose(1, 2), axis[:, None, :])
+  mom = torch.einsum('wiv,wi->wv', jacp_c - jacp_s, dldv) + torch.einsum(
+      'wvi,wi->wv', jac_a, dlda)
+  return length * g[:, 0], mom * g[:, :1]
+
+
+def _adhesion_moment(m: types.Model, d: types.Data, body: int):
+  """The moment of an adhesion actuator on ``body`` (``smooth.py:968``):
+  minus the mean, over the contacts that touch the body within their
+  margin, of each contact's normal Jacobian: its normal row's J (the
+  mean of its pyramid's facet rows) where the contact is active, the
+  normal's Jacobian difference of the two bodies at the contact point
+  where it is in the margin's gap.  Geom ids are read per world, as
+  compaction leaves them; zero without contacts."""
+  from mujoco_warp_tpu_torch.ops import constraint
+  W, dev, dt = d.qpos.shape[0], d.qpos.device, d.qpos.dtype
+  con = d.contact
+  if not m.ncon or con is None or d.efc_J is None:
+    return torch.zeros((W, m.nv), dtype=dt, device=dev)
+  gb = ix(m.geom_bodyid, dev)
+  b1, b2 = gb[con.geom1.long()], gb[con.geom2.long()]  # (W, ncon)
+  touches = (b1 == body) | (b2 == body)
+  cand = con.cand.long()
+  cm = types.world_field(m, 'cand_margin').expand(W, -1)
+  marg = torch.where(cand >= 0, torch.gather(cm, 1, torch.clamp(cand, min=0)),
+                     torch.zeros((), dtype=dt, device=dev))
+  found = touches & (con.dist < marg)
+  active = touches & (con.dist < con.includemargin)
+  nfound = found.sum(1).to(dt)
+  jn = torch.zeros((W, m.ncon, m.nv), dtype=dt, device=dev)
+  dims = np.asarray(m.con_dim)
+  for dim in np.unique(dims):
+    idx = np.nonzero(dims == dim)[0]
+    adr = np.asarray(m.con_efc_address)[idx]
+    if dim == 1 or m.opt.cone == types.ConeType.ELLIPTIC:
+      jn[:, ix(idx, dev)] = d.efc_J[:, ix(adr, dev)]
+    else:
+      npyr = int(dim) - 1
+      rows = d.efc_J[:, ix(adr[:, None] + np.arange(2 * npyr), dev)]
+      jn[:, ix(idx, dev)] = torch.sum(rows, dim=2) * (0.5 / npyr)
+  # the normal's Jacobian difference at the contact point, bodies per
+  # world
+  jacp = lambda b: constraint._jac(m, d, con.pos, b)[0]  # (W, ncon, nv, 3)
+  jgap = torch.einsum('wki,wkvi->wkv', con.frame[:, :, 0], jacp(b2) -
+                      jacp(b1))
+  wsum = torch.where(active[..., None], jn, torch.where(
+      found[..., None], jgap, torch.zeros((), dtype=dt, device=dev)))
+  mom = wsum.sum(1)
+  return torch.where(nfound[:, None] > 0,
+                     -mom / torch.clamp(nfound, min=1.0)[:, None],
+                     torch.zeros((), dtype=dt, device=dev))
 
 
 def factor_m(m: types.Model, d: types.Data) -> types.Data:

@@ -103,6 +103,28 @@ with the output's name and by how much it missed.
   agreed (one iteration) missed the plain force bar by 0.0003 of its
   0.0050 on a row of D 28.8, with its qacc and qfrc_constraint within
   their bars.
+- The transmission scene's solve (the 'adhesion' bar,
+  ``SOLVE_BAR_OF``): the 'dmc' bar, with qfrc_constraint = J^T efc_force
+  at the K4 bar plus |J|^T of the rows' slack D_r |J_r dqacc|
+  (``QFRC_THROUGH_QACC``).  Its box, pressed into the floor by adhesion,
+  sits on stiff contact rows, where a stop at the model's tolerance
+  leaves a qacc difference within its bar that the rows multiply past
+  qfrc_constraint's: on a CPU, at the state after 7 steps of its
+  rollout at 1024 worlds in float64, the plain Newton at the model's
+  tolerance against the same Newton run to its optimum (tolerance 1e-14)
+  had qacc within its bar in every world and qfrc_constraint past the
+  plain bar in 4 worlds, by up to 9.48 bars; the slack is 0 in most
+  worlds and up to 45.9 bars on one dof, and a fault of twice the plain
+  bar on any one dof fails in 99.1-100% of worlds
+  (``tests/test_torch_parity_qfrc.py``).  On an H100 (700 W), at the
+  last state of chip_smoke's transmission rollout, the kernel against its
+  plain version passed the plain qfrc bar in 12 worlds of 8192, by up to
+  0.0459; there the kernel's qfrc_constraint lay 0.80-6.40 bars from
+  the float64 optimum, the plain version's 0.0002-7.12 and the float64
+  Newton's at the model's tolerance 0-6.22 (in the world at 6.40 the
+  kernel stopped one trip before the others, as two float32 stops may).
+  It is a bar for this scene's comparison; the 'dmc' bar of every other
+  scene is as it was.
 - The CG solver (the 'cg' bar, ``spheres_cg``: the torch solver's CG
   against the JAX package's ``ops/solver.solve`` under ``vmap`` with
   ``opt.solver=cg``, on the state of ``spheres_state`` through the JAX
@@ -185,7 +207,7 @@ K1_TOL = 1e-4
 QACC_ATOL, QACC_RTOL = 1e-4, 1e-3
 QPOS_ATOL, QPOS_RTOL = 1e-5, 1e-5
 NITER_SHARE = {'rest': 0.99, 'contact': 0.85, 'constraints': 0.90,
-               'elliptic': 0.90, 'dmc': 0.85, 'cg': 0.10,
+               'elliptic': 0.90, 'dmc': 0.85, 'adhesion': 0.85, 'cg': 0.10,
                'elliptic64': 0.80}
 NITER_MAX_DIFF = 2
 # bars whose counts may lie further apart than NITER_MAX_DIFF
@@ -199,9 +221,13 @@ NITER_CAPPED_SHARE_OF = {'cg': 0.05}
 # Newton-count bars whose efc_force is compared only where counts agree
 FORCE_WHERE_NITER_AGREES = ('elliptic',)
 # Newton-count bars whose efc_force bar carries each row's D |J dqacc|
-FORCE_THROUGH_QACC = ('dmc', 'cg')
+FORCE_THROUGH_QACC = ('dmc', 'adhesion', 'cg')
 # bars whose qfrc_constraint bar carries |J|^T of the rows' D |J dqacc|
-QFRC_THROUGH_QACC = ('cg',)
+# (qfrc_constraint is J^T efc_force, so it moves with the forces)
+QFRC_THROUGH_QACC = ('adhesion', 'cg')
+# the solve's bar of a general scene where it is not 'dmc' (elliptic cones
+# take 'elliptic', ``solve_bar``)
+SOLVE_BAR_OF = {'transmission': 'adhesion'}
 # root drop of each seeded state; 0.28 m puts the feet in the floor
 DROP = {'rest': 0.0, 'contact': 0.28}
 MASS_NAMES = ('qM', 'qLD', 'cvel', 'cdof_dot', 'bias')
@@ -212,9 +238,10 @@ SOLVE_ATOL, SOLVE_RTOL = 1e-5, 1e-4
 # humanoid_CMU, which lies on its back at qpos0, 0.1 m into the floor:
 # ~5 of its 48 slots live)
 DMC_ROOT = {'walker': 0, 'cheetah': 1, 'hopper': 1, 'humanoid_dmc': 2,
-            'humanoid_CMU': 2}
+            'humanoid_CMU': 2, 'quadruped': 2, 'dog': 2}
 DMC_DROP = {'walker': 0.05, 'cheetah': 0.2, 'hopper': 0.1,
-            'humanoid_dmc': 0.3, 'humanoid_CMU': 0.1}
+            'humanoid_dmc': 0.3, 'humanoid_CMU': 0.1, 'quadruped': 0.15,
+            'dog': 0.01}
 SENSOR_ATOL, SENSOR_RTOL = 1e-4, 1e-4
 # K4's scenes (``k4_case``): the snapshot's name in ``io`` (or in
 # ``io.DMC_SNAPSHOTS``), and the qpos row that the 'contact' state lowers
@@ -712,7 +739,9 @@ def check_solve(got, want, state: str = 'constraints', rows=None,
   each row's efc_force with the slack D_r |J_r dqacc| of the inputs
   ``rows`` = (J (nefc, nv, W), D (nefc, W)), for those of
   ``QFRC_THROUGH_QACC`` also qfrc_constraint with |J|^T of that slack;
-  ``cap`` as for ``check_niter``.  Returns the errors seen."""
+  ``cap`` as for ``check_niter``.  Returns the errors seen, with how far
+  efc_force and qfrc_constraint lie past the K4 bar without the slack
+  (<= 0: within it) and the worlds where qfrc_constraint does."""
   qacc_err = check_world_scale(got[0], want[0], 'qacc')
   f_got, f_want = _t(got[1]), _t(want[1])
   slack = None
@@ -731,8 +760,13 @@ def check_solve(got, want, state: str = 'constraints', rows=None,
   check_world_scale(got[2], want[2], 'qfrc_constraint', slack=None if (
       state not in QFRC_THROUGH_QACC) else torch.einsum(
           'rvw,rw->vw', J.abs(), slack))
+  q_got, q_want = _t(got[2]), _t(want[2])
+  q_past = ((q_got - q_want).abs() - (QACC_ATOL + QACC_RTOL * q_want.abs(
+  ).amax(0, keepdim=True))).amax(0)
   share, diff = check_niter(got[3], want[3], state, cap)
   return {'qacc_max_abs_err': qacc_err, 'force_max_abs_err': force_err,
           'force_worlds': int(f_want.shape[1]), 'force_past_bar': past,
+          'qfrc_past_bar': float(q_past.max()),
+          'qfrc_worlds_past_bar': torch.nonzero(q_past > 0).reshape(-1),
           'niter_share': share, 'niter_max_diff': diff,
           'niter_mean': float(_t(want[3]).float().mean())}

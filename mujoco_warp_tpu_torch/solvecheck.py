@@ -12,7 +12,8 @@ On the card::
 stages before it), the solve kernel (``kernels/solver.solve_tiles``) and
 its plain version (``fused/solver_ref.solve_tiles``) on it, and
 ``parity.check_solve`` at the scene's bar ('elliptic' with elliptic
-cones, else 'dmc', as ``chip_smoke.py`` holds it).  One line per
+cones, else ``parity.SOLVE_BAR_OF``'s or 'dmc', as ``chip_smoke.py``
+holds it).  One line per
 checkpoint: the bar's verdict, the worlds whose qacc lies past the K4 bar
 (atol ``QACC_ATOL`` + rtol ``QACC_RTOL`` of the world's largest |qacc|),
 and the Newton counts of the kernel and the plain version there.  The
@@ -75,7 +76,8 @@ def check(scene: str, steps: int, every: int, start: int, keep: int,
   the CPU, where the kernel's wrapper runs its plain version."""
   m, width = benchmarks.load_scene(scene, device=device)
   nworld = nworld or width
-  bar = 'elliptic' if solver_ref.ell_groups(m) else 'dmc'
+  bar = 'elliptic' if solver_ref.ell_groups(m) else (
+      parity.SOLVE_BAR_OF.get(scene, 'dmc'))
   gen = benchmarks.rollout(m, nworld, 0, device,
                            init_state=benchmarks.start_state(scene))
   kept = {k: [] for k in INPUTS + (

@@ -427,6 +427,7 @@ class Model(_Replace):
   jnt_stiffness: torch.Tensor = array()
   jnt_range: torch.Tensor = array()
   jnt_margin: torch.Tensor = array()
+  jnt_actfrcrange: torch.Tensor = array()  # (njnt, 2)
 
   dof_bodyid: np.ndarray = static()
   dof_jntid: np.ndarray = static()
@@ -530,14 +531,22 @@ class Model(_Replace):
   actuator_gaintype: np.ndarray = static()
   actuator_biastype: np.ndarray = static()
   actuator_trnid: np.ndarray = static()
+  actuator_actadr: np.ndarray = static()  # (nu,) first act slot, or -1
+  actuator_actnum: np.ndarray = static()  # (nu,) act slots
   actuator_ctrllimited: np.ndarray = static()
   actuator_forcelimited: np.ndarray = static()
+  actuator_actlimited: np.ndarray = static()
+  actuator_actearly: np.ndarray = static()
+  actuator_dynprm: torch.Tensor = array()  # (nu, 10)
   actuator_gainprm: torch.Tensor = array()
   actuator_biasprm: torch.Tensor = array()
   actuator_ctrlrange: torch.Tensor = array()
   actuator_forcerange: torch.Tensor = array()
+  actuator_actrange: torch.Tensor = array()  # (nu, 2)
   actuator_gear: torch.Tensor = array()
+  actuator_cranklength: torch.Tensor = array()  # (nu,)
   actuator_acc0: torch.Tensor = array()  # (nu,) ||M^-1 moment|| at qpos0
+  actuator_lengthrange: torch.Tensor = array()  # (nu, 2)
 
   # collision tables: candidate pairs, slots and per-slot mixed params
   pair_geom1: np.ndarray = static()
@@ -551,6 +560,7 @@ class Model(_Replace):
   cand_solref: torch.Tensor = array()
   cand_solimp: torch.Tensor = array()
   cand_includemargin: torch.Tensor = array()
+  cand_margin: torch.Tensor = array()  # (ncand,) margin, gap included
 
   # the fields ``io.batch_model`` gave a leading world axis, sorted
   # (``opt.``-dotted for Option fields); read them through ``world_field``
@@ -632,6 +642,7 @@ class Data:
   subtree_linvel: torch.Tensor = None  # (W, nbody, 3)
   subtree_angmom: torch.Tensor = None  # (W, nbody, 3)
   # forces and accelerations
+  act_dot: torch.Tensor = None  # (W, na)
   actuator_force: torch.Tensor = None  # (W, nu)
   qfrc_actuator: torch.Tensor = None  # (W, nv)
   qfrc_smooth: torch.Tensor = None  # (W, nv)

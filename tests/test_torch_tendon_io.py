@@ -92,10 +92,26 @@ def test_tendon_scenes_are_registered(scene):
   assert not fused.supported(m) and forward.unsupported(m) is None
 
 
+_JOINTINPARENT = """
+<mujoco>
+  <worldbody>
+    <body pos="0 0 1">
+      <joint name="b" type="ball"/>
+      <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"/>
+    </body>
+  </worldbody>
+  <actuator><general jointinparent="b" gear="1 0 0"/></actuator>
+</mujoco>"""
+
+
 def test_gate_still_refuses_other_transmissions():
-  """The general step takes tendon transmissions and tendon equality but
-  still refuses slider-crank, site and body transmissions."""
+  """The general step takes tendon transmissions and tendon equality,
+  and since the actuation slice the slider-crank, site and body
+  transmissions (transmission.xml); it still refuses the joint-in-parent
+  transmission."""
   mjm = mujoco.MjModel.from_xml_path(os.path.join(tio._MODELS,
                                                   'transmission.xml'))
-  with pytest.raises(NotImplementedError, match='transmission'):
+  assert forward.unsupported(tio.put_model(mjm, device='cpu')) is None
+  mjm = mujoco.MjModel.from_xml_string(_JOINTINPARENT)
+  with pytest.raises(NotImplementedError, match='joint in parent'):
     tio.put_model(mjm, device='cpu')
