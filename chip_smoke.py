@@ -202,7 +202,23 @@ Phases, one line each or more, any failure exits non-zero:
     ACT_TEST_NSTEP steps the same way (*_dcm, *_trn, *_amix);
     transmission's solve at parity's 'adhesion' bar, with the worlds
     where the kernel's qfrc_constraint lies past the plain bar (or the
-    nearest) held beside the float64 optimum (qfrc_witness).
+    nearest) held beside the float64 optimum (qfrc_witness), and their
+    stop quantities traced trip by trip on the kernel and its plain
+    version (trip_trace).
+17. fluid forces, rays and height fields: dm_control's swimmer6 (nefc
+    697 through the solve kernel), swimmer15 (1037 candidates in 48
+    slots, contacts off), fish (the inertia-box fluid model, constraints
+    off) and quadruped escape (its seeded 201 x 201 terrain, 19
+    height-field pairs, 20 rangefinders, the solve kernel at nefc 488) at
+    8192 worlds, FLU_NSTEP steps and warmup each (escape from
+    parity.dmc_state tiled, the others qpos0 plus noise), then the test
+    scenes sensors, contact_sensor, fluid_ellipsoid and geomdist at 8192
+    worlds for FLU_TEST_NSTEP steps, each as phase 13 runs its scenes
+    (exact counts, kernels held and timed: *_sw6, *_sw15, *_fish,
+    *_esc, *_sens, *_csens, *_fell, *_gdist; one step against the CPU by
+    sensordata), with each scene's mean per sensor type, the rangefinders'
+    hit share, and on escape the ray walk's trips per step and the host
+    and wall ms of one rangefinder pass and of the height-field collider.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -333,12 +349,30 @@ ACT_TEST_NWORLD, ACT_TEST_NSTEP = 8192, 5
 ACT_SFX = {'quadruped': '_qd', 'dog': '_dog', 'dcmotor': '_dcm',
            'transmission': '_trn', 'actuator_mix': '_amix'}
 ACT_NCMP = {'quadruped': 1024, 'dog': 16}
+# the worlds of transmission whose stop quantities trip_trace follows
+# beside those qfrc_witness picks (the three the last chip run named)
+TRACE_WORLDS = (4450, 7873, 6811)
+# phase 17: fluid forces, rays and height fields on the general step.
+# dm_control's swimmer6, swimmer15, fish and quadruped escape at their
+# width, (steps, warmup) each, escape from parity.dmc_state (64 worlds
+# tiled), the others from qpos0 plus noise; the test scenes sensors,
+# contact_sensor, fluid_ellipsoid and geomdist at their width for
+# FLU_TEST_NSTEP steps after 2 of warmup; the key suffix of each scene's
+# kernels (each scene's one step against the CPU takes NSENSOR_CMP worlds)
+FLU_NSTEP = {'swimmer6': (10, 3), 'swimmer15': (10, 3), 'fish': (10, 3),
+             'quadruped_escape': (5, 2)}
+FLU_TEST_NSTEP = 3
+FLU_SFX = {'swimmer6': '_sw6', 'swimmer15': '_sw15', 'fish': '_fish',
+           'quadruped_escape': '_esc', 'sensors': '_sens',
+           'contact_sensor': '_csens', 'fluid_ellipsoid': '_fell',
+           'geomdist': '_gdist'}
 # worlds of qfrc_witness where no world lies past the bar
 QFRC_WITNESS = 4
 WARMUP = 10
 NCMP = 1024
-# profiler timing: launches per trace, traces per kernel at most, and the
-# least launches the traces must hold
+# profiler timing: launches per trace, traces per kernel at most, the
+# least launches the traces must hold (each trace idles
+# ``kerneltime.PAD_S`` on each side of its calls)
 NTIME, WINDOWS, MIN_SEEN = 20, 4, 10
 # H100 SXM peaks: HBM bytes/s, float32 flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -473,9 +507,12 @@ def main():
   from mujoco_warp_tpu_torch.kernels import linalg as klinalg
   from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
   from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  from mujoco_warp_tpu_torch.ops import collision_driver as ocollision_driver
   from mujoco_warp_tpu_torch.ops import derivative as oderiv
   from mujoco_warp_tpu_torch.ops import forward
   from mujoco_warp_tpu_torch.ops import inverse as oinverse
+  from mujoco_warp_tpu_torch.ops import ray as oray
+  from mujoco_warp_tpu_torch.ops import sensor as osensor
   from mujoco_warp_tpu_torch.ops import smooth as osmooth
   from mujoco_warp_tpu_torch.ops import solver as osolver
   from mujoco_warp_tpu_torch.ops import util as outil
@@ -536,7 +573,7 @@ def main():
        'k4_implicitfast') + tuple(
           k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values(),
                               *TASK_SFX.values(), '_dr',
-                              *ACT_SFX.values())
+                              *ACT_SFX.values(), *FLU_SFX.values())
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
                     'damped_solve')) + ('chol_batched_sc', 'chol_solve_sc')}
 
@@ -1515,13 +1552,15 @@ def main():
     """The kernels ``kerns`` of ``model``'s general step against their
     plain versions on world-major state d (carried fields), each fed the
     plain version's upstream outputs, in the main path's layouts, the
-    solve at parity's ``bar`` ('elliptic' with elliptic cones); errors
+    solve at parity's ``bar`` ('elliptic' with elliptic cones; qacc past
+    it in a world without a live row by each side's gradient); errors
     to err[kernel + sfx].  Where the torch Newton runs, chol_batched also
     on its first H and chol_solve on its first gradient; under
     IMPLICITFAST chol_batched on M - h qDeriv and chol_solve on its
     system.  Returns each kernel's arguments and the plain solve's mean
     Newton count (0 without rows or without the solve kernel)."""
     nv, nb = model.nv, model.nbody
+    held_by_gradient = 0
     d = forward.pre(model, d)
     am = (model, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv),
           lanes(d.qvel))
@@ -1570,9 +1609,11 @@ def main():
         gs, ws = (ksolver.solve_tiles(*args['solve']),
                   solver_ref.solve_tiles(*args['solve']))
         bar = 'elliptic' if ell else bar
-        rs = parity.check_solve(gs, ws, bar, args['solve'][1:3])
+        rs = parity.check_solve(gs, ws, bar, args['solve'][1:3],
+                                system=args['solve'])
         errs['solve'], niter, qacc = (rs['qacc_max_abs_err'],
                                       rs['niter_mean'], ws[0])
+        held_by_gradient = rs['gradient_worlds']
       if 'damped_solve' in kerns:
         args['damped_solve'] = (model, d.qM, qacc.T)
         dmp = klinalg.world_damping(model)  # per world where batched
@@ -1615,7 +1656,10 @@ def main():
         f'chol_batched, chol_solve and damped_solve within atol '
         f'{parity.SOLVE_ATOL} + rtol {parity.SOLVE_RTOL} of world scale '
         f'(the solves in both layouts); the solve at parity\'s \'{bar}\' '
-        f'bar; plain Newton niter mean {niter:.3f}')
+        f'bar, qacc past it in {held_by_gradient} worlds without a live '
+        f'row held by each side\'s gradient (within '
+        f'{parity.GRADIENT_BAR} tolerances); plain Newton niter mean '
+        f'{niter:.3f}')
     return args, niter
 
   def tendon_timing(args, niter, sfx):
@@ -1847,10 +1891,152 @@ def main():
         f'{far(f64[2])}; Newton counts kernel '
         f'{gs[3][0, ids].tolist()}, plain {ws[3][0, ids].tolist()}, '
         f'float64 {f64[3][0].tolist()}, optimum {opt[3][0].tolist()}')
+    return ids.tolist()
+
+  def trip_trace(name, a, ids):
+    """The stop quantities of the solve, trip by trip, on the worlds
+    ``ids`` of the system ``a`` (the solve kernel's arguments).  The
+    kernel's iterates come from the kernel cut at 1, 2, ... trips
+    (opt.iterations); from each iterate k - 1 the plain version takes one
+    trip and gives the stop quantities of trip k (improvement, gradient
+    norm, model improvement, in tolerances: a stop where one is below 1)
+    and the distance of its iterate to the kernel's iterate k in qacc
+    bars; the plain version's own trips are traced along its own path.
+    Where the kernel stops at trip k and the plain test, one trip from the
+    kernel's own iterate k - 1, stops too, the two part by their path
+    (the iterates of earlier trips), not by the order in which the stop
+    test sums; where the plain test would go on, the kernel's own
+    evaluation stops it.  For each world, the kernel's own least stop
+    quantity at its last trip: the tolerance t at which the kernel, from
+    its iterate k - 1, stops after one trip and below which it goes on,
+    by bisection in log t with ls_tolerance / t (so that the linesearch's
+    gtol, tol ls_tol, and with it the trip stay as they were); beside it
+    the plain version's three quantities from that iterate in float32
+    and in float64.  Then the same stop read inside each side's own run:
+    the kernel's least quantity at trip k of its run from the warmstart
+    (the same bisection, the run cut at k + 1 trips), and the plain
+    version's trip k along its own path beside one plain trip from its
+    own iterate k - 1.  Where a reading inside a run parts from the one
+    from that run's iterate k - 1, the state that the run carries from
+    trip to trip (Ma and Jaref, each updated by the step, as the plain
+    version and pallas/solver.py update them) moves the stop."""
+    m_ = a[0]
+    sub = [None if x is None else x[..., torch.as_tensor(
+        ids, device=dev)].contiguous() for x in a[1:]]
+    tol = float(types.host(m_.opt.tolerance))
+    cut = lambda k: m_.replace(opt=m_.opt.replace(iterations=k))
+
+    def rec(into):
+      return lambda niter, alpha, impr, gnorm, model, done: into.append(
+          (torch.cat([impr, gnorm, model]) / tol).cpu())
+    own = []
+    pn = solver_ref.solve_tiles(m_, *sub, trace=rec(own))[3][0].tolist()
+    kn = ksolver.solve_tiles(m_, *sub)[3][0].tolist()
+    q_prev, at_kernel, dist, iterates = sub[6], [], [], [sub[6]]
+    for k in range(1, max(kn) + 1):
+      qk = ksolver.solve_tiles(cut(k), *sub)[0]
+      iterates.append(qk)
+      one = []
+      qo = solver_ref.solve_tiles(cut(1), *sub[:6], q_prev, *sub[7:],
+                                  trace=rec(one))[0]
+      at_kernel.append(one[0] if one else None)
+      bar = parity.QACC_ATOL + parity.QACC_RTOL * qk.abs().amax(0)
+      dist.append(((qo - qk).abs().amax(0) / bar).cpu())
+      q_prev = qk
+    # one plain trip from the plain version's own iterate k - 1 (its run
+    # cut at k - 1 trips), to set beside its trip k inside its own run
+    fresh_p = []
+    for k in range(1, max(kn) + 1):
+      qp = sub[6] if k == 1 else solver_ref.solve_tiles(cut(k - 1), *sub)[0]
+      one = []
+      solver_ref.solve_tiles(cut(1), *sub[:6], qp, *sub[7:], trace=rec(one))
+      fresh_p.append(one[0] if one else None)
+    f = lambda x: float(f'{float(x):.4g}')
+    ls = float(types.host(m_.opt.ls_tolerance))
+    m64 = io.model_from_numpy(io.model_to_numpy(m_), device=dev,
+                              dtype=torch.float64)
+
+    def kernel_least(i, q0, k=1, hi=1e4):
+      """The kernel's least stop quantity at trip k of a run from q0
+      (world i), in tolerances: the tolerance t at which the run, cut at
+      k + 1 trips, stops at trip k and below which it goes on, by
+      bisection (24 halvings of the log bracket; a string where it lies
+      below the bracket).  From an iterate with k 1 it reads one trip
+      from there; from the warmstart with the kernel's own count k it
+      reads the stop inside the kernel's own run, which carries its
+      state (Ma, Jaref, the factor) from trip to trip."""
+      one = [None if x is None else x[..., i:i + 1].contiguous()
+             for x in sub]
+      one[6] = q0[:, i:i + 1].contiguous()
+
+      def trips_at(t):
+        mt = m_.replace(opt=m_.opt.replace(
+            tolerance=torch.tensor(t * tol, device=dev),
+            ls_tolerance=torch.tensor(ls / t, device=dev),
+            iterations=k + 1))
+        return int(ksolver.solve_tiles(mt, *one)[3][0, 0])
+      lo = 1e-12
+      while hi > lo and trips_at(hi) < k:  # an earlier test passes
+        hi *= 0.5
+      if trips_at(hi) != k:
+        return None
+      if trips_at(lo) != k + 1:
+        return f'< {lo:g}'
+
+      for _ in range(24):
+        mid = (lo * hi) ** 0.5
+        lo, hi = (lo, mid) if trips_at(mid) == k else (mid, hi)
+      return hi
+
+    def f64_trip(i, q0):
+      """The plain version's stop quantities of one trip from q0 (world
+      i) in float64, in tolerances."""
+      one = [None if x is None else x[..., i:i + 1].double() for x in sub]
+      one[6] = q0[:, i:i + 1].double()
+      got = []
+      solver_ref.solve_tiles(m64.replace(opt=m64.opt.replace(
+          iterations=1)), *one, trace=lambda n, a, *q: got.append(
+              [float(x) / tol for x in q[:3]]))
+      return [f(x) for x in got[0]] if got else None
+
+    verdicts = []
+    for i, w in enumerate(ids):
+      k_end = kn[i]
+      trips_k = [[f(x) for x in at_kernel[k][:, i]] + [f(dist[k][i])]
+                 if at_kernel[k] is not None else None
+                 for k in range(k_end)]
+      trips_p = [[f(x) for x in own[k][:, i]] for k in range(pn[i])]
+      last = trips_k[-1] if trips_k else None
+      stops = last is not None and min(last[:3]) < 1.0
+      verdict = ('path' if stops or k_end >= int(m_.opt.iterations) else
+                 'its own evaluation')
+      verdicts.append(verdict)
+      least = kernel_least(i, iterates[k_end - 1])
+      own_least = kernel_least(i, sub[6], k_end, 1.0) \
+          if k_end < int(m_.opt.iterations) else None
+      exact = f64_trip(i, iterates[k_end - 1])
+      fp = fresh_p[k_end - 1]
+      plain_fresh = None if fp is None else [f(x) for x in fp[:, i]]
+      plain_own = trips_p[k_end - 1] if k_end <= pn[i] else None
+      fmt = lambda x: x if x is None or isinstance(x, str) else f(x)
+      say(f'[trace] {name} world {w}: kernel {k_end} trips, plain '
+          f'{pn[i]}; one plain trip from each kernel iterate '
+          f'(improvement, gradient, model improvement in tolerances; its '
+          f'iterate to the kernel\'s in qacc bars) {trips_k}; the plain '
+          f'version\'s own trips {trips_p}; the kernel\'s stop at trip '
+          f'{k_end}: {verdict}; there the kernel\'s least stop quantity '
+          f'{fmt(least)} one trip from its iterate {k_end - 1} and '
+          f'{fmt(own_least)} inside its own run, the plain version\'s '
+          f'{last[:3] if last else None} from the kernel\'s iterate, '
+          f'{plain_fresh} from its own iterate {k_end - 1} and '
+          f'{plain_own} inside its own run, float64 {exact}')
+    say(f'[trace] {name}: worlds {list(ids)}, verdicts {verdicts} (a '
+        '"path" stop: the plain test stops on the kernel\'s own iterate '
+        'too; "its own evaluation": the plain test goes on there)')
 
   def general_scene(name, sfx, nstep, init=None, warmup=WARMUP,
                     ncmp=NSENSOR_CMP):
-    """One scene of phases 13, 14 and 16: ``main_path`` at its width
+    """One scene of phases 13, 14, 16 and 17: ``main_path`` at its width
     (``scene_model``) from ``init`` (or qpos0 plus noise), exact counts
     from ``classic_expect``, its kernels held and timed on the last state
     (``step_compare``, ``tendon_timing``), and one step of ``ncmp``
@@ -1862,8 +2048,12 @@ def main():
     expect = classic_expect(mt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    trips0, walks0 = oray.trips, oray.walks
     res, st, launches = main_path(mt, nstep, expect, w_t, init_state=init,
                                   warmup=warmup)
+    # the height-field ray walks of the rollout alone
+    res['ray_trips'] = oray.trips - trips0
+    res['ray_walks'] = oray.walks - walks0
     res['max_memory_allocated_gb'] = torch.cuda.max_memory_allocated() / 1e9
     kerns = tuple(expect(1, 1))
     if mt.nsensordata and not bool(torch.isfinite(st.sensordata).all()):
@@ -1889,8 +2079,12 @@ def main():
                                mt, kerns, sfx,
                                parity.SOLVE_BAR_OF.get(name, 'dmc'))
     tendon_timing(args, niter, sfx)
-    if name in parity.SOLVE_BAR_OF and 'solve' in args:
-      qfrc_witness(name, args['solve'])
+    if parity.SOLVE_BAR_OF.get(name) in parity.QFRC_THROUGH_QACC and \
+        'solve' in args:
+      wit = qfrc_witness(name, args['solve'])
+      W_s = args['solve'][1].shape[-1]
+      trip_trace(name, args['solve'], sorted(set(wit) | {
+          w for w in TRACE_WORLDS if w < W_s}))
     t_hold = time.perf_counter() - t_hold
     t_cmp = time.perf_counter()
     # one step of NSENSOR_CMP worlds of the last state on the card and on
@@ -2388,6 +2582,99 @@ def main():
         f"{float(st.actuator_force.max()):.4f}]")
   say(f'[main path] phase 16 took {time.perf_counter() - t16:.1f} s')
 
+  # ---- 17. fluid forces, rays and height fields on the general step
+  say(f'[phase 17] at {time.perf_counter() - T0:.1f} s')
+  t17 = time.perf_counter()
+
+  def sensor_summary(name, model, st):
+    """Each sensor type's mean over the last state's worlds and
+    elements, and the rangefinders' hit share."""
+    sd = st.sensordata
+    if not model.nsensordata:
+      return
+    means = {}
+    for t in sorted(set(int(x) for x in model.sensor_type)):
+      ids = np.nonzero(np.asarray(model.sensor_type) == t)[0]
+      cols = np.concatenate([int(model.sensor_adr[i]) + np.arange(
+          int(model.sensor_dim[i])) for i in ids])
+      means[types.SensorType(t).name] = float(
+          f'{float(sd[:, torch.as_tensor(cols, device=dev)].mean()):.5g}')
+    rf = np.nonzero(np.asarray(model.sensor_type) ==
+                    types.SensorType.RANGEFINDER)[0]
+    hit = ''
+    if len(rf):
+      cols = torch.as_tensor(np.asarray(model.sensor_adr)[rf], device=dev)
+      hit = (f'; rangefinder hit share '
+             f'{float((sd[:, cols] >= 0).float().mean()):.4f}')
+    say(f'[main path] {name}: sensordata mean per type {json.dumps(means)}'
+        + hit)
+
+  for name, (nstep, warmup) in FLU_NSTEP.items():
+    mh, w_t = scene_model(name, device='cpu')
+    init = None
+    if name in parity.DMC_DROP:
+      qpos, qvel, _ = parity.dmc_state(mh, name, 64, 0)
+      init = {'qpos': qpos, 'qvel': qvel}
+    st, res = general_scene(name, FLU_SFX[name], nstep, init, warmup)
+    steps = nstep + warmup
+    say(f"[main path] {name} W={w_t}: {res['steps_per_sec']:.1f} steps/s, "
+        f"overflow_worlds {res['overflow_worlds']}, converged_worlds "
+        f"{res['converged_worlds']}, solver_cap_worlds "
+        f"{res['solver_cap_worlds']}, solver "
+        + ('the solve kernel' if forward.solve_kernel_runs(mh) else
+           'the torch Newton' if mh.nefc and forward.large_system(mh) else
+           'none (no rows)') +
+        f" (nefc {mh.nefc} x nv {mh.nv} = {mh.nefc * mh.nv}), mean "
+        f"|qfrc_fluid| {float(st.qfrc_fluid.abs().mean()):.5g}")
+    sensor_summary(name, mh, st)
+    if forward.solve_kernel_runs(mh):
+      say(f'[kernel] solve_kernel on {name} (nefc {mh.nefc}, nv {mh.nv}): '
+          f'{json.dumps(ksolver.kernel_info(mh))}')
+    say(f'[kernel] mass chain on {name} (nv {mh.nv}, nbody {mh.nbody}): '
+        f'{json.dumps(kmass.kernel_info(mh))}')
+    if name == 'quadruped_escape':
+      mt, _ = scene_model(name)
+      ncon = float(st.ncon_active.float().mean())
+      if ncon <= 0.0:
+        fail(f'{name}: no live contact in the last state')
+      # one rangefinder pass and the height-field collider on the last
+      # state: host ms (the enqueue) and wall ms (to the device's end)
+      d_last = forward.pre(mt, types.Data(**{k: getattr(st, k)
+                                             for k in types.CARRY}))
+      rf = np.nonzero(np.asarray(mt.sensor_type) ==
+                      types.SensorType.RANGEFINDER)[0]
+      objid = np.asarray(mt.sensor_objid)[rf]
+      hf = [g for g in mt.pair_groups if g[0] == types.GeomType.HFIELD]
+
+      def collide_hfield():
+        for t1, t2, idx, _ in hf:
+          ocollision_driver.collider(t1, t2)(
+              mt, d_last, mt.pair_geom1[idx], mt.pair_geom2[idx])
+      stage_ms = {}
+      for what, fn in (('rangefinder pass', lambda: osensor._rangefinder(
+          mt, d_last, objid)), ('height-field collider', collide_hfield)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        stage_ms[what] = (1e3 * t_host, 1e3 * (time.perf_counter() - t0))
+      say(f'[main path] {name}: live contacts per world {ncon:.3f}; ray '
+          f"walk trips per step {res['ray_trips'] / steps:.2f} over "
+          f"{res['ray_walks'] / steps:.2f} walks per step (the most any "
+          f'ray crosses; at most {201 + 201 - 3}); host / wall ms '
+          + ', '.join(f'{k} {h:.3f} / {w:.3f}' for k, (h, w) in
+                      stage_ms.items()))
+  for name in ('sensors', 'contact_sensor', 'fluid_ellipsoid', 'geomdist'):
+    st, res = general_scene(name, FLU_SFX[name], FLU_TEST_NSTEP, warmup=2)
+    mh, w_t = scene_model(name, device='cpu')
+    say(f"[main path] {name} W={w_t}: {res['steps_per_sec']:.1f} steps/s, "
+        f"overflow_worlds {res['overflow_worlds']}, mean |qfrc_fluid| "
+        f"{float(st.qfrc_fluid.abs().mean()):.5g}")
+    sensor_summary(name, mh, st)
+  say(f'[main path] phase 17 took {time.perf_counter() - t17:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -2423,7 +2710,7 @@ def main():
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
   for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values(),
-              '_dr', '_sc', *ACT_SFX.values()):
+              '_dr', '_sc', *ACT_SFX.values(), *FLU_SFX.values()):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

@@ -41,10 +41,15 @@ IMPLICIT, which the fused gate refuses); and the elliptic-cone tasks
 (8192 worlds each, general step): ``manipulator_insert_peg`` and
 ``stack_2`` (the elliptic solve kernel at nefc 920 and 725), ``stack_4``
 (nefc 1025 x nv 20: the torch elliptic Newton) and ``finger_cg`` (the
-finger snapshot under CG, elliptic); and ``humanoid_dmc_dr`` (8192
+finger snapshot under CG, elliptic); ``humanoid_dmc_dr`` (8192
 worlds, general step): dm_control's humanoid with per-world physical
 parameters (``io.batch_model``, ``io.set_const``; the draws of
-``randomize``), which the fused gate refuses.
+``randomize``), which the fused gate refuses; dm_control's quadruped and
+dog (8192 worlds, general step; activation dynamics); and the fluid, ray
+and height-field scenes (8192 worlds each, general step): dm_control's
+``swimmer6``, ``swimmer15`` and ``fish`` (fluid forces), ``quadruped_escape``
+(a height field and 20 rangefinders), and the test scenes ``sensors``,
+``contact_sensor``, ``fluid_ellipsoid`` and ``geomdist``.
 ``SCENES`` names each with its snapshot and registered width,
 ``OVERRIDES`` the options set on a snapshot, ``RANDOMIZED`` the scenes
 whose worlds draw their own parameters, and ``load_scene`` loads one.
@@ -100,6 +105,11 @@ SCENES = {
     # actuation (general step): dm_control's quadruped (walk, run) and
     # dog (stand, walk, trot, run), FILTER activations
     **{name: (io.ACT_SNAPSHOTS[name], 8192) for name in io.ACT_DMC},
+    # fluid forces, rays and height fields (general step): dm_control's
+    # swimmer6, swimmer15 and fish (the inertia-box fluid model) and
+    # quadruped escape (its seeded terrain, 20 rangefinders), and the test
+    # scenes sensors, contact_sensor, fluid_ellipsoid and geomdist
+    **{name: (io.FLUID_SNAPSHOTS[name], 8192) for name in io.FLUID_SNAPSHOTS},
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {

@@ -7,7 +7,9 @@
                tendon_wrap|tendon_mix|pendulum|reacher|finger|cartpole|
                acrobot|humanoid_CMU|constraints_implicitfast|
                cheetah_implicit|manipulator_insert_peg|stack_2|stack_4|
-               finger_cg|humanoid_dmc_dr|quadruped|dog] [--general]
+               finger_cg|humanoid_dmc_dr|quadruped|dog|swimmer6|swimmer15|
+               fish|quadruped_escape|sensors|contact_sensor|
+               fluid_ellipsoid|geomdist] [--general]
   python -m mujoco_warp_tpu_torch.devprofile --skip [--worlds 256]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
@@ -30,15 +32,20 @@ contact states (``benchmarks.START``), 8192 x 20 (stack_4 x 10, finger_cg x 2),
 the general step; ``humanoid_dmc_dr``, 8192 x 100, each world with its
 own parameters, the general step; ``quadruped``, 8192 x 30, landed on
 its feet by then, and ``dog``, 8192 x 2, standing from qpos0, the
-general step with activations), traces a few more with
+general step with activations; swimmer6, swimmer15 and fish, 8192 x
+100, the general step with fluid forces; ``quadruped_escape``, 8192 x 30
+on its terrain, with its rangefinders' ray walk; the test scenes
+sensors, contact_sensor, fluid_ellipsoid and geomdist, 8192 x 50),
+traces a few more with
 ``torch.profiler`` (CPU and CUDA activities; 40 steps, 4 for the clutter
 scenes and humanoid_CMU, whose step launches tens of thousands of
 kernels, 3 for spheres_cg and stack_4, 1 for finger_cg, 5 for
 manipulator_insert_peg and stack_2, 1 for dog, 10 for quadruped, the
 spheres scenes, the
 tendon scenes,
-the classic tasks, the integrator scenes, humanoid_dmc_dr and the
-general step of a dm_control scene) and prints one JSON line:
+the classic tasks, the integrator scenes, humanoid_dmc_dr, the fluid
+scenes and the general step of a dm_control scene, 5 for
+quadruped_escape) and prints one JSON line:
 
 - ``window_ms``: host time of the traced steps (a ``rollout`` annotation
   that closes after a device synchronize);
@@ -51,7 +58,9 @@ general step of a dm_control scene) and prints one JSON line:
   (cut to 100 characters), each with its ms and launches per step;
 - ``stage_host_ms_per_step``: the host time of each stage of the general
   step (its ``stage:<name>`` annotations, ``ops/forward.py``; empty on
-  the fused path).
+  the fused path); ``rays`` (the rangefinders' casts, ``ops/sensor.py``)
+  and ``hfield`` (the height-field collider, ``ops/collision_driver.py``)
+  lie inside ``sensors`` and ``collision``.
 
 With ``--skip``, the same for the skip step instead: ``forward.step`` on
 ``parity.pushed_clutter`` (the settled clutter.xml state, 256 worlds by
@@ -97,7 +106,10 @@ WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            'manipulator_insert_peg': (20, 5), 'stack_2': (20, 5),
            'stack_4': (10, 3), 'finger_cg': (2, 1),
            'humanoid_dmc_dr': (100, 10), 'quadruped': (30, 10),
-           'dog': (2, 1)}
+           'dog': (2, 1), **{k: (100, 10) for k in
+                             ('swimmer6', 'swimmer15', 'fish')},
+           'quadruped_escape': (30, 5),
+           **{k: (50, 10) for k in io.FLUID_XML}}
 # the general step's window, for --general
 GENERAL_WINDOW = (200, 10)
 # steps traced of each path with --skip

@@ -144,7 +144,8 @@ def ell_zone_counts(m: types.Model, J, D, aref, qacc, s) -> dict:
 
 
 def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
-               meaninertia, diag=(), w_fri=None, fl=None, ell=None):
+               meaninertia, diag=(), w_fri=None, fl=None, ell=None,
+               trace=None):
   """Newton solve.  Returns (qacc (nv, W), force (nefc, W), niter (1, W)
   float).
 
@@ -153,7 +154,11 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
   (nefc, 1) marking equality rows, or None; w_fri: (nefc, 1) marking
   friction-loss rows, or None, with fl (nefc, W) their friction loss;
   tol, ls_tol, meaninertia: 0-d float32 tensors; ell: (``ell_groups``,
-  ``ell_scales``) of the elliptic contacts, or None (not with ``diag``).
+  ``ell_scales``) of the elliptic contacts, or None (not with ``diag``);
+  trace: None, or called after every trip with the trip count, the step
+  size and that trip's stop quantities (the improvement, the gradient
+  norm and the model improvement, rescaled as the stop test reads them),
+  each (1, W), and the worlds that were done before it.
   """
   nv = m.nv
   nl = len(diag)
@@ -536,6 +541,8 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
         torch.sum(grad_n * grad_n, 0, keepdim=True), min=0.0))
     impr = rescale * improve
     model_impr = rescale * 0.5 * torch.sum(grad_n * Mgrad_n, 0, keepdim=True)
+    if trace is not None:
+      trace(niter_n, alpha, impr, gnorm, model_impr, done)
     done_now = ((impr < tol) | (gnorm < tol) | (model_impr < tol) |
                 (niter_n >= iterations))
     keep = lambda new, old: torch.where(done, old, new)
@@ -569,13 +576,14 @@ def scalars(m, device):
   return f(m.opt.tolerance), f(m.opt.ls_tolerance), f(m.stat.meaninertia)
 
 
-def solve_tiles(m, J, D, aref, fl, M, qfrc_smooth, qacc0, s=None):
+def solve_tiles(m, J, D, aref, fl, M, qfrc_smooth, qacc0, s=None,
+                trace=None):
   """The standalone solve on lanes-last tensors (``pallas/solver.py``
   ``_solve_tiles`` :1091): J (nefc, nv, W), D, aref, fl (nefc, W), M
   (nv, nv, W), qfrc_smooth and qacc0 (nv, W), and for a model with
-  elliptic contacts their row scales s (nefc, W) (``ell_scales``).
-  Returns qacc (nv, W), force (nefc, W), qfrc_constraint (nv, W) and
-  niter (1, W) int32."""
+  elliptic contacts their row scales s (nefc, W) (``ell_scales``);
+  ``trace`` as ``solve_core`` takes it.  Returns qacc (nv, W), force
+  (nefc, W), qfrc_constraint (nv, W) and niter (1, W) int32."""
   w_eq, w_fri = row_weights(m, J.device)
   tol, ls_tol, mi = scalars(m, J.device)
   groups = ell_groups(m)
@@ -583,7 +591,8 @@ def solve_tiles(m, J, D, aref, fl, M, qfrc_smooth, qacc0, s=None):
     raise ValueError('elliptic contacts need their row scales s')
   qacc, force, niter = solve_core(m, J, D, aref, M, qfrc_smooth, qacc0, w_eq,
                                   tol, ls_tol, mi, w_fri=w_fri, fl=fl,
-                                  ell=(groups, s) if groups else None)
+                                  ell=(groups, s) if groups else None,
+                                  trace=trace)
   qfrc_c = torch.sum(J * force[:, None, :], dim=0)
   return qacc, force, qfrc_c, niter.to(torch.int32)
 

@@ -117,6 +117,27 @@ ACT_XML = {'dcmotor': os.path.join(_MODELS, 'dcmotor.xml'),
            'actuator_mix': os.path.join(_ASSETS, 'actuator_mix.xml')}
 ACT_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
                  for name in (*ACT_DMC, *ACT_XML)}
+# the fluid, ray and height-field slice's dm_control tasks, each the model
+# ``suite.load`` builds for (domain, task): swimmer6 and swimmer15
+# (density 3000), fish (swim; upright takes the same model; density
+# 5000) and quadruped escape (a 201 x 201 height field, 20 rangefinders),
+# whose terrain ``escape_terrain`` draws from ESCAPE_SEED into the
+# snapshot
+FLUID_DMC = {'swimmer6': ('swimmer', 'swimmer6'),
+             'swimmer15': ('swimmer', 'swimmer15'),
+             'fish': ('fish', 'swim'),
+             'quadruped_escape': ('quadruped', 'escape')}
+ESCAPE_SEED = 0
+# its test scenes: the repo's sensors.xml (a rangefinder) and
+# contact_sensor.xml (six contact sensors), the port's fluid_ellipsoid.xml
+# (both fluid models, viscosity and wind) and geomdist.xml (the
+# geom-distance sensors)
+FLUID_XML = {'sensors': os.path.join(_MODELS, 'sensors.xml'),
+             'contact_sensor': os.path.join(_MODELS, 'contact_sensor.xml'),
+             'fluid_ellipsoid': os.path.join(_ASSETS, 'fluid_ellipsoid.xml'),
+             'geomdist': os.path.join(_ASSETS, 'geomdist.xml')}
+FLUID_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                   for name in (*FLUID_DMC, *FLUID_XML)}
 # more candidate pairs than this and no budget given: the default budget
 # (``io.py:653-654``)
 # the elliptic-cone tasks' committed start states (``make_task_start``):
@@ -744,6 +765,7 @@ def put_model(mjm, nconmax=None, device=None, dtype=torch.float32
       'opt.ls_tolerance': o.ls_tolerance, 'opt.gravity': o.gravity,
       'opt.magnetic': o.magnetic,
       'opt.density': o.density, 'opt.viscosity': o.viscosity,
+      'opt.wind': o.wind,
       'opt.sleep_tolerance': o.sleep_tolerance,
       'opt.o_margin': o.o_margin, 'opt.o_solref': o.o_solref,
       'opt.o_solimp': o.o_solimp, 'opt.o_friction': o.o_friction,
@@ -759,6 +781,8 @@ def put_model(mjm, nconmax=None, device=None, dtype=torch.float32
       # filled by remix below, from the Model's geom fields
       **{k: np.zeros(0) for k in CAND_FIELDS},
       'cam_mat0': np.asarray(mjm.cam_mat0).reshape(-1, 3, 3),
+      'geom_fluid': np.asarray(mjm.geom_fluid).reshape(mjm.ngeom, -1),
+      'hfield_size': np.asarray(mjm.hfield_size).reshape(-1, 4),
   }
   for name in ('ancestor_mask', 'subtree_mask', 'body_dof_mask',
                'dof_subtree_mask', 'cdofdot_mask', 'body_levels'):
@@ -1393,18 +1417,42 @@ def make_spheres_snapshot(cone: int = types.ConeType.PYRAMIDAL,
   return m
 
 
+def escape_terrain(mjm, seed: int = ESCAPE_SEED) -> np.ndarray:
+  """Quadruped escape's terrain heights (nrow * ncol,), as its task's
+  ``initialize_episode`` draws them (``dm_control/suite/quadruped.py``
+  ``Escape``, :369-384) from a ``RandomState(seed)``: a sinusoidal bowl
+  times smooth random bumps, without the rendering context that the
+  task's call asks for (needs ``scipy`` and ``dm_control``)."""
+  from dm_control.suite import quadruped
+  from scipy import ndimage
+  res = int(mjm.hfield_nrow[0])
+  row_grid, col_grid = np.ogrid[-1:1:res * 1j, -1:1:res * 1j]
+  radius = np.clip(np.sqrt(col_grid ** 2 + row_grid ** 2), .04, 1)
+  bowl = .5 - np.cos(2 * np.pi * radius) / 2
+  bump_res = int(2 * mjm.hfield_size[0, 0] / quadruped._TERRAIN_BUMP_SCALE)
+  bumps = np.random.RandomState(seed).uniform(
+      quadruped._TERRAIN_SMOOTHNESS, 1, (bump_res, bump_res))
+  return (bowl * ndimage.zoom(bumps, res / float(bump_res))).ravel()
+
+
 def load_dmc(name: str):
   """A dm_control suite scene of ``DMC_NCONMAX``, ``TENDON_DMC``,
-  ``CLASSIC_DMC``, ``TASK_DMC`` or ``ACT_DMC`` as a
+  ``CLASSIC_DMC``, ``TASK_DMC``, ``ACT_DMC`` or ``FLUID_DMC`` as a
   ``mujoco.MjModel`` with its sensors, cameras and lights, from the XML in
-  the installed ``dm_control`` (needs ``mujoco`` and ``dm_control``)."""
+  the installed ``dm_control`` (needs ``mujoco`` and ``dm_control``);
+  quadruped escape with its seeded terrain (``escape_terrain``)."""
   import importlib
   import importlib.util
 
   import mujoco
-  if name in ACT_DMC:
+  if name in ACT_DMC or name in FLUID_DMC:
     from dm_control import suite
-    return suite.load(*ACT_DMC[name]).physics.model.ptr
+    mjm = suite.load(*{**ACT_DMC, **FLUID_DMC}[name]).physics.model.ptr
+    if name == 'quadruped_escape':
+      adr, n = int(mjm.hfield_adr[0]), int(mjm.hfield_nrow[0] *
+                                          mjm.hfield_ncol[0])
+      mjm.hfield_data[adr:adr + n] = escape_terrain(mjm)
+    return mjm
   if name in TASK_DMC:
     module, kw = TASK_DMC[name]
     xml, assets = importlib.import_module(
@@ -1422,7 +1470,7 @@ def make_dmc_snapshot(name: str, path: Optional[str] = None) -> types.Model:
   committed snapshot)."""
   if path is None:
     path = {**DMC_SNAPSHOTS, **TENDON_SNAPSHOTS, **CLASSIC_SNAPSHOTS,
-            **TASK_SNAPSHOTS, **ACT_SNAPSHOTS}[name]
+            **TASK_SNAPSHOTS, **ACT_SNAPSHOTS, **FLUID_SNAPSHOTS}[name]
   m = put_model(load_dmc(name), nconmax=DMC_NCONMAX.get(name),
                 device='cpu')
   os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1466,7 +1514,10 @@ def snapshot_makers() -> tuple:
       tuple((TASK_SNAPSHOTS[name], dmc(name)) for name in TASK_DMC) + \
       tuple((ACT_SNAPSHOTS[name], dmc(name)) for name in ACT_DMC) + \
       tuple((ACT_SNAPSHOTS[name], xml(path)) for name, path in
-            ACT_XML.items())
+            ACT_XML.items()) + \
+      tuple((FLUID_SNAPSHOTS[name], dmc(name)) for name in FLUID_DMC) + \
+      tuple((FLUID_SNAPSHOTS[name], xml(path)) for name, path in
+            FLUID_XML.items())
 
 
 def main(argv: Optional[list] = None):
@@ -1486,6 +1537,10 @@ def main(argv: Optional[list] = None):
                  'manipulator_insert_peg.npz, stack_2.npz and stack_4.npz, '
                  'the actuation scenes quadruped.npz, dog.npz, '
                  'dcmotor.npz, transmission.npz and actuator_mix.npz, '
+                 'the fluid, ray and height-field scenes swimmer6.npz, '
+                 'swimmer15.npz, fish.npz, quadruped_escape.npz (its '
+                 'terrain seeded), sensors.npz, contact_sensor.npz, '
+                 'fluid_ellipsoid.npz and geomdist.npz, '
                  'the elliptic-cone tasks\' start states '
                  'assets/*_start.npz, and '
                  '(with --settle) the settled states '

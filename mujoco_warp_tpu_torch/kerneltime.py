@@ -42,7 +42,8 @@ makes) and ``torch.profiler`` the kernel's own launches (``kernel_ms``):
 the short kernels run shorter than their wrappers' host work, so only
 the profiler sees their time.  Prints one JSON line: the root
 and the package directory imported from it, the card (nvidia-smi name
-and power limit) and each kernel's ms per launch in every block.
+and power limit), each kernel's ms per launch in every block, and the
+first profiled kernel's ms at a 1 s pad and at PAD_S (``pad_check``).
 """
 
 import argparse
@@ -56,8 +57,9 @@ import time
 # the registered widths of the scenes; launches per timing, timings
 NWORLD, CL_NWORLD, CALLS, BLOCKS = 8192, 4096, 50, 3
 # idle seconds on each side of the profiled calls, inside the trace's
-# window
-PAD_S = 1.0
+# window (chip_smoke.py reads some 230 traces; ``pad_check`` reads one
+# kernel at this pad beside the 1 s that earlier readings took)
+PAD_S = 0.25
 
 
 def events_ms(torch, fn, calls):
@@ -77,9 +79,9 @@ def events_ms(torch, fn, calls):
 def profiled_ms(torch, fn, calls, kernel):
   """Mean device time (ms) of the launches of ``kernel`` (its function
   name) over ``calls`` calls of ``fn``, read from ``torch.profiler``'s
-  chrome trace with PAD_S of idle time on each side of the calls, and the
-  number of launches the trace held (the mean is None when it held
-  none).  chip_smoke.py reads its kernel times here too."""
+  chrome trace with PAD_S seconds of idle time on each side of the
+  calls, and the number of launches the trace held (the mean is None when
+  it held none).  chip_smoke.py reads its kernel times here too."""
   fn()
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
@@ -99,6 +101,21 @@ def profiled_ms(torch, fn, calls, kernel):
           if e.get('cat') == 'kernel' and
           e.get('name', '').split('(')[0].strip() == kernel]
   return (sum(durs) / 1e3 / len(durs) if durs else None), len(durs)
+
+
+def pad_check(torch, fn, calls, kernel):
+  """The kernel's profiled ms at a 1 s pad and at PAD_S, in the order
+  1 s, PAD_S, PAD_S, 1 s: whether PAD_S reads the kernel times that the
+  1 s pad read."""
+  global PAD_S
+  now, out = PAD_S, []
+  try:
+    for pad in (1.0, now, now, 1.0):
+      PAD_S = pad
+      out.append([pad, profiled_ms(torch, fn, calls, kernel)[0]])
+  finally:
+    PAD_S = now
+  return out
 
 
 GROUPS = ('k4', 'k1', 'mass_chain', 'solve', 'linalg')
@@ -255,10 +272,13 @@ def main():
       times[k].append(events_ms(torch, fn, CALLS))
     for k, name in kernels.items():
       kernel_ms[k].append(profiled_ms(torch, calls[k], CALLS, name))
+  # the first profiled kernel at both pads ([pad s, ms] in turn)
+  pads = {k: pad_check(torch, calls[k], CALLS, name)
+          for k, name in list(kernels.items())[:1]}
   print(json.dumps({'root': root, 'package': os.path.dirname(io.__file__),
                     'card': smi.stdout.strip(), 'nworld': W,
                     'clutter_nworld': CL_NWORLD, 'calls': CALLS, 'ms': times,
-                    'kernel_ms': kernel_ms}), flush=True)
+                    'kernel_ms': kernel_ms, 'pad_check': pads}), flush=True)
 
 
 if __name__ == '__main__':

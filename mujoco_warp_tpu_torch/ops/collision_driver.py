@@ -4,8 +4,9 @@ world-major.
 Counterpart of ``mujoco_warp_tpu/ops/collision_driver.py``:
 ``group_ncon`` (:317), ``_pack_nearest`` (:417),
 ``_narrowphase_candidates`` (:516) and ``collision`` (:545), without and
-with contact compaction (:559-640).  Every candidate pair runs its
-collider every step; a candidate is live iff its dist is below the pair's
+with contact compaction (:559-640); height-field pairs take
+``ops/collision_hfield.py`` (:169-180, :333-336, :486-489).  Every
+candidate pair runs its collider every step; a candidate is live iff its dist is below the pair's
 includemargin.  Under compaction each condim class keeps its ``cap``
 deepest live candidates in its slots.  The broadphase-pruned branch
 (``_collision_pruned`` :650, ``bp_groups``) belongs to a later slice; the
@@ -18,8 +19,8 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.ops import collision_convex, collision_primitive, \
-    math
+from mujoco_warp_tpu_torch.ops import collision_convex, collision_hfield, \
+    collision_primitive, math
 from mujoco_warp_tpu_torch.ops.util import ix
 
 # the dist of an empty compacted slot (collision_driver.py _BIG)
@@ -29,6 +30,8 @@ BIG = 1e10
 def group_ncon(t1, t2) -> int:
   """Contact points per pair of a (t1, t2) collider group."""
   key = (int(t1), int(t2))
+  if key[0] == types.GeomType.HFIELD:
+    return collision_hfield.HFIELD_NCON[key[1]]
   if key in collision_primitive.PAIR_NCON:
     return collision_primitive.PAIR_NCON[key]
   return collision_convex.convex_ncon(*key)
@@ -39,6 +42,8 @@ def collider(t1, t2):
   fn = collision_primitive.COLLIDERS.get((int(t1), int(t2)))
   if fn is not None:
     return fn
+  if int(t1) == types.GeomType.HFIELD:
+    return collision_hfield.make_hfield_collider(int(t2))
   if int(t1) in collision_convex.CONVEX_TYPES and \
       int(t2) in collision_convex.CONVEX_TYPES:
     return collision_convex.make_convex_collider(int(t1), int(t2))
@@ -54,7 +59,13 @@ def _narrowphase_candidates(m: types.Model, d: types.Data):
   dists, poss, frames = [], [], []
   W = d.geom_xpos.shape[0]
   for (t1, t2, idx, _) in m.pair_groups:
-    out = collider(t1, t2)(m, d, m.pair_geom1[idx], m.pair_geom2[idx])
+    fn = collider(t1, t2)
+    if t1 == types.GeomType.HFIELD:
+      # its own span (``devprofile``), inside 'collision'
+      with torch.profiler.record_function('stage:hfield'):
+        out = fn(m, d, m.pair_geom1[idx], m.pair_geom2[idx])
+    else:
+      out = fn(m, d, m.pair_geom1[idx], m.pair_geom2[idx])
     dist, pos, normal = out[:3]
     frame = out[3] if len(out) == 4 else math.make_frame(normal)
     dists.append(dist.reshape(W, -1))

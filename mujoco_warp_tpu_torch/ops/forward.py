@@ -118,8 +118,6 @@ def unsupported(m: types.Model):
       return 'flex equality'
     if np.any(m.eq_objtype == 6):  # mjOBJ_SITE
       return 'site-anchored equality'
-  if float(types.host(m.opt.density)) or float(types.host(m.opt.viscosity)):
-    return 'fluid forces'
   if np.any(types.host(m.body_gravcomp) != 0):
     return 'gravcomp'
   if m.nv > klinalg.MAX_N:

@@ -11,9 +11,15 @@ store.  TOUCH follows the JAX package: the normal forces of the live
 contacts whose either body is the site's body (:771-787).
 
 The six TENDON* types read the tendon stages (:176, :192, :419, :427,
-:734, :742).  ``DEFERRED`` names the types that wait for their subsystems
-(rays, geom distances, the contact sensor, tactile meshes);
-``ops/forward.unsupported`` refuses a model that has one.
+:734, :742).  RANGEFINDER casts one ``ops/ray.rays`` per body of its
+sites along each site's z axis, the site's body excluded (:326-337);
+GEOMDIST, GEOMNORMAL and GEOMFROMTO take the nearest point pair of the
+general step's colliders over the geoms of their operands, held to the
+sensor's cutoff (:271-324); the structured contact sensor
+(``_contact_sensor`` :505) matches each world's contact slots to its
+operands per world.  ``DEFERRED`` names the types that wait for their
+subsystems (tactile meshes); ``ops/forward.unsupported`` refuses a model
+that has one.
 """
 
 from __future__ import annotations
@@ -22,25 +28,22 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.ops import math, passive, smooth
+from mujoco_warp_tpu_torch.ops import collision_driver, math, passive, \
+    ray, smooth
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
 _ST = types.SensorType
 _OT = types.ObjType
 
 # sensor type -> the subsystem it waits for
-DEFERRED = {
-    int(_ST.RANGEFINDER): 'rays', int(_ST.GEOMDIST): 'geom distance',
-    int(_ST.GEOMNORMAL): 'geom distance',
-    int(_ST.GEOMFROMTO): 'geom distance',
-    int(_ST.CONTACT): 'the contact sensor', int(_ST.TACTILE): 'meshes',
-}
+DEFERRED = {int(_ST.TACTILE): 'meshes'}
 
 POS_TYPES = (
     _ST.MAGNETOMETER, _ST.JOINTPOS, _ST.TENDONPOS, _ST.ACTUATORPOS,
     _ST.BALLQUAT, _ST.JOINTLIMITPOS, _ST.TENDONLIMITPOS, _ST.FRAMEPOS, _ST.FRAMEQUAT, _ST.FRAMEXAXIS,
     _ST.FRAMEYAXIS, _ST.FRAMEZAXIS, _ST.SUBTREECOM, _ST.CLOCK,
-    _ST.E_POTENTIAL, _ST.E_KINETIC, _ST.CAMPROJECTION, _ST.INSIDESITE)
+    _ST.E_POTENTIAL, _ST.E_KINETIC, _ST.RANGEFINDER, _ST.GEOMDIST,
+    _ST.GEOMNORMAL, _ST.GEOMFROMTO, _ST.CAMPROJECTION, _ST.INSIDESITE)
 VEL_TYPES = (
     _ST.VELOCIMETER, _ST.GYRO, _ST.JOINTVEL, _ST.TENDONVEL, _ST.ACTUATORVEL,
     _ST.BALLANGVEL, _ST.JOINTLIMITVEL, _ST.TENDONLIMITVEL, _ST.FRAMELINVEL,
@@ -48,7 +51,7 @@ VEL_TYPES = (
 ACC_TYPES = (
     _ST.TOUCH, _ST.ACCELEROMETER, _ST.FORCE, _ST.TORQUE, _ST.ACTUATORFRC,
     _ST.JOINTACTFRC, _ST.TENDONACTFRC, _ST.JOINTLIMITFRC,
-    _ST.TENDONLIMITFRC, _ST.FRAMELINACC, _ST.FRAMEANGACC)
+    _ST.TENDONLIMITFRC, _ST.FRAMELINACC, _ST.FRAMEANGACC, _ST.CONTACT)
 
 
 def deferred(m: types.Model):
@@ -213,27 +216,31 @@ def _limit_value(d, rows, value):
 
 
 def _inside_site(m, d, siteid: int, points):
-  """(W,) bool: points (W, 3) inside the site's primitive volume."""
-  pl = torch.einsum('wi,wij->wj', points - d.site_xpos[:, siteid],
-                    d.site_xmat[:, siteid])
+  """(W, ...) bool: points (W, ..., 3) inside the site's primitive
+  volume."""
+  W = points.shape[0]
+  lead = (W,) + (1,) * (points.dim() - 2)
+  pl = torch.einsum('wni,wij->wnj', (points - d.site_xpos[:, siteid].reshape(
+      lead + (3,))).reshape(W, -1, 3), d.site_xmat[:, siteid]).reshape(
+          points.shape)
   s = m.site_size[siteid]
   st = int(m.site_type[siteid])
   GT = types.GeomType
   if st == GT.SPHERE:
     return torch.sum(pl * pl, -1) < s[0] * s[0]
   if st == GT.CAPSULE:
-    zd = pl[:, 2] - torch.clamp(pl[:, 2], -s[1], s[1])
-    return pl[:, 0] ** 2 + pl[:, 1] ** 2 + zd * zd < s[0] * s[0]
+    zd = pl[..., 2] - torch.clamp(pl[..., 2], -s[1], s[1])
+    return pl[..., 0] ** 2 + pl[..., 1] ** 2 + zd * zd < s[0] * s[0]
   if st == GT.ELLIPSOID:
     ps = pl / s
     return torch.sum(ps * ps, -1) < 1.0
   if st == GT.CYLINDER:
-    return (torch.abs(pl[:, 2]) < s[1]) & (
-        pl[:, 0] ** 2 + pl[:, 1] ** 2 < s[0] * s[0])
+    return (torch.abs(pl[..., 2]) < s[1]) & (
+        pl[..., 0] ** 2 + pl[..., 1] ** 2 < s[0] * s[0])
   if st == GT.BOX:
     return torch.all(torch.abs(pl) < s, -1)
   if st == GT.PLANE:
-    return pl[:, 2] < 0.0
+    return pl[..., 2] < 0.0
   return torch.zeros(points.shape[:-1], dtype=torch.bool, device=pl.device)
 
 
@@ -259,6 +266,191 @@ def _cam_projection(m, d, ids):
   px = -fx * v[..., 0] / den + 0.5 * res[:, 0]
   py = fy * v[..., 1] / den + 0.5 * res[:, 1]
   return torch.stack([px, py], -1).to(dt)
+
+
+def _rangefinder(m, d, objid):
+  """RANGEFINDER (W, n): the distance along each site's z axis to the
+  nearest geom, -1 where none is hit, one ``ray.rays`` per body of the
+  sites with that body excluded (``sensor.py:326-337``)."""
+  dev = d.qpos.device
+  si = ix(objid, dev)
+  pnt, vec = d.site_xpos[:, si], d.site_xmat[:, si][..., 2]
+  body = np.asarray(m.site_bodyid)[objid]
+  val = torch.empty(pnt.shape[:2], dtype=pnt.dtype, device=dev)
+  with torch.profiler.record_function('stage:rays'):
+    for b in np.unique(body):
+      sel = ix(np.nonzero(body == b)[0], dev)
+      val[:, sel] = ray.rays(m, d, pnt[:, sel], vec[:, sel],
+                             bodyexclude=int(b))[0]
+  return val
+
+
+def _operand_geoms(m, ot: int, oi: int) -> list:
+  """The geoms of a geom-distance operand: the geom, or a body's."""
+  if ot == _OT.GEOM:
+    return [oi]
+  if ot in (_OT.BODY, _OT.XBODY):
+    return [int(g) for g in np.nonzero(np.asarray(m.geom_bodyid) == oi)[0]]
+  raise NotImplementedError(f'geom distance operand of object type {ot}')
+
+
+def _pair_distance(m, d, g1: int, g2: int):
+  """The deepest contact point of the general step's collider of two
+  geoms, per world: dist (W,), pos (W, 3) and the normal from g1 to g2
+  (W, 3) (``sensor.py:283-296``)."""
+  t1, t2 = int(m.geom_type[g1]), int(m.geom_type[g2])
+  swap = t1 > t2
+  if swap:
+    g1, g2, t1, t2 = g2, g1, t2, t1
+  out = collision_driver.collider(t1, t2)(m, d, np.asarray([g1]),
+                                          np.asarray([g2]))
+  dist, pos, nrm = out[0][..., 0], out[1][..., 0, :], out[2][..., 0, :]
+  best = torch.argmin(dist, 1)
+  w = torch.arange(dist.shape[0], device=dist.device)
+  return dist[w, best], pos[w, best], nrm[w, best] * (-1.0 if swap else 1.0)
+
+
+def _geom_distance(m, d, s: int, t: int):
+  """GEOMDIST (W, 1), GEOMNORMAL (W, 3) or GEOMFROMTO (W, 6) of sensor
+  ``s`` (``sensor.py:271-324``): the nearest of its operands' geom pairs,
+  the distance held to the cutoff, the normal and the segment between
+  the surface points only where it is below the cutoff (zeros
+  otherwise)."""
+  gs1 = _operand_geoms(m, int(m.sensor_objtype[s]), int(m.sensor_objid[s]))
+  gs2 = _operand_geoms(m, int(m.sensor_reftype[s]), int(m.sensor_refid[s]))
+  cands = [_pair_distance(m, d, a, b) for a in gs1 for b in gs2]
+  dists = torch.stack([c[0] for c in cands], 1)
+  best = torch.argmin(dists, 1)
+  w = torch.arange(dists.shape[0], device=dists.device)
+  raw = dists[w, best]
+  pos = torch.stack([c[1] for c in cands], 1)[w, best]
+  normal = torch.stack([c[2] for c in cands], 1)[w, best]
+  cutoff = m.sensor_cutoff[s].to(raw.dtype)
+  dist = torch.minimum(raw, cutoff)
+  if t == _ST.GEOMDIST:
+    return dist[:, None]
+  hit = (raw < cutoff)[:, None]
+  if t == _ST.GEOMNORMAL:
+    return torch.where(hit, normal, torch.zeros_like(normal))
+  half = (0.5 * dist)[:, None] * normal
+  seg = torch.cat([pos - half, pos + half], -1)
+  return torch.where(hit, seg, torch.zeros_like(seg))
+
+
+# the contact sensor's data fields, in dataspec bit order, and their dims
+_CONTACT_DIMS = (1, 3, 3, 1, 3, 3, 3)
+
+
+def _contact_match(m, b, g, ot: int, oi: int):
+  """(W, ncon) bool: does a slot's operand (body b, geom g) match the
+  sensor's operand (``sensor.py:532-543``)?  An unknown or site operand
+  matches every slot (the site's volume is tested on the point)."""
+  if ot == 0 or ot == _OT.SITE:
+    return torch.ones_like(b, dtype=torch.bool)
+  if ot == _OT.GEOM:
+    return g == oi
+  if ot == _OT.BODY:
+    return b == oi
+  if ot == _OT.XBODY:
+    return bmask(m.tree.subtree_mask[oi], b.device)[b]
+  return torch.zeros_like(b, dtype=torch.bool)
+
+
+def _contact_sensor(m, d, sd, s: int):
+  """The structured contact sensor ``s`` into sd (``sensor.py:505``):
+  the live slots (dist below the candidate's full margin) whose operands
+  match, per world, since a compacted slot holds a different contact in
+  each world; the found count, force, torque, dist, pos, normal and
+  tangent of its dataspec bits, for up to ``num`` matches ordered by the
+  reduction (none: slot order, mindist, maxforce), or netforce's
+  force-weighted centroid wrench."""
+  dev, dt = d.qpos.device, d.qpos.dtype
+  adr, dim = int(m.sensor_adr[s]), int(m.sensor_dim[s])
+  sd[:, adr:adr + dim] = 0.0
+  if m.ncon == 0 or d.contact is None:
+    return
+  con = d.contact
+  W = sd.shape[0]
+  cand = con.cand.long()
+  margin = types.world_field(m, 'cand_margin').expand(W, -1)
+  marg = torch.where(cand >= 0, torch.gather(margin, 1, cand.clamp(min=0)),
+                     torch.zeros((), dtype=dt, device=dev))
+  wrench = smooth.contact_forces_local(m, d)  # (W, ncon, 6)
+  b1, b2 = smooth.contact_bodies(m, d)
+  g1, g2 = con.geom1.long(), con.geom2.long()
+  ot1, oi1 = int(m.sensor_objtype[s]), int(m.sensor_objid[s])
+  ot2, oi2 = int(m.sensor_reftype[s]), int(m.sensor_refid[s])
+  dataspec, reduce = int(m.sensor_intprm[s, 0]), int(m.sensor_intprm[s, 1])
+  flags = [bool(dataspec & (1 << i)) for i in range(7)]
+  size = sum(k for f, k in zip(flags, _CONTACT_DIMS) if f)
+  num = dim // size
+  m11 = _contact_match(m, b1, g1, ot1, oi1)
+  m12 = _contact_match(m, b2, g2, ot1, oi1)
+  m21 = _contact_match(m, b1, g1, ot2, oi2)
+  m22 = _contact_match(m, b2, g2, ot2, oi2)
+  matched = (m11 | m12) & (m21 | m22)
+  one = torch.ones((), dtype=dt, device=dev)
+  dir_f = torch.ones((W, m.ncon), dtype=dt, device=dev)
+  if ot1 != 0 and ot2 != 0:
+    regular, reverse = m11 & m22, m12 & m21
+    matched = matched & (regular | reverse)
+    dir_f = torch.where(reverse & ~regular, -one, one)
+  elif ot1 != 0:
+    dir_f = torch.where(m11, one, -one)
+  elif ot2 != 0:
+    dir_f = torch.where(m22, one, -one)
+  found = matched & (con.dist < marg)
+  if ot1 == _OT.SITE:
+    found = found & _inside_site(m, d, oi1, con.pos)
+  nmatch = found.to(dt).sum(1)  # (W,)
+  dirv = dir_f[..., None]
+  w = wrench * dirv
+  frame = con.frame
+  if reduce == 3:  # netforce: the force-weighted centroid's wrench
+    fm = found.to(dt)[..., None]
+    weight = math.norm(wrench[..., :3], keepdim=True) * fm
+    f_g = torch.einsum('wnij,wni->wnj', frame, w[..., :3]) * fm
+    t_g = torch.einsum('wnij,wni->wnj', frame, w[..., 3:]) * fm
+    net_pos = torch.sum(weight * con.pos, 1) / torch.clamp(
+        torch.sum(weight, 1), min=1e-15)
+    net_f = torch.sum(f_g, 1)
+    net_t = torch.sum(t_g + math.cross(con.pos, f_g), 1) - \
+        math.cross(net_pos, net_f)
+    e = lambda *v: fmask(np.asarray(v, np.float64), sd).expand(W, len(v))
+    vals = [nmatch[:, None], net_f, net_t, e(0.0), net_pos,
+            e(1.0, 0.0, 0.0), e(0.0, 1.0, 0.0)]
+    sd[:, adr:adr + size] = torch.cat(
+        [v for f, v in zip(flags, vals) if f], -1).to(sd.dtype)
+    return
+  cols = []
+  if flags[0]:
+    cols.append(nmatch[:, None, None].expand(W, m.ncon, 1))
+  if flags[1]:
+    cols.append(torch.stack([wrench[..., 0], wrench[..., 1], w[..., 2]], -1))
+  if flags[2]:
+    cols.append(torch.stack([wrench[..., 3], wrench[..., 4], w[..., 5]], -1))
+  if flags[3]:
+    cols.append(con.dist[..., None])
+  if flags[4]:
+    cols.append(con.pos)
+  if flags[5]:
+    cols.append(frame[..., 0, :] * dirv)
+  if flags[6]:
+    cols.append(frame[..., 1, :] * dirv)
+  V = torch.cat(cols, -1)  # (W, ncon, size)
+  if reduce == 1:  # mindist
+    crit = con.dist
+  elif reduce == 2:  # maxforce
+    crit = -torch.sum(wrench[..., :3] ** 2, -1)
+  else:
+    crit = torch.arange(m.ncon, dtype=dt, device=dev).expand(W, m.ncon)
+  crit = torch.where(found, crit, torch.full_like(crit, float('inf')))
+  order = torch.argsort(crit, dim=1, stable=True)
+  take = min(num, m.ncon)
+  rows = torch.gather(V, 1, order[:, :take, None].expand(W, take, size))
+  valid = torch.arange(take, device=dev)[None] < nmatch[:, None]
+  rows = rows * valid[..., None].to(dt)
+  sd[:, adr:adr + take * size] = rows.reshape(W, -1).to(sd.dtype)
 
 
 def _cutoff_tables(m: types.Model):
@@ -341,6 +533,10 @@ def sensor_pos(m: types.Model, d: types.Data) -> types.Data:
     elif t == _ST.MAGNETOMETER:
       val = torch.einsum('wnji,j->wni', d.site_xmat[:, ix(objid, dev)],
                          m.opt.magnetic.to(sd.dtype))
+    elif t == _ST.RANGEFINDER:
+      val = _rangefinder(m, d, objid)
+    elif t in (_ST.GEOMDIST, _ST.GEOMNORMAL, _ST.GEOMFROMTO):
+      val = torch.stack([_geom_distance(m, d, int(s), t) for s in ids], 1)
     elif t == _ST.CAMPROJECTION:
       val = _cam_projection(m, d, ids)
     elif t == _ST.INSIDESITE:
@@ -512,6 +708,10 @@ def sensor_acc(m: types.Model, d: types.Data) -> types.Data:
       val = _rot_t(d.site_xmat[:, si], val)
     elif t == _ST.TOUCH:
       val = _touch(m, d, ids)
+    elif t == _ST.CONTACT:
+      for s in ids:
+        _contact_sensor(m, d, sd, int(s))
+      continue
     _write(sd, m, ids, val)
   return d.replace(sensordata=_apply_cutoff(m, sd))
 

@@ -48,8 +48,9 @@ def fmask(arr, like: torch.Tensor) -> torch.Tensor:
 
 # host reads of a device value by the general step, by what asked: the
 # torch solver's loop tests ('solver'), the lazy island labeler's
-# candidate test ('island') and the sleep pack's fit test ('pack')
-host_reads = {'solver': 0, 'island': 0, 'pack': 0}
+# candidate test ('island'), the sleep pack's fit test ('pack') and the
+# height-field ray walk's trip count ('ray')
+host_reads = {'solver': 0, 'island': 0, 'pack': 0, 'ray': 0}
 
 
 def host_item(x: torch.Tensor, what: str):

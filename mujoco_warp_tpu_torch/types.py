@@ -296,6 +296,7 @@ class Option(_Replace):
   magnetic: torch.Tensor = array()
   density: torch.Tensor = array()
   viscosity: torch.Tensor = array()
+  wind: torch.Tensor = array()  # (3,) the medium's velocity
   sleep_tolerance: torch.Tensor = array()  # velocity threshold of sleep
   # the contact override (EnableBit.OVERRIDE, ``types.py:317-321``)
   o_margin: torch.Tensor = array()  # ()
@@ -442,6 +443,10 @@ class Model(_Replace):
 
   geom_type: np.ndarray = static()
   geom_bodyid: np.ndarray = static()
+  geom_dataid: np.ndarray = static()  # the height field (or mesh) of a geom
+  # the ellipsoid fluid model's coefficients (``types.py:639``): [0] > 0
+  # puts the geom's body on that model
+  geom_fluid: np.ndarray = static()  # (ngeom, 12)
   geom_size: torch.Tensor = array()
   geom_pos: torch.Tensor = array()
   geom_quat: torch.Tensor = array()
@@ -492,6 +497,8 @@ class Model(_Replace):
   sensor_refid: np.ndarray = static()
   sensor_dim: np.ndarray = static()
   sensor_adr: np.ndarray = static()
+  # (nsensor, 3): the contact sensor's data bits and reduction
+  sensor_intprm: np.ndarray = static()
   sensor_cutoff: torch.Tensor = array()
 
   eq_type: np.ndarray = static()
@@ -547,6 +554,15 @@ class Model(_Replace):
   actuator_cranklength: torch.Tensor = array()  # (nu,)
   actuator_acc0: torch.Tensor = array()  # (nu,) ||M^-1 moment|| at qpos0
   actuator_lengthrange: torch.Tensor = array()  # (nu, 2)
+
+  # height fields (``types.py:779-783``): each one's first height, rows
+  # and columns, its size (x, y, z top, z bottom) and the heights in
+  # [0, 1], row-major, for every field in turn
+  hfield_adr: np.ndarray = static()
+  hfield_nrow: np.ndarray = static()
+  hfield_ncol: np.ndarray = static()
+  hfield_size: torch.Tensor = array()  # (nhfield, 4)
+  hfield_data: torch.Tensor = array()  # (nhfielddata,)
 
   # collision tables: candidate pairs, slots and per-slot mixed params
   pair_geom1: np.ndarray = static()

@@ -9,8 +9,9 @@
 - The gate over dm_control's tasks: every quadruped and dog task whose
   model the ROADMAP listed as refused for activation passes
   ``unsupported`` and ``put_model``; quadruped escape (its height field),
-  swimmer and fish (fluid forces) keep their own reasons, and so do a
-  joint-in-parent transmission and actuator gravcomp.
+  swimmer and fish (fluid forces), which their own slice admits, pass
+  too with those features on; a joint-in-parent transmission and
+  actuator gravcomp keep their own reasons.
 - ``io.batch_model`` on the actuator fields the step reads per world
   (``actuator_gear``, ``actuator_ctrlrange``, ``actuator_forcerange``,
   ``actuator_dynprm``): W copies of every batchable field equal the
@@ -93,18 +94,20 @@ def test_gate_takes_activation_tasks(domain, task):
     ('quadruped', 'escape', 'HFIELD'), ('swimmer', 'swimmer6', 'fluid'),
     ('fish', 'swim', 'fluid')])
 def test_gate_keeps_other_reasons(domain, task, why):
+  """The tasks that the activation slice left to their own reasons (the
+  height field of escape, the fluid forces of swimmer and fish): since
+  the fluid, ray and height-field slice, put_model and the general step
+  take each with its feature on, and the fused gate still refuses it."""
   pytest.importorskip('dm_control')
   mjm = _suite_model(domain, task)
+  m = tio.put_model(mjm, device='cpu')
+  assert forward.unsupported(m) is None
+  assert fused.reason(m) is not None
   if why == 'HFIELD':
-    with pytest.raises(NotImplementedError, match=why):
-      tio.put_model(mjm, device='cpu')
-    return
-  with pytest.raises(NotImplementedError, match=why):
-    tio.put_model(mjm, device='cpu')
-  # its own reason, not activation's
-  mjm.opt.density = mjm.opt.viscosity = 0.0
-  assert 'fluid' not in str(forward.unsupported(
-      tio.put_model(mjm, device='cpu')))
+    assert any(g[0] == types.GeomType.HFIELD for g in m.pair_groups)
+    assert np.any(m.sensor_type == types.SensorType.RANGEFINDER)
+  else:
+    assert float(types.host(m.opt.density)) > 0.0
 
 
 _GRAVCOMP = """
