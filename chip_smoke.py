@@ -219,6 +219,26 @@ Phases, one line each or more, any failure exits non-zero:
     sensordata), with each scene's mean per sensor type, the rangefinders'
     hit share, and on escape the ray walk's trips per step and the host
     and wall ms of one rangefinder pass and of the height-field collider.
+18. mocap bodies, delay histories, gravity compensation, site-anchored
+    equality, the joint-in-parent transmission and RK4 with sleep:
+    mocap_arm (nv 21, the small-tree mass chain, IMPLICITFAST's
+    chol_batched and chol_solve on M - h qDeriv, the solve kernel at
+    nefc 119 on its weld, connect, limit and contact rows) at 8192
+    worlds, ARM_NSTEP steps and warmup with the mocap target fixed, as
+    phase 13 runs its scenes (exact counts, kernels held and timed:
+    *_arm; one step of NSENSOR_CMP worlds against the CPU); then
+    ARM_DRIVE_NSTEP steps of the public ops.forward.step, each world's
+    mocap target moved along a seeded path and its ctrl drawn from a
+    seed before every step: exact counts, every world's mocap body at
+    its target (xpos), and every delayed actuator whose delay is a whole
+    number of steps reading the ctrl put in that many steps before;
+    clutter_arm_rk4 (clutter_arm under RK4, sleep on) at 4096 worlds
+    from the settled state woken at random (parity.woken_state),
+    RK4S_NSTEP steps and warmup (every forward kernel four times a step,
+    the torch Newton's chol_batched and chol_solve once per trip: exact
+    counts; *_rk4s; one step against the CPU, the skip step on both);
+    each scene's steps/s and its idle share from a torch.profiler trace
+    of IDLE_NSTEP steps of its last state.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -366,6 +386,14 @@ FLU_SFX = {'swimmer6': '_sw6', 'swimmer15': '_sw15', 'fish': '_fish',
            'quadruped_escape': '_esc', 'sensors': '_sens',
            'contact_sensor': '_csens', 'fluid_ellipsoid': '_fell',
            'geomdist': '_gdist'}
+# phase 18: mocap_arm (steps, warmup) of the rollout, then steps of the
+# mocap-driven public step; clutter_arm_rk4 (steps, warmup) from its
+# settled state woken at random; steps traced for each scene's idle share
+ARM_NSTEP = (20, 3)
+ARM_DRIVE_NSTEP = 10
+RK4S_NSTEP = (3, 1)
+IDLE_NSTEP = {'mocap_arm': 3, 'clutter_arm_rk4': 1}
+ARM_SFX = {'mocap_arm': '_arm', 'clutter_arm_rk4': '_rk4s'}
 # worlds of qfrc_witness where no world lies past the bar
 QFRC_WITNESS = 4
 WARMUP = 10
@@ -499,7 +527,8 @@ def main():
   say(f'[device] {kind}; nvidia-smi: {card}; torch {torch.__version__} '
       f'cuda {torch.version.cuda}')
 
-  from mujoco_warp_tpu_torch import benchmarks, io, parity, types
+  from mujoco_warp_tpu_torch import benchmarks, devprofile, io, parity, \
+      types
   from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref, solver_ref
   from mujoco_warp_tpu_torch.kernels import build, lanes, world
   from mujoco_warp_tpu_torch.kernels import k1 as kk1
@@ -510,6 +539,7 @@ def main():
   from mujoco_warp_tpu_torch.ops import collision_driver as ocollision_driver
   from mujoco_warp_tpu_torch.ops import derivative as oderiv
   from mujoco_warp_tpu_torch.ops import forward
+  from mujoco_warp_tpu_torch.ops import history as ohistory
   from mujoco_warp_tpu_torch.ops import inverse as oinverse
   from mujoco_warp_tpu_torch.ops import ray as oray
   from mujoco_warp_tpu_torch.ops import sensor as osensor
@@ -573,7 +603,8 @@ def main():
        'k4_implicitfast') + tuple(
           k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values(),
                               *TASK_SFX.values(), '_dr',
-                              *ACT_SFX.values(), *FLU_SFX.values())
+                              *ACT_SFX.values(), *FLU_SFX.values(),
+                              *ARM_SFX.values())
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
                     'damped_solve')) + ('chol_batched_sc', 'chol_solve_sc')}
 
@@ -2221,7 +2252,7 @@ def main():
   mh, _ = benchmarks.load_scene(name, device='cpu')
   sizes = SimpleNamespace(**{k: getattr(mh, k) for k in (
       'nq', 'nv', 'nu', 'na', 'nbody', 'ngeom', 'nsite', 'ntendon',
-      'nsensordata', 'ntree')})
+      'nsensordata', 'ntree', 'nmocap', 'nhistory')})
   qpos, qvel, ctrl = parity.task_state(mh, 1, 14)
   rng = np.random.default_rng(14)
   rec = SimpleNamespace(
@@ -2230,7 +2261,8 @@ def main():
       ctrl=ctrl[0].astype(np.float64),
       qfrc_applied=0.1 * rng.standard_normal(mh.nv),
       xfrc_applied=np.zeros((mh.nbody, 6)),
-      eq_active=np.asarray(mh.eq_active0, bool),
+      mocap_pos=np.zeros((mh.nmocap, 3)), mocap_quat=np.zeros(
+          (mh.nmocap, 4)), eq_active=np.asarray(mh.eq_active0, bool),
       qacc_warmstart=np.zeros(mh.nv), qacc=np.zeros(mh.nv),
       tree_asleep=np.full(mh.ntree, types.K_AWAKE, np.int32))
 
@@ -2250,7 +2282,9 @@ def main():
                      ('site_x', sizes.nsite)):
       n[obj + 'pos'], n[obj + 'mat'] = (cnt, 3), (cnt, 9)
     n.update(xquat=(sizes.nbody, 4), xipos=(sizes.nbody, 3),
-             ximat=(sizes.nbody, 9), subtree_com=(sizes.nbody, 3))
+             ximat=(sizes.nbody, 9), subtree_com=(sizes.nbody, 3),
+             mocap_pos=(sizes.nmocap, 3), mocap_quat=(sizes.nmocap, 4),
+             history=sizes.nhistory)
     return SimpleNamespace(time=0.0, **{k: np.zeros(v) for k, v in
                                                n.items()})
 
@@ -2675,6 +2709,116 @@ def main():
     sensor_summary(name, mh, st)
   say(f'[main path] phase 17 took {time.perf_counter() - t17:.1f} s')
 
+  # ---- 18. mocap bodies, delay histories, gravity compensation, site
+  # equality, the joint-in-parent transmission and RK4 with sleep
+  say(f'[phase 18] at {time.perf_counter() - T0:.1f} s')
+  t18 = time.perf_counter()
+
+  def idle_share(name, model, st):
+    """The device's idle share over IDLE_NSTEP[name] steps of the public
+    step from ``st`` (a torch.profiler trace, ``devprofile._traced``),
+    one step run first; the profiler slows the host, so it is an upper
+    bound."""
+    box = [forward.step(model, types.carried(st))]
+
+    def one():
+      box[0] = forward.step(model, box[0])
+    s18 = devprofile._traced(one, IDLE_NSTEP[name], f'{name}_chip_smoke')
+    say(f"[main path] {name}: idle share {s18['idle_share']:.4f} over "
+        f"{IDLE_NSTEP[name]} traced steps ({s18['window_ms']:.1f} ms, "
+        f"{s18['kernels_per_step']:.0f} kernels per step); host ms per "
+        'step by stage ' + json.dumps({k: round(v, 3) for k, v in s18[
+            'stage_host_ms_per_step'].items()}))
+    return s18['idle_share']
+
+  ma, w_a = scene_model('mocap_arm')
+  nstep, warmup = ARM_NSTEP
+  st, res = general_scene('mocap_arm', ARM_SFX['mocap_arm'], nstep,
+                          warmup=warmup)
+  say(f"[main path] mocap_arm W={w_a}: {res['steps_per_sec']:.1f} steps/s, "
+      f"overflow_worlds {res['overflow_worlds']}, converged_worlds "
+      f"{res['converged_worlds']}, live contacts per world "
+      f"{float(st.ncon_active.float().mean()):.3f}, peak device memory "
+      f"{res['max_memory_allocated_gb']:.3f} GB")
+  say(f'[kernel] solve_kernel on mocap_arm (nefc {ma.nefc}, nv {ma.nv}): '
+      f'{json.dumps(ksolver.kernel_info(ma))}')
+  say(f'[kernel] mass chain on mocap_arm (nv {ma.nv}, nbody {ma.nbody}): '
+      f'{json.dumps(kmass.kernel_info(ma))}')
+  idle_share('mocap_arm', ma, st)
+  # the teleoperation pattern: each world's target moved along a seeded
+  # path and its ctrl drawn before every step of the public step
+  rng = np.random.default_rng(18)
+  d = types.carried(st)
+  body = int(np.nonzero(np.asarray(ma.body_mocapid) >= 0)[0][0])
+  h = float(types.host(ma.opt.timestep))
+  whole = [u for u in range(ma.nu) if int(ma.actuator_history[u, 0]) and
+           abs(round(float(ma.actuator_delay[u]) / h) * h -
+               float(ma.actuator_delay[u])) < 1e-9 and
+           float(ma.actuator_delay[u]) > 0]
+  lag = {u: int(round(float(ma.actuator_delay[u]) / h)) for u in whole}
+  put_in, xerr, derr, t_drive = [], 0.0, 0.0, 0.0
+  zero_counters()
+  for k in range(ARM_DRIVE_NSTEP):
+    step_ = torch.as_tensor(0.01 * rng.standard_normal((w_a, ma.nmocap, 3)),
+                            dtype=torch.float32, device=dev)
+    ctrl = torch.as_tensor(rng.uniform(-1.0, 1.0, (w_a, ma.nu)),
+                           dtype=torch.float32, device=dev)
+    d = d.replace(mocap_pos=d.mocap_pos + step_, ctrl=ctrl)
+    # the delayed ctrl the step reads: the ctrl put in lag steps before
+    got = ohistory.read_ctrl_delayed(ma, d)
+    for u in whole:
+      if k >= lag[u]:
+        derr = max(derr, float((got[:, u] - put_in[k - lag[u]][:, u])
+                               .abs().max()))
+    put_in.append(ctrl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = forward.step(ma, d)
+    torch.cuda.synchronize()
+    t_drive += time.perf_counter() - t0
+    xerr = max(xerr, float((d.xpos[:, body] - d.mocap_pos[:, 0]).abs()
+                           .max()))
+  got = counters()
+  want = {k: 0 for k in got}
+  want.update(classic_expect(ma)(ARM_DRIVE_NSTEP, osolver.trips))
+  if got != want:
+    fail(f'mocap_arm driven steps: launch counts {got} != {want}')
+  # a linear read whose float32 time lands a rounding past its sample
+  # takes the next one's weight ~ 1e-8 / h (the time matching of
+  # ``ops/history.py``)
+  if xerr > 1e-6 or derr > 1e-5:
+    fail(f'mocap_arm driven steps: mocap body off its target by {xerr}, '
+         f'delayed ctrl off the ctrl put in by {derr}')
+  if not (bool(torch.isfinite(d.qpos).all()) and
+          bool(torch.isfinite(d.sensordata).all())) or \
+      int(d.overflow.max()) != 0:
+    fail('mocap_arm driven steps: not finite or overflowed')
+  say(f'[main path] mocap_arm W={w_a}, {ARM_DRIVE_NSTEP} steps of '
+      f'forward.step with each world\'s target moved along a seeded path: '
+      f'{1e3 * t_drive / ARM_DRIVE_NSTEP:.3f} ms per step, launches {got}; '
+      f'the mocap body at its target within {xerr:.2e}; the delayed ctrl '
+      f'of actuators {whole} (delays of {[lag[u] for u in whole]} steps) '
+      f'within {derr:.2e} of the ctrl put in that many steps before')
+
+  mr, w_r = scene_model('clutter_arm_rk4')
+  init = benchmarks.start_state('clutter_arm_rk4')
+  woke = parity.woken_state(mr, {k: np.concatenate(
+      [v] * -(-w_r // len(v)))[:w_r] for k, v in init.items()},
+      np.random.default_rng(18))
+  nstep, warmup = RK4S_NSTEP
+  packed0 = forward.packed_steps
+  st, res = general_scene('clutter_arm_rk4', ARM_SFX['clutter_arm_rk4'],
+                          nstep, woke, warmup)
+  a0, a1 = woke['tree_asleep'], st.tree_asleep.cpu().numpy()
+  say(f"[main path] clutter_arm_rk4 W={w_r}: {res['steps_per_sec']:.1f} "
+      f"steps/s, overflow_worlds {res['overflow_worlds']}, converged_worlds "
+      f"{res['converged_worlds']}, trees awake {int((a0 < 0).sum())} of "
+      f'{a0.size} at the start, {int((a1 < 0).sum())} at the end, '
+      f'{int(((a0 < 0) & (a1 >= 0)).sum())} fell asleep; packed steps '
+      f'{forward.packed_steps - packed0}')
+  idle_share('clutter_arm_rk4', mr, st)
+  say(f'[main path] phase 18 took {time.perf_counter() - t18:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -2710,7 +2854,8 @@ def main():
   for k in ('k1', 'k4'):
     replaces[k + '_implicitfast'] = replaces[k]
   for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values(),
-              '_dr', '_sc', *ACT_SFX.values(), *FLU_SFX.values()):
+              '_dr', '_sc', *ACT_SFX.values(), *FLU_SFX.values(),
+              *ARM_SFX.values()):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

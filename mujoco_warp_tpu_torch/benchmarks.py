@@ -49,7 +49,12 @@ dog (8192 worlds, general step; activation dynamics); and the fluid, ray
 and height-field scenes (8192 worlds each, general step): dm_control's
 ``swimmer6``, ``swimmer15`` and ``fish`` (fluid forces), ``quadruped_escape``
 (a height field and 20 rangefinders), and the test scenes ``sensors``,
-``contact_sensor``, ``fluid_ellipsoid`` and ``geomdist``.
+``contact_sensor``, ``fluid_ellipsoid`` and ``geomdist``; ``mocap_arm``
+(8192 worlds, general step: a mocap target welded to an arm's
+end-effector site, gravity compensation, delayed servos and sensors, the
+joint-in-parent transmission, a site-anchored connect) and
+``clutter_arm_rk4`` (4096 worlds: clutter_arm under RK4, sleep on, from
+its settled state).
 ``SCENES`` names each with its snapshot and registered width,
 ``OVERRIDES`` the options set on a snapshot, ``RANDOMIZED`` the scenes
 whose worlds draw their own parameters, and ``load_scene`` loads one.
@@ -110,6 +115,11 @@ SCENES = {
     # quadruped escape (its seeded terrain, 20 rangefinders), and the test
     # scenes sensors, contact_sensor, fluid_ellipsoid and geomdist
     **{name: (io.FLUID_SNAPSHOTS[name], 8192) for name in io.FLUID_SNAPSHOTS},
+    # mocap bodies, delay histories, gravity compensation, site-anchored
+    # equality and the joint-in-parent transmission (general step): the
+    # port's mocap_arm.xml; and RK4 with sleep: clutter_arm under RK4
+    'mocap_arm': (io.ARM_SNAPSHOTS['mocap_arm'], 8192),
+    'clutter_arm_rk4': (io.CLUTTER_ARM_SNAPSHOT, 4096),
 }
 # scene: Option fields set on its snapshot (``benchmarks/__init__.py:47-49``)
 OVERRIDES = {
@@ -123,13 +133,16 @@ OVERRIDES = {
     'cheetah_implicit': {'integrator': int(types.IntegratorType.IMPLICIT)},
     # CG with elliptic cones (finger's condim-3 contacts)
     'finger_cg': {'solver': int(types.SolverType.CG)},
+    # four forwards a step, each with the wake pass, over sleeping trees
+    'clutter_arm_rk4': {'integrator': int(types.IntegratorType.RK4)},
 }
 
 
 # scene: the committed state its chip runs start from (``io.load_state``;
 # clutter_arm's clutter asleep, as its first hundred steps leave it; the
 # elliptic-cone tasks' seeded contact states, ``io.make_task_start``)
-START = {'clutter_arm': io.CLUTTER_ARM_SETTLED, **io.TASK_STARTS}
+START = {'clutter_arm': io.CLUTTER_ARM_SETTLED,
+         'clutter_arm_rk4': io.CLUTTER_ARM_SETTLED, **io.TASK_STARTS}
 
 
 def randomize(m: types.Model, nworld: int, seed: int = 0) -> types.Model:

@@ -9,7 +9,8 @@
                cheetah_implicit|manipulator_insert_peg|stack_2|stack_4|
                finger_cg|humanoid_dmc_dr|quadruped|dog|swimmer6|swimmer15|
                fish|quadruped_escape|sensors|contact_sensor|
-               fluid_ellipsoid|geomdist] [--general]
+               fluid_ellipsoid|geomdist|mocap_arm|clutter_arm_rk4]
+              [--general]
   python -m mujoco_warp_tpu_torch.devprofile --skip [--worlds 256]
 
 Runs ``benchmarks.rollout`` on a committed scene for a number of steps
@@ -35,12 +36,15 @@ its feet by then, and ``dog``, 8192 x 2, standing from qpos0, the
 general step with activations; swimmer6, swimmer15 and fish, 8192 x
 100, the general step with fluid forces; ``quadruped_escape``, 8192 x 30
 on its terrain, with its rangefinders' ray walk; the test scenes
-sensors, contact_sensor, fluid_ellipsoid and geomdist, 8192 x 50),
-traces a few more with
+sensors, contact_sensor, fluid_ellipsoid and geomdist, 8192 x 50;
+``mocap_arm``, 8192 x 20, the general step with its delayed servos and
+sensors, its weld to the mocap target fixed; ``clutter_arm_rk4``, 4096 x
+3 from the settled state, four forwards a step), traces a few more with
 ``torch.profiler`` (CPU and CUDA activities; 40 steps, 4 for the clutter
 scenes and humanoid_CMU, whose step launches tens of thousands of
 kernels, 3 for spheres_cg and stack_4, 1 for finger_cg, 5 for
-manipulator_insert_peg and stack_2, 1 for dog, 10 for quadruped, the
+manipulator_insert_peg and stack_2, 1 for dog, 2 for clutter_arm_rk4,
+10 for quadruped and mocap_arm, the
 spheres scenes, the
 tendon scenes,
 the classic tasks, the integrator scenes, humanoid_dmc_dr, the fluid
@@ -109,7 +113,8 @@ WINDOWS = {'humanoid': (300, 40), 'constraints': (300, 40),
            'dog': (2, 1), **{k: (100, 10) for k in
                              ('swimmer6', 'swimmer15', 'fish')},
            'quadruped_escape': (30, 5),
-           **{k: (50, 10) for k in io.FLUID_XML}}
+           **{k: (50, 10) for k in io.FLUID_XML},
+           'mocap_arm': (20, 10), 'clutter_arm_rk4': (3, 2)}
 # the general step's window, for --general
 GENERAL_WINDOW = (200, 10)
 # steps traced of each path with --skip

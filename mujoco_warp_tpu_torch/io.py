@@ -138,6 +138,12 @@ FLUID_XML = {'sensors': os.path.join(_MODELS, 'sensors.xml'),
              'geomdist': os.path.join(_ASSETS, 'geomdist.xml')}
 FLUID_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
                    for name in (*FLUID_DMC, *FLUID_XML)}
+# the mocap slice's scene: the port's mocap_arm.xml (a mocap target welded
+# to an arm's end-effector site, gravity compensation, delayed servos and
+# sensors, the joint-in-parent transmission, a site-anchored connect)
+ARM_XML = {'mocap_arm': os.path.join(_ASSETS, 'mocap_arm.xml')}
+ARM_SNAPSHOTS = {name: os.path.join(_ASSETS, f'{name}.npz')
+                 for name in ARM_XML}
 # more candidate pairs than this and no budget given: the default budget
 # (``io.py:653-654``)
 # the elliptic-cone tasks' committed start states (``make_task_start``):
@@ -831,23 +837,40 @@ def make_data(m: types.Model, nworld: int, device=None, dtype=None
                      f'{nworld}')
   eq0 = torch.as_tensor(np.asarray(m.eq_active0, bool).reshape(-1),
                         device=dev)
-  return types.Data(
+  mocap_pos, mocap_quat = mocap_rest(m)
+  d = types.Data(
       time=z(), qpos=qpos0.expand(nworld, m.nq).clone(), qvel=z(m.nv),
       act=z(m.na), act_dot=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
       xfrc_applied=z(m.nbody, 6), eq_active=eq0[None].repeat(nworld, 1),
-      qacc_warmstart=z(m.nv), qacc=z(m.nv),
+      mocap_pos=mocap_pos.to(**fl).expand(nworld, -1, -1).clone(),
+      mocap_quat=mocap_quat.to(**fl).expand(nworld, -1, -1).clone(),
+      history=z(m.nhistory), qacc_warmstart=z(m.nv), qacc=z(m.nv),
       energy=z(2), sensordata=z(m.nsensordata),
       solver_niter=i32(0), overflow=i32(0),
       tree_asleep=i32(types.K_AWAKE, m.ntree), nisland=i32(0),
       tree_island=i32(-1, m.ntree), dof_island=i32(-1, m.nv),
       efc_island=i32(-1, m.nefc))
+  from mujoco_warp_tpu_torch.ops import history
+  return history.init_history(m, d)
+
+
+def mocap_rest(m: types.Model):
+  """(mocap_pos (1, nmocap, 3), mocap_quat (1, nmocap, 4)): each mocap
+  body's body_pos and body_quat, as MuJoCo C's ``mj_resetData`` sets
+  them.  The JAX ``make_data`` sets mocap_pos to zero
+  (``io.py:1151``)."""
+  bodies = np.nonzero(np.asarray(m.body_mocapid) >= 0)[0]
+  order = bodies[np.argsort(np.asarray(m.body_mocapid)[bodies])]
+  idx = torch.as_tensor(order, dtype=torch.long, device=m.body_pos.device)
+  return m.body_pos[idx][None], m.body_quat[idx][None]
 
 
 # ------------------------------------------------------- the public Data API
 
 # the MjData fields ``put_data`` copies (``io.py:1221-1234``)
 PUT_FIELDS = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
-              'xfrc_applied', 'qacc_warmstart', 'qacc')
+              'xfrc_applied', 'mocap_pos', 'mocap_quat', 'qacc_warmstart',
+              'qacc')
 # the fields ``get_data_into`` copies back, each where the model has its
 # objects (``io.py:1282-1327``); MjData keeps its xmat-like fields flat
 GET_FIELDS = (('qpos', None), ('qvel', None), ('act', 'na'), ('ctrl', 'nu'),
@@ -860,7 +883,9 @@ GET_FIELDS = (('qpos', None), ('qvel', None), ('act', 'na'), ('ctrl', 'nu'),
               ('qfrc_actuator', None), ('qfrc_constraint', None),
               ('actuator_force', 'nu'), ('actuator_length', 'nu'),
               ('actuator_velocity', 'nu'), ('ten_length', 'ntendon'),
-              ('ten_velocity', 'ntendon'), ('act_dot', 'na'))
+              ('ten_velocity', 'ntendon'), ('act_dot', 'na'),
+              ('mocap_pos', 'nmocap'), ('mocap_quat', 'nmocap'),
+              ('history', 'nhistory'))
 
 
 def _asleep_cycles_to_labels(asleep: np.ndarray) -> np.ndarray:
@@ -906,11 +931,8 @@ def put_data(mjm, mjd, m: types.Model, nworld: Optional[int] = None,
   is always batched: ``nworld`` None gives one world, where the JAX
   ``put_data`` gives unbatched Data.  The float fields take ``dtype``, by
   default the Model's.  Every tensor is a copy: a later change to ``mjd``
-  does not reach it.  Raises for mocap bodies and history, which the port
-  does not run."""
-  if m.nmocap or m.nhistory:
-    raise NotImplementedError('put_data: mocap bodies and history are not '
-                              'ported')
+  does not reach it.  The mocap poses and the delay history come as
+  MjData holds them, the history's float cursors included."""
   W = 1 if nworld is None else int(nworld)
   dev = m.qpos0.device
   d = make_data(m, W, device=dev, dtype=dtype)
@@ -921,6 +943,8 @@ def put_data(mjm, mjd, m: types.Model, nworld: Optional[int] = None,
     return t[None].repeat((W,) + (1,) * t.dim())
 
   kw = {k: put(getattr(mjd, k)) for k in PUT_FIELDS}
+  if m.nhistory:
+    kw['history'] = put(mjd.history)
   kw['eq_active'] = put(mjd.eq_active, bool)
   if m.ntree and hasattr(mjd, 'tree_asleep'):
     kw['tree_asleep'] = put(_asleep_cycles_to_labels(
@@ -931,7 +955,8 @@ def put_data(mjm, mjd, m: types.Model, nworld: Optional[int] = None,
 def get_data_into(mjd, mjm, d: types.Data, world: int = 0):
   """Copy world ``world`` of batched Data (on either device) into an
   MjData (``io.py:1278`` ``get_data_into``): the state, the frames, the
-  forces and sensordata that the JAX function copies, and
+  forces, the mocap poses and sensordata that the JAX function copies,
+  the delay history, and
   ``tree_asleep`` as MuJoCo C's sleep cycles.  A field the step has not
   computed (None) leaves ``mjd``'s as it is."""
   def one(x):
@@ -1517,7 +1542,9 @@ def snapshot_makers() -> tuple:
             ACT_XML.items()) + \
       tuple((FLUID_SNAPSHOTS[name], dmc(name)) for name in FLUID_DMC) + \
       tuple((FLUID_SNAPSHOTS[name], xml(path)) for name, path in
-            FLUID_XML.items())
+            FLUID_XML.items()) + \
+      tuple((ARM_SNAPSHOTS[name], xml(path)) for name, path in
+            ARM_XML.items())
 
 
 def main(argv: Optional[list] = None):
@@ -1540,7 +1567,8 @@ def main(argv: Optional[list] = None):
                  'the fluid, ray and height-field scenes swimmer6.npz, '
                  'swimmer15.npz, fish.npz, quadruped_escape.npz (its '
                  'terrain seeded), sensors.npz, contact_sensor.npz, '
-                 'fluid_ellipsoid.npz and geomdist.npz, '
+                 'fluid_ellipsoid.npz and geomdist.npz, the mocap '
+                 'scene mocap_arm.npz, '
                  'the elliptic-cone tasks\' start states '
                  'assets/*_start.npz, and '
                  '(with --settle) the settled states '

@@ -146,9 +146,28 @@ class _Rows:
 
 
 def _eq_bodies(m, ids):
-  if np.any(m.eq_objtype[ids] == 6):  # mjOBJ_SITE
-    raise NotImplementedError('site-anchored equalities are not ported yet')
-  return m.eq_obj1id[ids], m.eq_obj2id[ids]
+  """(is_site, body1, body2) of equalities ``ids``: a site-anchored
+  one's bodies are its sites' (``constraint.py:217-223``)."""
+  is_site = (m.eq_objtype[ids] == types.ObjType.SITE) & (m.nsite > 0)
+  o1, o2 = m.eq_obj1id[ids], m.eq_obj2id[ids]
+  if not np.any(is_site):
+    return is_site, o1, o2
+  sb = np.asarray(m.site_bodyid)
+  s1, s2 = np.minimum(o1, m.nsite - 1), np.minimum(o2, m.nsite - 1)
+  return is_site, np.where(is_site, sb[s1], o1), np.where(is_site, sb[s2], o2)
+
+
+def _site_frames(m, d, ids, is_site):
+  """(sel (n, 1) mask of the site-anchored equalities ``is_site``, site
+  ids 1 and 2, and each side's site quaternion (W, n, 4), xquat of the
+  site's body times site_quat)."""
+  dev = d.qpos.device
+  s1 = np.minimum(m.eq_obj1id[ids], m.nsite - 1)
+  s2 = np.minimum(m.eq_obj2id[ids], m.nsite - 1)
+  sb = np.asarray(m.site_bodyid)
+  sq = lambda s: math.mul_quat(d.xquat[:, ix(sb[s], dev)],
+                               m.site_quat[ix(s, dev)])
+  return bmask(is_site[:, None], dev), s1, s2, sq(s1), sq(s2)
 
 
 def _bmv(mat, vec):
@@ -169,10 +188,15 @@ def _equality_connect(m, d, rows, cdof_dot):
     return
   dev = d.qpos.device
   data = _wf(m, 'eq_data', ids, dev)
-  body1, body2 = _eq_bodies(m, ids)
+  is_site, body1, body2 = _eq_bodies(m, ids)
   b1, b2 = ix(body1, dev), ix(body2, dev)
   pos1 = d.xpos[:, b1] + _bmv(d.xmat[:, b1], data[..., 0:3])
   pos2 = d.xpos[:, b2] + _bmv(d.xmat[:, b2], data[..., 3:6])
+  if np.any(is_site):
+    # a site-anchored connect joins the two sites (:227-230)
+    sel, s1, s2, _, _ = _site_frames(m, d, ids, is_site)
+    pos1 = torch.where(sel, d.site_xpos[:, ix(s1, dev)], pos1)
+    pos2 = torch.where(sel, d.site_xpos[:, ix(s2, dev)], pos2)
   jacp1, _ = _jac(m, d, pos1, body1)
   jacp2, _ = _jac(m, d, pos2, body2)
   jd = jacp1 - jacp2  # (W, n, nv, 3)
@@ -211,7 +235,7 @@ def _equality_weld(m, d, rows, cdof_dot):
   data = _wf(m, 'eq_data', ids, dev)
   anchor1, anchor2 = data[..., 0:3], data[..., 3:6]
   relpose, torquescale = data[..., 6:10], data[..., 10]
-  body1, body2 = _eq_bodies(m, ids)
+  is_site, body1, body2 = _eq_bodies(m, ids)
   b1, b2 = ix(body1, dev), ix(body2, dev)
   # body1 carries anchor2 and body2 anchor1 (reference :1078-1079)
   pos1 = d.xpos[:, b1] + _bmv(d.xmat[:, b1], anchor2)
@@ -219,6 +243,16 @@ def _equality_weld(m, d, rows, cdof_dot):
   quat = math.mul_quat(d.xquat[:, b1], relpose)
   quat1 = math.quat_inv(d.xquat[:, b2])
   qfull1 = d.xquat[:, b2]
+  site = np.any(is_site)
+  if site:
+    # a site-anchored weld holds the two sites' frames together, without
+    # eq_data's anchors and relative pose (:287-300)
+    sel, s1, s2, sq1, sq2 = _site_frames(m, d, ids, is_site)
+    pos1 = torch.where(sel, d.site_xpos[:, ix(s1, dev)], pos1)
+    pos2 = torch.where(sel, d.site_xpos[:, ix(s2, dev)], pos2)
+    quat = torch.where(sel, sq1, quat)
+    quat1 = torch.where(sel, math.quat_inv(sq2), quat1)
+    qfull1 = torch.where(sel, sq2, qfull1)
 
   jacp1, jacr1 = _jac(m, d, pos1, body1)
   jacp2, jacr2 = _jac(m, d, pos2, body2)
@@ -249,6 +283,8 @@ def _equality_weld(m, d, rows, cdof_dot):
   omega2_q = torch.cat([z1, omega2], dim=-1)
   qdot0r = math.mul_quat(math.mul_quat(omega1_q, d.xquat[:, b1]) * 0.5,
                          relpose)
+  if site:  # (:336)
+    qdot0r = torch.where(sel, math.mul_quat(omega1_q, quat) * 0.5, qdot0r)
   qdot1 = math.mul_quat(omega2_q, qfull1) * 0.5
   negqdot1 = math.quat_inv(qdot1)
   negq1 = math.quat_inv(qfull1)

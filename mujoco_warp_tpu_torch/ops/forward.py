@@ -42,7 +42,8 @@ from mujoco_warp_tpu_torch.kernels import linalg as klinalg
 from mujoco_warp_tpu_torch.kernels import mass_chain as kmass
 from mujoco_warp_tpu_torch.kernels import solver as ksolver
 from mujoco_warp_tpu_torch.ops import actuation, collision_driver, \
-    constraint, derivative, island, math, passive, sensor, smooth, support
+    constraint, derivative, history, island, math, passive, sensor, \
+    smooth, support
 from mujoco_warp_tpu_torch.ops import sleep as osleep
 from mujoco_warp_tpu_torch.ops import solver as osolver
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, host_item, ix
@@ -53,9 +54,6 @@ _GT = types.GainType
 _BT = types.BiasType
 _IT = types.IntegratorType
 _INTEGRATORS = (_IT.EULER, _IT.RK4, _IT.IMPLICIT, _IT.IMPLICITFAST)
-_TT = types.TrnType
-# the transmissions ``smooth.transmission`` ports
-_TRANSMISSIONS = (_TT.JOINT, _TT.TENDON, _TT.SITE, _TT.SLIDERCRANK, _TT.BODY)
 _MINVAL = 1e-15
 # RK4's stage fractions and weights (``forward.py:576-577``)
 _RK4_A = (0.5, 0.5, 1.0)
@@ -90,10 +88,8 @@ def solve_kernel_runs(m: types.Model) -> bool:
 def unsupported(m: types.Model):
   """Why the general step cannot run ``m`` yet, or None."""
   o = m.opt
-  for n, what in ((m.nflex, 'flex'), (m.nmocap, 'mocap'),
-                  (m.nhistory, 'history')):
-    if n:
-      return what
+  if m.nflex:
+    return 'flex'
   later = sensor.deferred(m)
   if later:
     return 'sensor types ' + ', '.join(f'{t} (waits for {why})'
@@ -102,24 +98,13 @@ def unsupported(m: types.Model):
     return 'solver (PGS)'
   if o.integrator not in _INTEGRATORS:
     return f'integrator {o.integrator}'
-  if o.integrator == types.IntegratorType.RK4 and osleep.enabled(m):
-    return 'sleep under RK4 (its stage forwards run no wake pass)'
   if m.nu:
-    if not np.all(np.isin(m.actuator_trntype, _TRANSMISSIONS)):
-      return 'actuator transmission (joint in parent)'
     if np.any(m.actuator_dyntype == _DT.USER) or \
         np.any(m.actuator_gaintype == _GT.USER) or \
         np.any(m.actuator_biastype == _BT.USER):
       return 'user actuator dynamics, gain or bias'
-  if np.any(m.jnt_actgravcomp):
-    return 'actuator gravcomp (its force is passive.gravcomp\'s)'
-  if m.neq:
-    if len(m.efc.flex_id):
-      return 'flex equality'
-    if np.any(m.eq_objtype == 6):  # mjOBJ_SITE
-      return 'site-anchored equality'
-  if np.any(types.host(m.body_gravcomp) != 0):
-    return 'gravcomp'
+  if m.neq and len(m.efc.flex_id):
+    return 'flex equality'
   if m.nv > klinalg.MAX_N:
     return f'nv {m.nv} above the Cholesky kernels\' cap {klinalg.MAX_N}'
   if not kmass.fits(m):
@@ -148,12 +133,14 @@ def _clamp_rows(x, rng, where):
 def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
   """Actuator dynamics and forces (``forward.py:333``): act_dot of each
   dyntype (INTEGRATOR, FILTER, FILTEREXACT, MUSCLE; the DC motor's slots
-  in ``_dcmotor_force``), the input (act, or ctrl clamped to its range;
-  with actearly the next step's act, held to its actrange), FIXED, AFFINE
-  and MUSCLE gains and biases, the force range, the DC motors, the
-  tendons' actuator-force ranges, and qfrc_actuator held to each limited
-  joint's actfrcrange.  Every physical parameter per world where it is
-  batched (``types.world_field``)."""
+  in ``_dcmotor_force``), the input (act, or ctrl, delayed where the
+  actuator has a delay, clamped to its range; with actearly the next
+  step's act, held to its actrange), FIXED, AFFINE and MUSCLE gains and
+  biases, the force range, the DC motors, the tendons' actuator-force
+  ranges, the gravity compensation of joints with actuatorgravcomp, and
+  qfrc_actuator held to each limited joint's actfrcrange.  Every
+  physical parameter per world where it is batched
+  (``types.world_field``)."""
   W = d.qpos.shape[0]
   zero_v = torch.zeros_like(d.qvel)
   if not m.nu or (m.opt.disableflags & types.DisableBit.ACTUATION):
@@ -162,7 +149,7 @@ def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
                      qfrc_actuator=zero_v)
   wf = lambda name: types.world_field(m, name)
   dev = d.qvel.device
-  ctrl = d.ctrl
+  ctrl = history.read_ctrl_delayed(m, d)
   if not (m.opt.disableflags & types.DisableBit.CLAMPCTRL):
     ctrl = _clamp_rows(ctrl, wf('actuator_ctrlrange'),
                        m.actuator_ctrllimited)
@@ -229,6 +216,12 @@ def fwd_actuation(m: types.Model, d: types.Data) -> types.Data:
   if m.ntendon and np.any(m.tendon_actfrclimited):
     force = _tendon_force_clamp(m, force)
   qfrc = torch.einsum('wuv,wu->wv', d.actuator_moment, force)
+  if np.any(m.jnt_actgravcomp) and not (m.opt.disableflags &
+                                        types.DisableBit.GRAVITY):
+    # the gravity compensation of joints with actuatorgravcomp, before
+    # their actfrcrange clamp (:449-454)
+    qfrc = qfrc + torch.where(bmask(passive.actgravcomp_dofs(m), dev),
+                              d.qfrc_gravcomp, 0.0)
   if np.any(m.jnt_actfrclimited):
     # each limited joint's dofs held to its actfrcrange (:455-458)
     jid = np.asarray(m.dof_jntid)
@@ -491,12 +484,14 @@ def _advance(m: types.Model, d: types.Data, qacc, qvel=None
   """Integrate by one timestep (``forward.py:523``): act by
   ``_next_act`` with its limits, qvel += dt qacc, and qpos integrates
   with the new qvel, or with ``qvel`` where given (RK4's weighted
-  velocity)."""
+  velocity); ctrl goes into the actuators' histories at the step's
+  start time."""
   dt = m.opt.timestep
   act = _next_act(m, d.act, d.act_dot, dt, 1.0, True,
                   velocity=d.actuator_velocity)
   qvel_new = d.qvel + dt * qacc
   qpos = _next_position(m, d.qpos, qvel_new if qvel is None else qvel, dt)
+  d = history.insert_ctrl_history(m, d)
   return d.replace(act=act, qvel=qvel_new, qpos=qpos, time=d.time + dt,
                    qacc_warmstart=d.qacc)
 
@@ -510,9 +505,18 @@ def euler(m: types.Model, d: types.Data) -> types.Data:
 
 
 def _forward(m: types.Model, d: types.Data) -> types.Data:
-  """One forward of an RK4 stage (JAX's ``_forward``, :607): the step's
-  stages up to the solve, with its kernels; the sensors are left out,
-  since the stage's sensordata is dropped."""
+  """One forward of an RK4 stage (JAX's ``_forward``, :607): with sleep,
+  the wake pass first (:609-610), then the step's stages up to the
+  solve, with its kernels; the sensors are left out, since the stage's
+  sensordata and the history their delays write are dropped.  With
+  sleep, qacc is zeroed on the sleeping dofs, as the step zeroes the t0
+  forward's: the JAX stage keeps it, so that its RK4 moves a sleeping
+  tree by its stages' accelerations (see ``tests/test_torch_rk4_sleep``)
+  and its full step parts from its skip step."""
+  sleeping = osleep.enabled(m)
+  if sleeping:
+    with stage('sleep'):
+      d = osleep.wake(m, d)
   with stage('pre'):
     d = pre(m, d)
   with stage('mass_chain'):
@@ -522,7 +526,17 @@ def _forward(m: types.Model, d: types.Data) -> types.Data:
     d = d.replace(qacc_smooth=klinalg.chol_solve_batched(m, d.qLD,
                                                          d.qfrc_smooth))
   with stage('solve'):
-    return solve(m, d)
+    d = solve(m, d)
+  if sleeping:
+    with stage('sleep'):
+      d = _zero_sleeping_qacc(m, d)
+  return d
+
+
+def _zero_sleeping_qacc(m: types.Model, d: types.Data) -> types.Data:
+  """qacc zeroed on the dofs of sleeping trees."""
+  return d.replace(qacc=torch.where(osleep.dof_awake_mask(m, d), d.qacc,
+                                    0.0))
 
 
 def rungekutta4(m: types.Model, d: types.Data) -> types.Data:
@@ -690,8 +704,7 @@ def _step_batched(m: types.Model, d: types.Data,
     d = solve(m, d)
   if sleeping:
     with stage('sleep'):
-      d = d.replace(qacc=torch.where(osleep.dof_awake_mask(m, d), d.qacc,
-                                     0.0))
+      d = _zero_sleeping_qacc(m, d)
   # the accelerometer reads the undamped qacc
   with stage('sensors'):
     d = sensor.sensor_acc(m, d)

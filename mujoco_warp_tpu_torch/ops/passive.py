@@ -1,5 +1,5 @@
 """Passive forces of the general step, world-major: joint and tendon
-springs, dof and tendon dampers, and fluid forces.
+springs, dof and tendon dampers, gravity compensation and fluid forces.
 
 Counterpart of ``mujoco_warp_tpu/ops/passive.py`` ``passive`` (:269) with
 ``_spring`` (:21), the tendon terms (:286-304), the damping term, and the
@@ -7,8 +7,9 @@ two fluid models: the inertia box of every body (``_fluid`` :185) and the
 ellipsoid model of the bodies whose geoms set ``fluidshape="ellipsoid"``
 (``_fluid_ellipsoid`` :68, ``_ellipsoid_bodies`` :57), which skip the
 box.  Each body's wrench about its root's CoM reaches the dofs through
-``tree.dof_subtree_mask``.  Gravity compensation is not ported yet and
-raises.
+``tree.dof_subtree_mask``, as do the gravity-compensation forces
+(``gravcomp`` :254, kept out of ``qfrc_passive`` on the dofs whose joint
+takes them through its actuators, :324-333).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from mujoco_warp_tpu_torch import types
 from mujoco_warp_tpu_torch.kernels import TableCache
 from mujoco_warp_tpu_torch.ops import math
-from mujoco_warp_tpu_torch.ops.util import fmask, ix
+from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
 _JT = types.JointType
 
@@ -244,14 +245,11 @@ def fluid(m: types.Model, d: types.Data) -> torch.Tensor:
 
 
 def passive(m: types.Model, d: types.Data) -> types.Data:
-  """Spring, damper and fluid forces (``passive.py:269``), the tendons'
-  springs with their deadband and their dampers among them (:286-304);
-  the dof damping and spring deadbands per world where they are
-  batched."""
+  """Spring, damper, gravity-compensation and fluid forces
+  (``passive.py:269``), the tendons' springs with their deadband and
+  their dampers among them (:286-304); the dof damping and spring
+  deadbands per world where they are batched."""
   dsbl = m.opt.disableflags
-  if not (dsbl & types.DisableBit.GRAVITY) and \
-      np.any(types.host(m.body_gravcomp) > 0):
-    raise NotImplementedError('gravity compensation is not ported yet')
   zero = torch.zeros_like(d.qvel)
   qfrc_spring = zero if dsbl & types.DisableBit.SPRING else _spring(m, d)
   qfrc_damper = zero if dsbl & types.DisableBit.DAMPER else \
@@ -266,7 +264,33 @@ def passive(m: types.Model, d: types.Data) -> types.Data:
   qfrc_fluid = fluid(m, d)
   if qfrc_fluid is None:
     qfrc_fluid = zero
-  qfrc_passive = qfrc_spring + qfrc_damper + qfrc_fluid + zero
+  has_gravcomp = bool(np.any(types.host(m.body_gravcomp) > 0))
+  qfrc_gravcomp = gravcomp(m, d) if has_gravcomp and not (
+      dsbl & types.DisableBit.GRAVITY) else zero
+  keep = qfrc_gravcomp
+  if has_gravcomp and np.any(m.jnt_actgravcomp):
+    # the dofs of joints with actuatorgravcomp take theirs through the
+    # actuators (``fwd_actuation``), not here (:324-333)
+    keep = torch.where(bmask(actgravcomp_dofs(m), d.qvel.device), 0.0,
+                       qfrc_gravcomp)
+  qfrc_passive = qfrc_spring + qfrc_damper + qfrc_fluid + keep
   return d.replace(qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
-                   qfrc_gravcomp=zero, qfrc_fluid=qfrc_fluid,
+                   qfrc_gravcomp=qfrc_gravcomp, qfrc_fluid=qfrc_fluid,
                    qfrc_passive=qfrc_passive)
+
+
+def actgravcomp_dofs(m: types.Model) -> np.ndarray:
+  """(nv,) bool: the dofs of joints with actuatorgravcomp."""
+  return np.asarray(m.jnt_actgravcomp, bool)[np.asarray(m.dof_jntid)]
+
+
+def gravcomp(m: types.Model, d: types.Data) -> torch.Tensor:
+  """Gravity compensation (W, nv) (``passive.py:254``): on each body the
+  force -gravcomp mass gravity at its CoM, to the dofs through
+  ``_to_dofs``; masses and gravity per world where they are batched."""
+  gc = m.body_gravcomp * types.world_field(m, 'body_mass')  # (1 or W, nb)
+  grav = types.world_field(m, 'opt.gravity')[:, None]  # (1 or W, 1, 3)
+  frc = -gc[..., None] * grav
+  frc = frc.expand(d.xipos.shape)
+  offset = d.xipos - d.subtree_com[:, ix(m.body_rootid, d.qpos.device)]
+  return _to_dofs(m, d, torch.cat([math.cross(offset, frc), frc], -1))

@@ -17,7 +17,9 @@ GEOMDIST, GEOMNORMAL and GEOMFROMTO take the nearest point pair of the
 general step's colliders over the geoms of their operands, held to the
 sensor's cutoff (:271-324); the structured contact sensor
 (``_contact_sensor`` :505) matches each world's contact slots to its
-operands per world.  ``DEFERRED`` names the types that wait for their
+operands per world.  A sensor with a history reads back its delayed
+value (``ops/history.apply_sensor_delay``, after the acceleration
+stage).  ``DEFERRED`` names the types that wait for their
 subsystems (tactile meshes); ``ops/forward.unsupported`` refuses a model
 that has one.
 """
@@ -28,8 +30,8 @@ import numpy as np
 import torch
 
 from mujoco_warp_tpu_torch import types
-from mujoco_warp_tpu_torch.ops import collision_driver, math, passive, \
-    ray, smooth
+from mujoco_warp_tpu_torch.ops import collision_driver, history, math, \
+    passive, ray, smooth
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
 _ST = types.SensorType
@@ -662,12 +664,14 @@ def _touch(m, d, ids):
 
 def sensor_acc(m: types.Model, d: types.Data) -> types.Data:
   """Acceleration-stage sensors (``sensor.py:708``), after
-  ``rne_postconstraint`` when the model has any."""
+  ``rne_postconstraint`` when the model has any; then every sensor's
+  delay (``_finish_acc`` :792, in a model without acceleration sensors
+  too)."""
   if not _enabled(m):
     return d
   g = _groups(m, ACC_TYPES)
   if not g:
-    return d
+    return history.apply_sensor_delay(m, d)
   d = smooth.rne_postconstraint(m, d)
   dev = d.qpos.device
   sd = _sensordata(m, d)
@@ -713,7 +717,8 @@ def sensor_acc(m: types.Model, d: types.Data) -> types.Data:
         _contact_sensor(m, d, sd, int(s))
       continue
     _write(sd, m, ids, val)
-  return d.replace(sensordata=_apply_cutoff(m, sd))
+  return history.apply_sensor_delay(
+      m, d.replace(sensordata=_apply_cutoff(m, sd)))
 
 
 def energy_pos_value(m: types.Model, d: types.Data) -> torch.Tensor:

@@ -31,7 +31,8 @@ _JT = types.JointType
 
 
 def kinematics(m: types.Model, d: types.Data) -> types.Data:
-  """Forward kinematics, bodies level by level (``smooth.py:36``); qpos0
+  """Forward kinematics, bodies level by level (``smooth.py:36``), mocap
+  bodies at ``d.mocap_pos`` and the normalized ``d.mocap_quat``; qpos0
   and body_ipos per world where they are batched."""
   qpos = d.qpos
   W, dev, dt = qpos.shape[0], qpos.device, qpos.dtype
@@ -95,6 +96,15 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
           quat[:, s2] = qnew
           xanchor[:, jj] = anchor
           xaxis[:, jj] = axis
+    mids = m.body_mocapid[ids] if m.nmocap else ()
+    if np.any(np.asarray(mids) >= 0):
+      # mocap bodies (children of the world) at their mocap pose, before
+      # their children's level is placed, as in MuJoCo C; the JAX
+      # function overrides them after every level (``smooth.py:101-106``)
+      sel = np.nonzero(mids >= 0)[0]
+      si, mi = ix(sel, dev), ix(mids[sel], dev)
+      pos[:, si] = d.mocap_pos[:, mi].to(dt)
+      quat[:, si] = d.mocap_quat[:, mi].to(dt)
     xpos[:, tid] = pos
     xquat[:, tid] = math.normalize_quat(quat)
 
@@ -779,8 +789,10 @@ def tendon_bias(m: types.Model, d: types.Data) -> types.Data:
 
 
 def transmission(m: types.Model, d: types.Data) -> types.Data:
-  """Actuator lengths and moment arms (``smooth.py:857``): joint (every
-  joint type), tendon (its length and J times gear[0], :920-922), site
+  """Actuator lengths and moment arms (``smooth.py:857``): joint and
+  joint in parent (every joint type; in the parent's frame the gear of a
+  ball or free joint rotated by the joint's inverse quaternion,
+  :888-919), tendon (its length and J times gear[0], :920-922), site
   with and without a reference site (:923-943), slider-crank (:944-967)
   and body, which is adhesion (:968); gear per world where it is
   batched."""
@@ -789,11 +801,7 @@ def transmission(m: types.Model, d: types.Data) -> types.Data:
   trn = m.actuator_trntype
   TT = types.TrnType
   is_ten = trn == TT.TENDON
-  is_jnt = trn == TT.JOINT
-  if not np.all(is_jnt | is_ten | (trn == TT.SITE) |
-                (trn == TT.SLIDERCRANK) | (trn == TT.BODY)):
-    raise NotImplementedError('the joint-in-parent transmission is not '
-                              'ported')
+  is_jnt = (trn == TT.JOINT) | (trn == TT.JOINTINPARENT)
   dev, dt = d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
   tid = m.actuator_trnid[:, 0]
@@ -817,6 +825,7 @@ def transmission(m: types.Model, d: types.Data) -> types.Data:
   for u in np.nonzero(is_jnt)[0]:
     j = int(tid[u])
     g = gear[:, u]
+    in_parent = trn[u] == TT.JOINTINPARENT
     qadr, dadr = int(m.jnt_qposadr[j]), int(m.jnt_dofadr[j])
     if jt[u] in (_JT.SLIDE, _JT.HINGE):
       length[:, u] = d.qpos[:, qadr] * g[:, 0]
@@ -824,8 +833,20 @@ def transmission(m: types.Model, d: types.Data) -> types.Data:
     elif jt[u] == _JT.BALL:
       q = math.normalize_quat(d.qpos[:, qadr:qadr + 4])
       axis_angle = math.quat_sub(q, fmask([1.0, 0.0, 0.0, 0.0], q))
+      gearaxis = g[:, :3]
+      if in_parent:
+        # the gear rotated into the parent frame (``smooth.py:888-919``)
+        qi = math.quat_inv(q)
+        axis_angle = math.rot_vec_quat(axis_angle, qi)
+        gearaxis = math.rot_vec_quat(gearaxis.expand(W, 3), qi)
       length[:, u] = torch.sum(axis_angle * g[:, :3], dim=-1)
-      moment[:, u, dadr:dadr + 3] = g[:, :3]
+      moment[:, u, dadr:dadr + 3] = gearaxis
+    elif in_parent:  # FREE
+      qi = math.quat_inv(math.normalize_quat(d.qpos[:, qadr + 3:qadr + 7]))
+      moment[:, u, dadr:dadr + 3] = math.rot_vec_quat(
+          g[:, :3].expand(W, 3), qi)
+      moment[:, u, dadr + 3:dadr + 6] = math.rot_vec_quat(
+          g[:, 3:].expand(W, 3), qi)
     else:  # FREE
       moment[:, u, dadr:dadr + 3] = g[:, :3]
       moment[:, u, dadr + 3:dadr + 6] = g[:, 3:]

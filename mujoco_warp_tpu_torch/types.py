@@ -412,6 +412,7 @@ class Model(_Replace):
   body_invweight0: torch.Tensor = array()
   body_gravcomp: torch.Tensor = array()
   body_treeid: np.ndarray = static()
+  body_mocapid: np.ndarray = static()  # (nbody,) mocap index, or -1
   tree_sleep_policy: np.ndarray = static()
 
   jnt_type: np.ndarray = static()
@@ -500,6 +501,13 @@ class Model(_Replace):
   # (nsensor, 3): the contact sensor's data bits and reduction
   sensor_intprm: np.ndarray = static()
   sensor_cutoff: torch.Tensor = array()
+  # the delay histories (``types.py:915-921``): each channel's (nsample,
+  # interp), its first float in Data.history (-1 without), its delay in
+  # seconds and, for a sensor, its sampling interval (interval, phase)
+  sensor_history: np.ndarray = static()  # (nsensor, 2)
+  sensor_historyadr: np.ndarray = static()
+  sensor_delay: np.ndarray = static()
+  sensor_interval: np.ndarray = static()  # (nsensor, 2)
 
   eq_type: np.ndarray = static()
   eq_objtype: np.ndarray = static()
@@ -554,6 +562,9 @@ class Model(_Replace):
   actuator_cranklength: torch.Tensor = array()  # (nu,)
   actuator_acc0: torch.Tensor = array()  # (nu,) ||M^-1 moment|| at qpos0
   actuator_lengthrange: torch.Tensor = array()  # (nu, 2)
+  actuator_history: np.ndarray = static()  # (nu, 2) nsample, interp
+  actuator_historyadr: np.ndarray = static()
+  actuator_delay: np.ndarray = static()
 
   # height fields (``types.py:779-783``): each one's first height, rows
   # and columns, its size (x, y, z top, z bottom) and the heights in
@@ -619,6 +630,11 @@ class Data:
   qfrc_applied: torch.Tensor = None  # (W, nv)
   xfrc_applied: torch.Tensor = None  # (W, nbody, 6)
   eq_active: torch.Tensor = None  # (W, neq) bool
+  mocap_pos: torch.Tensor = None  # (W, nmocap, 3)
+  mocap_quat: torch.Tensor = None  # (W, nmocap, 4)
+  # the delay buffers of the actuators' ctrl and the sensors, channel by
+  # channel [unused, cursor, times[n], values[n dim]] (``ops/history.py``)
+  history: torch.Tensor = None  # (W, nhistory)
   # position stages
   xpos: torch.Tensor = None  # (W, nbody, 3)
   xquat: torch.Tensor = None  # (W, nbody, 4)
@@ -711,7 +727,8 @@ def _per_world(x, W: int) -> bool:
 # the state the general step carries from one step to the next; it
 # recomputes the rest of Data every step
 CARRY = ('time', 'qpos', 'qvel', 'act', 'ctrl', 'qfrc_applied',
-         'xfrc_applied', 'eq_active', 'qacc_warmstart', 'qacc',
+         'xfrc_applied', 'eq_active', 'mocap_pos', 'mocap_quat', 'history',
+         'qacc_warmstart', 'qacc',
          'solver_niter', 'overflow', 'tree_asleep', 'nisland', 'tree_island',
          'dof_island', 'efc_island')
 

@@ -10,8 +10,8 @@
   model the ROADMAP listed as refused for activation passes
   ``unsupported`` and ``put_model``; quadruped escape (its height field),
   swimmer and fish (fluid forces), which their own slice admits, pass
-  too with those features on; a joint-in-parent transmission and
-  actuator gravcomp keep their own reasons.
+  too with those features on, and since the mocap slice actuator
+  gravcomp (its force against MuJoCo C's).
 - ``io.batch_model`` on the actuator fields the step reads per world
   (``actuator_gear``, ``actuator_ctrlrange``, ``actuator_forcerange``,
   ``actuator_dynprm``): W copies of every batchable field equal the
@@ -114,8 +114,9 @@ _GRAVCOMP = """
 <mujoco>
   <option gravity="0 0 -9.81"/>
   <worldbody>
-    <body>
-      <joint name="j" type="hinge" axis="0 1 0" actuatorgravcomp="{g}"/>
+    <body gravcomp="1">
+      <joint name="j" type="hinge" axis="0 1 0" actuatorgravcomp="{g}"
+             actuatorfrclimited="true" actuatorfrcrange="-0.5 0.5"/>
       <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"/>
     </body>
   </worldbody>
@@ -124,13 +125,28 @@ _GRAVCOMP = """
 
 
 def test_gate_refuses_actuator_gravcomp():
-  """A joint with actuatorgravcomp gets its own reason (its force is
-  passive gravcomp's); the same model without it passes."""
-  mjm = mujoco.MjModel.from_xml_string(_GRAVCOMP.format(g='true', gear=1))
-  with pytest.raises(NotImplementedError, match='actuator gravcomp'):
-    tio.put_model(mjm, device='cpu')
-  mjm = mujoco.MjModel.from_xml_string(_GRAVCOMP.format(g='false', gear=1))
-  assert forward.unsupported(tio.put_model(mjm, device='cpu')) is None
+  """Since the mocap slice the gate takes a joint with actuatorgravcomp:
+  with it the body's gravity compensation goes into qfrc_actuator before
+  the joint's actfrcrange clamp (-1.30 of compensation plus 0.6 of ctrl,
+  held to -0.5), without it into qfrc_passive.  Either way put_model
+  admits the model, and one forward's qfrc_actuator, qfrc_passive and
+  qfrc_gravcomp equal ``mj_forward``'s within 1e-5."""
+  for g in ('true', 'false'):
+    mjm = mujoco.MjModel.from_xml_string(_GRAVCOMP.format(g=g, gear=2))
+    m = tio.put_model(mjm, device='cpu')
+    assert forward.unsupported(m) is None
+    assert fused.reason(m) is not None
+    mjd = mujoco.MjData(mjm)
+    mjd.qpos[:] = 0.4
+    mjd.ctrl[:] = 0.3
+    mujoco.mj_forward(mjm, mjd)
+    d = forward._forward(m, tio.put_data(mjm, mjd, m))
+    for k in ('qfrc_actuator', 'qfrc_passive', 'qfrc_gravcomp'):
+      np.testing.assert_allclose(getattr(d, k)[0].numpy(), getattr(mjd, k),
+                                 atol=1e-5, err_msg=f'{k} ({g})')
+    assert abs(float(mjd.qfrc_gravcomp[0])) > 0.1
+    if g == 'true':
+      assert float(mjd.qfrc_actuator[0]) == pytest.approx(-0.5)
 
 
 # scenes whose steps read every batchable actuator field: muscles, site

@@ -17,7 +17,7 @@ from mujoco_warp_tpu.pallas import fused as jfused
 from mujoco_warp_tpu_torch import benchmarks, fused
 from mujoco_warp_tpu_torch import io as tio
 from mujoco_warp_tpu_torch import types as ttypes
-from mujoco_warp_tpu_torch.ops import forward
+from mujoco_warp_tpu_torch.ops import forward, smooth
 from tests.test_torch_io import assert_models_equal, jax_model_numpy
 from tests.torch_threads import few_threads  # noqa: F401
 
@@ -106,12 +106,27 @@ _JOINTINPARENT = """
 
 def test_gate_still_refuses_other_transmissions():
   """The general step takes tendon transmissions and tendon equality,
-  and since the actuation slice the slider-crank, site and body
-  transmissions (transmission.xml); it still refuses the joint-in-parent
-  transmission."""
+  since the actuation slice the slider-crank, site and body
+  transmissions (transmission.xml), and since the mocap slice the
+  joint-in-parent transmission: on a ball joint at a turned pose its
+  actuator_length and actuator_moment (the gear rotated into the parent
+  frame) equal ``mj_forward``'s within 1e-6."""
   mjm = mujoco.MjModel.from_xml_path(os.path.join(tio._MODELS,
                                                   'transmission.xml'))
   assert forward.unsupported(tio.put_model(mjm, device='cpu')) is None
   mjm = mujoco.MjModel.from_xml_string(_JOINTINPARENT)
-  with pytest.raises(NotImplementedError, match='joint in parent'):
-    tio.put_model(mjm, device='cpu')
+  m = tio.put_model(mjm, device='cpu')
+  assert forward.unsupported(m) is None
+  mjd = mujoco.MjData(mjm)
+  mjd.qpos[:] = np.array([0.8, 0.3, -0.4, 0.2]) / np.linalg.norm(
+      [0.8, 0.3, -0.4, 0.2])
+  mujoco.mj_forward(mjm, mjd)
+  d = smooth.transmission(m, smooth.kinematics(m, tio.put_data(mjm, mjd, m)))
+  np.testing.assert_allclose(d.actuator_length[0].numpy(),
+                             mjd.actuator_length, atol=1e-6)
+  moment = np.zeros((mjm.nu, mjm.nv))
+  mujoco.mju_sparse2dense(moment, mjd.actuator_moment, mjd.moment_rownnz,
+                          mjd.moment_rowadr, mjd.moment_colind)
+  np.testing.assert_allclose(d.actuator_moment[0].numpy(), moment,
+                             atol=1e-6)
+  assert np.abs(moment - [[1.0, 0.0, 0.0]]).max() > 0.1
