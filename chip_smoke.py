@@ -29,7 +29,8 @@ Phases, one line each or more, any failure exits non-zero:
     noise; the K1 and K4 launch counts must equal the steps run (the
     general kernels' stay 0), no world may overflow and every world must
     stay finite.  Then K1 and K4 against their plain versions again at
-    8192 worlds, on the rollout's last state, and timed per launch.
+    8192 worlds, on the rollout's last state, and timed per launch; K4's
+    profiled time at a 1 s pad and at kerneltime.PAD_S, in turns.
  5. the general main path: benchmarks.run on the constraints scene at
     8192 worlds; each of the four general kernels must launch once per
     step (K1's and K4's counts stay 0), no world may overflow and every
@@ -106,7 +107,7 @@ Phases, one line each or more, any failure exits non-zero:
     same at SKIP_WIDE (4096 worlds); each path warmed up by a step and
     timed in the order pack, full, full, pack; one step against the
     CPU's plain step.  (c) benchmarks.run on spheres_cg at 8192 worlds,
-    CG_NSTEP steps: the mass chain once per step, chol_solve twice plus
+    CG_NSTEP steps after SLOW_WARMUP: the mass chain once per step, chol_solve twice plus
     once per CG trip, nothing else; prints the trips and capped worlds;
     chol_solve and the mass chain at n 36 held and timed (*_cg).  (d)
     humanoid_implicitfast on the fused step at 8192 worlds, IF_NSTEP
@@ -131,7 +132,8 @@ Phases, one line each or more, any failure exits non-zero:
     parity.check_sensors.
 13. cylinders, ellipsoids, RK4, the implicit integrators and inverse
     dynamics on the general step: benchmarks.run at 8192 worlds,
-    CLS_NSTEP steps after 10 warmup (humanoid_CMU CMU_NSTEP), on
+    CLS_NSTEP steps after 10 warmup (humanoid_CMU CMU_NSTEP after
+    SLOW_WARMUP), on
     dm_control's pendulum, reacher, finger (elliptic cones through the
     solve kernel's elliptic form), cartpole and acrobot (RK4: four
     forwards per step) and humanoid_CMU (nv 62: the large-tree mass
@@ -239,6 +241,28 @@ Phases, one line each or more, any failure exits non-zero:
     counts; *_rk4s; one step against the CPU, the skip step on both);
     each scene's steps/s and its idle share from a torch.profiler trace
     of IDLE_NSTEP steps of its last state.
+19. every per-world field of the JAX batched step: quadruped_dr (link
+    lengths, hip orientations, joint ranges, springs and solref, tendon
+    damping, equality solref, impratio and solver tolerances drawn per
+    world) at 8192 worlds: set_const on the card with exact counts
+    against the CPU's on DR_NSC worlds; QDR_NSTEP steps and warmup from
+    parity.dmc_state, phase 16's quadruped depth (exact counts, overflow
+    0, finite, steps/s, idle share; live contacts at least
+    QDR_MIN_CONTACT_SHARE of that quadruped's, printed beside its Newton
+    mean and trunk height); its kernels held and timed on the last state
+    (*_qdr; the solve at parity's 'dmc' bar, its loose worlds'
+    qfrc_constraint with the rows' slack, and qfrc_witness), the solve
+    kernel's profiler reading window by window (QDR_WINDOWS: launches
+    seen, their spread, other kernels in the trace) beside CUDA events;
+    the solve
+    kernel with W copies of the unbatched tolerances against the
+    unbatched launch to the bit, QDR_OWN worlds against launches with
+    their own tolerances in every world to the bit, world 0's tolerances
+    in every world as a planted fault that must move some world, and its
+    time per call with per-world against shared tolerances; one step of
+    QDR_NCMP worlds against the CPU; sorted against unsorted; and the
+    elliptic form on stack_2 at QDR_ELL_NWORLD worlds with per-world
+    impratio and tolerances, QDR_ELL_NSTEP steps from its start state.
  Phase 3 also holds those four kernels (the mass chain in its large-tree
  form, whose qM is world-major, chol_batched on qM and on the Newton H,
  chol_solve and damped_solve at n 75 in both layouts) against their plain
@@ -275,7 +299,7 @@ import torch
 
 # every rollout runs its scene at the width benchmarks.SCENES registers
 NSTEP = 300
-GEN_NSTEP = 200
+GEN_NSTEP = 100
 # clutter's bodies land within ~60 steps, 25 live contacts per world from
 # then on
 CL_NSTEP = 75
@@ -285,10 +309,10 @@ SPHERES_MIN_CONTACTS = 10.0
 # the dm_control scenes: fused rollouts, the general step with sensors on
 # humanoid_dmc and hopper, and the worlds of the card-against-CPU step
 DMC_NSTEP = 200
-# (the general steps with sensors run half their first depth since phase
-# 14 came, to keep the whole run near its length)
-DMC_GEN_NSTEP = 75
-HOP_GEN_NSTEP = 50
+# (the general steps with sensors run a fraction of their first depth
+# since phases 14 and 19 came, to keep the whole run near its length)
+DMC_GEN_NSTEP = 40
+HOP_GEN_NSTEP = 25
 NSENSOR_CMP = 256
 # phase 11: clutter_arm with sleep (from its settled state); the skip
 # step's worlds and steps; spheres_cg's steps after its warmup (2.3-2.6 s
@@ -302,6 +326,9 @@ SKIP_NWORLD, SKIP_NWAKE, SKIP_NSTEP = 256, 20, 10
 # the skip step at clutter_arm's registered width: worlds, woken, steps
 SKIP_WIDE = (4096, 200, 5)
 CG_NSTEP = 2
+# warmup steps of spheres_cg and humanoid_CMU (a few seconds a step: the
+# first steps' builds fall in these, and the timed loop starts after)
+SLOW_WARMUP = 2
 IF_NSTEP = 200
 # phase 12: the tendon scenes, steps after the warmup
 TEN_NSTEP = 100
@@ -325,8 +352,8 @@ TEN_J_ATOL, TEN_J_RTOL = 1e-4, 1e-4
 # an H100 80GB HBM3 at 700 W, fewer), and the key suffix of each scene's
 # kernels; humanoid_CMU starts from parity.dmc_state (lying on the floor,
 # its contacts live), where qpos0 holds it a metre up through these steps
-CLS_NSTEP = 15
-CMU_NSTEP = 5
+CLS_NSTEP = 10
+CMU_NSTEP = 2
 CLS_SFX = {'pendulum': '_pend', 'reacher': '_reach', 'finger': '_fin',
            'cartpole': '_rk4', 'acrobot': '_acro', 'humanoid_CMU': '_cmu',
            'constraints_implicitfast': '_ifast',
@@ -379,7 +406,7 @@ TRACE_WORLDS = (4450, 7873, 6811)
 # contact_sensor, fluid_ellipsoid and geomdist at their width for
 # FLU_TEST_NSTEP steps after 2 of warmup; the key suffix of each scene's
 # kernels (each scene's one step against the CPU takes NSENSOR_CMP worlds)
-FLU_NSTEP = {'swimmer6': (10, 3), 'swimmer15': (10, 3), 'fish': (10, 3),
+FLU_NSTEP = {'swimmer6': (10, 3), 'swimmer15': (10, 3), 'fish': (5, 2),
              'quadruped_escape': (5, 2)}
 FLU_TEST_NSTEP = 3
 FLU_SFX = {'swimmer6': '_sw6', 'swimmer15': '_sw15', 'fish': '_fish',
@@ -392,8 +419,24 @@ FLU_SFX = {'swimmer6': '_sw6', 'swimmer15': '_sw15', 'fish': '_fish',
 ARM_NSTEP = (20, 3)
 ARM_DRIVE_NSTEP = 10
 RK4S_NSTEP = (3, 1)
-IDLE_NSTEP = {'mocap_arm': 3, 'clutter_arm_rk4': 1}
+IDLE_NSTEP = {'mocap_arm': 3, 'clutter_arm_rk4': 1, 'quadruped_dr': 3}
 ARM_SFX = {'mocap_arm': '_arm', 'clutter_arm_rk4': '_rk4s'}
+# phase 19: quadruped_dr (steps, warmup) from the quadruped's seeded
+# contact state; steps of the sorted-against-unsorted check; the worlds of
+# its one step against the CPU; its key suffix; the elliptic form's check
+# on stack_2 with per-world impratio and tolerances: worlds, key suffix
+QDR_NSTEP = ACT_NSTEP['quadruped']
+# quadruped_dr's live contacts per world at the end, at least this share
+# of phase 16's quadruped's: the drawn worlds keep their feet on the floor
+QDR_MIN_CONTACT_SHARE = 0.5
+# profiler windows of NTIME calls read one by one for the per-world solve
+QDR_WINDOWS = 2
+QDR_KEEP_NSTEP = 4
+QDR_NCMP = 256
+QDR_SFX = '_qdr'
+QDR_ELL_NWORLD, QDR_ELL_NSTEP = 2048, 5
+# worlds of the per-world solve each held against its own shared launch
+QDR_OWN = 5
 # worlds of qfrc_witness where no world lies past the bar
 QFRC_WITNESS = 4
 WARMUP = 10
@@ -454,6 +497,26 @@ def kernel_ms(fn, kernel):
   if seen < MIN_SEEN:
     return time_ms(fn, NTIME), 'events', seen
   return total / seen, 'profiler', seen
+
+
+def profile_windows(fn, kernel, windows):
+  """``windows`` profiler windows of NTIME calls of ``fn``, each followed
+  by CUDA events over NTIME calls: per window the launches of ``kernel``
+  the trace held, their least, median and largest ms and the first
+  three in the order they ran, the kernels of other names the trace
+  held, and the events' ms per call."""
+  from mujoco_warp_tpu_torch.kerneltime import profiled_launches
+  out = []
+  for _ in range(windows):
+    ms, others = profiled_launches(torch, fn, NTIME, kernel)
+    srt = sorted(ms)
+    out.append({'seen': len(ms),
+                'min': round(srt[0], 4) if ms else None,
+                'median': round(srt[len(srt) // 2], 4) if ms else None,
+                'max': round(srt[-1], 4) if ms else None,
+                'first': [round(x, 4) for x in ms[:3]], 'others': others,
+                'events_ms': round(time_ms(fn, NTIME), 4)})
+  return out
 
 
 def bound(nbytes, flops):
@@ -527,8 +590,8 @@ def main():
   say(f'[device] {kind}; nvidia-smi: {card}; torch {torch.__version__} '
       f'cuda {torch.version.cuda}')
 
-  from mujoco_warp_tpu_torch import benchmarks, devprofile, io, parity, \
-      types
+  from mujoco_warp_tpu_torch import benchmarks, devprofile, io, \
+      kerneltime, parity, types
   from mujoco_warp_tpu_torch.fused import glue, k1_ref, k4_ref, solver_ref
   from mujoco_warp_tpu_torch.kernels import build, lanes, world
   from mujoco_warp_tpu_torch.kernels import k1 as kk1
@@ -604,7 +667,7 @@ def main():
           k + sfx for sfx in (*TEN_SFX.values(), *CLS_SFX.values(),
                               *TASK_SFX.values(), '_dr',
                               *ACT_SFX.values(), *FLU_SFX.values(),
-                              *ARM_SFX.values())
+                              *ARM_SFX.values(), QDR_SFX)
           for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
                     'damped_solve')) + ('chol_batched_sc', 'chol_solve_sc')}
 
@@ -1036,6 +1099,11 @@ def main():
 
   for k, fn in calls.items():
     time_kernel(k, fn, f'{k}_kernel')
+  # K4's profiled ms at a 1 s pad and at kerneltime.PAD_S, in turns
+  say(f'[timing] k4 profiled ms at a 1 s pad and at PAD_S '
+      f'{kerneltime.PAD_S} s, [pad, ms]: '
+      + json.dumps(kerneltime.pad_check(torch, calls['k4'], NTIME,
+                                        'k4_kernel')))
   call_ms = {k: time_ms(fn, 20) for k, fn in calls.items()}
   plain_ms = {
       'k1': time_ms(lambda: k1_ref.k1(m, st.qpos, st.qvel, need_qLD=False),
@@ -1543,10 +1611,11 @@ def main():
   ncg = CG_NSTEP
   res, st, launches = main_path(
       mcg, ncg, lambda n, trips: {'mass_chain': n,
-                                  'chol_solve': 2 * n + trips}, w_cg)
-  steps = ncg + WARMUP
+                                  'chol_solve': 2 * n + trips}, w_cg,
+      warmup=SLOW_WARMUP)
+  steps = ncg + SLOW_WARMUP
   reads = {k: round(v / steps, 3) for k, v in outil.host_reads.items()}
-  say(f"[main path] spheres_cg: {ncg} steps (+{WARMUP} warmup) in "
+  say(f"[main path] spheres_cg: {ncg} steps (+{SLOW_WARMUP} warmup) in "
       f"{res['run_time']:.1f} s; CG trips per world-step "
       f"{res['solver_niter_mean']:.3f} (last step), worlds at the cap "
       f"{res['solver_cap_worlds']}, trips per step "
@@ -1584,14 +1653,15 @@ def main():
     plain versions on world-major state d (carried fields), each fed the
     plain version's upstream outputs, in the main path's layouts, the
     solve at parity's ``bar`` ('elliptic' with elliptic cones; qacc past
-    it in a world without a live row by each side's gradient); errors
-    to err[kernel + sfx].  Where the torch Newton runs, chol_batched also
+    it in a world without a live row by each side's gradient, and
+    qfrc_constraint with the rows' slack in a loose world); errors to
+    err[kernel + sfx], or printed only where ``sfx`` is None.  Where the torch Newton runs, chol_batched also
     on its first H and chol_solve on its first gradient; under
     IMPLICITFAST chol_batched on M - h qDeriv and chol_solve on its
     system.  Returns each kernel's arguments and the plain solve's mean
     Newton count (0 without rows or without the solve kernel)."""
     nv, nb = model.nv, model.nbody
-    held_by_gradient = 0
+    held_by_gradient = loose = 0
     d = forward.pre(model, d)
     am = (model, lanes(d.cinert, 36 * nb), lanes(d.cdof, 6 * nv),
           lanes(d.qvel))
@@ -1644,7 +1714,7 @@ def main():
                                 system=args['solve'])
         errs['solve'], niter, qacc = (rs['qacc_max_abs_err'],
                                       rs['niter_mean'], ws[0])
-        held_by_gradient = rs['gradient_worlds']
+        held_by_gradient, loose = rs['gradient_worlds'], rs['loose_worlds']
       if 'damped_solve' in kerns:
         args['damped_solve'] = (model, d.qM, qacc.T)
         dmp = klinalg.world_damping(model)  # per world where batched
@@ -1680,7 +1750,8 @@ def main():
     except AssertionError as e:
       fail(f'{label}: {e}')
     for k, e in errs.items():
-      err[k + sfx] = max(err[k + sfx], e)
+      if sfx is not None:
+        err[k + sfx] = max(err[k + sfx], e)
     say(f'[compare] {label}: ' + ', '.join(
         f'{k} max abs err {e:.3e}' for k, e in errs.items())
         + f'; mass chain worst relative {rel:.2e} (tol {parity.K1_TOL}); '
@@ -1689,8 +1760,10 @@ def main():
         f'(the solves in both layouts); the solve at parity\'s \'{bar}\' '
         f'bar, qacc past it in {held_by_gradient} worlds without a live '
         f'row held by each side\'s gradient (within '
-        f'{parity.GRADIENT_BAR} tolerances); plain Newton niter mean '
-        f'{niter:.3f}')
+        f'{parity.GRADIENT_BAR} tolerances), {loose} loose worlds '
+        f'(tolerance above {parity.TOL_FLOOR}: under the bars of '
+        f'{parity.FORCE_THROUGH_QACC} their qfrc_constraint carries the '
+        f'rows\' slack); plain Newton niter mean {niter:.3f}')
     return args, niter
 
   def tendon_timing(args, niter, sfx):
@@ -1891,7 +1964,7 @@ def main():
 
   def qfrc_witness(name, a):
     """For a scene whose solve bar carries qfrc_constraint's slack
-    (parity.SOLVE_BAR_OF): on the worlds of the system ``a`` (the solve
+    (parity.SOLVE_BAR_OF, or loose worlds): on the worlds of the system ``a`` (the solve
     kernel's arguments) where the kernel's qfrc_constraint lies past the
     K4 bar without it, or else the QFRC_WITNESS nearest, the plain solve
     in float64 run to its optimum (tolerance 1e-14), and each world's
@@ -1903,12 +1976,21 @@ def main():
     ids = torch.nonzero(q_past > 0).reshape(-1)
     if not len(ids):
       ids = torch.argsort(q_past, descending=True)[:QFRC_WITNESS]
-    m64 = io.load_model_npz(io.ACT_SNAPSHOTS[name], dtype=torch.float64)
+    m64 = io.load_model_npz(benchmarks.SCENES[name][0] if name in
+                            benchmarks.SCENES else io.ACT_SNAPSHOTS[name],
+                            dtype=torch.float64)
+    # the worlds' own tolerances where they are batched
+    tols = {k: types.get_model_field(a[0], k)[ids].cpu().numpy()
+            for k in ('opt.tolerance', 'opt.ls_tolerance')
+            if k in a[0].batch_fields}
+    if tols:
+      m64 = io.batch_model(m64, len(ids), tols)
     sub = [None if x is None else x[..., ids].double() for x in a[1:]]
     f64 = solver_ref.solve_tiles(m64, *sub)
     opt = solver_ref.solve_tiles(m64.replace(opt=m64.opt.replace(
         tolerance=torch.tensor(1e-14, dtype=torch.float64, device=dev),
-        iterations=200)), *sub)
+        iterations=200), batch_fields=tuple(
+            n for n in m64.batch_fields if n != 'opt.tolerance')), *sub)
     bar = parity.QACC_ATOL + parity.QACC_RTOL * opt[2].abs().amax(0)
     far = lambda q: [float(f'{float(x):.4g}') for x in (
         (q.double() - opt[2]).abs().amax(0) / bar)]
@@ -2162,7 +2244,8 @@ def main():
       mh, w_t = benchmarks.load_scene(name, device='cpu')
       qpos, qvel, _ = parity.dmc_state(mh, name, w_t, 0)
       init = {'qpos': qpos, 'qvel': qvel}
-    general_scene(name, sfx, CMU_NSTEP if init else CLS_NSTEP, init)
+    general_scene(name, sfx, CMU_NSTEP if init else CLS_NSTEP, init,
+                  SLOW_WARMUP if init else WARMUP)
 
   # inverse dynamics at the constraints scene's width: the forward's
   # converged qacc at a seeded state, then the inverse on the card and on
@@ -2586,6 +2669,8 @@ def main():
   # site, slider-crank and body transmissions on the general step
   say(f'[phase 16] at {time.perf_counter() - T0:.1f} s')
   t16 = time.perf_counter()
+  # scene: live contacts per world, Newton mean and trunk height at the end
+  act_end = {}
   for name, (nstep, warmup) in ACT_NSTEP.items():
     mh, w_t = scene_model(name, device='cpu')
     qpos, qvel, _ = parity.dmc_state(mh, name, 64, 0)
@@ -2595,6 +2680,8 @@ def main():
     ncon = float(st.ncon_active.float().mean())
     if ncon <= 0.0:
       fail(f'{name}: no live contact in the last state')
+    act_end[name] = (ncon, res['solver_niter_mean'],
+                     float(st.qpos[:, parity.DMC_ROOT[name]].mean()))
     say(f"[main path] {name} W={w_t}: {res['steps_per_sec']:.1f} steps/s, "
         f"overflow_worlds {res['overflow_worlds']}, converged_worlds "
         f"{res['converged_worlds']}, solver_cap_worlds "
@@ -2819,6 +2906,270 @@ def main():
   idle_share('clutter_arm_rk4', mr, st)
   say(f'[main path] phase 18 took {time.perf_counter() - t18:.1f} s')
 
+  # ---- 19. every per-world field of the JAX batched step: quadruped_dr
+  # (morphology, joint, tendon, equality and solver parameters, each
+  # world stopping on its own tolerances in the solve kernel)
+  say(f'[phase 19] at {time.perf_counter() - T0:.1f} s')
+  t19 = time.perf_counter()
+  name, sfx = 'quadruped_dr', QDR_SFX
+  zero_counters()
+  t0 = time.perf_counter()
+  mt, w_t = benchmarks.load_scene(name)
+  torch.cuda.synchronize()
+  t_setup = time.perf_counter() - t0
+  got = counters()
+  want = {k: 0 for k in got}
+  want.update(mass_chain=1, chol_batched=1, chol_solve=mt.nv)
+  if got != want:
+    fail(f'{name}: set_const launch counts {got} != {want}')
+  if not {'opt.tolerance', 'opt.ls_tolerance', 'opt.impratio', 'body_pos',
+          'body_quat', 'jnt_range', 'eq_solref'} <= set(mt.batch_fields):
+    fail(f'{name}: batched fields {mt.batch_fields}')
+  # set_const on the card against its plain version on the CPU, on the
+  # first DR_NSC worlds' drawn inputs
+  mh0 = io.load_model_npz(benchmarks.SCENES[name][0], device='cpu')
+  drawn = {k: types.get_model_field(mt, k)[:DR_NSC].cpu()
+           for k in mt.batch_fields if k not in io.SET_CONST_FIELDS}
+  mh = io.set_const(io.batch_model(mh0, DR_NSC, drawn))
+  worst_sc = {}
+  for k in io.SET_CONST_FIELDS:
+    b = types.world_field(mh, k)
+    if not b.numel():
+      continue
+    worst_sc[k] = world_rel(types.world_field(mt, k)[:DR_NSC].cpu(), b)
+    bar = SC_MINV_RTOL if k in SC_MINV else SC_RTOL
+    if worst_sc[k] > bar:
+      fail(f'{name}: set_const {k} on the card against the CPU: '
+           f'{worst_sc[k]} relative > {bar}')
+  say(f'[main path] {name} setup W={w_t}: the draws, batch_model and '
+      f'set_const {t_setup:.2f} s, launches {got}; set_const against the '
+      f'CPU\'s plain versions on {DR_NSC} worlds, the worst of each '
+      f'field\'s world scale (bar {SC_RTOL}, through M^-1 {SC_MINV_RTOL}): '
+      + json.dumps({k: float(f'{v:.3e}') for k, v in worst_sc.items()}))
+
+  # the rollout from the quadruped's seeded contact state: OU ctrl noise,
+  # worlds sorted every 4 steps with their parameters
+  qpos, qvel, _ = parity.dmc_state(mh0, 'quadruped', 64, 0)
+  expect = classic_expect(mt)
+  nstep, warmup = QDR_NSTEP
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  zero_counters()
+  res = benchmarks.run(mt, nworld=w_t, nstep=nstep, warmup_steps=warmup,
+                       init_state={'qpos': qpos, 'qvel': qvel})
+  launches = counters()
+  steps = nstep + warmup
+  want = {k: 0 for k in launches}
+  want.update(expect(steps, osolver.trips))
+  if launches != want:
+    fail(f'{name}: launch counts {launches} != {want}')
+  if res['overflow_worlds'] != 0:
+    fail(f"{name}: overflow in {res['overflow_worlds']} worlds")
+  st = res.pop('state')
+  if res['converged_worlds'] != w_t or not bool(
+      torch.isfinite(st.qpos).all()) or not bool(
+          torch.isfinite(st.qvel).all()):
+    fail(f"{name}: {res['converged_worlds']} of {w_t} worlds finite")
+  for k in expect(1, 1):
+    kernel_launches[k + sfx] = launches[k]
+  mperm, ids = res.pop('model'), res.pop('world_ids')
+  for k in ('opt.tolerance', 'body_pos', 'jnt_range'):
+    if not torch.equal(types.get_model_field(mperm, k),
+                       types.get_model_field(mt, k)[ids]):
+      fail(f'{name}: the sorted Model\'s {k} is not the Data\'s worlds\'')
+  ncon = float(st.ncon_active.float().mean())
+  q_ncon, q_niter, q_z = act_end['quadruped']
+  z = float(st.qpos[:, parity.DMC_ROOT['quadruped']].mean())
+  say(f"[main path] {name} W={w_t} x {nstep} steps (+{warmup} warmup) on "
+      f"{card}: {res['steps_per_sec']:.1f} steps/s, "
+      f"{1e3 * w_t / res['steps_per_sec']:.3f} ms per step, kernels per "
+      f"step {sum(launches.values()) / steps:.3f} ({launches}), "
+      f"solver_niter_mean {res['solver_niter_mean']:.4f}, live contacts "
+      f"per world {ncon:.3f}, trunk height {z:.4f} m (phase 16's "
+      f"quadruped at the same depth: {q_niter:.4f}, {q_ncon:.3f}, "
+      f"{q_z:.4f} m), overflow_worlds 0, {w_t}/{w_t} finite, peak "
+      f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+  if ncon < QDR_MIN_CONTACT_SHARE * q_ncon:
+    fail(f'{name}: {ncon:.3f} live contacts per world, below '
+         f'{QDR_MIN_CONTACT_SHARE} of the quadruped\'s {q_ncon:.3f}')
+  idle_share(name, mperm, st)
+  # the kernels against their plain versions on the last state, each
+  # world with its own tolerances, and timed
+  args, niter = step_compare(f'{name} rollout W={w_t}', types.carried(st),
+                             mperm, tuple(expect(1, 1)), sfx,
+                             parity.SOLVE_BAR_OF.get(name, 'dmc'))
+  tendon_timing(args, niter, sfx)
+  asv = args['solve']
+  qfrc_witness(name, asv)
+  # the profiler's reading of the per-world solve kernel window by
+  # window, each beside CUDA events over as many calls
+  windows = profile_windows(lambda: ksolver.solve_tiles(*asv),
+                            'solve_kernel', QDR_WINDOWS)
+  say(f'[timing] solve{sfx}: {QDR_WINDOWS} profiler windows of {NTIME} '
+      f'calls, each then CUDA events over {NTIME} calls: '
+      + json.dumps(windows))
+
+  def with_tols(tol, ls_tol):
+    """mperm with the tolerances ``tol`` and ``ls_tol``: (W,) batched,
+    or 0-d shared."""
+    mm = types.set_model_fields(mperm, {'opt.tolerance': tol,
+                                        'opt.ls_tolerance': ls_tol})
+    keep = [n for n in mperm.batch_fields
+            if n not in ('opt.tolerance', 'opt.ls_tolerance')]
+    return mm.replace(batch_fields=tuple(sorted(
+        keep + (['opt.tolerance', 'opt.ls_tolerance'] if tol.dim() else
+                []))))
+
+  # stride 0 against stride 1: W copies of the unbatched scalars give the
+  # unbatched launch to the bit
+  m0 = io.load_model_npz(benchmarks.SCENES[name][0])
+  tol0, ls0 = m0.opt.tolerance, m0.opt.ls_tolerance
+  shared = ksolver.solve_tiles(with_tols(tol0, ls0), *asv[1:])
+  copies = ksolver.solve_tiles(with_tols(tol0.expand(w_t).contiguous(),
+                                         ls0.expand(w_t).contiguous()),
+                               *asv[1:])
+  if not all(torch.equal(a, b) for a, b in zip(shared, copies)):
+    fail(f'{name}: the solve kernel at tolerance stride 1 (W copies) '
+         'differs from stride 0')
+  # a planted fault: world 0's tolerances in every world must move the
+  # Newton count, or qacc past parity's bar, in some world
+  good = ksolver.solve_tiles(*asv)
+  tol_w = types.get_model_field(mperm, 'opt.tolerance')
+  ls_w = types.get_model_field(mperm, 'opt.ls_tolerance')
+  # each of QDR_OWN worlds equals, to the bit, a launch where every world
+  # shares its tolerances
+  own = [w * (w_t - 1) // (QDR_OWN - 1) for w in range(QDR_OWN)]
+  for w in own:
+    one = ksolver.solve_tiles(with_tols(tol_w[w].clone(), ls_w[w].clone()),
+                              *asv[1:])
+    if not all(torch.equal(a[:, w], b[:, w]) for a, b in zip(one, good)):
+      fail(f'{name}: world {w} of the per-world launch differs from a '
+           'launch with its tolerances in every world')
+  bad = ksolver.solve_tiles(with_tols(tol_w[:1].expand(w_t).contiguous(),
+                                      ls_w[:1].expand(w_t).contiguous()),
+                            *asv[1:])
+  scale = good[0].abs().amax(0)
+
+  def moved(out):
+    """Worlds whose Newton count, or qacc past parity's bar, ``out``
+    moves from the per-world launch, and those whose qacc it moves at
+    all."""
+    far = (out[0] - good[0]).abs().amax(0) > parity.QACC_ATOL + \
+        parity.QACC_RTOL * scale
+    return (int(((good[3][0] != out[3][0]) | far).sum()),
+            int((out[0] != good[0]).any(0).sum()))
+
+  n_moved, n_bits = moved(bad)
+  if n_moved == 0:
+    fail(f'{name}: world 0\'s tolerances in every world move no world')
+  # for scale: the loosest world's tolerances in every world
+  loose = int(torch.argmax(tol_w))
+  n_loose = moved(ksolver.solve_tiles(with_tols(
+      tol_w[loose:loose + 1].expand(w_t).contiguous(),
+      ls_w[loose:loose + 1].expand(w_t).contiguous()), *asv[1:]))
+  # the kernel's time with per-world tolerances beside the shared one on
+  # the same system, in turns
+  t_pw, t_sh = [], []
+  mshared = with_tols(tol0, ls0)
+  for _ in range(2):
+    t_pw.append(time_ms(lambda: ksolver.solve_tiles(*asv), 10))
+    t_sh.append(time_ms(lambda: ksolver.solve_tiles(mshared, *asv[1:]), 10))
+  say(f'[compare] {name}: the solve kernel with W copies of the unbatched '
+      f'tolerances equals the unbatched launch to the bit, and worlds {own} '
+      f'each a launch with its tolerances in every world; world 0\'s '
+      f'tolerances in every world move {n_moved} of {w_t} worlds (Newton '
+      f'count or qacc past parity\'s bar; qacc at all in {n_bits}), the '
+      f'loosest world\'s {n_loose[0]} ({n_loose[1]}); mean niter per-world '
+      f'{float(good[3].float().mean()):.4f}, world 0\'s '
+      f'{float(bad[3].float().mean()):.4f}; drawn tolerance in '
+      f'[{float(tol_w.min()):.3e}, {float(tol_w.max()):.3e}], '
+      f'ls_tolerance in [{float(ls_w.min()):.4f}, {float(ls_w.max()):.4f}]')
+  say(f'[timing] solve kernel on {name}\'s last state, wall ms per call '
+      f'(CUDA events, 10 calls, in turns): per-world tolerances '
+      f'{[round(x, 4) for x in t_pw]}, the unbatched scalars '
+      f'{[round(x, 4) for x in t_sh]}; its profiler time per launch '
+      f'{ms["solve" + sfx]:.4f} ms beside quadruped\'s '
+      f'{ms.get("solve_qd", float("nan")):.4f} ms (phase 16, this call)')
+  # one step of QDR_NCMP worlds on the card against the CPU's plain step,
+  # the CPU Model from the sorted worlds' draws and its own set_const
+  sub = {k: getattr(st, k)[:QDR_NCMP] for k in types.CARRY}
+  msub = types.map_model_worlds(mperm, lambda x: x[:QDR_NCMP])
+  mcpu = io.set_const(io.batch_model(mh0, QDR_NCMP, {
+      k: types.get_model_field(msub, k).cpu() for k in msub.batch_fields
+      if k not in io.SET_CONST_FIELDS}))
+  on_card = forward.step(msub, types.Data(**sub))
+  on_cpu = forward.step(mcpu, types.Data(**{k: v.cpu()
+                                            for k, v in sub.items()}))
+  try:
+    e_cpu = parity.check_world_scale(on_card.qpos.cpu().T, on_cpu.qpos.T,
+                                     'qpos', parity.QPOS_ATOL,
+                                     parity.QPOS_RTOL)
+  except AssertionError as e:
+    fail(f'{name}: one step on the card against the CPU: {e}')
+  # worlds keep their parameters: sorted against unsorted, the order
+  # undone
+  d0 = types.carried(st)
+  runs = {}
+  for sort in (True, False):
+    mw, d, idw = mperm, d0, torch.arange(w_t, device=dev)
+    for i in range(QDR_KEEP_NSTEP):
+      if sort and i % 2 == 0:
+        perm = torch.argsort(d.solver_niter, stable=True)
+        if i == 0:  # a permutation every world feels
+          perm = torch.flip(perm, (0,))
+        d = types.map_worlds(d, lambda x: x[perm], w_t)
+        mw = types.map_model_worlds(mw, lambda x: x[perm])
+        idw = idw[perm]
+      d = forward.step(mw, d)
+    runs[sort] = d.qpos[torch.argsort(idw)]
+  try:
+    e_keep = parity.check_world_scale(runs[True].cpu().T, runs[False].cpu().T,
+                                      'qpos (sorted against unsorted)',
+                                      parity.QPOS_ATOL, parity.QPOS_RTOL)
+  except AssertionError as e:
+    fail(f'{name}: {e}')
+  say(f'[compare] {name}: one step of {QDR_NCMP} worlds against the CPU, '
+      f'qpos max abs err {e_cpu:.3e}; {QDR_KEEP_NSTEP} steps sorted (the '
+      f'worlds reversed, then by Newton count) against unsorted, order '
+      f'undone: qpos max abs err {e_keep:.3e} (bar atol '
+      f'{parity.QPOS_ATOL} + rtol {parity.QPOS_RTOL})')
+  # the elliptic form on stack_2 at QDR_ELL_NWORLD worlds, QDR_ELL_NSTEP
+  # steps from its seeded contact state, each world with its own impratio
+  # and tolerances (at the start state itself, warmstarted from zero, the
+  # two sides' Newton counts agree at the bar's edge even unbatched)
+  ms2_0, _ = benchmarks.load_scene('stack_2')
+  rng = np.random.default_rng(19)
+  W2 = QDR_ELL_NWORLD
+  ms2 = io.batch_model(ms2_0, W2, {
+      'opt.impratio': rng.uniform(1.0, 4.0, (W2,)),
+      'opt.tolerance': 10.0 ** rng.uniform(-6.0, -4.0, (W2,)),
+      'opt.ls_tolerance': rng.uniform(0.005, 0.05, (W2,))})
+  d2 = benchmarks.build(ms2, W2, init_state=benchmarks.start_state('stack_2'))
+  # at the start state itself, for scale: the share of equal Newton
+  # counts, unbatched and per world (printed, not held)
+  starts = {}
+  for label, mm in (('unbatched', ms2_0), ('per-world', ms2)):
+    a0 = parity.solve_args(mm, benchmarks.build(
+        mm, W2, init_state=benchmarks.start_state('stack_2')))[0]
+    g0, p0 = ksolver.solve_tiles(*a0), solver_ref.solve_tiles(*a0)
+    starts[label] = (round(float((g0[3] == p0[3]).float().mean()), 4),
+                     int((g0[3] - p0[3]).abs().max()))
+  for _ in range(QDR_ELL_NSTEP):
+    d2 = forward.step(ms2, d2)
+  args2, niter2 = step_compare(f'stack_2 per-world impratio and tolerances '
+                               f'W={W2}', types.carried(d2), ms2,
+                               ('mass_chain', 'chol_solve', 'solve'),
+                               None)
+  if args2['solve'][-1] is None:
+    fail('stack_2: the elliptic form did not run')
+  say(f'[compare] stack_2 W={W2}, {QDR_ELL_NSTEP} steps from its start '
+      f'state, each world with its own impratio, tolerance and '
+      f'ls_tolerance: the elliptic solve kernel against its plain version at '
+      f'parity\'s \'elliptic\' bar, plain niter mean {niter2:.3f}; at '
+      f'the start state, (share of equal Newton counts, largest gap): '
+      f'{starts}')
+  say(f'[main path] phase 19 took {time.perf_counter() - t19:.1f} s')
+
   say(f'[phase end] at {time.perf_counter() - T0:.1f} s')
   src = 'mujoco_warp_tpu_torch/kernels/csrc/'
   replaces = {
@@ -2855,7 +3206,7 @@ def main():
     replaces[k + '_implicitfast'] = replaces[k]
   for sfx in (*TEN_SFX.values(), *CLS_SFX.values(), *TASK_SFX.values(),
               '_dr', '_sc', *ACT_SFX.values(), *FLU_SFX.values(),
-              *ARM_SFX.values()):
+              *ARM_SFX.values(), QDR_SFX):
     for k in ('mass_chain', 'chol_batched', 'chol_solve', 'solve',
               'damped_solve'):
       if k + sfx in kernel_launches:

@@ -54,7 +54,11 @@ and height-field scenes (8192 worlds each, general step): dm_control's
 end-effector site, gravity compensation, delayed servos and sensors, the
 joint-in-parent transmission, a site-anchored connect) and
 ``clutter_arm_rk4`` (4096 worlds: clutter_arm under RK4, sleep on, from
-its settled state).
+its settled state); ``quadruped_dr`` (8192 worlds, general step): the
+quadruped with per-world link lengths, hip orientations, joint ranges,
+springs and solver parameters, tendon damping and equality softness,
+and, to exercise the solve kernel's per-world stop, impratio and solver
+tolerances (``randomize_quadruped``).
 ``SCENES`` names each with its snapshot and registered width,
 ``OVERRIDES`` the options set on a snapshot, ``RANDOMIZED`` the scenes
 whose worlds draw their own parameters, and ``load_scene`` loads one.
@@ -110,6 +114,9 @@ SCENES = {
     # actuation (general step): dm_control's quadruped (walk, run) and
     # dog (stand, walk, trot, run), FILTER activations
     **{name: (io.ACT_SNAPSHOTS[name], 8192) for name in io.ACT_DMC},
+    # per-world morphology, joint, tendon, equality and solver parameters
+    # on the quadruped (``randomize_quadruped``)
+    'quadruped_dr': (io.ACT_SNAPSHOTS['quadruped'], 8192),
     # fluid forces, rays and height fields (general step): dm_control's
     # swimmer6, swimmer15 and fish (the inertia-box fluid model) and
     # quadruped escape (its seeded terrain, 20 rangefinders), and the test
@@ -174,8 +181,88 @@ def randomize(m: types.Model, nworld: int, seed: int = 0) -> types.Model:
   return io.set_const(mb)
 
 
+def _quat_about(axis, angle):
+  """Unit quaternions (..., 4) of rotations by ``angle`` (...) about the
+  unit ``axis`` (..., 3)."""
+  return np.concatenate([np.cos(0.5 * angle)[..., None],
+                         axis * np.sin(0.5 * angle)[..., None]], -1)
+
+
+def _quat_mul(u, v):
+  """Hamilton products of quaternion arrays (..., 4)."""
+  u0, u1, u2, u3 = np.moveaxis(u, -1, 0)
+  v0, v1, v2, v3 = np.moveaxis(v, -1, 0)
+  return np.stack([u0 * v0 - u1 * v1 - u2 * v2 - u3 * v3,
+                   u0 * v1 + u1 * v0 + u2 * v3 - u3 * v2,
+                   u0 * v2 - u1 * v3 + u2 * v0 + u3 * v1,
+                   u0 * v3 + u1 * v2 - u2 * v1 + u3 * v0], -1)
+
+
+# dm_control's quadruped: its four hips and the sixteen bodies of its legs
+QUADRUPED_HIPS = (2, 6, 10, 14)
+QUADRUPED_LEGS = tuple(range(2, 18))
+
+
+def randomize_quadruped(m: types.Model, nworld: int,
+                        seed: int = 0) -> types.Model:
+  """dm_control's quadruped with per-world parameters drawn with numpy
+  from ``seed``: each leg body's offset from its parent (body_pos of
+  bodies 2-17) x U(0.95, 1.05), the link lengths; each hip's body_quat
+  rotated about a random axis by U(0, 2) degrees; each hinge's range x
+  U(0.9, 1.1); each joint's solref time constant x U(0.8, 1.2); each
+  hinge's stiffness U(0, 2) N m / rad about a spring pose of the
+  snapshot's qpos_spring + U(-0.05, 0.05); each tendon's damping U(0,
+  0.5); each equality's solref time constant x U(0.8, 1.2); impratio
+  U(1, 4); the solver tolerance log-uniform on [1e-6, 1e-4] and
+  ls_tolerance U(0.005, 0.05); then ``io.set_const`` (invweights,
+  tendon_length0, actuator_acc0 per world).
+
+  The ranges are this module's choice, not a published randomization.
+  Morphology, joint limits and springs, damping and constraint softness
+  are the kind of parameters RL users of MJX and MJWarp draw per
+  environment; impratio and the two solver tolerances are drawn to
+  exercise the solve kernel's per-world stop, not as user traffic.
+  The drawn worlds keep the quadruped on its feet: chip_smoke.py's phase
+  19 runs them at phase 16's quadruped depth and holds their live
+  contacts per world to at least half of that quadruped's, printing
+  both with their Newton means and trunk heights."""
+  rng = np.random.default_rng(seed)
+  h = lambda x: types.host(x, np.float64)
+  u = lambda lo, hi, *shape: rng.uniform(lo, hi, (nworld,) + shape)
+  rep = lambda x: np.repeat(h(x)[None], nworld, 0)
+  hinge = np.nonzero(np.asarray(m.jnt_type) == types.JointType.HINGE)[0]
+  legs, hips = list(QUADRUPED_LEGS), list(QUADRUPED_HIPS)
+  body_pos = rep(m.body_pos)
+  body_pos[:, legs] *= u(0.95, 1.05, len(legs), 1)
+  axis = rng.standard_normal((nworld, len(hips), 3))
+  axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+  turn = _quat_about(axis, np.deg2rad(u(0.0, 2.0, len(hips))))
+  body_quat = rep(m.body_quat)
+  body_quat[:, hips] = _quat_mul(turn, body_quat[:, hips])
+  jnt_range = rep(m.jnt_range)
+  jnt_range[:, hinge] *= u(0.9, 1.1, len(hinge), 1)
+  jnt_solref = rep(m.jnt_solref)
+  jnt_solref[..., 0] *= u(0.8, 1.2, m.njnt)
+  stiffness = rep(m.jnt_stiffness)
+  stiffness[:, hinge] = u(0.0, 2.0, len(hinge))
+  spring = rep(m.qpos_spring)
+  qadr = np.asarray(m.jnt_qposadr)[hinge]
+  spring[:, qadr] += u(-0.05, 0.05, len(hinge))
+  eq_solref = rep(m.eq_solref)
+  eq_solref[..., 0] *= u(0.8, 1.2, m.neq)
+  mb = io.batch_model(m, nworld, {
+      'body_pos': body_pos, 'body_quat': body_quat, 'jnt_range': jnt_range,
+      'jnt_solref': jnt_solref, 'jnt_stiffness': stiffness,
+      'qpos_spring': spring,
+      'tendon_damping': u(0.0, 0.5, m.ntendon),
+      'eq_solref': eq_solref, 'opt.impratio': u(1.0, 4.0),
+      'opt.tolerance': 10.0 ** u(-6.0, -4.0),
+      'opt.ls_tolerance': u(0.005, 0.05)})
+  return io.set_const(mb)
+
+
 # scene: the draws of its worlds' parameters
-RANDOMIZED = {'humanoid_dmc_dr': randomize}
+RANDOMIZED = {'humanoid_dmc_dr': randomize, 'quadruped_dr': randomize_quadruped}
 
 
 def start_state(name: str):

@@ -106,11 +106,12 @@ _SCALE_TABLES = TableCache(_scale_tables)
 def ell_scales(m: types.Model, friction):
   """(nefc, W) per-row scales of the elliptic rows from the contacts'
   friction (W, ncon, 5): [mu mu_scale, f_1 .. f_{dim-1}] per contact with
-  mu_scale = 1 / sqrt(impratio) (``pallas/solver.py`` :1177-1185), 0 on
-  the other rows; the row tables go to the device once per model."""
+  mu_scale = 1 / sqrt(impratio) (``pallas/solver.py`` :1177-1185), each
+  world's where impratio is batched, 0 on the other rows; the row tables
+  go to the device once per model."""
   src, normal, fric = _SCALE_TABLES.get(m, friction.device)
-  mu_scale = 1.0 / torch.sqrt(torch.clamp(
-      m.opt.impratio.to(friction.dtype), min=MINVAL))
+  mu_scale = 1.0 / torch.sqrt(torch.clamp(types.world_field(
+      m, 'opt.impratio').to(friction.dtype), min=MINVAL))[:, None]
   w = normal.to(friction.dtype) * mu_scale + fric.to(friction.dtype)
   return (friction.reshape(friction.shape[0], -1)[:, src] * w).T.contiguous()
 
@@ -153,7 +154,7 @@ def solve_core(m, J, D, aref, M, qfrc_smooth, qacc_in, w_eq, tol, ls_tol,
   ``len(diag)`` one-hot rows first; diag: [(dof, sign (1, W))]; w_eq:
   (nefc, 1) marking equality rows, or None; w_fri: (nefc, 1) marking
   friction-loss rows, or None, with fl (nefc, W) their friction loss;
-  tol, ls_tol, meaninertia: 0-d float32 tensors; ell: (``ell_groups``,
+  tol, ls_tol: (1, 1 or W), each world's; meaninertia: 0-d; ell: (``ell_groups``,
   ``ell_scales``) of the elliptic contacts, or None (not with ``diag``);
   trace: None, or called after every trip with the trip count, the step
   size and that trip's stop quantities (the improvement, the gradient
@@ -585,7 +586,10 @@ def solve_tiles(m, J, D, aref, fl, M, qfrc_smooth, qacc0, s=None,
   ``trace`` as ``solve_core`` takes it.  Returns qacc (nv, W), force
   (nefc, W), qfrc_constraint (nv, W) and niter (1, W) int32."""
   w_eq, w_fri = row_weights(m, J.device)
-  tol, ls_tol, mi = scalars(m, J.device)
+  mi = scalars(m, J.device)[2]
+  # each world stops on its own test: (1, 1 or W), lanes-last
+  tol, ls_tol = (types.world_field(m, k).to(J.device, J.dtype)[None]
+                 for k in ('opt.tolerance', 'opt.ls_tolerance'))
   groups = ell_groups(m)
   if groups and s is None:
     raise ValueError('elliptic contacts need their row scales s')

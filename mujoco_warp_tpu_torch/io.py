@@ -555,11 +555,15 @@ def remix(m: types.Model) -> types.Model:
   device: the geoms' priority, solmix, solref, solimp, margin, gap and
   friction, or under the override ``opt.o_margin`` and the other ``o_*``
   fields.  ``cand_includemargin`` is margin - gap, ``cand_margin`` the
-  margin (adhesion's contact test).  Where a geom contact
-  field is batched (``batch_model``), every world mixes its own values
-  and the tables are batched too."""
+  margin (adhesion's contact test).  Where a geom contact field, or
+  under the override an ``o_*`` field, is batched (``batch_model``),
+  every world mixes its own values and the tables are batched too (the
+  JAX ``batch_model`` re-mixes only for the geom fields, so a batched
+  ``o_*`` leaves its tables at the unbatched values: ROADMAP queue 3)."""
   fdt = types.np_float(types.dtype_of(m))
-  batched = any(n in m.batch_fields for n in GEOM_CONTACT)
+  override = bool(int(m.opt.enableflags) & types.EnableBit.OVERRIDE)
+  batched = any(n in m.batch_fields for n in GEOM_CONTACT + (
+      _OVERRIDE if override else ()))
 
   def h(name, dtype=fdt):
     x = types.world_field(m, name)
@@ -596,13 +600,11 @@ def remix(m: types.Model) -> types.Model:
   friction = np.stack(
       [fr3[..., 0], fr3[..., 0], fr3[..., 1], fr3[..., 2], fr3[..., 2]],
       axis=-1)
-  o = m.opt
-  if int(o.enableflags) & types.EnableBit.OVERRIDE:
-    margin = np.full_like(margin, types.host(o.o_margin, fdt))
-    solref = np.broadcast_to(types.host(o.o_solref, fdt), solref.shape)
-    solimp = np.broadcast_to(types.host(o.o_solimp, fdt), solimp.shape)
-    friction = np.broadcast_to(types.host(o.o_friction, fdt),
-                               friction.shape)
+  if override:  # each world's override values (1 or W, ...)
+    o = lambda n, x: np.broadcast_to(
+        h('opt.o_' + n)[:, None], (h('opt.o_' + n).shape[0],) + x.shape[1:])
+    margin, solref = o('margin', margin), o('solref', solref)
+    solimp, friction = o('solimp', solimp), o('friction', friction)
   dev = m.qpos0.device
   W = types.model_nworld(m) if batched else 1
   tables = dict(cand_friction=friction, cand_solref=solref,
@@ -627,19 +629,104 @@ _NO_BATCH = frozenset({'geom_size', 'wrap_prm', 'sensor_cutoff',
 # candidate tables (``io.py:1009``)
 GEOM_CONTACT = ('geom_friction', 'geom_solref', 'geom_solimp',
                 'geom_margin', 'geom_gap', 'geom_solmix', 'geom_priority')
+# the override values ``remix`` takes under the OVERRIDE flag
+_OVERRIDE = ('opt.o_margin', 'opt.o_solref', 'opt.o_solimp', 'opt.o_friction')
 # what ``set_const`` recomputes
 SET_CONST_FIELDS = ('body_subtreemass', 'dof_invweight0', 'body_invweight0',
                     'tendon_length0', 'tendon_invweight0',
                     'tendon_lengthspring', 'eq_data', 'actuator_acc0',
                     'actuator_biasprm')
-# the fields the port's general step reads per world; ``batch_model``
-# refuses any other (ROADMAP queue 1 lists those still to batch)
+# the other fields the JAX batched step traces with a leading world
+# axis: options, springs, placement, the joint, dof, tendon and equality
+# solver parameters, cameras, lights, actuation and height fields
+# (ROADMAP queue 1 holds the table)
+_PER_WORLD = (
+    'opt.impratio', 'opt.tolerance', 'opt.ls_tolerance', 'opt.wind',
+    'opt.magnetic', 'opt.density', 'opt.viscosity', 'opt.sleep_tolerance',
+    'opt.o_margin', 'opt.o_solref', 'opt.o_solimp', 'opt.o_friction',
+    'qpos_spring', 'body_pos', 'body_quat', 'body_iquat', 'body_gravcomp',
+    'jnt_solref', 'jnt_solimp', 'jnt_pos', 'jnt_axis', 'jnt_stiffness',
+    'jnt_range', 'jnt_actfrcrange', 'jnt_margin', 'dof_solref',
+    'dof_solimp', 'geom_rbound', 'geom_aabb', 'geom_pos', 'geom_quat',
+    'site_pos', 'site_quat', 'site_size', 'cam_pos', 'cam_quat',
+    'cam_poscom0', 'cam_pos0', 'cam_mat0', 'cam_fovy', 'cam_intrinsic',
+    'cam_sensorsize', 'light_pos', 'light_dir', 'light_poscom0',
+    'light_pos0', 'light_dir0', 'eq_solref', 'eq_solimp',
+    'tendon_solref_lim', 'tendon_solimp_lim', 'tendon_solref_fri',
+    'tendon_solimp_fri', 'tendon_range', 'tendon_actfrcrange',
+    'tendon_margin', 'tendon_stiffness', 'tendon_damping',
+    'tendon_armature', 'tendon_frictionloss', 'actuator_actrange',
+    'actuator_cranklength', 'actuator_lengthrange', 'actuator_length0',
+    'hfield_size', 'hfield_data')
+
+
+def _dc_motors(m: types.Model) -> np.ndarray:
+  return np.nonzero(np.asarray(m.actuator_dyntype) ==
+                    types.DynType.DCMOTOR)[0] if m.nu else np.zeros(0, int)
+
+
+def _fluid_runs(m: types.Model) -> bool:
+  """Do fluid forces run: a batched density or viscosity (the JAX gate's
+  ``concrete_or`` default, ``passive.py:315-316``), or one set."""
+  return any(n in m.batch_fields or bool(np.any(types.host(
+      types.get_model_field(m, n)) != 0))
+      for n in ('opt.density', 'opt.viscosity'))
+
+
+def _sensor_history(m: types.Model) -> bool:
+  return bool(np.any(np.asarray(m.sensor_history).reshape(-1, 2)[:, 0] > 0))
+
+
+# fields the JAX step reads on the host where a model uses them, so that
+# its vmapped step cannot trace them batched there (elsewhere nothing
+# reads them and both batch them): name -> (does ``m`` read it on the
+# host, the JAX read)
+HOST_READ = {
+    'geom_fluid': (_fluid_runs, 'ops/passive.py:62 (_ellipsoid_bodies, '
+                   'wherever fluid forces run)'),
+    'dof_length': (lambda m: bool(m.opt.enableflags & types.EnableBit.SLEEP)
+                   and m.ntree > 0, 'ops/sleep.py:55 (_cannot_sleep, '
+                   'with sleep on)'),
+    'sensor_delay': (_sensor_history,
+                     'ops/history.py:150 (apply_sensor_delay)'),
+    'sensor_interval': (_sensor_history,
+                        'ops/history.py:151 (apply_sensor_delay)'),
+    'actuator_delay': (lambda m: m.nhistory > 0 and m.nu > 0,
+                       'ops/history.py:124 (read_ctrl_delayed)'),
+    'actuator_dynprm': (lambda m: _dc_motors(m).size > 0,
+                        'ops/forward.py:134 and :203, a DC motor\'s slot '
+                        'layout'),
+    'actuator_gainprm': (lambda m: _dc_motors(m).size > 0,
+                         'ops/forward.py:135 and :204, a DC motor\'s input '
+                         'mode'),
+    'actuator_biasprm': (lambda m: bool(np.any(
+        np.asarray(m.actuator_biastype)[_dc_motors(m)] ==
+        types.BiasType.DCMOTOR)),
+        'ops/forward.py:324, a DC motor\'s cogging switch'),
+}
+# fields of the JAX Model the port's Model lacks, with what ports them
+_NOT_PORTED = {
+    'mesh_vert': 'meshes (ROADMAP queue 1 item 2); the JAX step also '
+                 'reads it on the host, ops/collision_convex.py:119',
+    **{f'pair_{k}': 'explicit <pair> contacts (ROADMAP queue 1 item 3)'
+       for k in ('margin', 'gap', 'friction', 'solref', 'solreffriction',
+                 'solimp')},
+}
+# the fields the port's general step reads per world: what the JAX batched
+# step takes; ``batch_model`` refuses the rest
 BATCHABLE = frozenset(
     ('opt.gravity', 'dof_damping', 'dof_armature', 'dof_frictionloss',
      'body_mass', 'body_inertia', 'body_ipos', 'qpos0', 'actuator_gainprm',
      'actuator_biasprm', 'actuator_gear', 'actuator_ctrlrange',
      'actuator_forcerange', 'actuator_dynprm') + GEOM_CONTACT +
-    SET_CONST_FIELDS)
+    SET_CONST_FIELDS + _PER_WORLD + tuple(HOST_READ))
+
+
+def host_read(m: types.Model, name: str):
+  """Where the JAX step reads field ``name`` of ``m`` (as batched as it
+  is) on the host, or None where it does not (``HOST_READ``)."""
+  reads, where = HOST_READ.get(name, (None, None))
+  return where if reads is not None and reads(m) else None
 
 
 def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
@@ -652,14 +739,16 @@ def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
   leading world axis on the Model's device, in its dtype, and
   ``batch_fields`` records the names.  Batching a geom contact field
   (``GEOM_CONTACT``) mixes the candidate tables per world (``remix``),
-  whose names join ``batch_fields``.  ``forward.step`` then runs world w
-  with world w's values; it takes Data of ``nworld`` worlds.
+  whose names join ``batch_fields``, as does an override field
+  (``opt.o_*``) under the OVERRIDE flag.  ``forward.step`` then runs
+  world w with world w's values; it takes Data of ``nworld`` worlds.
 
   Raises NotImplementedError for a field of ``_NO_BATCH``, for one the
-  port does not batch yet (outside ``BATCHABLE``) and for an actuator
-  field of a model with a DC motor, ValueError for a
-  field that is not an array, a wrong trailing shape, a batch that does
-  not divide ``nworld``, or a width other than the Model's batch."""
+  JAX step reads on the host in this model (``HOST_READ``: the message
+  names the read), for one the port's Model lacks (``_NOT_PORTED``),
+  ValueError for a field that is not an array, a wrong trailing shape, a
+  batch that does not divide ``nworld``, or a width other than the
+  Model's batch."""
   have = types.model_nworld(m)
   if have is not None and have != nworld:
     raise ValueError(f'the Model is batched over {have} worlds, not '
@@ -671,22 +760,15 @@ def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
       raise NotImplementedError(
           f'{name} gates static host-side structure and cannot be '
           'batched per world')
+    if name in _NOT_PORTED:
+      raise NotImplementedError(f'{name}: not ported: {_NOT_PORTED[name]}')
     try:
       base = types.get_model_field(m, name)
     except AttributeError:
       base = None
-    if not isinstance(base, (torch.Tensor, np.ndarray)):
+    if not isinstance(base, (torch.Tensor, np.ndarray)) or \
+        name not in BATCHABLE:
       raise ValueError(f'{name} is not a batchable array field')
-    if name not in BATCHABLE:
-      raise NotImplementedError(
-          f'{name}: the port does not batch this field yet (ROADMAP queue '
-          f'1); it batches {sorted(BATCHABLE)}')
-    if name.startswith('actuator_') and m.nu and np.any(
-        m.actuator_dyntype == types.DynType.DCMOTOR):
-      raise NotImplementedError(
-          f'{name}: a DC motor\'s act slots are laid out from its '
-          'parameters on the host, so a model with one batches no '
-          'actuator field')
     shape = tuple(base.shape[1:] if name in m.batch_fields else base.shape)
     if isinstance(val, torch.Tensor):
       val = val.detach().cpu().numpy()
@@ -703,12 +785,22 @@ def batch_model(m: types.Model, nworld: int, fields: dict) -> types.Model:
                                        (1,) * (val.ndim - 1)))
     if isinstance(base, torch.Tensor):
       updates[name] = torch.tensor(val, dtype=base.dtype, device=dev)
-    else:  # an int table (geom_priority): an int32 tensor per world
+    elif np.issubdtype(base.dtype, np.integer):  # geom_priority
       updates[name] = torch.tensor(val.astype(np.int32), device=dev)
+    else:  # a float table the host reads where the model uses it
+      updates[name] = torch.tensor(val, dtype=m.qpos0.dtype, device=dev)
   names = set(m.batch_fields) | set(updates)
   m = types.set_model_fields(m, updates).replace(
       batch_fields=tuple(sorted(names)))
-  if m.ncand and any(n in updates for n in GEOM_CONTACT):
+  for name in m.batch_fields:
+    where = host_read(m, name)
+    if where is not None:
+      raise NotImplementedError(
+          f'{name}: the JAX batched step reads it on the host at {where}, '
+          'so this model cannot take it per world')
+  override = bool(int(m.opt.enableflags) & types.EnableBit.OVERRIDE)
+  if m.ncand and any(n in updates for n in GEOM_CONTACT) or (
+      override and any(n in updates for n in _OVERRIDE)):
     m = remix(m)
   return m
 
@@ -788,6 +880,7 @@ def put_model(mjm, nconmax=None, device=None, dtype=torch.float32
       **{k: np.zeros(0) for k in CAND_FIELDS},
       'cam_mat0': np.asarray(mjm.cam_mat0).reshape(-1, 3, 3),
       'geom_fluid': np.asarray(mjm.geom_fluid).reshape(mjm.ngeom, -1),
+      'geom_aabb': np.asarray(mjm.geom_aabb).reshape(mjm.ngeom, 6),
       'hfield_size': np.asarray(mjm.hfield_size).reshape(-1, 4),
   }
   for name in ('ancestor_mask', 'subtree_mask', 'body_dof_mask',
@@ -855,14 +948,15 @@ def make_data(m: types.Model, nworld: int, device=None, dtype=None
 
 
 def mocap_rest(m: types.Model):
-  """(mocap_pos (1, nmocap, 3), mocap_quat (1, nmocap, 4)): each mocap
-  body's body_pos and body_quat, as MuJoCo C's ``mj_resetData`` sets
-  them.  The JAX ``make_data`` sets mocap_pos to zero
-  (``io.py:1151``)."""
+  """(mocap_pos (1 or W, nmocap, 3), mocap_quat (1 or W, nmocap, 4)):
+  each mocap body's body_pos and body_quat, each world's where they are
+  batched, as MuJoCo C's ``mj_resetData`` sets them.  The JAX
+  ``make_data`` sets mocap_pos to zero (``io.py:1151``)."""
   bodies = np.nonzero(np.asarray(m.body_mocapid) >= 0)[0]
   order = bodies[np.argsort(np.asarray(m.body_mocapid)[bodies])]
   idx = torch.as_tensor(order, dtype=torch.long, device=m.body_pos.device)
-  return m.body_pos[idx][None], m.body_quat[idx][None]
+  return (types.world_field(m, 'body_pos')[:, idx],
+          types.world_field(m, 'body_quat')[:, idx])
 
 
 # ------------------------------------------------------- the public Data API
@@ -1093,18 +1187,22 @@ def override_model(m: types.Model, overrides) -> types.Model:
 # the batchable fields each output of ``set_const`` depends on (M at
 # qpos0 on the masses, inertias, inertial frames, qpos0 and armature): an
 # output is batched where one of them is
+# the placement of bodies, joints, geoms and sites, which moves every
+# frame set_const reads
+_POSE = ('body_pos', 'body_quat', 'body_iquat', 'jnt_pos', 'jnt_axis',
+         'geom_pos', 'geom_quat', 'site_pos', 'site_quat')
 _M_INPUTS = ('body_mass', 'body_inertia', 'body_ipos', 'qpos0',
-             'dof_armature')
+             'dof_armature', 'tendon_armature') + _POSE
 _SET_CONST_DEPS = {
     'body_subtreemass': ('body_mass',),
     'dof_invweight0': _M_INPUTS, 'body_invweight0': _M_INPUTS,
     'tendon_invweight0': _M_INPUTS,
-    'actuator_acc0': _M_INPUTS + ('actuator_gear',),
-    'tendon_length0': ('qpos0',),
-    'tendon_lengthspring': ('tendon_lengthspring',),
-    'eq_data': ('qpos0', 'eq_data'),
+    'actuator_acc0': _M_INPUTS + ('actuator_gear', 'actuator_cranklength'),
+    'tendon_length0': ('qpos0',) + _POSE,
+    'tendon_lengthspring': ('tendon_lengthspring', 'qpos_spring') + _POSE,
+    'eq_data': ('qpos0', 'eq_data') + _POSE,
     'actuator_biasprm': _M_INPUTS + ('actuator_gainprm', 'actuator_biasprm',
-                                     'actuator_gear'),
+                                     'actuator_gear', 'actuator_cranklength'),
 }
 
 
@@ -1194,7 +1292,7 @@ def set_const(m: types.Model) -> types.Model:
     if bool(auto.any()):
       ds = make_data(m1, W, device=dev)
       ds = smooth.tendon(m1, smooth.kinematics(m1, ds.replace(
-          qpos=m.qpos_spring.to(dt).expand(W, m.nq).clone())))
+          qpos=wf('qpos_spring').to(dt).expand(W, m.nq).clone())))
       spring = torch.where(auto, ds.ten_length[..., None], spring)
     put('tendon_lengthspring', spring.expand(W, m.ntendon, 2))
   if m.neq:

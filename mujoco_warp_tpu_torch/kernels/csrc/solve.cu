@@ -15,6 +15,12 @@
 // contact, the contact's dim and index; uploaded once per model) lets the
 // row walk visit a contact's rows together.
 //
+// Each world stops on its own tolerance and linesearch tolerance where
+// opt.tolerance or opt.ls_tolerance is batched (io.batch_model): the
+// warp reads its world's pair at a world stride of 1, or the one shared
+// value at a stride of 0.  A per-world impratio needs nothing here: it
+// reaches the elliptic form through the row scales s.
+//
 // Bound.  Per world it reads J (nefc nv), D, aref, fl (nefc each), the
 // row scales s (nefc, elliptic only), M (nv^2) and two nv vectors, and
 // writes qacc, qfrc_constraint (nv each), efc_force (nefc) and niter: at
@@ -48,7 +54,12 @@
 
 struct SolveParams {
   int W, nv, nefc, ncon, iterations, ls_iterations;
-  float tol, ls_tol, meaninertia;
+  // world strides of tol and ls_tol: 1 where the field is batched (each
+  // world stops on its own test), 0 where every world shares one value
+  int tol_stride, ls_tol_stride;
+  float meaninertia;
+  const float* tol;     // opt.tolerance, (W,) or (1,)
+  const float* ls_tol;  // opt.ls_tolerance, (W,) or (1,)
   const float* J;      // (nefc nv, W)
   const float* D;      // (nefc, W)
   const float* aref;   // (nefc, W)
@@ -100,8 +111,12 @@ __device__ __forceinline__ void solve_block(const SolveParams& p) {
     float* v = b + lay.vec;
     const WarpVecs x{v, v + nv, v + 2 * nv, v + 3 * nv, v + 4 * nv,
                      v + 5 * nv};
+    // the world's tolerances, read once by every lane of its warp
+    const size_t w = (size_t)(w0 + warp);
+    const float tol = __ldg(p.tol + w * p.tol_stride);
+    const float ls_tol = __ldg(p.ls_tol + w * p.ls_tol_stride);
     const float niter = newton_solve_warp<MWT_MAX_NV>(
-        R, R.M, x, nv, p.iterations, p.ls_iterations, p.tol, p.ls_tol,
+        R, R.M, x, nv, p.iterations, p.ls_iterations, tol, ls_tol,
         p.meaninertia, lane);
     R.forces(true);
     R.jt(x.grad);  // qfrc_constraint

@@ -38,10 +38,24 @@ SMEM_BLOCK = 232448
 
 SolveParams = build.params_struct(
     'SolveParams',
-    ints=('W', 'nv', 'nefc', 'ncon', 'iterations', 'ls_iterations'),
-    floats=('tol', 'ls_tol', 'meaninertia'),
-    ptrs=('J', 'D', 'aref', 'fl', 'M', 'qfs', 'qacc0', 'qacc_out',
-          'force_out', 'qfrc_out', 'niter_out', 'kind', 's', 'etab'))
+    ints=('W', 'nv', 'nefc', 'ncon', 'iterations', 'ls_iterations',
+          'tol_stride', 'ls_tol_stride'),
+    floats=('meaninertia',),
+    ptrs=('tol', 'ls_tol', 'J', 'D', 'aref', 'fl', 'M', 'qfs', 'qacc0',
+          'qacc_out', 'force_out', 'qfrc_out', 'niter_out', 'kind', 's',
+          'etab'))
+
+
+def world_scalar(m: types.Model, name: str, W: int, dev):
+  """A float32 Option field the kernel reads per world, on ``dev``, and
+  its world stride: (W,) at stride 1 where it is batched, the Model's
+  0-d tensor at stride 0 where it is not."""
+  x = types.get_model_field(m, name).to(dev)  # no copy for a card Model
+  if name in m.batch_fields:
+    check(x, (W,), name, dev)
+    return x, 1
+  check(x, (), name, dev)
+  return x, 0
 
 
 def ell_ncon(m: types.Model) -> int:
@@ -99,8 +113,10 @@ def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0, s=None):
   """The Newton solve on lanes-last tensors: J (nefc, nv, W), D, aref, fl
   (nefc, W), M (nv, nv, W), qfs and qacc0 (nv, W), and for a model with
   elliptic contacts their row scales s (nefc, W)
-  (``solver_ref.ell_scales``).  Returns qacc (nv, W), efc_force (nefc,
-  W), qfrc_constraint (nv, W) and niter (1, W) int32."""
+  (``solver_ref.ell_scales``).  Each world stops on its own
+  ``opt.tolerance`` and ``opt.ls_tolerance`` where they are batched
+  (``world_scalar``).  Returns qacc (nv, W), efc_force (nefc, W),
+  qfrc_constraint (nv, W) and niter (1, W) int32."""
   global launches
   if qfs.device.type == 'cpu':
     return solver_ref.solve_tiles(m, J, D, aref, fl, M, qfs, qacc0, s)
@@ -134,12 +150,15 @@ def solve_tiles(m: types.Model, J, D, aref, fl, M, qfs, qacc0, s=None):
   new = lambda rows, dt=torch.float32: torch.empty((rows, W), dtype=dt,
                                                    device=dev)
   qacc, force, qfrc, niter = new(nv), new(nefc), new(nv), new(1, torch.int32)
-  tol, ls_tol, mi = [float(x) for x in solver_ref.scalars(m, 'cpu')]
+  tol, tol_stride = world_scalar(m, 'opt.tolerance', W, dev)
+  ls_tol, ls_stride = world_scalar(m, 'opt.ls_tolerance', W, dev)
+  mi = float(types.host(m.stat.meaninertia, np.float32))
   tab = _TABLES.get(m, dev)
   p = SolveParams(
       W=W, nv=nv, nefc=nefc, ncon=ncon, iterations=int(m.opt.iterations),
-      ls_iterations=int(m.opt.ls_iterations), tol=tol, ls_tol=ls_tol,
-      meaninertia=mi, J=ptr(J), D=ptr(D), aref=ptr(aref), fl=ptr(fl),
+      ls_iterations=int(m.opt.ls_iterations), tol_stride=tol_stride,
+      ls_tol_stride=ls_stride, meaninertia=mi, tol=ptr(tol),
+      ls_tol=ptr(ls_tol), J=ptr(J), D=ptr(D), aref=ptr(aref), fl=ptr(fl),
       M=ptr(M), qfs=ptr(qfs), qacc0=ptr(qacc0), qacc_out=ptr(qacc),
       force_out=ptr(force), qfrc_out=ptr(qfrc), niter_out=ptr(niter),
       kind=ptr(tab['kind']), s=ptr(s if ncon else None),

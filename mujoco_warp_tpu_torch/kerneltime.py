@@ -57,9 +57,10 @@ import time
 # the registered widths of the scenes; launches per timing, timings
 NWORLD, CL_NWORLD, CALLS, BLOCKS = 8192, 4096, 50, 3
 # idle seconds on each side of the profiled calls, inside the trace's
-# window (chip_smoke.py reads some 230 traces; ``pad_check`` reads one
-# kernel at this pad beside the 1 s that earlier readings took)
-PAD_S = 0.25
+# window (chip_smoke.py reads some 330 traces, about half of them empty
+# late in its run; ``pad_check`` reads one kernel at this pad beside the
+# 1 s that earlier readings took, as chip_smoke.py's phase 4 does)
+PAD_S = 0.1
 
 
 def events_ms(torch, fn, calls):
@@ -76,12 +77,12 @@ def events_ms(torch, fn, calls):
   return start.elapsed_time(end) / calls
 
 
-def profiled_ms(torch, fn, calls, kernel):
-  """Mean device time (ms) of the launches of ``kernel`` (its function
-  name) over ``calls`` calls of ``fn``, read from ``torch.profiler``'s
-  chrome trace with PAD_S seconds of idle time on each side of the
-  calls, and the number of launches the trace held (the mean is None when
-  it held none).  chip_smoke.py reads its kernel times here too."""
+def profiled_launches(torch, fn, calls, kernel):
+  """The launches of ``kernel`` (its function name) over ``calls`` calls
+  of ``fn``, read from ``torch.profiler``'s chrome trace with PAD_S
+  seconds of idle time on each side of the calls: each launch's device
+  ms in the order it ran, and how many kernel events of other names the
+  trace held, by name."""
   fn()
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
@@ -97,10 +98,24 @@ def profiled_ms(torch, fn, calls, kernel):
     prof.export_chrome_trace(path)
     with open(path) as f:
       events = json.load(f)['traceEvents']
-  durs = [float(e['dur']) for e in events
-          if e.get('cat') == 'kernel' and
-          e.get('name', '').split('(')[0].strip() == kernel]
-  return (sum(durs) / 1e3 / len(durs) if durs else None), len(durs)
+  ms, others = [], {}
+  for e in sorted((e for e in events if e.get('cat') == 'kernel'),
+                  key=lambda e: float(e.get('ts', 0.0))):
+    name = e.get('name', '').split('(')[0].strip()
+    if name == kernel:
+      ms.append(float(e['dur']) / 1e3)
+    else:
+      others[name] = others.get(name, 0) + 1
+  return ms, others
+
+
+def profiled_ms(torch, fn, calls, kernel):
+  """Mean device time (ms) of the launches of ``kernel`` over ``calls``
+  calls of ``fn`` (``profiled_launches``), and the number of launches the
+  trace held (the mean is None when it held none).  chip_smoke.py reads
+  its kernel times here too."""
+  ms, _ = profiled_launches(torch, fn, calls, kernel)
+  return (sum(ms) / len(ms) if ms else None), len(ms)
 
 
 def pad_check(torch, fn, calls, kernel):

@@ -41,11 +41,20 @@ _CORNERS = np.asarray([[i, j, k] for i in (-1, 1) for j in (-1, 1)
 
 
 def heights(m: types.Model, dataid: int) -> torch.Tensor:
-  """The height field's surface heights (nrow * ncol,), row-major: its
-  data times its size's z (``collision_hfield.py:48``)."""
+  """The height field's surface heights (1 or W, nrow * ncol), row-major,
+  each world's where its data or size is batched: its data times its
+  size's z (``collision_hfield.py:48``)."""
   nrow, ncol = int(m.hfield_nrow[dataid]), int(m.hfield_ncol[dataid])
   adr = int(m.hfield_adr[dataid])
-  return m.hfield_data[adr:adr + nrow * ncol] * m.hfield_size[dataid, 2]
+  return types.world_field(m, 'hfield_data')[:, adr:adr + nrow * ncol] * \
+      types.world_field(m, 'hfield_size')[:, dataid, 2:3]
+
+
+def take(table, idx):
+  """``table`` (1 or W, n) at the indices ``idx`` (W, ...): one row for
+  every world, or each world's own row."""
+  return torch.gather(table.expand(idx.shape[0], -1), 1,
+                      idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
 
 
 def surface(m: types.Model, dataid: int, xy: torch.Tensor):
@@ -58,7 +67,10 @@ def surface(m: types.Model, dataid: int, xy: torch.Tensor):
   and an edge point reads its own cell); the lower triangle (u + v <= 1)
   holds z00, z01 and z10, the upper z11, z10 and z01."""
   nrow, ncol = int(m.hfield_nrow[dataid]), int(m.hfield_ncol[dataid])
-  size = m.hfield_size[dataid].to(xy.dtype)
+  # (1 or W, 1, ..., 4): each world's size where it is batched
+  size = types.world_field(m, 'hfield_size')[:, dataid].to(
+      xy.dtype).reshape((-1,) + (1,) * (xy.dim() - 2) + (4,))
+  size = [size[..., i] for i in range(4)]
   data = heights(m, dataid).to(xy.dtype)
   gx = torch.clamp((xy[..., 0] / size[0] + 1.0) * 0.5 * (ncol - 1), 0.0,
                    ncol - 1 - 1e-6)
@@ -68,8 +80,8 @@ def surface(m: types.Model, dataid: int, xy: torch.Tensor):
   r = torch.clamp(torch.floor(gy), max=nrow - 2)
   u, v = gx - c, gy - r
   base = r.long() * ncol + c.long()
-  z00, z01 = data[base], data[base + 1]
-  z10, z11 = data[base + ncol], data[base + ncol + 1]
+  z00, z01 = take(data, base), take(data, base + 1)
+  z10, z11 = take(data, base + ncol), take(data, base + ncol + 1)
   dx = 2.0 * size[0] / (ncol - 1)
   dy = 2.0 * size[1] / (nrow - 1)
   lower = (u + v) <= 1.0

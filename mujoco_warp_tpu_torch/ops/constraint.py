@@ -10,8 +10,9 @@ Counterpart of ``mujoco_warp_tpu/ops/constraint.py``: ``_kbi`` (:32),
 pyramidal and elliptic rows; under contact compaction each world's
 slots take their bodies from its own ``contact.geom1/geom2``) and
 ``make_constraint`` (:919).  Every potential row exists every step;
-inactive rows are zeroed.  The invweights, friction losses, eq_data,
-qpos0 and tendon_length0 are read per world (``types.world_field``).
+inactive rows are zeroed.  Every batchable Model field (invweights,
+friction losses, solver parameters, ranges, margins, eq_data, qpos0,
+tendon_length0, impratio) is read per world (``types.world_field``).
 The Jacobian is dense (W, nefc, nv).  The chain form of the contact
 rows (``_contact_compact`` :703, for ``efc_compact`` models) and flex
 rows are not ported yet.
@@ -166,7 +167,7 @@ def _site_frames(m, d, ids, is_site):
   s2 = np.minimum(m.eq_obj2id[ids], m.nsite - 1)
   sb = np.asarray(m.site_bodyid)
   sq = lambda s: math.mul_quat(d.xquat[:, ix(sb[s], dev)],
-                               m.site_quat[ix(s, dev)])
+                               _wf(m, 'site_quat', s, dev))
   return bmask(is_site[:, None], dev), s1, s2, sq(s1), sq(s2)
 
 
@@ -212,7 +213,8 @@ def _equality_connect(m, d, rows, cdof_dot):
   ti = ix(ids, dev)
   D, aref, posv = _row_values(
       m, cpos, pos_imp[..., None], invweight[..., None],
-      m.eq_solref[ti][:, None, :], m.eq_solimp[ti][:, None, :], 0.0, Jqvel)
+      _wf(m, 'eq_solref', ids, dev)[:, :, None, :],
+      _wf(m, 'eq_solimp', ids, dev)[:, :, None, :], 0.0, Jqvel)
   D = D.expand(cpos.shape)
   aref = aref - Jdotv
   W, n = cpos.shape[0], len(ids)
@@ -299,8 +301,8 @@ def _equality_weld(m, d, rows, cdof_dot):
   iw = types.world_field(m, 'body_invweight0')
   iw_t = iw[:, b1, 0] + iw[:, b2, 0]
   iw_r = iw[:, b1, 1] + iw[:, b2, 1]
-  solref = m.eq_solref[ti][:, None, :]
-  solimp = m.eq_solimp[ti][:, None, :]
+  solref = _wf(m, 'eq_solref', ids, dev)[:, :, None, :]
+  solimp = _wf(m, 'eq_solimp', ids, dev)[:, :, None, :]
   Dp, arefp, posp = _row_values(m, cpos, pos_imp[..., None],
                                 iw_t[..., None], solref, solimp, 0.0, Jqvelp)
   Dr, arefr, posr = _row_values(m, crot, pos_imp[..., None],
@@ -354,8 +356,9 @@ def _equality_joint(m, d, rows):
   e2 = fmask(np.eye(m.nv)[dadr2], d.qpos)
   J = e1 + e2 * torch.where(has2_t, -deriv2,
                             torch.zeros_like(deriv2))[..., None]
-  D, aref, posv = _row_values(m, pos, pos, invweight, m.eq_solref[ti],
-                              m.eq_solimp[ti], 0.0, Jqvel)
+  D, aref, posv = _row_values(m, pos, pos, invweight,
+                              _wf(m, 'eq_solref', ids, dev),
+                              _wf(m, 'eq_solimp', ids, dev), 0.0, Jqvel)
   rows.set(m.efc.joint_adr, J, posv, torch.zeros_like(posv), D, aref, None,
            d.eq_active[:, ti])
 
@@ -386,8 +389,9 @@ def _equality_tendon(m, d, rows):
   Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
   iw = types.world_field(m, 'tendon_invweight0')
   invweight = iw[:, i1] + iw[:, i2] * h2
-  D, aref, posv = _row_values(m, pos, pos, invweight, m.eq_solref[ti],
-                              m.eq_solimp[ti], 0.0, Jqvel)
+  D, aref, posv = _row_values(m, pos, pos, invweight,
+                              _wf(m, 'eq_solref', ids, dev),
+                              _wf(m, 'eq_solimp', ids, dev), 0.0, Jqvel)
   rows.set(m.efc.tendon_adr, J, posv, torch.zeros_like(posv), D, aref, None,
            d.eq_active[:, ti])
 
@@ -406,7 +410,8 @@ def _friction(m, d, rows):
     zero = torch.zeros((n,), dtype=dt, device=dev)
     D, aref, posv = _row_values(m, zero, zero,
                                 _wf(m, 'dof_invweight0', dofs, dev),
-                                m.dof_solref[td], m.dof_solimp[td], 0.0,
+                                _wf(m, 'dof_solref', dofs, dev),
+                                _wf(m, 'dof_solimp', dofs, dev), 0.0,
                                 d.qvel[:, td])
     rows.set(m.efc.fri_dof_adr, J.expand(W, n, m.nv), posv,
              torch.zeros_like(posv), D, aref,
@@ -419,11 +424,11 @@ def _friction(m, d, rows):
     zero = torch.zeros((n,), dtype=dt, device=dev)
     D, aref, posv = _row_values(m, zero, zero,
                                 _wf(m, 'tendon_invweight0', tens, dev),
-                                m.tendon_solref_fri[tt],
-                                m.tendon_solimp_fri[tt], 0.0,
+                                _wf(m, 'tendon_solref_fri', tens, dev),
+                                _wf(m, 'tendon_solimp_fri', tens, dev), 0.0,
                                 d.ten_velocity[:, tt])
     rows.set(m.efc.fri_ten_adr, d.ten_J[:, tt], posv, torch.zeros_like(posv),
-             D, aref, m.tendon_frictionloss[tt],
+             D, aref, _wf(m, 'tendon_frictionloss', tens, dev),
              torch.ones((n,), dtype=torch.bool, device=dev))
 
 
@@ -435,19 +440,20 @@ def _limit_tendon(m, d, rows):
     return
   dev = d.qpos.device
   tt = ix(tids, dev)
-  margin = m.tendon_margin[tt]
-  trange = m.tendon_range[tt]
+  margin = _wf(m, 'tendon_margin', tids, dev)
+  trange = _wf(m, 'tendon_range', tids, dev)
   ln = d.ten_length[:, tt]
-  dist_min = ln - trange[:, 0]
-  dist_max = trange[:, 1] - ln
+  dist_min = ln - trange[..., 0]
+  dist_max = trange[..., 1] - ln
   pos = torch.minimum(dist_min, dist_max) - margin
   Jsign = torch.where(dist_min < dist_max, 1.0, -1.0).to(ln.dtype)
   J = Jsign[..., None] * d.ten_J[:, tt]
   Jqvel = torch.einsum('wnv,wv->wn', J, d.qvel)
   D, aref, posv = _row_values(m, pos, pos,
                               _wf(m, 'tendon_invweight0', tids, dev),
-                              m.tendon_solref_lim[tt],
-                              m.tendon_solimp_lim[tt], margin, Jqvel)
+                              _wf(m, 'tendon_solref_lim', tids, dev),
+                              _wf(m, 'tendon_solimp_lim', tids, dev), margin,
+                              Jqvel)
   rows.set(m.efc.lim_ten_adr, J, posv, margin, D, aref, None, pos < 0)
 
 
@@ -463,11 +469,11 @@ def _limit(m, d, rows):
   tj = ix(jids, dev)
   jt = m.jnt_type[jids]
   qadr, dadr = m.jnt_qposadr[jids], m.jnt_dofadr[jids]
-  margin = m.jnt_margin[tj]
-  jrange = m.jnt_range[tj]
+  margin = _wf(m, 'jnt_margin', jids, dev)
+  jrange = _wf(m, 'jnt_range', jids, dev)
   qp = d.qpos[:, ix(qadr, dev)]
-  dist_min = qp - jrange[:, 0]
-  dist_max = jrange[:, 1] - qp
+  dist_min = qp - jrange[..., 0]
+  dist_max = jrange[..., 1] - qp
   pos_sh = torch.minimum(dist_min, dist_max) - margin
   Jsign = torch.where(dist_min < dist_max, 1.0, -1.0).to(dt)
   is_ball = jt == _JT.BALL
@@ -476,7 +482,7 @@ def _limit(m, d, rows):
   aa = math.quat_to_vel(math.normalize_quat(qb))
   angle = math.norm(aa)
   axis = aa / torch.clamp(angle, min=1e-12)[..., None]
-  pos_ball = torch.maximum(jrange[:, 0], jrange[:, 1]) - angle - margin
+  pos_ball = torch.maximum(jrange[..., 0], jrange[..., 1]) - angle - margin
   ball_t = bmask(is_ball, dev)
   pos = torch.where(ball_t, pos_ball, pos_sh)
   active = pos < 0
@@ -491,8 +497,8 @@ def _limit(m, d, rows):
   td = ix(dadr, dev)
   D, aref, posv = _row_values(m, pos, pos,
                               _wf(m, 'dof_invweight0', dadr, dev),
-                              m.jnt_solref[tj], m.jnt_solimp[tj], margin,
-                              Jqvel)
+                              _wf(m, 'jnt_solref', jids, dev),
+                              _wf(m, 'jnt_solimp', jids, dev), margin, Jqvel)
   rows.set(m.efc.lim_jnt_adr, J, posv, margin, D, aref, None, active)
 
 
@@ -506,7 +512,8 @@ def _contact(m, d, rows):
   is_elliptic = m.opt.cone == types.ConeType.ELLIPTIC
   con, dev, dt = d.contact, d.qpos.device, d.qpos.dtype
   W = d.qpos.shape[0]
-  impratio_inv = 1.0 / torch.clamp(m.opt.impratio, min=MJ_MINVAL)
+  impratio_inv = 1.0 / torch.clamp(types.world_field(m, 'opt.impratio'),
+                                   min=MJ_MINVAL)[:, None]  # (1 or W, 1)
   ang, lin = d.cdof[..., :3], d.cdof[..., 3:]  # (W, nv, 3)
   dims = np.asarray(m.con_dim)
   # each world's slots hold its own geom pairs (under compaction)

@@ -35,14 +35,15 @@ _BT = types.BiasType
 
 def deriv_smooth_vel(m: types.Model, d: types.Data) -> torch.Tensor:
   """qDeriv = d qfrc_smooth / d qvel (W, nv, nv) (``derivative.py:32``),
-  the damping and the actuators' gains and biases per world where they
-  are batched."""
+  the dof and tendon damping and the actuators' gains and biases per
+  world where they are batched."""
   W, nv = d.qvel.shape
   damping = types.world_field(m, 'dof_damping')
   qderiv = -torch.diag_embed(damping.to(d.qvel.dtype).expand(W, nv))
   if m.ntendon:
-    qderiv = qderiv - torch.einsum('wtv,t,wtu->wvu', d.ten_J,
-                                   m.tendon_damping, d.ten_J)
+    qderiv = qderiv - torch.einsum(
+        'wtv,wt,wtu->wvu', d.ten_J, types.world_field(
+            m, 'tendon_damping').expand(W, m.ntendon), d.ten_J)
   if m.nu:
     dev = d.qvel.device
     gain_v = torch.where(bmask(m.actuator_gaintype == _GT.AFFINE, dev),

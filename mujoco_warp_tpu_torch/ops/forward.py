@@ -375,7 +375,9 @@ def _dcmotor_force(m: types.Model, d: types.Data, u: int, u_ctrl, act_dot,
     rng = types.world_field(m, 'actuator_forcerange')[:, u]
     f = torch.minimum(torch.maximum(f, rng[:, 0]), rng[:, 1])
   if dc_bias:
-    if types.host(m.actuator_biasprm)[u, 0] != 0.0:  # cogging torque
+    # cogging torque where a world has it (set_const may batch biasprm)
+    if np.any(types.host(types.world_field(m, 'actuator_biasprm'))[:, u, 0]
+              != 0.0):
       f = f + bp[:, 0] * torch.sin(bp[:, 1] * length + bp[:, 2])
     if sl['brist'] >= 0:  # LuGre friction
       f = f - dynp[:, 5] * act[:, adr0 + sl['brist']] - dynp[:, 6] * z_dot
@@ -439,11 +441,13 @@ def _tendon_force_clamp(m: types.Model, force):
   S = np.zeros((m.nu, m.ntendon), np.float32)
   S[np.nonzero(is_ten)[0], tid[is_ten]] = 1.0
   ten_frc = force @ fmask(S, force)
-  rng = m.tendon_actfrcrange
+  rng = types.world_field(m, 'tendon_actfrcrange')  # (1 or W, ntendon, 2)
   lim = bmask(m.tendon_actfrclimited, dev)
   safe = torch.where(ten_frc != 0, ten_frc, 1.0)
-  scale_lo = torch.where((ten_frc < rng[:, 0]) & lim, rng[:, 0] / safe, 1.0)
-  scale_hi = torch.where((ten_frc > rng[:, 1]) & lim, rng[:, 1] / safe, 1.0)
+  scale_lo = torch.where((ten_frc < rng[..., 0]) & lim, rng[..., 0] / safe,
+                         1.0)
+  scale_hi = torch.where((ten_frc > rng[..., 1]) & lim, rng[..., 1] / safe,
+                         1.0)
   scale = (scale_lo * scale_hi)[:, ix(tid, dev)]
   return torch.where(bmask(is_ten, dev), force * scale, force)
 

@@ -26,33 +26,37 @@ _JT = types.JointType
 
 
 def _spring(m: types.Model, d: types.Data) -> torch.Tensor:
-  """Joint spring torques -k (qpos - qpos_spring), per joint type."""
+  """Joint spring torques -k (qpos - qpos_spring), per joint type; the
+  stiffness and the spring's rest pose per world where they are
+  batched."""
   dev = d.qpos.device
   qfrc = torch.zeros_like(d.qvel)
+  spring = types.world_field(m, 'qpos_spring')  # (1 or W, nq)
+  stiffness = types.world_field(m, 'jnt_stiffness')  # (1 or W, njnt)
   for jt in np.unique(m.jnt_type):
     jids = np.nonzero(m.jnt_type == jt)[0]
-    k = m.jnt_stiffness[ix(jids, dev)]
+    k = stiffness[:, ix(jids, dev)]
     qadr, dadr = m.jnt_qposadr[jids], m.jnt_dofadr[jids]
     span = lambda adr, a, b: ix(adr[:, None] + np.arange(a, b), dev)
     if jt == _JT.FREE:
       q3 = span(qadr, 0, 3)
       d3 = span(dadr, 0, 3)
-      qfrc[:, d3] = qfrc[:, d3] + (-k[:, None] * (d.qpos[:, q3] -
-                                                  m.qpos_spring[q3]))
+      qfrc[:, d3] = qfrc[:, d3] + (-k[..., None] * (d.qpos[:, q3] -
+                                                    spring[:, q3]))
       q4 = span(qadr, 3, 7)
       rotdif = math.quat_sub(math.normalize_quat(d.qpos[:, q4]),
-                             math.normalize_quat(m.qpos_spring[q4]))
+                             math.normalize_quat(spring[:, q4]))
       d3r = span(dadr, 3, 6)
-      qfrc[:, d3r] = qfrc[:, d3r] + (-k[:, None] * rotdif)
+      qfrc[:, d3r] = qfrc[:, d3r] + (-k[..., None] * rotdif)
     elif jt == _JT.BALL:
       q4 = span(qadr, 0, 4)
       rotdif = math.quat_sub(math.normalize_quat(d.qpos[:, q4]),
-                             math.normalize_quat(m.qpos_spring[q4]))
+                             math.normalize_quat(spring[:, q4]))
       d3 = span(dadr, 0, 3)
-      qfrc[:, d3] = qfrc[:, d3] + (-k[:, None] * rotdif)
+      qfrc[:, d3] = qfrc[:, d3] + (-k[..., None] * rotdif)
     else:  # SLIDE / HINGE
       qa, da = ix(qadr, dev), ix(dadr, dev)
-      qfrc[:, da] = qfrc[:, da] + (-k * (d.qpos[:, qa] - m.qpos_spring[qa]))
+      qfrc[:, da] = qfrc[:, da] + (-k * (d.qpos[:, qa] - spring[:, qa]))
   return qfrc
 
 
@@ -90,7 +94,7 @@ def _fluid(m: types.Model, d: types.Data) -> torch.Tensor:
   (opt.viscosity) and quadratic drag and torque (opt.density); bodies on
   the ellipsoid model take none."""
   dev, dt = d.qpos.device, d.qpos.dtype
-  rho, beta = m.opt.density.to(dt), m.opt.viscosity.to(dt)
+  rho, beta, wind = _fluid_options(m, dt)  # (1 or W, 1, ...)
   mass = types.world_field(m, 'body_mass')  # (1 or W, nbody)
   inert = types.world_field(m, 'body_inertia')  # (1 or W, nbody, 3)
   s = torch.clamp(mass, min=1e-12)
@@ -101,18 +105,18 @@ def _fluid(m: types.Model, d: types.Data) -> torch.Tensor:
       6.0, min=1e-12))
   offset = d.xipos - d.subtree_com[:, ix(m.body_rootid, dev)]
   ang_w = d.cvel[..., :3]
-  lin_w = d.cvel[..., 3:] - math.cross(offset, ang_w) - m.opt.wind.to(dt)
+  lin_w = d.cvel[..., 3:] - math.cross(offset, ang_w) - wind
   ang = torch.einsum('wbji,wbj->wbi', d.ximat, ang_w)
   lin = torch.einsum('wbji,wbj->wbi', d.ximat, lin_w)
   bx, by, bz = box[..., 0], box[..., 1], box[..., 2]
   diam = (bx + by + bz) / 3.0
-  frc_v = -3.0 * np.pi * beta * diam[..., None] * lin
-  trq_v = -np.pi * beta * (diam ** 3)[..., None] * ang
+  frc_v = -3.0 * np.pi * beta[..., None] * diam[..., None] * lin
+  trq_v = -np.pi * beta[..., None] * (diam ** 3)[..., None] * ang
   area = torch.stack([by * bz, bx * bz, bx * by], -1)
-  frc_d = -0.5 * rho * area * torch.abs(lin) * lin
+  frc_d = -0.5 * rho[..., None] * area * torch.abs(lin) * lin
   mom = torch.stack([bx * (by ** 4 + bz ** 4), by * (bx ** 4 + bz ** 4),
                      bz * (bx ** 4 + by ** 4)], -1)
-  trq_d = -rho * mom / 64.0 * torch.abs(ang) * ang
+  trq_d = -rho[..., None] * mom / 64.0 * torch.abs(ang) * ang
   keep = fluid_geoms(m, dev)['box'].to(dt)[:, None]
   frc = (frc_v + frc_d) * keep
   trq = (trq_v + trq_d) * keep
@@ -166,7 +170,7 @@ def _fluid_ellipsoid(m: types.Model, d: types.Data) -> torch.Tensor:
   [0], each geom's wrench on its body."""
   dev, dt = d.qpos.device, d.qpos.dtype
   t = fluid_geoms(m, dev)
-  rho, beta = m.opt.density.to(dt), m.opt.viscosity.to(dt)
+  rho, beta, wind = _fluid_options(m, dt)  # (1 or W, 1, ...)
   gf, semi = t['coef'].to(dt), t['semi'].to(dt)
   bi, gi = t['body'], t['geom']
   root_com = d.subtree_com[:, t['root']]
@@ -176,10 +180,10 @@ def _fluid_ellipsoid(m: types.Model, d: types.Data) -> torch.Tensor:
   lin_point = lin_com + math.cross(ang, gpos - d.xipos[:, bi])
   R = d.geom_xmat[:, gi]
   l_ang = torch.einsum('wnji,wnj->wni', R, ang)
-  l_lin = torch.einsum('wnji,wnj->wni', R, lin_point - m.opt.wind.to(dt))
+  l_lin = torch.einsum('wnji,wnj->wni', R, lin_point - wind)
   # added mass
-  vlm = rho * gf[:, 6:9] * l_lin
-  vam = rho * gf[:, 9:12] * l_ang
+  vlm = rho[..., None] * gf[:, 6:9] * l_lin
+  vam = rho[..., None] * gf[:, 9:12] * l_ang
   frc = math.cross(vlm, l_ang)
   trq = math.cross(vlm, l_lin) + math.cross(vam, l_ang)
   magnus, kutta = gf[:, 5], gf[:, 4]
@@ -191,7 +195,7 @@ def _fluid_ellipsoid(m: types.Model, d: types.Data) -> torch.Tensor:
   d_mid = s0 + s1 + s2 - d_max - d_min
   A_max = np.pi * d_max * d_mid
   lin_speed = math.norm(l_lin)
-  frc = frc + math.cross(l_ang, l_lin) * (magnus * rho * volume)[:, None]
+  frc = frc + math.cross(l_ang, l_lin) * (magnus * rho * volume)[..., None]
   s12, s20, s01 = s1 * s2, s2 * s0, s0 * s1
   p2 = lambda x: x * x
   p4 = lambda x: p2(p2(x))
@@ -231,12 +235,22 @@ def _fluid_ellipsoid(m: types.Model, d: types.Data) -> torch.Tensor:
   return _to_dofs(m, d, cfrc)
 
 
+def _fluid_options(m: types.Model, dt):
+  """The density and viscosity (1 or W, 1) and the wind (1 or W, 1, 3)
+  of each world."""
+  f = lambda name: types.world_field(m, name).to(dt)
+  return (f('opt.density')[:, None], f('opt.viscosity')[:, None],
+          f('opt.wind')[:, None])
+
+
 def fluid(m: types.Model, d: types.Data) -> torch.Tensor:
-  """qfrc_fluid (W, nv) where opt.density or opt.viscosity is set
-  (``passive.py:314-320``): the inertia-box model, plus the ellipsoid
-  model where a body takes it; None otherwise."""
-  if not (float(types.host(m.opt.density)) or
-          float(types.host(m.opt.viscosity))):
+  """qfrc_fluid (W, nv) where opt.density or opt.viscosity is set in any
+  world (``passive.py:314-320``; the JAX gate's ``concrete_or`` takes a
+  batched value as set, which gives the same forces): the inertia-box
+  model, plus the ellipsoid model where a body takes it; None
+  otherwise."""
+  if not (np.any(types.host(m.opt.density)) or
+          np.any(types.host(m.opt.viscosity))):
     return None
   q = _fluid(m, d)
   if np.any(ellipsoid_bodies(m)):
@@ -247,20 +261,23 @@ def fluid(m: types.Model, d: types.Data) -> torch.Tensor:
 def passive(m: types.Model, d: types.Data) -> types.Data:
   """Spring, damper, gravity-compensation and fluid forces
   (``passive.py:269``), the tendons' springs with their deadband and
-  their dampers among them (:286-304); the dof damping and spring
-  deadbands per world where they are batched."""
+  their dampers among them (:286-304); the stiffnesses, dampings,
+  spring rest poses and deadbands, gravcomp and fluid options per world
+  where they are batched."""
   dsbl = m.opt.disableflags
   zero = torch.zeros_like(d.qvel)
   qfrc_spring = zero if dsbl & types.DisableBit.SPRING else _spring(m, d)
   qfrc_damper = zero if dsbl & types.DisableBit.DAMPER else \
       -types.world_field(m, 'dof_damping') * d.qvel
   if m.ntendon:
+    wf = lambda name: types.world_field(m, name)  # (1 or W, ntendon)
     if not dsbl & types.DisableBit.SPRING:
       qfrc_spring = qfrc_spring + torch.einsum(
-          'wtv,wt->wv', d.ten_J, -m.tendon_stiffness * tendon_stretch(m, d))
+          'wtv,wt->wv', d.ten_J,
+          -wf('tendon_stiffness') * tendon_stretch(m, d))
     if not dsbl & types.DisableBit.DAMPER:
       qfrc_damper = qfrc_damper + torch.einsum(
-          'wtv,wt->wv', d.ten_J, -m.tendon_damping * d.ten_velocity)
+          'wtv,wt->wv', d.ten_J, -wf('tendon_damping') * d.ten_velocity)
   qfrc_fluid = fluid(m, d)
   if qfrc_fluid is None:
     qfrc_fluid = zero
@@ -288,7 +305,8 @@ def gravcomp(m: types.Model, d: types.Data) -> torch.Tensor:
   """Gravity compensation (W, nv) (``passive.py:254``): on each body the
   force -gravcomp mass gravity at its CoM, to the dofs through
   ``_to_dofs``; masses and gravity per world where they are batched."""
-  gc = m.body_gravcomp * types.world_field(m, 'body_mass')  # (1 or W, nb)
+  gc = types.world_field(m, 'body_gravcomp') * types.world_field(
+      m, 'body_mass')  # (1 or W, nb)
   grav = types.world_field(m, 'opt.gravity')[:, None]  # (1 or W, 1, 3)
   frc = -gc[..., None] * grav
   frc = frc.expand(d.xipos.shape)

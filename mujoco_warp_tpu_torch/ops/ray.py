@@ -173,7 +173,8 @@ def ray_triangle(lp, lv, v0, v1, v2):
 
 def _slab(p, v, lo, hi):
   """The parameter range [t0, t1] of rays p + t v (N, 3), t >= 0, inside
-  the box [lo, hi] (3,) each, and whether it is not empty."""
+  the box [lo, hi] (3 bounds each, a float or one per ray (N,)), and
+  whether it is not empty."""
   t0 = torch.zeros_like(p[:, 0])
   t1 = torch.full_like(p[:, 0], _INF)
   live = torch.ones_like(t0, dtype=torch.bool)
@@ -198,19 +199,27 @@ def hfield_walk(m: types.Model, dataid: int, lp, lv) -> torch.Tensor:
   p, v = lp.reshape(-1, 3), lv.reshape(-1, 3)
   dt, dev = p.dtype, p.device
   nrow, ncol = int(m.hfield_nrow[dataid]), int(m.hfield_ncol[dataid])
-  size = m.hfield_size[dataid].to(dt)
+  # the field's size and heights: one row, or each world's where batched
+  hs = types.world_field(m, 'hfield_size')[:, dataid]  # (1 or W, 4)
   z = collision_hfield.heights(m, dataid).to(dt)
-  xs = torch.linspace(-1.0, 1.0, ncol, dtype=dt, device=dev) * size[0]
-  ys = torch.linspace(-1.0, 1.0, nrow, dtype=dt, device=dev) * size[1]
-  adr = int(m.hfield_adr[dataid])
-  zh = types.host(m.hfield_data)[adr:adr + nrow * ncol] * \
-      float(types.host(m.hfield_size)[dataid, 2])
-  sx, sy = float(types.host(m.hfield_size)[dataid, 0]), \
-      float(types.host(m.hfield_size)[dataid, 1])
-  lo = (-sx, -sy, float(zh.min()))
-  hi = (sx, sy, float(zh.max()))
-  t0, t1, live = _slab(p, v, lo, hi)
+  xs = torch.linspace(-1.0, 1.0, ncol, dtype=dt, device=dev) * \
+      hs[:, 0:1].to(dt)
+  ys = torch.linspace(-1.0, 1.0, nrow, dtype=dt, device=dev) * \
+      hs[:, 1:2].to(dt)
+  # each ray its world's size and height bounds (one world's, as every
+  # world shares them, where they are not batched)
+  hs64 = types.host(hs, np.float64)
+  sx, sy = hs64[:, 0], hs64[:, 1]
   dx, dy = 2.0 * sx / (ncol - 1), 2.0 * sy / (nrow - 1)
+  per_world = p.shape[0] // max(shape[0], 1)
+  ray_of = lambda x: torch.as_tensor(x, dtype=dt, device=dev).expand(
+      shape[0]).repeat_interleave(per_world)
+  lo = (ray_of(-sx), ray_of(-sy), ray_of(z.amin(1)))
+  hi = (ray_of(sx), ray_of(sy), ray_of(z.amax(1)))
+  t0, t1, live = _slab(p, v, lo, hi)
+  sx, sy, dx, dy = ray_of(sx), ray_of(sy), ray_of(dx), ray_of(dy)
+  grid = lambda tab, i: collision_hfield.take(
+      tab, i.reshape(shape)).reshape(i.shape)
 
   def cell(t):
     q = p + torch.where(live, t, torch.zeros_like(t))[:, None] * v
@@ -244,12 +253,12 @@ def hfield_walk(m: types.Model, dataid: int, lp, lv) -> torch.Tensor:
     walked += 1
     cc, rr = torch.clamp(c, 0, ncol - 2), torch.clamp(r, 0, nrow - 2)
     i00 = rr * ncol + cc
-    x0, x1 = xs[cc], xs[cc + 1]
-    y0, y1 = ys[rr], ys[rr + 1]
-    v00 = torch.stack([x0, y0, z[i00]], -1)
-    v01 = torch.stack([x1, y0, z[i00 + 1]], -1)
-    v10 = torch.stack([x0, y1, z[i00 + ncol]], -1)
-    v11 = torch.stack([x1, y1, z[i00 + ncol + 1]], -1)
+    x0, x1 = grid(xs, cc), grid(xs, cc + 1)
+    y0, y1 = grid(ys, rr), grid(ys, rr + 1)
+    v00 = torch.stack([x0, y0, grid(z, i00)], -1)
+    v01 = torch.stack([x1, y0, grid(z, i00 + 1)], -1)
+    v10 = torch.stack([x0, y1, grid(z, i00 + ncol)], -1)
+    v11 = torch.stack([x1, y1, grid(z, i00 + ncol + 1)], -1)
     th = torch.minimum(ray_triangle(p, v, v00, v01, v11),
                        ray_triangle(p, v, v00, v11, v10))
     hit = ~done & torch.isfinite(th)

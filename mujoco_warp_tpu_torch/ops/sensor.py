@@ -34,6 +34,13 @@ from mujoco_warp_tpu_torch.ops import collision_driver, history, math, \
     passive, ray, smooth
 from mujoco_warp_tpu_torch.ops.util import bmask, fmask, ix
 
+
+def _wf(m, name, idx, dev):
+  """Model field ``name`` at element ids ``idx``, per world (1 or W,
+  n, ...)."""
+  return types.world_field(m, name)[:, ix(idx, dev)]
+
+
 _ST = types.SensorType
 _OT = types.ObjType
 
@@ -134,15 +141,16 @@ def _obj_quat(m, d, objtype, objid):
     sel = np.nonzero(objtype == ot)[0]
     oid = objid[sel]
     if ot == _OT.BODY:
-      qo = math.mul_quat(d.xquat[:, ix(oid, dev)], m.body_iquat[ix(oid, dev)])
+      qo = math.mul_quat(d.xquat[:, ix(oid, dev)],
+                         _wf(m, 'body_iquat', oid, dev))
     elif ot == _OT.XBODY:
       qo = d.xquat[:, ix(oid, dev)]
     elif ot == _OT.GEOM:
       qo = math.mul_quat(d.xquat[:, ix(m.geom_bodyid[oid], dev)],
-                         m.geom_quat[ix(oid, dev)])
+                         _wf(m, 'geom_quat', oid, dev))
     elif ot == _OT.SITE:
       qo = math.mul_quat(d.xquat[:, ix(m.site_bodyid[oid], dev)],
-                         m.site_quat[ix(oid, dev)])
+                         _wf(m, 'site_quat', oid, dev))
     else:
       continue
     q[:, ix(sel, dev)] = qo
@@ -225,20 +233,23 @@ def _inside_site(m, d, siteid: int, points):
   pl = torch.einsum('wni,wij->wnj', (points - d.site_xpos[:, siteid].reshape(
       lead + (3,))).reshape(W, -1, 3), d.site_xmat[:, siteid]).reshape(
           points.shape)
-  s = m.site_size[siteid]
+  # the site's size per world where it is batched
+  s = types.world_field(m, 'site_size')[:, siteid].reshape(
+      (-1,) + lead[1:] + (3,))
+  s0, s1 = s[..., 0], s[..., 1]
   st = int(m.site_type[siteid])
   GT = types.GeomType
   if st == GT.SPHERE:
-    return torch.sum(pl * pl, -1) < s[0] * s[0]
+    return torch.sum(pl * pl, -1) < s0 * s0
   if st == GT.CAPSULE:
-    zd = pl[..., 2] - torch.clamp(pl[..., 2], -s[1], s[1])
-    return pl[..., 0] ** 2 + pl[..., 1] ** 2 + zd * zd < s[0] * s[0]
+    zd = pl[..., 2] - torch.minimum(torch.maximum(pl[..., 2], -s1), s1)
+    return pl[..., 0] ** 2 + pl[..., 1] ** 2 + zd * zd < s0 * s0
   if st == GT.ELLIPSOID:
     ps = pl / s
     return torch.sum(ps * ps, -1) < 1.0
   if st == GT.CYLINDER:
-    return (torch.abs(pl[..., 2]) < s[1]) & (
-        pl[..., 0] ** 2 + pl[..., 1] ** 2 < s[0] * s[0])
+    return (torch.abs(pl[..., 2]) < s1) & (
+        pl[..., 0] ** 2 + pl[..., 1] ** 2 < s0 * s0)
   if st == GT.BOX:
     return torch.all(torch.abs(pl) < s, -1)
   if st == GT.PLANE:
@@ -255,13 +266,15 @@ def _cam_projection(m, d, ids):
   v = torch.einsum('wnij,wni->wnj', d.cam_xmat[:, ci],
                    d.site_xpos[:, ix(objid, dev)] - d.cam_xpos[:, ci])
   res = fmask(m.cam_resolution[refid].astype(np.float32), d.qpos)
-  ss, intr = m.cam_sensorsize[ci], m.cam_intrinsic[ci]
-  f_fovy = 0.5 / torch.tan(m.cam_fovy[ci] * np.pi / 360.0) * res[:, 1]
-  use_intr = (ss[:, 0] != 0.0) & (ss[:, 1] != 0.0)
-  fx = torch.where(use_intr, intr[:, 0] / (ss[:, 0] + 1e-15) * res[:, 0],
-                   f_fovy)
-  fy = torch.where(use_intr, intr[:, 1] / (ss[:, 1] + 1e-15) * res[:, 1],
-                   f_fovy)
+  ss, intr = _wf(m, 'cam_sensorsize', refid, dev), _wf(m, 'cam_intrinsic',
+                                                       refid, dev)
+  f_fovy = 0.5 / torch.tan(_wf(m, 'cam_fovy', refid, dev) * np.pi /
+                           360.0) * res[:, 1]
+  use_intr = (ss[..., 0] != 0.0) & (ss[..., 1] != 0.0)
+  fx = torch.where(use_intr, intr[..., 0] / (ss[..., 0] + 1e-15) *
+                   res[:, 0], f_fovy)
+  fy = torch.where(use_intr, intr[..., 1] / (ss[..., 1] + 1e-15) *
+                   res[:, 1], f_fovy)
   den = v[..., 2]
   den = torch.where(torch.abs(den) < 1e-15, torch.clamp(den, -1e-15, 1e-15),
                     den)
@@ -533,8 +546,9 @@ def sensor_pos(m: types.Model, d: types.Data) -> types.Data:
     elif t == _ST.SUBTREECOM:
       val = d.subtree_com[:, ix(objid, dev)]
     elif t == _ST.MAGNETOMETER:
-      val = torch.einsum('wnji,j->wni', d.site_xmat[:, ix(objid, dev)],
-                         m.opt.magnetic.to(sd.dtype))
+      val = torch.einsum('wnji,wj->wni', d.site_xmat[:, ix(objid, dev)],
+                         types.world_field(m, 'opt.magnetic').to(
+                             sd.dtype).expand(d.qpos.shape[0], 3))
     elif t == _ST.RANGEFINDER:
       val = _rangefinder(m, d, objid)
     elif t in (_ST.GEOMDIST, _ST.GEOMNORMAL, _ST.GEOMFROMTO):
@@ -734,28 +748,30 @@ def energy_pos_value(m: types.Model, d: types.Data) -> torch.Tensor:
   if m.opt.disableflags & types.DisableBit.SPRING:
     return e
   JT = types.JointType
+  spring = types.world_field(m, 'qpos_spring')  # (1 or W, nq)
   for jt in np.unique(m.jnt_type):
     jids = np.nonzero(m.jnt_type == jt)[0]
-    k = m.jnt_stiffness[ix(jids, dev)]
+    k = _wf(m, 'jnt_stiffness', jids, dev)
     qadr = m.jnt_qposadr[jids]
     span = lambda a, b: ix(qadr[:, None] + np.arange(a, b), dev)
     q = lambda a, b: math.normalize_quat(d.qpos[:, span(a, b)])
-    qs = lambda a, b: math.normalize_quat(m.qpos_spring[span(a, b)])
+    qs = lambda a, b: math.normalize_quat(spring[:, span(a, b)])
     if jt in (JT.SLIDE, JT.HINGE):
       qa = ix(qadr, dev)
-      dif = d.qpos[:, qa] - m.qpos_spring[qa]
+      dif = d.qpos[:, qa] - spring[:, qa]
       e = e + 0.5 * torch.sum(k * dif * dif, -1)
     elif jt == JT.BALL:
       dif = math.quat_sub(q(0, 4), qs(0, 4))
       e = e + 0.5 * torch.sum(k * torch.sum(dif * dif, -1), -1)
     else:  # FREE
-      dp = d.qpos[:, span(0, 3)] - m.qpos_spring[span(0, 3)]
+      dp = d.qpos[:, span(0, 3)] - spring[:, span(0, 3)]
       e = e + 0.5 * torch.sum(k * torch.sum(dp * dp, -1), -1)
       dif = math.quat_sub(q(3, 7), qs(3, 7))
       e = e + 0.5 * torch.sum(k * torch.sum(dif * dif, -1), -1)
   if m.ntendon:
     dif = passive.tendon_stretch(m, d)
-    e = e + 0.5 * torch.sum(m.tendon_stiffness * dif * dif, -1)
+    e = e + 0.5 * torch.sum(types.world_field(m, 'tendon_stiffness') *
+                            dif * dif, -1)
   return e
 
 

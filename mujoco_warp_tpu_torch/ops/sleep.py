@@ -47,27 +47,24 @@ def _any_per_tree(viol, mask, like):
   return torch.matmul(viol.to(like.dtype), fmask(mask.T, like)) > 0.0
 
 
-def _cannot_sleep(m: types.Model, d: types.Data, tol: float):
-  """(W, ntree) bool: the tree fails the quiescence test.  ``tol`` > 0
-  compares |dof_length qvel| with it in the Model's dtype; 0 asks for
-  qvel == 0."""
+def _cannot_sleep(m: types.Model, d: types.Data, tol=None):
+  """(W, ntree) bool: the tree fails the quiescence test.  A world whose
+  ``tol`` (1 or W,) is > 0 compares |dof_length qvel| with it; one at 0,
+  or ``tol`` None, asks for qvel == 0."""
   dof_mask, body_mask = _tree_masks(m)
   qvel = d.qvel
-  if tol > 0.0:
-    viol_v = torch.abs(m.dof_length * qvel) >= tol
-  else:
+  if tol is None:
     viol_v = qvel != 0.0
+  else:
+    tol = tol[:, None]
+    viol_v = torch.where(tol > 0.0, torch.abs(m.dof_length * qvel) >= tol,
+                         qvel != 0.0)
   viol = viol_v | (d.qfrc_applied != 0.0)
   viol_x = torch.any(d.xfrc_applied != 0.0, dim=-1)
   bad = _any_per_tree(viol, dof_mask, qvel) | \
       _any_per_tree(viol_x, body_mask, qvel)
   never = bmask(np.asarray(m.tree_sleep_policy) == _NEVER, qvel.device)
   return bad | never
-
-
-def _tolerance(m: types.Model) -> float:
-  return float(types.host(m.opt.sleep_tolerance,
-                          types.np_float(types.dtype_of(m))))
 
 
 def _tree_of_dof(m: types.Model, asleep):
@@ -90,7 +87,8 @@ def sleep(m: types.Model, d: types.Data) -> types.Data:
   zeroed."""
   ntree = m.ntree
   asleep = d.tree_asleep
-  cannot = _cannot_sleep(m, d, _tolerance(m))
+  cannot = _cannot_sleep(
+      m, d, types.world_field(m, 'opt.sleep_tolerance'))
   awake = asleep < 0
   counted = torch.where(cannot, K_AWAKE, torch.clamp(asleep + 1, max=-1))
   a1 = torch.where(awake, counted, asleep)
@@ -128,7 +126,8 @@ def sleep_candidate(m: types.Model, d: types.Data):
   """(W,) bool: some awake tree of the world could pass ``sleep``'s ready
   test this step (its counter at -2 or -1 and quiescent now).  As in the
   JAX package the quiescence test reads the state before integration."""
-  cannot = _cannot_sleep(m, d, _tolerance(m))
+  cannot = _cannot_sleep(
+      m, d, types.world_field(m, 'opt.sleep_tolerance'))
   a = d.tree_asleep
   return torch.any((a < 0) & (a >= -2) & ~cannot, dim=1)
 
@@ -136,7 +135,7 @@ def sleep_candidate(m: types.Model, d: types.Data):
 def wake(m: types.Model, d: types.Data) -> types.Data:
   """Start-of-step wake pass: a sleeping tree with an applied force or a
   velocity wakes with its group."""
-  cannot = _cannot_sleep(m, d, 0.0)
+  cannot = _cannot_sleep(m, d)
   return d.replace(tree_asleep=_wake_groups(d.tree_asleep, cannot))
 
 

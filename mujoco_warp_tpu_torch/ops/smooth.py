@@ -32,12 +32,16 @@ _JT = types.JointType
 
 def kinematics(m: types.Model, d: types.Data) -> types.Data:
   """Forward kinematics, bodies level by level (``smooth.py:36``), mocap
-  bodies at ``d.mocap_pos`` and the normalized ``d.mocap_quat``; qpos0
-  and body_ipos per world where they are batched."""
+  bodies at ``d.mocap_pos`` and the normalized ``d.mocap_quat``; qpos0,
+  the body, joint, geom and site placement per world where they are
+  batched."""
   qpos = d.qpos
   W, dev, dt = qpos.shape[0], qpos.device, qpos.dtype
   nb = m.nbody
-  qpos0 = types.world_field(m, 'qpos0')
+  wf = lambda name: types.world_field(m, name)  # (1 or W, n, ...)
+  qpos0 = wf('qpos0')
+  body_pos, body_quat = wf('body_pos'), wf('body_quat')
+  jnt_pos, jnt_axis = wf('jnt_pos'), wf('jnt_axis')
   xpos = torch.zeros((W, nb, 3), dtype=dt, device=dev)
   xquat = torch.zeros((W, nb, 4), dtype=dt, device=dev)
   xquat[..., 0] = 1.0
@@ -48,8 +52,8 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
   for ids in m.tree.body_levels:
     par = ix(m.body_parentid[ids], dev)
     tid = ix(ids, dev)
-    pos = xpos[:, par] + math.rot_vec_quat(m.body_pos[tid], xquat[:, par])
-    quat = math.mul_quat(xquat[:, par], m.body_quat[tid])
+    pos = xpos[:, par] + math.rot_vec_quat(body_pos[:, tid], xquat[:, par])
+    quat = math.mul_quat(xquat[:, par], body_quat[:, tid])
     nj = int(m.body_jntnum[ids].max()) if ids.size else 0
     for k in range(nj):
       sub = np.nonzero(m.body_jntnum[ids] > k)[0]
@@ -68,31 +72,34 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
           xanchor[:, jj] = p
           xaxis[:, jj] = fmask([0.0, 0.0, 1.0], qpos)
         elif jt == _JT.BALL:
-          anchor = pos[:, s2] + math.rot_vec_quat(m.jnt_pos[jj], quat[:, s2])
-          axis = math.rot_vec_quat(m.jnt_axis[jj], quat[:, s2])
+          anchor = pos[:, s2] + math.rot_vec_quat(jnt_pos[:, jj],
+                                                  quat[:, s2])
+          axis = math.rot_vec_quat(jnt_axis[:, jj], quat[:, s2])
           qloc = math.normalize_quat(qpos[:, ix(qadr[:, None] + ar(0, 4),
                                                 dev)])
           qnew = math.mul_quat(quat[:, s2], qloc)
-          pos[:, s2] = anchor - math.rot_vec_quat(m.jnt_pos[jj], qnew)
+          pos[:, s2] = anchor - math.rot_vec_quat(jnt_pos[:, jj], qnew)
           quat[:, s2] = qnew
           xanchor[:, jj] = anchor
           xaxis[:, jj] = axis
         elif jt == _JT.SLIDE:
-          axis = math.rot_vec_quat(m.jnt_axis[jj], quat[:, s2])
-          anchor = pos[:, s2] + math.rot_vec_quat(m.jnt_pos[jj], quat[:, s2])
+          axis = math.rot_vec_quat(jnt_axis[:, jj], quat[:, s2])
+          anchor = pos[:, s2] + math.rot_vec_quat(jnt_pos[:, jj],
+                                                  quat[:, s2])
           qa = ix(qadr, dev)
           pos[:, s2] = pos[:, s2] + axis * (qpos[:, qa] -
                                             qpos0[:, qa])[..., None]
           xanchor[:, jj] = anchor
           xaxis[:, jj] = axis
         else:  # HINGE
-          anchor = pos[:, s2] + math.rot_vec_quat(m.jnt_pos[jj], quat[:, s2])
-          axis = math.rot_vec_quat(m.jnt_axis[jj], quat[:, s2])
+          anchor = pos[:, s2] + math.rot_vec_quat(jnt_pos[:, jj],
+                                                  quat[:, s2])
+          axis = math.rot_vec_quat(jnt_axis[:, jj], quat[:, s2])
           qa = ix(qadr, dev)
-          qloc = math.axis_angle_to_quat(m.jnt_axis[jj],
+          qloc = math.axis_angle_to_quat(jnt_axis[:, jj],
                                          qpos[:, qa] - qpos0[:, qa])
           qnew = math.mul_quat(quat[:, s2], qloc)
-          pos[:, s2] = anchor - math.rot_vec_quat(m.jnt_pos[jj], qnew)
+          pos[:, s2] = anchor - math.rot_vec_quat(jnt_pos[:, jj], qnew)
           quat[:, s2] = qnew
           xanchor[:, jj] = anchor
           xaxis[:, jj] = axis
@@ -109,16 +116,17 @@ def kinematics(m: types.Model, d: types.Data) -> types.Data:
     xquat[:, tid] = math.normalize_quat(quat)
 
   xmat = math.quat_to_mat(xquat)
-  xipos = xpos + math.rot_vec_quat(types.world_field(m, 'body_ipos'), xquat)
-  ximat = math.quat_to_mat(math.mul_quat(xquat, m.body_iquat))
+  xipos = xpos + math.rot_vec_quat(wf('body_ipos'), xquat)
+  ximat = math.quat_to_mat(math.mul_quat(xquat, wf('body_iquat')))
   gb = ix(m.geom_bodyid[:m.ngeom], dev)
-  geom_xpos = xpos[:, gb] + math.rot_vec_quat(m.geom_pos, xquat[:, gb])
-  geom_xmat = math.quat_to_mat(math.mul_quat(xquat[:, gb], m.geom_quat))
+  geom_xpos = xpos[:, gb] + math.rot_vec_quat(wf('geom_pos'), xquat[:, gb])
+  geom_xmat = math.quat_to_mat(math.mul_quat(xquat[:, gb], wf('geom_quat')))
   site_xpos, site_xmat = d.site_xpos, d.site_xmat
   if m.nsite:
     sb = ix(m.site_bodyid, dev)
-    site_xpos = xpos[:, sb] + math.rot_vec_quat(m.site_pos, xquat[:, sb])
-    site_xmat = math.quat_to_mat(math.mul_quat(xquat[:, sb], m.site_quat))
+    site_xpos = xpos[:, sb] + math.rot_vec_quat(wf('site_pos'), xquat[:, sb])
+    site_xmat = math.quat_to_mat(math.mul_quat(xquat[:, sb],
+                                               wf('site_quat')))
   return d.replace(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
                    ximat=ximat, xanchor=xanchor, xaxis=xaxis,
                    geom_xpos=geom_xpos, geom_xmat=geom_xmat,
@@ -223,16 +231,20 @@ def _camlight_frames(d, mode, bodyid, targetid, pos, rot, poscom0, pos0,
 
 
 def camlight(m: types.Model, d: types.Data) -> types.Data:
-  """Camera and light frames (``smooth.py:189``)."""
+  """Camera and light frames (``smooth.py:189``), their placement per
+  world where it is batched."""
+  wf = lambda name: types.world_field(m, name)  # (1 or W, n, ...)
   out = {}
   if m.ncam:
     out['cam_xpos'], out['cam_xmat'] = _camlight_frames(
-        d, m.cam_mode, m.cam_bodyid, m.cam_targetbodyid, m.cam_pos,
-        m.cam_quat, m.cam_poscom0, m.cam_pos0, m.cam_mat0, True)
+        d, m.cam_mode, m.cam_bodyid, m.cam_targetbodyid,
+        *[wf('cam_' + k) for k in ('pos', 'quat', 'poscom0', 'pos0',
+                                   'mat0')], True)
   if m.nlight:
     out['light_xpos'], out['light_xdir'] = _camlight_frames(
-        d, m.light_mode, m.light_bodyid, m.light_targetbodyid, m.light_pos,
-        m.light_dir, m.light_poscom0, m.light_pos0, m.light_dir0, False)
+        d, m.light_mode, m.light_bodyid, m.light_targetbodyid,
+        *[wf('light_' + k) for k in ('pos', 'dir', 'poscom0', 'pos0',
+                                     'dir0')], False)
   return d.replace(**out) if out else d
 
 
@@ -546,10 +558,13 @@ _SIDE_MARGIN = 1e-3
 def _side_kind(m: types.Model, side: int, geom: int) -> str:
   """Where a wrap geom's sidesite lies: 'none', 'outside' or 'inside'
   where the site rides the geom's body (the distance is a constant of the
-  model), else 'either'."""
+  model), else 'either'; 'either' too where the site's or the geom's
+  position is batched (decided per world, as the JAX function decides
+  every side)."""
   if side < 0:
     return 'none'
-  if m.site_bodyid[side] != m.geom_bodyid[geom]:
+  if m.site_bodyid[side] != m.geom_bodyid[geom] or (
+      {'site_pos', 'geom_pos'} & set(m.batch_fields)):
     return 'either'
   r = float(types.host(m.geom_size)[geom, 0])
   dist = float(np.linalg.norm(types.host(m.site_pos)[side] -
@@ -617,9 +632,18 @@ def _tendon_plan(m: types.Model, only=None) -> dict:
 
 
 _PLANS = TableCache(lambda m, dev: _tendon_plan(m))
-# the spatial tendons with armature, whose J-dot ``tendon_bias`` takes
-_BIAS_PLANS = TableCache(lambda m, dev: _tendon_plan(m, set(
-    np.nonzero(types.host(m.tendon_armature) > 0)[0].tolist())))
+
+
+def _armature_tendons(m: types.Model):
+  """The spatial tendons whose J-dot ``tendon_bias`` takes: those with
+  armature, or every one where the armature is batched (a table keyed on
+  ``types.model_token`` reads no batched field)."""
+  if 'tendon_armature' in m.batch_fields:
+    return None
+  return set(np.nonzero(types.host(m.tendon_armature) > 0)[0].tolist())
+
+
+_BIAS_PLANS = TableCache(lambda m, dev: _tendon_plan(m, _armature_tendons(m)))
 
 
 def _seg_jac(m: types.Model, d: types.Data, pa, ba, pb, bb, dirn):
@@ -722,14 +746,18 @@ def tendon(m: types.Model, d: types.Data) -> types.Data:
 
 
 def _has_tendon_armature(m: types.Model) -> bool:
+  """Does a tendon of any world have armature (``smooth.py:1054``; the
+  JAX gate takes the armature path whenever the field is batched, which
+  adds the same terms)?"""
   return bool(m.ntendon) and bool(np.any(types.host(m.tendon_armature) > 0))
 
 
 def tendon_armature(m: types.Model, d: types.Data) -> types.Data:
-  """qM += ten_J^T diag(armature) ten_J (``smooth.py:1060``)."""
+  """qM += ten_J^T diag(armature) ten_J (``smooth.py:1060``), the
+  armature per world where it is batched."""
   if not _has_tendon_armature(m):
     return d
-  A = m.tendon_armature[:, None] * d.ten_J
+  A = types.world_field(m, 'tendon_armature')[..., None] * d.ten_J
   return d.replace(qM=d.qM + torch.einsum('wtv,wtu->wvu', d.ten_J, A))
 
 
@@ -782,7 +810,7 @@ def tendon_bias(m: types.Model, d: types.Data) -> types.Data:
   plan = _BIAS_PLANS.get(m, d.qpos.device)
   if not len(plan['seg']['ten']):
     return d  # fixed tendons only: J-dot is 0
-  coef = m.tendon_armature * torch.einsum(
+  coef = types.world_field(m, 'tendon_armature') * torch.einsum(
       'wtv,wv->wt', _ten_J_dot(m, d, plan), d.qvel)
   return d.replace(qfrc_bias=d.qfrc_bias + torch.einsum(
       'wtv,wt->wv', d.ten_J, coef))

@@ -57,7 +57,7 @@ class _Ell(NamedTuple):
   and flat (contact, place) positions of the real entries, ``rows`` and
   ``flat``, for scattering back only those (the JAX update scatters the
   padding too, over row 0's cone force: ROADMAP queue 3); ``mu_scale`` =
-  1 / sqrt(impratio)."""
+  1 / sqrt(impratio), (1 or W, 1), each world's."""
 
   con: torch.Tensor
   adr: torch.Tensor
@@ -93,8 +93,8 @@ def _static_tables(m: types.Model, like: torch.Tensor) -> _Static:
       adr = np.where(emask, np.asarray(m.con_efc_address)[cons][:, None] +
                      np.arange(maxdim), 0)
       dev = like.device
-      mu_scale = 1.0 / torch.sqrt(torch.clamp(
-          m.opt.impratio.to(like.dtype), min=_MINVAL))
+      mu_scale = 1.0 / torch.sqrt(torch.clamp(types.world_field(
+          m, 'opt.impratio').to(like.dtype), min=_MINVAL))[:, None]
       ell = _Ell(ix(cons, dev), ix(adr, dev), bmask(emask, dev),
                  ix(adr[emask], dev), ix(np.nonzero(emask.reshape(-1))[0],
                                          dev), maxdim, mu_scale)
@@ -410,8 +410,10 @@ def _linesearch(m, d, st, Ma, Jaref, search, live):
   snorm = torch.sqrt(torch.clamp(torch.sum(search * search, dim=-1),
                                  min=0.0))
   scale = m.stat.meaninertia * float(m.nv)
-  gtol = torch.clamp(m.opt.tolerance * m.opt.ls_tolerance * snorm * scale,
-                     min=1e-6)
+  # each world's (1 or W,): a world stops on its own test
+  tol, ls_tol = (types.world_field(m, 'opt.tolerance'),
+                 types.world_field(m, 'opt.ls_tolerance'))
+  gtol = torch.clamp(tol * ls_tol * snorm * scale, min=1e-6)
   ev = lambda a: _eval_delta(d, st, Jaref, jv, quad_gauss, ell, a)
   p0 = _eval_p0(d, st, Jaref, jv, quad_gauss, ell)
   p0_delta = p0.clone()
@@ -548,7 +550,7 @@ def solve(m: types.Model, d: types.Data) -> types.Data:
   grad, Mgrad, _ = _gradient(m, d, st, Ma, force, state, Jaref)
   search = -Mgrad
   prev_grad, prev_Mgrad = grad, Mgrad
-  tol = m.opt.tolerance
+  tol = types.world_field(m, 'opt.tolerance')  # each world's (1 or W,)
   rescale = 1.0 / (m.stat.meaninertia * float(m.nv))
   improvement = torch.full((W,), float('inf'), dtype=dt, device=d.qpos.device)
   niter = torch.zeros(W, dtype=torch.int32, device=d.qpos.device)

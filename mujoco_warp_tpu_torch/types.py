@@ -449,6 +449,10 @@ class Model(_Replace):
   # puts the geom's body on that model
   geom_fluid: np.ndarray = static()  # (ngeom, 12)
   geom_size: torch.Tensor = array()
+  # bounding radius and box (center, half sizes) in the geom's frame:
+  # the pruned broadphase's (``collision_driver.py:367-393``; not ported)
+  geom_rbound: torch.Tensor = array()  # (ngeom,)
+  geom_aabb: torch.Tensor = array()  # (ngeom, 6)
   geom_pos: torch.Tensor = array()
   geom_quat: torch.Tensor = array()
   geom_margin: torch.Tensor = array()
@@ -562,6 +566,7 @@ class Model(_Replace):
   actuator_cranklength: torch.Tensor = array()  # (nu,)
   actuator_acc0: torch.Tensor = array()  # (nu,) ||M^-1 moment|| at qpos0
   actuator_lengthrange: torch.Tensor = array()  # (nu, 2)
+  actuator_length0: torch.Tensor = array()  # (nu,) length at qpos0
   actuator_history: np.ndarray = static()  # (nu, 2) nsample, interp
   actuator_historyadr: np.ndarray = static()
   actuator_delay: np.ndarray = static()

@@ -234,13 +234,19 @@ def test_set_const_batches_acc0_with_the_gear():
 
 
 def test_dcmotor_model_batches_no_actuator_field():
+  """A model with a DC motor batches no actuator field that lays out or
+  switches the motor's act slots on the host: dynprm and gainprm (the
+  JAX step reads them there, so its batched step cannot take them); its
+  other actuator fields batch, as they do in JAX."""
   m = tio.load_model_npz(tio.ACT_SNAPSHOTS['dcmotor'], device='cpu')
-  for k in ('actuator_gear', 'actuator_dynprm', 'actuator_gainprm'):
+  for k in ('actuator_dynprm', 'actuator_gainprm'):
     with pytest.raises(NotImplementedError, match='DC motor'):
       tio.batch_model(m, 2, {k: np.repeat(_np(getattr(m, k))[None], 2, 0)})
   # other fields still batch
-  mb = tio.batch_model(m, 2, {'dof_damping': np.ones((2, m.nv))})
-  assert mb.batch_fields == ('dof_damping',)
+  mb = tio.batch_model(m, 2, {'dof_damping': np.ones((2, m.nv)),
+                              'actuator_gear': np.repeat(
+                                  _np(m.actuator_gear)[None], 2, 0)})
+  assert mb.batch_fields == ('actuator_gear', 'dof_damping')
 
 
 def test_snapshot_scenes_exist():

@@ -197,12 +197,12 @@ def test_bad_batch_shapes_raise(pendula):
 
 
 def test_port_refusals_raise(pendula):
-  """A field the port does not batch yet names itself and ROADMAP queue
-  1; a non-array field, a width other than the Model's batch and Data of
-  another width raise ValueError."""
+  """A field the port does not batch yet (explicit pairs' margin) names
+  itself and ROADMAP queue 1; a non-array field, a width other than the
+  Model's batch and Data of another width raise ValueError."""
   _, m, _ = pendula
-  with pytest.raises(NotImplementedError, match='jnt_stiffness.*queue 1'):
-    tio.batch_model(m, 4, {'jnt_stiffness': np.zeros((4, m.njnt))})
+  with pytest.raises(NotImplementedError, match='pair_margin.*queue 1'):
+    tio.batch_model(m, 4, {'pair_margin': np.zeros((4, 1))})
   for name in ('nv', 'opt.iterations', 'no_such_field'):
     with pytest.raises(ValueError, match=name):
       tio.batch_model(m, 4, {name: np.zeros((4,))})
@@ -219,11 +219,16 @@ def test_port_refusals_raise(pendula):
 
 
 def _all_copies(m, W, skip=()):
-  """Every batchable field of ``m`` as W copies of its value."""
-  out = {}
-  for n in sorted(tio.BATCHABLE - set(skip)):
-    out[n] = np.repeat(_np(types.get_model_field(m, n))[None], W, 0)
-  return out
+  """Every field ``batch_model`` takes on ``m`` as W copies of its value:
+  the batchable fields but those the JAX step reads on the host in
+  ``m`` once the others are batched (``io.host_read``)."""
+  names = sorted(tio.BATCHABLE - set(skip))
+  copies = lambda ns: {n: np.repeat(_np(types.get_model_field(m, n))[None],
+                                    W, 0) for n in ns}
+  mb = tio.batch_model(m, W, copies(n for n in names
+                                    if n not in tio.HOST_READ))
+  return copies(n for n in names
+                if n not in tio.HOST_READ or tio.host_read(mb, n) is None)
 
 
 def _assert_data_equal(a, b, where):
@@ -237,9 +242,11 @@ def _assert_data_equal(a, b, where):
 
 
 def _scene(name):
-  if name == 'sensors_general':
+  if name in ('sensors_general', 'camlight'):
     return tio.put_model(mujoco.MjModel.from_xml_path(
-        tio._ASSETS + '/sensors_general.xml'), device='cpu')
+        f'{tio._ASSETS}/{name}.xml'), device='cpu')
+  if name in tio.ACT_SNAPSHOTS and name not in benchmarks.SCENES:
+    return tio.load_model_npz(tio.ACT_SNAPSHOTS[name], device='cpu')
   if name == 'humanoid_dmc_energy':
     m, _ = benchmarks.load_scene('humanoid_dmc', device='cpu')
     return m.replace(opt=m.opt.replace(
@@ -253,10 +260,25 @@ def _scene(name):
 # and energy (humanoid_dmc), lossless contacts (spheres), MPR's geom
 # margin (finger), tendons with armature, springs and equality
 # (tendon_mix), INSIDESITE and the subtree sensors (sensors_general),
-# IMPLICIT's RNE derivative (cheetah_implicit), RK4 (cartpole)
+# IMPLICIT's RNE derivative (cheetah_implicit), RK4 (cartpole); since the
+# placement, solver, option, camera and light fields are batchable too:
+# a tendon equality and FILTER actuators on tendons (quadruped), the
+# elliptic solve kernel (stack_2), the torch Newton (clutter_arm_nosleep,
+# at 2 worlds), CG (spheres_cg), every camera and light mode (camlight),
+# both fluid models and the wind (fluid_ellipsoid), the slider-crank and
+# site transmissions (transmission), DC motors (dcmotor), gravcomp,
+# actuator force ranges and site equality (mocap_arm), height fields and
+# rangefinders (quadruped_escape), sidesites (tendon_wrap), activation
+# ranges and muscle length ranges (actuator_mix) and sleep (clutter_arm)
 COPY_SCENES = ('constraints', 'constraints_implicitfast',
                'humanoid_dmc_energy', 'spheres', 'finger', 'tendon_mix',
-               'sensors_general', 'cheetah_implicit', 'cartpole')
+               'sensors_general', 'cheetah_implicit', 'cartpole',
+               'quadruped', 'stack_2', 'clutter_arm_nosleep', 'spheres_cg',
+               'camlight', 'fluid_ellipsoid', 'transmission', 'dcmotor',
+               'mocap_arm', 'quadruped_escape', 'tendon_wrap',
+               'actuator_mix', 'clutter_arm')
+# the worlds of a copies case, where not 3
+COPY_WORLDS = {'clutter_arm_nosleep': 2}
 
 
 @pytest.mark.parametrize('name', COPY_SCENES)
@@ -270,11 +292,12 @@ def test_identical_copies_equal_the_unbatched_step_to_the_bit(name):
               'cartpole'):
     pytest.importorskip('dm_control')
   m = _scene(name)
-  W = 3
+  W = COPY_WORLDS.get(name, 3)
   skip = () if bool((m.dof_damping > 0).any()) else ('dof_damping',)
-  mb = tio.batch_model(m, W, _all_copies(m, W, skip))
-  assert set(mb.batch_fields) >= tio.BATCHABLE - set(skip) - {
-      'geom_priority'} | (set(tio.CAND_FIELDS) if m.ncand else set())
+  fields = _all_copies(m, W, skip)
+  mb = tio.batch_model(m, W, fields)
+  assert set(mb.batch_fields) >= set(fields) - {'geom_priority'} | (
+      set(tio.CAND_FIELDS) if m.ncand else set())
   qpos, qvel, ctrl = parity.general_state(m, W, 3)
   d = tio.make_data(m, W, device='cpu').replace(
       qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(0.5 * qvel),

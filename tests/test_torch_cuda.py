@@ -555,6 +555,51 @@ def test_solve_cuda_stops_on_the_cap(cuda, scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('scene', ['constraints', 'spheres_elliptic'])
+def test_solve_cuda_reads_tolerances_per_world(cuda, scene):
+  """Kernel 3 in both forms with tolerance and ls_tolerance batched at
+  1000 worlds:
+  W copies of the unbatched values equal the unbatched launch to the
+  bit, each of a few worlds of the per-world launch equals a launch with
+  its own values in every world, to the bit, and the per-world launch
+  meets its plain version at parity's bar.  The tolerances are drawn as
+  quadruped_dr draws them, log-uniform on [1e-6, 1e-4]: parity's bars
+  hold two float32 stops up to there, while further out two valid stops
+  part past the qacc bar at equal Newton counts (on an H100, drawn up to
+  1e-3: the kernel against the plain version in one world of 1000 at
+  2.0e-4, the plain version in float64 against float32 in another at
+  8.0e-4; ``tests/measure_loose_stops.py``)."""
+  from mujoco_warp_tpu_torch import types
+  from mujoco_warp_tpu_torch.fused import solver_ref
+  from mujoco_warp_tpu_torch.kernels import solver as ksolver
+  if scene == 'constraints':
+    args = spheres_args(cuda, io.CONSTRAINTS_SNAPSHOT,
+                        state=parity.general_state)
+  else:
+    args = spheres_args(cuda, io.SPHERES_ELLIPTIC_SNAPSHOT)
+  m, W = args[0], args[1].shape[-1]
+  rng = np.random.default_rng(18)
+  draws = {'opt.tolerance': 10.0 ** rng.uniform(-6.0, -4.0, (W,)),
+           'opt.ls_tolerance': rng.uniform(0.005, 0.05, (W,))}
+
+  def tols(fields):
+    return (io.batch_model(m, W, fields) if fields else m,) + tuple(args[1:])
+
+  same = {k: np.full((W,), float(types.host(types.get_model_field(m, k))))
+          for k in draws}
+  assert all(torch.equal(a, b) for a, b in zip(
+      ksolver.solve_tiles(*tols(None)), ksolver.solve_tiles(*tols(same))))
+  got = ksolver.solve_tiles(*tols(draws))
+  for w in (0, 1, W // 2, W - 1):
+    one = ksolver.solve_tiles(*tols({k: v[w:w + 1] for k, v in
+                                     draws.items()}))
+    assert all(torch.equal(a[:, w], b[:, w]) for a, b in zip(got, one)), w
+  parity.check_solve(got, solver_ref.solve_tiles(*tols(draws)),
+                     'constraints' if scene == 'constraints' else 'elliptic',
+                     args[1:3])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('scene', ['spheres', 'spheres_elliptic'])
 def test_spheres_step_cuda_matches_cpu(cuda, scene):
   """Three spheres steps through the kernels against the plain path, each
